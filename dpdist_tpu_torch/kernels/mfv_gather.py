@@ -1,0 +1,130 @@
+"""Fused 3DmFV encode + patch gather: points and queries -> decoder input.
+
+Port of dpdist_tpu/kernels/mfv_gather_pallas.py (`mfv_table_gather_x`,
+TPU kernel `_mfv_x_kernel`), forward only. The CUDA kernel is
+dpdist_tpu_torch/csrc/mfv_gather.cu; its header says what bounds it on an
+H100 (the write of x) and how the design meets that.
+
+`mfv_x` is the wrapper. On a CPU tensor it runs `mfv_x_plain`, the same
+function in plain PyTorch (threedmfv -> extract_patches -> voxel_assign
+-> gather -> concat), which is also the kernel's oracle on the card. On
+a CUDA tensor it launches the kernel or raises; it never falls back.
+`mfv_x.launches` counts kernel launches, and nothing else.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+
+import torch
+
+from dpdist_tpu_torch.ops.threedmfv import threedmfv, threedmfv_grid
+from dpdist_tpu_torch.ops.voxel import (
+    extract_patches,
+    gather_patches,
+    grid_centers,
+    voxel_assign,
+)
+
+C = 20                      # FV channels of the full-FV 3-D encode
+MAX_SMEM = 227 * 1024       # shared memory a block can use on Hopper
+
+
+def mfv_x_plain(points, queries, n_gaussians: int, sigma: float,
+                grid_size: int, k: int):
+    """Plain PyTorch version: (B, M, 3), (B, N, 3) -> x (B, N, 3 + k^3*20)
+    float32 and vox (B, N) int32."""
+    fv = threedmfv(points, n_gaussians, sigma)
+    table = extract_patches(fv, grid_size, k)
+    vox, _, delta = voxel_assign(queries, grid_size)
+    x = torch.cat([delta, gather_patches(table, vox)], dim=-1)
+    return x, vox
+
+
+@functools.lru_cache(maxsize=8)
+def _grid_tables(G: int, device: torch.device):
+    """(G, 3) Gaussian centres and (G, 3) cell centres on `device`."""
+    mu = torch.as_tensor(threedmfv_grid(G), device=device).contiguous()
+    centers = torch.as_tensor(grid_centers(G), device=device).contiguous()
+    return mu, centers
+
+
+def _check(points, queries, n_gaussians, grid_size, k):
+    for name, t in (("points", points), ("queries", queries)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.dim() != 3 or t.shape[-1] != 3:
+            raise ValueError(f"{name} must be (B, n, 3), got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.shape[1] < 1:
+            raise ValueError(f"{name} holds no points")
+    if points.shape[0] != queries.shape[0]:
+        raise ValueError(f"batch mismatch: points {tuple(points.shape)}, "
+                         f"queries {tuple(queries.shape)}")
+    if points.device != queries.device:
+        raise ValueError(f"device mismatch: {points.device} vs {queries.device}")
+    if n_gaussians != grid_size ** 3:
+        raise ValueError(f"n_gaussians={n_gaussians} must equal grid_size^3 "
+                         f"= {grid_size ** 3}")
+    if k < 1 or k % 2 == 0:
+        raise ValueError(f"k must be odd and positive, got {k}")
+    if torch.is_grad_enabled() and (points.requires_grad or queries.requires_grad):
+        raise NotImplementedError(
+            "mfv_x is forward only in this port: its gradient "
+            "(table_gather_bwd) is not ported yet")
+
+
+def mfv_x(points, queries, n_gaussians: int, sigma: float, grid_size: int,
+          k: int):
+    """(B, M, 3) encoded clouds + (B, N, 3) queries -> (x, vox).
+
+    x = [delta, patch] (B, N, 3 + k^3*20) float32, the decoder input, and
+    vox (B, N) int32, each query's flat cell (0 outside the grid).
+    """
+    _check(points, queries, n_gaussians, grid_size, k)
+    dev = points.device
+    if dev.type == "cpu":
+        return mfv_x_plain(points, queries, n_gaussians, sigma, grid_size, k)
+    if dev.type != "cuda":
+        raise ValueError(f"mfv_x runs on cpu or cuda tensors, got {dev}")
+
+    from dpdist_tpu_torch.kernels import build
+
+    lib = build.library()
+    B, M, _ = points.shape
+    N = queries.shape[1]
+    G = n_gaussians
+    threads = min(1024, max(256, -(-G // 32) * 32))
+    if G > threads:
+        raise ValueError(f"the kernel takes at most 1024 Gaussians, got {G}")
+    smem = lib.dpdist_mfv_gather_x_smem(M, N, grid_size, k, threads)
+    if smem > MAX_SMEM:
+        raise ValueError(f"M={M}, N={N} need {smem} B of shared memory, "
+                         f"more than the {MAX_SMEM} B a block has")
+    mu, centers = _grid_tables(G, dev)
+    x = torch.empty((B, N, 3 + k ** 3 * C), dtype=torch.float32, device=dev)
+    vox = torch.empty((B, N), dtype=torch.int32, device=dev)
+    w = 1.0 / G
+    err = lib.dpdist_mfv_gather_x(
+        points.data_ptr(), queries.data_ptr(), mu.data_ptr(), centers.data_ptr(),
+        x.data_ptr(), vox.data_ptr(), B, M, N, grid_size, k, float(sigma),
+        w, math.sqrt(w) * M, math.sqrt(w), math.sqrt(2.0 * w), 1.0 / M,
+        threads, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError("mfv_gather_x kernel launch failed: CUDA error %d (%s)"
+                           % (err, lib.dpdist_error_string(err).decode()))
+    mfv_x.launches += 1
+    return x, vox
+
+
+mfv_x.launches = 0
+
+
+def mfv_table_gather_x(points, queries, n_gaussians: int, sigma: float,
+                       grid_size: int, k: int):
+    """The decoder input x of `mfv_x` alone, as the JAX function returns it."""
+    return mfv_x(points, queries, n_gaussians, sigma, grid_size, k)[0]

@@ -1,0 +1,201 @@
+"""The port's DPDist forward and served distance against dpdist_tpu, on both
+committed nets at canonical width, plus the golden-pair file.
+
+Run as a script from the repo root to regenerate
+dpdist_tpu_torch/assets/golden_distance.json from the JAX package:
+
+    PYTHONPATH=. python tests/test_torch_dpdist.py --write-golden
+"""
+
+import json
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from dpdist_tpu.cli.train_aue import load_dpdist_checkpoint as jax_load
+from dpdist_tpu.models import apply_dpdist as jax_apply
+from dpdist_tpu.models import dpdist_distance as jax_distance
+
+from dpdist_tpu_torch.configs import DPDistConfig
+from dpdist_tpu_torch.data.golden import GOLDEN_PATH, golden_clouds, load_golden
+from dpdist_tpu_torch.kernels.mfv_gather import mfv_x
+from dpdist_tpu_torch.models import apply_dpdist, dpdist_distance
+from dpdist_tpu_torch.serving import load_frozen_distance
+from dpdist_tpu_torch.train import load_dpdist_checkpoint, params_from_jax
+
+NETS = ("results/ckpt_best", "results/dpdist_multi_r4_ckpt_best")
+# Port (plain PyTorch on the CPU) against dpdist_tpu (XLA on the CPU):
+# the encode and the decoder sum in other orders; the largest difference
+# measured on these inputs was below 1e-6 (predictions and distances).
+TOL = 1e-4
+
+GOLDEN_PAIRS = [
+    {"a": ["chair", 0], "b": ["chair", 1], "scale": 0.8},
+    {"a": ["box", 2], "b": ["box", 3], "scale": 0.8},
+    {"a": ["sphere", 4], "b": ["sphere", 5], "scale": 0.8},
+    {"a": ["chair", 6], "b": ["box", 7], "scale": 0.8},
+    {"a": ["torus", 8], "b": ["cone", 9], "scale": 0.8},
+    {"a": ["capsule", 10], "b": ["cylinder", 11], "scale": 0.8},
+    {"a": ["chair", 12], "b": ["chair", 13], "scale": 1.1},   # partly off-grid
+    {"a": ["sphere", 14], "b": ["box", 15], "scale": 1.2},    # partly off-grid
+]
+
+
+def _inputs(seed=0, B=3, N=64):
+    """Seeded clouds of which some points lie outside [-1, 1]^3."""
+    rng = np.random.default_rng(seed)
+    pcA = rng.uniform(-0.9, 0.9, (B, N, 3)).astype(np.float32)
+    pcB = rng.uniform(-1.15, 1.15, (B, N, 3)).astype(np.float32)
+    return pcA, pcB
+
+
+@pytest.fixture(scope="module", params=NETS)
+def net(request):
+    cfg, params, state = jax_load(request.param)
+    tcfg, tparams_np = load_dpdist_checkpoint(request.param)
+    return request.param, (cfg, params, state), (tcfg, params_from_jax(tparams_np, "cpu"))
+
+
+def test_forward_and_distance_match_jax(net):
+    _, (cfg, params, state), (tcfg, tparams) = net
+    pcA, pcB = _inputs()
+    jAB, jBA, _ = jax_apply(params, state, cfg, jnp.asarray(pcA), jnp.asarray(pcB))
+    tA, tB = torch.as_tensor(pcA), torch.as_tensor(pcB)
+    with torch.no_grad():
+        pAB, pBA = apply_dpdist(tparams, tcfg, tA, tB)
+        d_mean = dpdist_distance(tparams, tcfg, tA, tB)
+        d_pair = dpdist_distance(tparams, tcfg, tA, tB, per_example=True)
+    np.testing.assert_allclose(pAB.numpy(), np.asarray(jAB), atol=TOL, rtol=0)
+    np.testing.assert_allclose(pBA.numpy(), np.asarray(jBA), atol=TOL, rtol=0)
+    for per_example, got in ((False, d_mean), (True, d_pair)):
+        want = jax_distance(params, state, cfg, jnp.asarray(pcA), jnp.asarray(pcB),
+                            per_example=per_example)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL, rtol=0)
+    assert np.asarray(jAB)[..., 0].min() == 0.0   # off-grid points were masked
+
+
+@pytest.mark.parametrize("n_a", [64, 50])
+def test_kernel_mode_on_cpu_takes_plain_path(net, n_a):
+    """fused_gather='mfv' on CPU tensors runs the wrapper's plain version:
+    same values as 'off', and no kernel launch. Clouds of one size go in one
+    2B call, clouds of two sizes in one call per direction."""
+    _, _, (tcfg, tparams) = net
+    pcA, pcB = (torch.as_tensor(a) for a in _inputs(seed=1))
+    pcA = pcA[:, :n_a].contiguous()
+    before = mfv_x.launches
+    with torch.no_grad():
+        d_mfv = dpdist_distance(tparams, tcfg.replace(fused_gather="mfv"), pcA, pcB,
+                                per_example=True)
+        d_off = dpdist_distance(tparams, tcfg.replace(fused_gather="off"), pcA, pcB,
+                                per_example=True)
+    np.testing.assert_allclose(d_mfv.numpy(), d_off.numpy(), atol=1e-6, rtol=0)
+    assert mfv_x.launches == before
+
+
+def test_frozen_distance_module(net):
+    path, (cfg, params, state), _ = net
+    model = load_frozen_distance(path, device="cpu")
+    assert not model.training
+    assert all(not p.requires_grad for p in model.parameters())
+    pcA, pcB = _inputs(seed=2)
+    with torch.no_grad():
+        got = model(torch.as_tensor(pcA), torch.as_tensor(pcB))
+    want = jax_distance(params, state, cfg, jnp.asarray(pcA), jnp.asarray(pcB),
+                        per_example=True)
+    assert got.shape == (3,)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL, rtol=0)
+
+
+def compute_golden():
+    """The golden file's content, computed with the JAX package."""
+    golden = {"num_point": 64, "pairs": GOLDEN_PAIRS, "distance": {}}
+    pcA, pcB = golden_clouds(golden)
+    for path in NETS:
+        cfg, params, state = jax_load(path)
+        d = jax_distance(params, state, cfg, jnp.asarray(pcA), jnp.asarray(pcB),
+                         per_example=True)
+        golden["distance"][path] = [float(v) for v in np.asarray(d)]
+    return golden
+
+
+def test_golden_file_holds():
+    """The committed golden values are what dpdist_tpu computes now, and
+    the port on the CPU reproduces them."""
+    stored = load_golden()
+    fresh = compute_golden()
+    assert stored["pairs"] == fresh["pairs"] and stored["num_point"] == fresh["num_point"]
+    pcA, pcB = (torch.as_tensor(a) for a in golden_clouds(stored))
+    for path in NETS:
+        np.testing.assert_allclose(stored["distance"][path], fresh["distance"][path],
+                                   atol=1e-6, rtol=0)
+        model = load_frozen_distance(path, device="cpu")
+        with torch.no_grad():
+            got = model(pcA, pcB).numpy()
+        np.testing.assert_allclose(got, stored["distance"][path], atol=TOL, rtol=0)
+
+
+def test_eval_pair_cli_matches_jax(capsys):
+    from dpdist_tpu.data.synthetic import synthetic_surface as jax_surface
+    from dpdist_tpu_torch.cli.eval_pair import main
+
+    main(["--dpdist_ckpt", NETS[0], "--device", "cpu", "--seed", "3"])
+    got = json.loads(capsys.readouterr().out)["dpdist"]
+    cfg, params, state = jax_load(NETS[0])
+    pcA, pcB = (jnp.asarray(jax_surface("chair", seed=s, n_points=64)[None] * 0.8)
+                for s in (3, 4))
+    want = float(jax_distance(params, state, cfg, pcA, pcB))
+    assert abs(got - want) <= TOL
+
+
+def test_entry_points_default_to_cuda():
+    """Without a card, the entry points raise rather than run on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the CPU-only case")
+    with pytest.raises(RuntimeError, match="cuda"):
+        load_frozen_distance(NETS[0])
+    with pytest.raises(RuntimeError, match="cuda"):
+        params_from_jax(load_dpdist_checkpoint(NETS[0])[1])
+
+
+@pytest.mark.parametrize("change", [
+    {"encoder": "pointnet"},
+    {"conv_version": 3},
+    {"use_bn": True},
+    {"dtype": "bfloat16"},
+    {"fused_gather": "table"},
+    {"fused_gather": "full"},
+    {"fused_gather": "on"},
+    {"dims": 2, "embedding_size": 64},
+    {"k": 0},
+    {"full_fv": False},
+])
+def test_unported_configs_raise(change):
+    cfg = DPDistConfig().replace(**change)
+    pcA, pcB = (torch.as_tensor(a) for a in _inputs(B=1, N=8))
+    params = {"decoder": {"layers": []}}
+    with pytest.raises(NotImplementedError, match="not ported"):
+        apply_dpdist(params, cfg, pcA, pcB)
+
+
+def test_unported_params_raise():
+    layers = [{"w": np.zeros((3, 2), np.float32), "b": np.zeros(2, np.float32)}]
+    with pytest.raises(NotImplementedError, match="BatchNorm"):
+        params_from_jax({"decoder": {"layers": layers, "bn": [{}]}}, "cpu")
+    with pytest.raises(NotImplementedError, match="pointnet"):
+        params_from_jax({"decoder": {"layers": layers}, "pointnet": {}}, "cpu")
+
+
+if __name__ == "__main__":
+    if "--write-golden" not in sys.argv:
+        sys.exit("usage: PYTHONPATH=. python tests/test_torch_dpdist.py --write-golden")
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_default_matmul_precision", "highest")
+    with open(GOLDEN_PATH, "w") as f:
+        json.dump(compute_golden(), f, indent=1)
+        f.write("\n")
+    print("wrote", GOLDEN_PATH)
