@@ -3,23 +3,49 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, the frozen DPDist distance served from the
-committed nets, through its hand-written kernel, and checks it:
+Drives the port's three paths through their hand-written kernels and
+checks them: the frozen DPDist distance served from the committed nets
+(fused kernel), the frozen loss with its source gradient (table-gather
+kernel and its adjoint), and DPDist training (table-gather kernel).
 
-  1. device   the card's name and power limit; fails without CUDA.
-  2. build    compiles dpdist_tpu_torch/csrc with one nvcc call.
-  3. kernel   the fused 3DmFV + patch-gather kernel against its plain
-              PyTorch version at 2B = 512 clouds, M = N = 64, with
-              off-grid queries and points on cell edges (x within 2e-5,
-              vox exact).
-  4. serving  per committed net: three requests of B = 256 synthetic
-              pairs through load_frozen_distance (launch counter reset
-              before and read after), outputs finite and in [0, 2], the
-              kernel path against the plain path (fused_gather="off")
-              within 1e-4, and the golden pairs against the JAX values
-              within 1e-4.
-  5. times    CUDA-event medians of 20 runs after warm-up: the kernel, its
-              bound, its plain version, and the whole forward at B = 256.
+  1. device        the card's name and power limit; fails without CUDA.
+  2. build         compiles dpdist_tpu_torch/csrc (one nvcc call over
+                   all the sources).
+  3. kernel        the fused 3DmFV + patch-gather kernel against its plain
+                   PyTorch version at 2B = 512 clouds, M = N = 64, with
+                   off-grid queries and points on cell edges (x within
+                   2e-5, vox exact).
+  4. table_kernels the table-gather kernel and its adjoint against their
+                   plain versions at B = 256, N = 64, with off-grid and
+                   cell-edge queries carrying gradient (x and vox exact;
+                   dfv within 1e-6 of its largest entry), and the fused
+                   kernel's backward against autograd through the plain
+                   composition.
+  5. serving       per committed net: three requests of B = 256 synthetic
+                   pairs through load_frozen_distance (launch counters
+                   reset before and read after), outputs finite and in
+                   [0, 2], the kernel path against the plain path
+                   (fused_gather="off") within 1e-4, and the golden pairs
+                   against the JAX values within 1e-4.
+  6. frozen_grad   per committed net: the frozen loss and its gradient in
+                   pcA on the golden pairs against the JAX values; three
+                   source-gradient calls at B = 256 (counters reset before,
+                   read after: 2 table-gather and 1 adjoint launch per
+                   call), against the plain path and the fused-kernel
+                   path; the parameters unchanged and without .grad.
+  7. train         DPDistTrainer at the canonical config, B = 16: 30 steps
+                   on one synthetic batch whose labels are distances to a
+                   10k-point surface (counters reset before, read after:
+                   one table-gather launch per step, no adjoint); the loss
+                   falls; one step on the kernel path against the plain
+                   path; save -> restore gives equal params.
+  8. times         CUDA-event medians of 20 runs after warm-up: each kernel
+                   with its bound, its plain version and a PyTorch library
+                   call computing the same function where there is one
+                   (rows 2 and 3 on the first request's pcB, the
+                   queries the frozen loss gives them); the forward, the
+                   frozen source-gradient step and the train step at
+                   B = 256.
 
 Every phase prints a start and an end line. A wall-clock guard ends the
 run with a non-zero exit naming the phase. The last lines are the
@@ -36,6 +62,7 @@ import signal
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -45,10 +72,22 @@ TIME_LIMIT_S = 300
 NETS = ("results/ckpt_best", "results/dpdist_multi_r4_ckpt_best")
 B_SERVE = 256            # pairs per request
 REQUESTS = 3
-B_KERNEL = 2 * B_SERVE   # the 2B stacked clouds one forward hands the kernel
+B_KERNEL = 2 * B_SERVE   # the 2B stacked clouds one forward hands the fused kernel
 NP = 64                  # points per cloud (the committed nets' num_point)
-TOL_X = 2e-5             # kernel vs plain: the encode sums in another order
-TOL_DIST = 1e-4          # distances: kernel path vs plain path and vs JAX
+G, GRID, K, SIGMA, C = 512, 8, 5, 0.125, 20
+TOL_X = 2e-5             # fused kernel vs plain: the encode sums in another order
+# Adjoint vs plain, relative to the largest |dfv|: the sums run in another
+# order, and their rounding grows with their size (cell 0 collects every
+# off-grid query). On the H100 the error read 2.7e-7 of the largest entry
+# at B = 256, N = 64 (7.63e-6 of 28.6) and at N = 200 (1.14e-5 of 42.6).
+REL_BWD = 1e-6
+TOL_DIST = 1e-4          # distances and losses: kernel path vs plain path and vs JAX
+# Input gradients, per point relative to the largest entry: within
+# REL_GRAD on all but OUTLIERS of the points and within REL_GRAD_FEW on
+# every point. The encode's signed sqrt magnifies rounding differences on
+# a few points (tests/test_torch_losses_optim.py says why).
+REL_GRAD, REL_GRAD_FEW, OUTLIERS = 1e-3, 5e-2, 0.05
+B_TRAIN, TRAIN_STEPS, SURFACE_POINTS = 16, 30, 10000
 TIMED_RUNS = 20
 # H100 SXM peaks (NVIDIA's data sheet, dense, at the 700 W limit): device
 # memory rate and float32 outside the tensor cores.
@@ -94,6 +133,16 @@ def check(cond, msg):
         raise AssertionError(msg)
 
 
+def check_grad_rows(got, want, what):
+    """Per-point gradient agreement (see REL_GRAD); returns the largest
+    relative error."""
+    err = (got - want).abs().amax(dim=-1).flatten() / float(want.abs().max())
+    worst, share = float(err.max()), float((err > REL_GRAD).float().mean())
+    check(worst <= REL_GRAD_FEW and share <= OUTLIERS,
+          f"{what}: worst point {worst:.3e}, share above {REL_GRAD}: {share:.3f}")
+    return worst
+
+
 def cuda_median_ms(fn, runs=TIMED_RUNS, warmup=3):
     import torch
 
@@ -112,17 +161,23 @@ def cuda_median_ms(fn, runs=TIMED_RUNS, warmup=3):
     return statistics.median(times)
 
 
-def make_kernel_inputs(rng, torch, dev):
+def bound(bytes_moved, flops):
+    """(ms, "bytes" or "operations"): the least time the card could take."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def make_kernel_inputs(rng, torch, dev, n_clouds):
     """Encoded clouds inside the grid with some coordinates exactly on cell
     edges; queries partly off-grid, with edges at -1, +1 and in between."""
     import numpy as np
 
-    g = 8
-    edges = (-1.0 + (2.0 / g) * np.arange(g + 1)).astype(np.float32)  # -1 .. 1
-    pts = rng.uniform(-0.95, 0.95, (B_KERNEL, NP, 3)).astype(np.float32)
+    edges = (-1.0 + (2.0 / GRID) * np.arange(GRID + 1)).astype(np.float32)  # -1 .. 1
+    pts = rng.uniform(-0.95, 0.95, (n_clouds, NP, 3)).astype(np.float32)
     on_edge = rng.random(pts.shape) < 0.1
     pts[on_edge] = rng.choice(edges[1:-1], on_edge.sum())
-    q = rng.uniform(-1.2, 1.2, (B_KERNEL, NP, 3)).astype(np.float32)
+    q = rng.uniform(-1.2, 1.2, (n_clouds, NP, 3)).astype(np.float32)
     on_edge = rng.random(q.shape) < 0.15
     q[on_edge] = rng.choice(edges, on_edge.sum())
     return (torch.as_tensor(pts, device=dev), torch.as_tensor(q, device=dev))
@@ -146,6 +201,34 @@ def make_requests(rng, torch, dev):
     return reqs
 
 
+def make_train_batch(rng, torch, dev):
+    """One dataset batch in the reference's layout: batch_data (B, 6N, 3) =
+    [surface(2N), near(2N), far(2N)] and labels (B, 4N) = [near_d, far_d],
+    the distances of the near and far points to a SURFACE_POINTS-point
+    synthetic surface, taken by torch.cdist on the card."""
+    import numpy as np
+    from dpdist_tpu_torch.data.synthetic import synthetic_surface
+
+    fams = ("chair", "box", "sphere", "torus")
+    surf = np.stack([synthetic_surface(fams[i % 4], seed=100 + i, n_points=SURFACE_POINTS) * 0.8
+                     for i in range(B_TRAIN)]).astype(np.float32)
+    n2 = 2 * NP
+    pick = np.stack([rng.choice(SURFACE_POINTS, 2 * n2, replace=False) for _ in range(B_TRAIN)])
+    samples = np.take_along_axis(surf, pick[..., None], axis=1)
+    on_surface = samples[:, :n2]
+    near = samples[:, n2:] + rng.normal(0.0, 0.05, (B_TRAIN, n2, 3)).astype(np.float32)
+    far = rng.uniform(-1.0, 1.0, (B_TRAIN, n2, 3)).astype(np.float32)
+    surf_t = torch.as_tensor(surf, device=dev)
+    probes = torch.as_tensor(np.concatenate([near, far], axis=1), device=dev)
+    labels = torch.cdist(probes, surf_t).amin(dim=-1).cpu().numpy()
+    return np.concatenate([on_surface, near, far], axis=1), labels
+
+
+def reset_counters(*wrappers):
+    for w in wrappers:
+        w.launches = 0
+
+
 def main() -> int:
     signal.signal(signal.SIGALRM, _time_out)
     signal.alarm(TIME_LIMIT_S)
@@ -162,10 +245,21 @@ def main() -> int:
         import numpy as np
 
         import dpdist_tpu_torch  # noqa: F401  (sets TF32 off)
+        from dpdist_tpu_torch.configs import DPDistConfig, TrainConfig
+        from dpdist_tpu_torch.data.golden import golden_clouds, load_golden
         from dpdist_tpu_torch.kernels import build
         from dpdist_tpu_torch.kernels.mfv_gather import mfv_x, mfv_x_plain
-        from dpdist_tpu_torch.data.golden import golden_clouds, load_golden
+        from dpdist_tpu_torch.kernels.table_gather import (
+            table_gather_bwd,
+            table_gather_bwd_plain,
+            table_gather_x,
+            table_gather_x_plain,
+        )
+        from dpdist_tpu_torch.losses import make_frozen_dpdist_loss
         from dpdist_tpu_torch.serving import load_frozen_distance
+        from dpdist_tpu_torch.train import load_dpdist_checkpoint, params_from_jax
+        from dpdist_tpu_torch.train.logging import RunLogger
+        from dpdist_tpu_torch.train.trainer import DPDistTrainer
 
         dev = torch.device("cuda", 0)
         name = torch.cuda.get_device_name(0)
@@ -183,45 +277,89 @@ def main() -> int:
         lib_path = build.build()
         build.library()
         print(f"built {lib_path.relative_to(ROOT)} in {time.perf_counter() - t0:.2f} s "
-              f"(nvcc call: {build.build_seconds} s; None = found built)", flush=True)
+              f"(nvcc: {build.build_seconds} s; None = found built)", flush=True)
 
     rng = np.random.default_rng(0)
-    G, g, k, sigma = 512, 8, 5, 0.125
     with Phase("kernel"):
-        pts, q = make_kernel_inputs(rng, torch, dev)
+        pts, q = make_kernel_inputs(rng, torch, dev, B_KERNEL)
         with torch.no_grad():
-            x, vox = mfv_x(pts, q, G, sigma, g, k)
+            x, vox = mfv_x(pts, q, G, SIGMA, GRID, K)
             torch.cuda.synchronize()
-            x_ref, vox_ref = mfv_x_plain(pts, q, G, sigma, g, k)
-        check(x.shape == (B_KERNEL, NP, 3 + k ** 3 * 20), f"x shape {tuple(x.shape)}")
+            x_ref, vox_ref = mfv_x_plain(pts, q, G, SIGMA, GRID, K)
+        check(x.shape == (B_KERNEL, NP, 3 + K ** 3 * C), f"x shape {tuple(x.shape)}")
         check(bool(torch.isfinite(x).all()), "x has non-finite values")
-        max_err = float((x - x_ref).abs().max())
+        err_mfv = float((x - x_ref).abs().max())
         vox_equal = bool(torch.equal(vox, vox_ref.to(torch.int32)))
         off_grid = int((vox_ref == 0).sum())
-        print(f"kernel vs plain: max |dx| = {max_err:.3e} (tol {TOL_X}), vox equal: "
+        print(f"mfv kernel vs plain: max |dx| = {err_mfv:.3e} (tol {TOL_X}), vox equal: "
               f"{vox_equal}, queries in cell 0 (off-grid or cell 0): {off_grid}", flush=True)
-        check(max_err <= TOL_X, f"max |dx| {max_err} > {TOL_X}")
+        check(err_mfv <= TOL_X, f"max |dx| {err_mfv} > {TOL_X}")
         check(vox_equal, "vox differs from the plain version")
+        del x, x_ref
 
-    launches_main = 0
+    with Phase("table_kernels"):
+        fv = torch.as_tensor(rng.normal(size=(B_SERVE, G, C)).astype(np.float32), device=dev)
+        tq = q[:B_SERVE].contiguous()
+        with torch.no_grad():
+            x, vox = table_gather_x(fv, tq, GRID, K)
+            torch.cuda.synchronize()
+            x_ref, vox_ref = table_gather_x_plain(fv, tq, GRID, K)
+        err_tgx = float((x - x_ref).abs().max())
+        check(torch.equal(vox, vox_ref), "table_gather_x: vox differs from the plain version")
+        check(torch.equal(x, x_ref), f"table_gather_x: x differs from the plain version "
+              f"(max |dx| {err_tgx})")
+        gx = torch.as_tensor(rng.normal(size=(B_SERVE, NP, 3 + K ** 3 * C)).astype(np.float32),
+                             device=dev)
+        grad = gx[..., 3:]            # the patch part of x's gradient, off-grid rows included
+        dfv = table_gather_bwd(vox, grad, GRID, K)
+        dfv_again = table_gather_bwd(vox, grad, GRID, K)
+        torch.cuda.synchronize()
+        dfv_ref = table_gather_bwd_plain(vox, grad, GRID, K)
+        err_bwd = float((dfv - dfv_ref).abs().max())
+        tol_bwd = REL_BWD * float(dfv_ref.abs().max())
+        print(f"table_gather_x vs plain: x and vox equal ({int((vox == 0).sum())} queries in "
+              f"cell 0); table_gather_bwd vs plain: max |d dfv| = {err_bwd:.3e} (tol "
+              f"{tol_bwd:.3e} = {REL_BWD} x max |dfv|), run to run equal: "
+              f"{bool(torch.equal(dfv, dfv_again))}", flush=True)
+        check(err_bwd <= tol_bwd, f"table_gather_bwd: max |d dfv| {err_bwd} > {tol_bwd}")
+        check(torch.equal(dfv, dfv_again), "table_gather_bwd differs from run to run")
+        # The fused kernel's backward against autograd through the plain composition.
+        co = torch.as_tensor(rng.normal(size=(B_SERVE, NP, 3 + K ** 3 * C)).astype(np.float32),
+                             device=dev)
+        grads = []
+        for fn in (mfv_x, mfv_x_plain):
+            p_, q_ = pts[:B_SERVE].clone().requires_grad_(), tq.clone().requires_grad_()
+            xx = fn(p_, q_, G, SIGMA, GRID, K)[0]
+            grads.append(torch.autograd.grad((xx * co).sum(), (p_, q_)))
+        (dp, dq), (dp_ref, dq_ref) = grads
+        check(torch.equal(dq, dq_ref), "mfv backward: dq differs")
+        err_mfv_bwd = check_grad_rows(dp, dp_ref, "mfv backward: d points")
+        print(f"mfv backward vs plain composition: dq equal, d points worst point "
+              f"{err_mfv_bwd:.3e} of max", flush=True)
+        del x_ref, gx, grad, dfv_ref, co, grads, dp, dp_ref
+
+    launches = {"mfv_gather_x": 0, "table_gather_x": 0, "table_gather_bwd": 0}
+    counters = {"mfv_gather_x": mfv_x, "table_gather_x": table_gather_x,
+                "table_gather_bwd": table_gather_bwd}
+    golden = load_golden()
+    gA, gB = (torch.as_tensor(a, device=dev) for a in golden_clouds(golden))
     fwd_model = None
     with Phase("serving"):
         requests = make_requests(rng, torch, dev)
-        golden = load_golden()
-        gA, gB = (torch.as_tensor(a, device=dev) for a in golden_clouds(golden))
         for net in NETS:
-            model = load_frozen_distance(str(ROOT / net))
-            plain = load_frozen_distance(str(ROOT / net), fused_gather="off")
-            mfv_x.launches = 0
+            model = load_frozen_distance(str(ROOT / net), device=dev)
+            plain = load_frozen_distance(str(ROOT / net), device=dev, fused_gather="off")
+            reset_counters(*counters.values())
             with torch.no_grad():
                 outs = [model(a, b) for a, b in requests]
             torch.cuda.synchronize()
-            launched = mfv_x.launches
-            launches_main += launched
+            launched = {k: w.launches for k, w in counters.items()}
+            for k in launches:
+                launches[k] += launched[k]
             print(f"{net}: {REQUESTS} requests of {B_SERVE} pairs, kernel launches "
                   f"{launched}", flush=True)
-            check(launched == REQUESTS, f"{net}: expected {REQUESTS} kernel launches, "
-                  f"counted {launched}")
+            check(launched == {"mfv_gather_x": REQUESTS, "table_gather_x": 0,
+                               "table_gather_bwd": 0}, f"{net}: unexpected launches")
             with torch.no_grad():
                 refs = [plain(a, b) for a, b in requests]
                 got_golden = model(gA, gB).cpu().numpy()
@@ -239,44 +377,231 @@ def main() -> int:
             check(err_golden <= TOL_DIST, f"{net}: vs golden {err_golden}")
             fwd_model = model
 
-    with Phase("times"):
-        with torch.no_grad():
-            ms = cuda_median_ms(lambda: mfv_x(pts, q, G, sigma, g, k))
-            plain_ms = cuda_median_ms(lambda: mfv_x_plain(pts, q, G, sigma, g, k))
-            a, b = requests[0]
-            fwd_ms = cuda_median_ms(lambda: fwd_model(a, b))
-        n_in = B_KERNEL * NP * 3 * 2 + 2 * G * 3          # points, queries, two grid tables
-        n_out = B_KERNEL * NP * (3 + k ** 3 * 20) + B_KERNEL * NP   # x and vox
-        bytes_moved = 4 * (n_in + n_out)
-        # ~40 float32 operations per (point, Gaussian) pair: the logit, the
-        # softmax normalisation and the 20 pooled channels.
-        flops = 40 * B_KERNEL * NP * G
-        t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / F32_FLOP_PER_S * 1e3
-        bound_ms = max(t_bytes, t_ops)
-        bound_by = "bytes" if t_bytes >= t_ops else "operations"
-        print(f"mfv_gather_x kernel: {ms:.4f} ms at 2B={B_KERNEL}, N=M={NP}; bound "
-              f"{bound_ms:.4f} ms ({bound_by}: {bytes_moved / 1e6:.1f} MB at "
-              f"{HBM_BYTES_PER_S / 1e12} TB/s) = {bound_ms / ms:.1%} of bound; plain "
-              f"version {plain_ms:.4f} ms; on {card}", flush=True)
-        print(f"forward (kernel path) at B={B_SERVE} pairs: {fwd_ms:.4f} ms, "
-              f"{B_SERVE / fwd_ms * 1e3:.1f} pairs/s; on {card}", flush=True)
+    def src_grad(loss_fn, a, b):
+        a = a.detach().requires_grad_(True)
+        value = loss_fn(a, b)
+        (g,) = torch.autograd.grad(value, a)
+        return value.detach(), g
 
-    record = {"kernels": [{
-        "name": "mfv_gather_x",
-        "route": "cuda",
-        "source": "dpdist_tpu_torch/csrc/mfv_gather.cu",
-        "replaces": "dpdist_tpu/kernels/mfv_gather_pallas.py:209",
-        "launches": launches_main,
-        "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": None,
-    }]}
+    with Phase("frozen_grad"):
+        gold = golden["frozen_loss"]
+        rows = gold["grad_pairs"]
+        for net in NETS:
+            cfg, np_params = load_dpdist_checkpoint(str(ROOT / net))
+            params = params_from_jax(np_params, dev)
+            leaves = [t.requires_grad_(True) for lp in params["decoder"]["layers"]
+                      for t in lp.values()]
+            before = [t.detach().clone() for t in leaves]
+            loss_fn = make_frozen_dpdist_loss(params, cfg,
+                                              out_of_grid_penalty=gold["out_of_grid_penalty"])
+            value, g = src_grad(loss_fn, gA, gB)
+            err_value = abs(float(value) - gold[net]["value"])
+            worst = check_grad_rows(g[rows], torch.as_tensor(gold[net]["grad_pcA"], device=dev),
+                                    f"{net}: golden d/dpcA")
+            print(f"{net}: golden frozen loss |d| = {err_value:.3e} (tol {TOL_DIST}); d/dpcA "
+                  f"worst point {worst:.3e} of max", flush=True)
+            check(err_value <= TOL_DIST, f"{net}: golden frozen loss off by {err_value}")
+
+            reset_counters(*counters.values())
+            outs = [src_grad(loss_fn, a, b) for a, b in requests]
+            torch.cuda.synchronize()
+            launched = {k: w.launches for k, w in counters.items()}
+            for k in launches:
+                launches[k] += launched[k]
+            print(f"{net}: {REQUESTS} source-gradient calls of {B_SERVE} pairs, kernel "
+                  f"launches {launched}", flush=True)
+            check(launched == {"mfv_gather_x": 0, "table_gather_x": 2 * REQUESTS,
+                               "table_gather_bwd": REQUESTS}, f"{net}: unexpected launches")
+            for mode in ("off", "mfv"):
+                other = make_frozen_dpdist_loss(params, cfg.replace(fused_gather=mode))
+                for (v, g), (a, b) in zip(outs, requests):
+                    v_ref, g_ref = src_grad(other, a, b)
+                    check(bool(torch.isfinite(g).all()), "non-finite gradient")
+                    d = abs(float(v - v_ref))
+                    worst = check_grad_rows(g, g_ref, f"{net}: table vs {mode} path")
+                    check(d <= TOL_DIST, f"{net}: loss, table vs {mode} path: {d}")
+                print(f"{net}: table path vs {mode} path: loss |d| = {d:.3e}, d/dpcA worst "
+                      f"point {worst:.3e} of max (last request)", flush=True)
+            check(all(t.grad is None for t in leaves), f"{net}: a parameter received .grad")
+            check(all(torch.equal(t, b) for t, b in zip(leaves, before)),
+                  f"{net}: a parameter changed")
+
+    with Phase("train"), tempfile.TemporaryDirectory() as tmp:
+        mcfg, tcfg = DPDistConfig(), TrainConfig(batch_size=B_TRAIN, augment=False)
+        data, labels = make_train_batch(rng, torch, dev)
+        trainer = DPDistTrainer(mcfg, tcfg, run_dir=os.path.join(tmp, "run"), device=dev,
+                                logger=RunLogger(os.path.join(tmp, "run"), echo=False))
+        start = [t.detach().clone() for lp in trainer.params["decoder"]["layers"]
+                 for t in lp.values()]
+        reset_counters(*counters.values())
+        losses = [trainer.train_step(data, labels)["loss"] for _ in range(TRAIN_STEPS)]
+        torch.cuda.synchronize()
+        launched = {k: w.launches for k, w in counters.items()}
+        for k in launches:
+            launches[k] += launched[k]
+        losses = torch.stack(losses).cpu().numpy()
+        print(f"train: {TRAIN_STEPS} steps at B={B_TRAIN}, kernel launches {launched}; loss "
+              f"{losses[0]:.5f} -> {losses[-1]:.5f} (first 5 mean {losses[:5].mean():.5f}, last "
+              f"5 mean {losses[-5:].mean():.5f})", flush=True)
+        check(launched == {"mfv_gather_x": 0, "table_gather_x": TRAIN_STEPS,
+                           "table_gather_bwd": 0}, "train: unexpected launches")
+        check(bool(np.isfinite(losses).all()), "train: non-finite loss")
+        check(losses[-5:].mean() < losses[:5].mean(), "train: the loss did not fall")
+
+        # One step on the kernel path and on the plain path from the same
+        # params, restored from a checkpoint of the trained ones.
+        path = trainer.save(tag="smoke")
+        steps = []
+        for mode in ("auto", "off"):
+            t = DPDistTrainer(mcfg.replace(fused_gather=mode), tcfg,
+                              run_dir=os.path.join(tmp, mode), device=dev,
+                              logger=RunLogger(os.path.join(tmp, mode), echo=False))
+            t.restore(path)
+            loss, grads = t.loss_and_grads(*t.make_batch(data, labels))
+            t.train_step(data, labels)
+            steps.append((float(loss), grads, [p.detach() for lp in t.params["decoder"]["layers"]
+                                               for p in (lp["b"], lp["w"])]))
+        (l_k, g_k, p_k), (l_p, g_p, p_p) = steps
+        err_loss = abs(l_k - l_p)
+        err_g = max(float((a - b).abs().max()) / float(b.abs().max()) for a, b in zip(g_k, g_p))
+        lr = tcfg.learning_rate
+        bad = 0
+        for a, b, gref in zip(p_k, p_p, g_p):
+            diff = (a - b).abs()
+            bad += int((diff[gref.abs() > 1e-6] > 1e-6).sum()) + int((diff > 2 * lr + 1e-6).sum())
+        print(f"train step, kernel path vs plain path: loss |d| = {err_loss:.3e}, grads worst "
+              f"{err_g:.3e} of max, params after the step outside tolerance: {bad}", flush=True)
+        check(err_loss <= 1e-5 and err_g <= REL_GRAD and bad == 0,
+              "train step: kernel path and plain path disagree")
+
+        restored = DPDistTrainer(mcfg, tcfg, run_dir=os.path.join(tmp, "restored"), device=dev,
+                                 logger=RunLogger(os.path.join(tmp, "restored"), echo=False))
+        restored.restore(path)
+        same = all(torch.equal(a, b) for la, lb in zip(trainer.params["decoder"]["layers"],
+                                                       restored.params["decoder"]["layers"])
+                   for a, b in ((la["w"], lb["w"]), (la["b"], lb["b"])))
+        moved = any(not torch.equal(v, t) for v, t in zip(
+            start, (t for lp in trainer.params["decoder"]["layers"] for t in lp.values())))
+        print(f"train: save -> restore equal: {same}; params moved from init: {moved}", flush=True)
+        check(same and moved and restored.global_step == trainer.global_step,
+              "train: save -> restore")
+        del restored, steps
+
+    with Phase("times"):
+        records = []
+        B, N, V, E = B_SERVE, NP, G, K ** 3 * C
+        # Rows 2 and 3 are timed on the queries the frozen loss hands them:
+        # pcB of the first request, the AB direction, whose surface(A) is
+        # the one that needs dfv. The clouds lie inside the grid.
+        a, b = requests[0]
+        with torch.no_grad():
+            x, vox = table_gather_x(fv, b, GRID, K)
+        # Neighbour rows of each (query, offset) for the library calls: the
+        # cell's row in a (B*(V+1), C) volume whose last row per cloud is a
+        # zero (gather) or sink (scatter) row. Built outside the timed region.
+        kh = K // 2
+        o = torch.arange(K ** 3, device=dev)
+        shift = torch.stack([o // (K * K) - kh, (o // K) % K - kh, o % K - kh], -1)
+        v = vox.long()
+        digits = torch.stack([v // (GRID * GRID), (v // GRID) % GRID, v % GRID], -1)
+        nb = digits[:, :, None, :] + shift                                  # (B, N, K3, 3)
+        inside = ((nb >= 0) & (nb < GRID)).all(-1)
+        flat = nb[..., 0] * GRID * GRID + nb[..., 1] * GRID + nb[..., 2]
+        base = (torch.arange(B, device=dev) * (V + 1))[:, None, None]
+        rows_idx = (base + torch.where(inside, flat, torch.full_like(flat, V))).reshape(-1)
+        fv_pad = torch.cat([fv, torch.zeros(B, 1, C, device=dev)], 1).reshape(-1, C)
+        grad_rows = torch.as_tensor(rng.normal(size=(B, N, 3 + E)).astype(np.float32),
+                                    device=dev)
+        grad_patch = grad_rows[..., 3:]
+        src_rows = grad_patch.reshape(-1, C).contiguous()
+        sink = torch.zeros(B * (V + 1), C, device=dev)
+        # The cells some query's window reaches: the part of fv row 2 must read.
+        reached = torch.zeros(B * (V + 1), dtype=torch.bool, device=dev)
+        reached[rows_idx] = True
+        n_reached = int(reached.view(B, V + 1)[:, :V].sum())
+        # The library calls compute the kernels' functions (checked once here).
+        check(torch.equal(fv_pad.index_select(0, rows_idx).view(B, N, E), x[..., 3:]),
+              "index_select does not reproduce table_gather_x's patches")
+        lib_dfv = sink.zero_().index_add_(0, rows_idx, src_rows).view(B, V + 1, C)[:, :V]
+        err_lib = float((lib_dfv - table_gather_bwd(vox, grad_patch, GRID, K)).abs().max())
+        check(err_lib <= REL_BWD * float(lib_dfv.abs().max()),
+              f"index_add_ does not reproduce table_gather_bwd ({err_lib})")
+        print(f"timed inputs: {B} clouds x {N} queries, {int((~inside).sum())} of "
+              f"{inside.numel()} (query, offset) windows off the grid, {n_reached} of {B * V} "
+              f"cells reached", flush=True)
+
+        with torch.no_grad():
+            ms = cuda_median_ms(lambda: mfv_x(pts, q, G, SIGMA, GRID, K))
+            plain_ms = cuda_median_ms(lambda: mfv_x_plain(pts, q, G, SIGMA, GRID, K))
+            # points, queries and two grid tables in; x and vox out; ~40 float32
+            # operations per (point, Gaussian) pair in the encode.
+            b_ms, b_by = bound(4 * (B_KERNEL * NP * 6 + 2 * G * 3
+                                    + B_KERNEL * NP * (3 + E) + B_KERNEL * NP),
+                               40 * B_KERNEL * NP * G)
+            records.append({"name": "mfv_gather_x", "route": "cuda",
+                            "source": "dpdist_tpu_torch/csrc/mfv_gather.cu",
+                            "replaces": "dpdist_tpu/kernels/mfv_gather_pallas.py:209",
+                            "launches": launches["mfv_gather_x"], "max_abs_err": err_mfv,
+                            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                            "library_ms": None})
+
+            ms = cuda_median_ms(lambda: table_gather_x(fv, b, GRID, K))
+            plain_ms = cuda_median_ms(lambda: table_gather_x_plain(fv, b, GRID, K))
+            lib_ms = cuda_median_ms(lambda: fv_pad.index_select(0, rows_idx))
+            # The reached cells of fv, queries and centres in; x and vox out;
+            # no arithmetic but q - centre.
+            b_ms, b_by = bound(4 * (n_reached * C + B * N * 3 + V * 3 + B * N * (3 + E) + B * N),
+                               3 * B * N)
+            records.append({"name": "table_gather_x", "route": "cuda",
+                            "source": "dpdist_tpu_torch/csrc/table_gather.cu",
+                            "replaces": "dpdist_tpu/kernels/table_gather_pallas.py:539",
+                            "launches": launches["table_gather_x"], "max_abs_err": err_tgx,
+                            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                            "library_ms": lib_ms})
+
+            ms = cuda_median_ms(lambda: table_gather_bwd(vox, grad_patch, GRID, K))
+            plain_ms = cuda_median_ms(lambda: table_gather_bwd_plain(vox, grad_patch, GRID, K))
+            lib_ms = cuda_median_ms(lambda: sink.zero_().index_add_(0, rows_idx, src_rows))
+            # The grad entries of in-grid (query, offset) windows and vox in,
+            # dfv out; one add per such entry.
+            adds = int(inside.sum()) * C
+            b_ms, b_by = bound(4 * (adds + B * N + B * V * C), adds)
+            records.append({"name": "table_gather_bwd", "route": "cuda",
+                            "source": "dpdist_tpu_torch/csrc/table_gather.cu",
+                            "replaces": "dpdist_tpu/kernels/table_gather_pallas.py:237",
+                            "launches": launches["table_gather_bwd"], "max_abs_err": err_bwd,
+                            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                            "library_ms": lib_ms})
+            for r in records:
+                print(f"{r['name']} kernel: {r['ms']:.4f} ms; bound {r['bound_ms']:.4f} ms "
+                      f"({r['bound_by']}) = {r['bound_ms'] / r['ms']:.1%} of bound; plain "
+                      f"{r['plain_ms']:.4f} ms; library call {r['library_ms']} ms; main-path "
+                      f"launches {r['launches']}; on {card}", flush=True)
+
+            fwd_ms = cuda_median_ms(lambda: fwd_model(a, b))
+        print(f"forward (mfv kernel path) at B={B_SERVE} pairs: {fwd_ms:.4f} ms, "
+              f"{B_SERVE / fwd_ms * 1e3:.1f} pairs/s; on {card}", flush=True)
+        cfg, np_params = load_dpdist_checkpoint(str(ROOT / NETS[-1]))
+        params = params_from_jax(np_params, dev)
+        for mode in ("table", "mfv"):
+            loss_fn = make_frozen_dpdist_loss(params, cfg.replace(fused_gather=mode))
+            step_ms = cuda_median_ms(lambda: src_grad(loss_fn, a, b))
+            print(f"frozen source-gradient step ({mode} path) at B={B_SERVE} pairs: "
+                  f"{step_ms:.4f} ms, {B_SERVE / step_ms * 1e3:.1f} pairs/s; on {card}",
+                  flush=True)
+        labels_t = torch.as_tensor(rng.uniform(0.0, 0.3, (B_SERVE, NP)).astype(np.float32),
+                                   device=dev)
+
+        def train_step():
+            loss, grads = trainer.loss_and_grads(a, b, labels_t)
+            trainer.opt_state = trainer.optimizer.step(trainer.params, grads, trainer.opt_state)
+
+        step_ms = cuda_median_ms(train_step)
+        print(f"train step (table path, Adam) at B={B_SERVE} pairs: {step_ms:.4f} ms, "
+              f"{B_SERVE / step_ms * 1e3:.1f} pairs/s; on {card}", flush=True)
+
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
-    print(json.dumps(record), flush=True)
+    print(json.dumps({"kernels": records}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

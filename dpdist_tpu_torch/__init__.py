@@ -4,17 +4,19 @@ A port of `dpdist_tpu` (JAX on a TPU) to PyTorch on an NVIDIA H100. The
 module layout mirrors `dpdist_tpu/`, so each port module sits at the path
 of its reference. This package imports neither `jax` nor `dpdist_tpu`.
 
-Slice covered so far: the frozen DPDist distance, forward only, served
-from the committed checkpoints.
+Slices covered so far: the frozen DPDist distance served from the
+committed checkpoints, its gradient in the input clouds (the frozen
+loss), and DPDist training on one device.
 
-  configs/    DPDistConfig (same fields, defaults and JSON form)
-  train/      checkpoint reader (npz + json) and JAX-parameter carry-over
+  configs/    DPDistConfig, TrainConfig (same fields, defaults and JSON form)
+  train/      checkpoints (read and write), optimizer, run logger, trainer
   ops/        3DmFV encode and voxel ops, plain PyTorch
   kernels/    kernel wrappers: plain version, launch counter, ctypes binding
   csrc/       the hand-written CUDA kernels (sm_90a)
-  nn/         dense / MLP decoder
-  models/     DPDist forward and distance
-  data/       synthetic surfaces (numpy)
+  nn/         dense / MLP decoder, initialisers, LR and BN schedules
+  models/     DPDist init, forward and distance
+  losses/     the frozen DPDist loss, the l1 training loss
+  data/       synthetic surfaces, batch assembly, prefetching (numpy)
   cli/        eval_pair
   serving.py  load_frozen_distance: the served nn.Module
 

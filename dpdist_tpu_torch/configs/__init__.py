@@ -1,3 +1,3 @@
-from dpdist_tpu_torch.configs.config import DPDistConfig
+from dpdist_tpu_torch.configs.config import DPDistConfig, TrainConfig
 
-__all__ = ["DPDistConfig"]
+__all__ = ["DPDistConfig", "TrainConfig"]

@@ -1,8 +1,9 @@
-"""DPDist model configuration (port of dpdist_tpu/configs/config.py).
+"""DPDist model and training configuration (port of DPDistConfig and
+TrainConfig from dpdist_tpu/configs/config.py).
 
-Same field names, defaults and JSON form as the reference dataclass, so
+Same field names, defaults and JSON form as the reference dataclasses, so
 the `model_config` string stored in a checkpoint's metadata parses into
-either package.
+either package, and either package writes one the other reads.
 """
 
 from __future__ import annotations
@@ -13,8 +14,23 @@ from dataclasses import dataclass
 from typing import Tuple
 
 
+class _JsonMixin:
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2, sort_keys=True)
+
+    @classmethod
+    def from_json(cls, s: str):
+        d = json.loads(s)
+        # JSON has no tuples; restore them so the config stays hashable.
+        d = {k: tuple(v) if isinstance(v, list) else v for k, v in d.items()}
+        return cls(**d)
+
+    def replace(self, **kw):
+        return dataclasses.replace(self, **kw)
+
+
 @dataclass(frozen=True)
-class DPDistConfig:
+class DPDistConfig(_JsonMixin):
     """DPDist model hyperparameters (canonical trained config by default)."""
 
     num_point: int = 64           # query points per cloud
@@ -31,18 +47,8 @@ class DPDistConfig:
     use_bn: bool = False
     output_channels: int = 3      # decoder output channels; the distance reads channel 0
     dtype: str = "float32"        # compute dtype for the decoder matmuls
-    fused_gather: str = "auto"    # "auto" | "mfv" | "off" in this port
-                                  # ("on" | "table" | "full" are not ported yet)
-
-    @classmethod
-    def from_json(cls, s: str) -> "DPDistConfig":
-        d = json.loads(s)
-        # JSON has no tuples; restore them so the config stays hashable.
-        d = {k: tuple(v) if isinstance(v, list) else v for k, v in d.items()}
-        return cls(**d)
-
-    def replace(self, **kw) -> "DPDistConfig":
-        return dataclasses.replace(self, **kw)
+    fused_gather: str = "auto"    # "auto" | "mfv" | "table" | "off" in this port
+                                  # ("on" | "full" are not ported yet)
 
     @property
     def grid_size(self) -> int:
@@ -71,3 +77,30 @@ class DPDistConfig:
         if self.k == 0:
             return self.fv_channels * self.embedding_size
         return self.fv_channels * self.k ** self.dims
+
+
+@dataclass(frozen=True)
+class TrainConfig(_JsonMixin):
+    """Optimizer, schedule and runtime knobs of DPDist training."""
+
+    batch_size: int = 16
+    learning_rate: float = 1e-4   # --learning_rate_dpdist
+    decay_step: int = 300 * 512   # staircase decay step
+    decay_rate: float = 0.5
+    lr_floor: float = 1e-7        # the reference clips the LR at 1e-7
+    optimizer: str = "adam"       # "adam" | "momentum"
+    momentum: float = 0.9
+    weight_decay: float = 0.0     # L2 on dense kernels ("w") only
+    grad_clip: float = 0.0        # >0: global-norm gradient clipping
+    max_epoch: int = 10001
+    bn_init_decay: float = 0.5
+    bn_decay_rate: float = 0.5
+    bn_decay_clip: float = 0.99
+    loss_type: str = "l1_dist"
+    augment: bool = True
+    add_noise: float = 0.0        # stddev of Gaussian noise on the encoder's copy of pcA
+    encoder_occlusion: float = 0.0        # fraction of points removed (not ported yet)
+    encoder_occlusion_prob: float = 0.0   # per-item probability (not ported yet)
+    seed: int = 0
+    log_every: int = 10
+    checkpoint_every_epochs: int = 10

@@ -27,18 +27,24 @@
 // the write coalesced; the (o, c) split of the row walk is carried
 // incrementally so no integer division sits in the write loop.
 //
+// Steps 1 (offsets), 4 and 5 use the helpers of patch_rows.cuh, which
+// table_gather.cu shares.
+//
 // Plain C interface for ctypes; no PyTorch headers. Built with
-//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC
 // (no --use_fast_math: it changes division and ceil at cell edges, and so
 // which voxel a boundary point gets).
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "patch_rows.cuh"
+
 namespace {
 
+using dpdist::kWarp;
+
 constexpr int kC = 20;          // FV channels (full_fv, D = 3)
-constexpr int kWarp = 32;
 constexpr float kEps = 1e-12f;
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -101,13 +107,7 @@ __global__ void mfv_gather_x_kernel(const float* __restrict__ points,   // (B, M
   const float* pb = points + static_cast<size_t>(b) * M * 3;
   for (int i = tid; i < M * 3; i += blockDim.x) pts_s[i] = pb[i];
   for (int i = tid; i < G * 3; i += blockDim.x) mu_s[i] = mu[i];
-  const int kh = k / 2;
-  for (int o = tid; o < K3; o += blockDim.x) {
-    const int sx = o / (k * k) - kh, sy = (o / k) % k - kh, sz = o % k - kh;
-    offs_s[o] = sx * g * g + sy * g + sz;
-    off3_s[o] = make_char4(static_cast<signed char>(sx), static_cast<signed char>(sy),
-                           static_cast<signed char>(sz), 0);
-  }
+  dpdist::stage_window_offsets(offs_s, off3_s, g, k);
   __syncthreads();
 
   // 2. Softmax statistics over G per point: one warp per point.
@@ -197,19 +197,9 @@ __global__ void mfv_gather_x_kernel(const float* __restrict__ points,   // (B, M
   }
 
   // 4. Queries: voxel id (flat v = iy*g^2 + ix*g + iz) and delta.
-  const float step = 2.f / static_cast<float>(g);
   for (int n = tid; n < N; n += blockDim.x) {
     const float* q = queries + (static_cast<size_t>(b) * N + n) * 3;
-    int idx[3];
-    bool inside = true;
-#pragma unroll
-    for (int d = 0; d < 3; ++d) {
-      const float u = (q[d] + 1.f) / step;
-      idx[d] = static_cast<int>(ceilf(u)) - 1;
-      inside = inside && (u > 0.f) && (idx[d] <= g - 1);
-      idx[d] = min(max(idx[d], 0), g - 1);
-    }
-    const int v = inside ? idx[1] * g * g + idx[0] * g + idx[2] : 0;
+    const int v = dpdist::assign_voxel(q, g);
     qv_s[n] = v;
     vox_out[static_cast<size_t>(b) * N + n] = v;
 #pragma unroll
@@ -218,25 +208,9 @@ __global__ void mfv_gather_x_kernel(const float* __restrict__ points,   // (B, M
   __syncthreads();
 
   // 5. Rows of x: one warp per query, lanes on neighbouring addresses.
-  for (int n = warp; n < N; n += nwarps) {
-    float* xrow = x + (static_cast<size_t>(b) * N + n) * W;
-    const int v = qv_s[n];
-    const int vx = v / (g * g), vy = (v / g) % g, vz = v % g;
-    if (lane < 3) xrow[lane] = qd_s[n * 3 + lane];
-    int o = lane / kC, c = lane % kC;   // e = o*20 + c, advanced by 32 per step
-    for (int e = lane; e < E; e += kWarp) {
-      const char4 s = off3_s[o];
-      const int nx = vx + s.x, ny = vy + s.y, nz = vz + s.z;
-      float val = 0.f;
-      if (nx >= 0 && nx < g && ny >= 0 && ny < g && nz >= 0 && nz < g)
-        val = fv_s[(v + offs_s[o]) * kC + c];
-      xrow[3 + e] = val;
-      // 32 = 1*20 + 12
-      o += 1;
-      c += kWarp - kC;
-      if (c >= kC) { c -= kC; o += 1; }
-    }
-  }
+  for (int n = warp; n < N; n += nwarps)
+    dpdist::write_x_row(x + (static_cast<size_t>(b) * N + n) * W, qd_s + n * 3, qv_s[n], fv_s,
+                        offs_s, off3_s, g, kC, E, lane);
 }
 
 }  // namespace

@@ -6,8 +6,9 @@ All sources under dpdist_tpu_torch/csrc/ compile, in one
 The sources include no PyTorch header, so the build takes seconds rather
 than the minutes of torch.utils.cpp_extension. It runs at first use, on
 the machine with the card, and is cached under dpdist_tpu_torch/_build/
-(listed in .gitignore) by a hash of the sources and the flags. A missing
-nvcc or a failed build raises; nothing falls back to the plain versions.
+(listed in .gitignore) by a hash of the sources, the headers and the
+flags. A missing nvcc or a failed build raises; nothing falls back to the
+plain versions.
 
 --use_fast_math is deliberately absent: it changes division and ceil at
 cell edges, and so which voxel a boundary point gets.
@@ -31,6 +32,7 @@ LIB_NAME = "libdpdist_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 NVCC_TIMEOUT_S = 600
+MAX_SMEM = 227 * 1024       # shared memory a block can use on Hopper
 
 _lib = None          # the loaded ctypes.CDLL, once built
 build_seconds = None  # wall time of the nvcc call this process made, if any
@@ -105,7 +107,23 @@ def library() -> ctypes.CDLL:
         lib.dpdist_mfv_gather_x.restype = ci
         lib.dpdist_mfv_gather_x_smem.argtypes = [ci, ci, ci, ci, ci]
         lib.dpdist_mfv_gather_x_smem.restype = ctypes.c_size_t
+        lib.dpdist_table_gather_smem.argtypes = [ci, ci, ci]
+        lib.dpdist_table_gather_smem.restype = ctypes.c_size_t
+        lib.dpdist_table_gather_x.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci,
+                                              ci, vp]
+        lib.dpdist_table_gather_x.restype = ci
+        i64 = ctypes.c_int64
+        lib.dpdist_table_gather_bwd.argtypes = [vp, vp, i64, i64, vp, ci, ci, ci, ci, ci, ci,
+                                                ci, vp]
+        lib.dpdist_table_gather_bwd.restype = ci
         lib.dpdist_error_string.argtypes = [ci]
         lib.dpdist_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def check_launch(err: int, name: str) -> None:
+    """Raise if a kernel's C entry point returned a CUDA error."""
+    if err != 0:
+        raise RuntimeError("%s kernel launch failed: CUDA error %d (%s)"
+                           % (name, err, library().dpdist_error_string(err).decode()))

@@ -1,7 +1,7 @@
 """Fused 3DmFV encode + patch gather: points and queries -> decoder input.
 
 Port of dpdist_tpu/kernels/mfv_gather_pallas.py (`mfv_table_gather_x`,
-TPU kernel `_mfv_x_kernel`), forward only. The CUDA kernel is
+TPU kernel `_mfv_x_kernel`, and its VJP `_mfv_x_bwd`). The CUDA kernel is
 dpdist_tpu_torch/csrc/mfv_gather.cu; its header says what bounds it on an
 H100 (the write of x) and how the design meets that.
 
@@ -10,6 +10,12 @@ function in plain PyTorch (threedmfv -> extract_patches -> voxel_assign
 -> gather -> concat), which is also the kernel's oracle on the card. On
 a CUDA tensor it launches the kernel or raises; it never falls back.
 `mfv_x.launches` counts kernel launches, and nothing else.
+
+Gradients follow the reference's VJP: dq = grad[..., :3]; for the
+points, dfv = table_gather_bwd(vox, grad[..., 3:]) (the row-3 kernel on
+the card) and then autograd through the plain threedmfv of the points,
+whose forward is replayed there, since the kernel keeps the FV volume on
+chip and saves none.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ import math
 
 import torch
 
+from dpdist_tpu_torch.kernels.table_gather import table_gather_bwd
 from dpdist_tpu_torch.ops.threedmfv import threedmfv, threedmfv_grid
 from dpdist_tpu_torch.ops.voxel import (
     extract_patches,
@@ -28,7 +35,6 @@ from dpdist_tpu_torch.ops.voxel import (
 )
 
 C = 20                      # FV channels of the full-FV 3-D encode
-MAX_SMEM = 227 * 1024       # shared memory a block can use on Hopper
 
 
 def mfv_x_plain(points, queries, n_gaussians: int, sigma: float,
@@ -72,20 +78,9 @@ def _check(points, queries, n_gaussians, grid_size, k):
                          f"= {grid_size ** 3}")
     if k < 1 or k % 2 == 0:
         raise ValueError(f"k must be odd and positive, got {k}")
-    if torch.is_grad_enabled() and (points.requires_grad or queries.requires_grad):
-        raise NotImplementedError(
-            "mfv_x is forward only in this port: its gradient "
-            "(table_gather_bwd) is not ported yet")
 
 
-def mfv_x(points, queries, n_gaussians: int, sigma: float, grid_size: int,
-          k: int):
-    """(B, M, 3) encoded clouds + (B, N, 3) queries -> (x, vox).
-
-    x = [delta, patch] (B, N, 3 + k^3*20) float32, the decoder input, and
-    vox (B, N) int32, each query's flat cell (0 outside the grid).
-    """
-    _check(points, queries, n_gaussians, grid_size, k)
+def _mfv_x_impl(points, queries, n_gaussians, sigma, grid_size, k):
     dev = points.device
     if dev.type == "cpu":
         return mfv_x_plain(points, queries, n_gaussians, sigma, grid_size, k)
@@ -102,9 +97,9 @@ def mfv_x(points, queries, n_gaussians: int, sigma: float, grid_size: int,
     if G > threads:
         raise ValueError(f"the kernel takes at most 1024 Gaussians, got {G}")
     smem = lib.dpdist_mfv_gather_x_smem(M, N, grid_size, k, threads)
-    if smem > MAX_SMEM:
+    if smem > build.MAX_SMEM:
         raise ValueError(f"M={M}, N={N} need {smem} B of shared memory, "
-                         f"more than the {MAX_SMEM} B a block has")
+                         f"more than the {build.MAX_SMEM} B a block has")
     mu, centers = _grid_tables(G, dev)
     x = torch.empty((B, N, 3 + k ** 3 * C), dtype=torch.float32, device=dev)
     vox = torch.empty((B, N), dtype=torch.int32, device=dev)
@@ -114,11 +109,46 @@ def mfv_x(points, queries, n_gaussians: int, sigma: float, grid_size: int,
         x.data_ptr(), vox.data_ptr(), B, M, N, grid_size, k, float(sigma),
         w, math.sqrt(w) * M, math.sqrt(w), math.sqrt(2.0 * w), 1.0 / M,
         threads, dev.index, torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError("mfv_gather_x kernel launch failed: CUDA error %d (%s)"
-                           % (err, lib.dpdist_error_string(err).decode()))
+    build.check_launch(err, "mfv_gather_x")
     mfv_x.launches += 1
     return x, vox
+
+
+class _MfvX(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, points, queries, n_gaussians, sigma, grid_size, k):
+        x, vox = _mfv_x_impl(points, queries, n_gaussians, sigma, grid_size, k)
+        ctx.save_for_backward(points, vox)
+        ctx.args = (n_gaussians, sigma, grid_size, k)
+        ctx.mark_non_differentiable(vox)
+        return x, vox
+
+    @staticmethod
+    def backward(ctx, grad_x, _grad_vox):
+        points, vox = ctx.saved_tensors
+        n_gaussians, sigma, grid_size, k = ctx.args
+        dpoints = dq = None
+        if ctx.needs_input_grad[0]:
+            dfv = table_gather_bwd(vox, grad_x[..., 3:], grid_size, k)
+            with torch.enable_grad():
+                p = points.detach().requires_grad_(True)
+                fv = threedmfv(p, n_gaussians, sigma)
+                (dpoints,) = torch.autograd.grad(fv, p, dfv)
+        if ctx.needs_input_grad[1]:
+            dq = grad_x[..., :3]
+        return dpoints, dq, None, None, None, None
+
+
+def mfv_x(points, queries, n_gaussians: int, sigma: float, grid_size: int,
+          k: int):
+    """(B, M, 3) encoded clouds + (B, N, 3) queries -> (x, vox).
+
+    x = [delta, patch] (B, N, 3 + k^3*20) float32, the decoder input, and
+    vox (B, N) int32, each query's flat cell (0 outside the grid).
+    Differentiable in points and queries (see the module docstring).
+    """
+    _check(points, queries, n_gaussians, grid_size, k)
+    return _MfvX.apply(points, queries, n_gaussians, sigma, grid_size, k)
 
 
 mfv_x.launches = 0

@@ -1,3 +1,10 @@
-from dpdist_tpu_torch.models.dpdist import apply_dpdist, dpdist_distance
+from dpdist_tpu_torch.models.dpdist import (
+    apply_direction,
+    apply_dpdist,
+    dpdist_distance,
+    init_dpdist,
+    resolve_for_grad,
+)
 
-__all__ = ["apply_dpdist", "dpdist_distance"]
+__all__ = ["apply_direction", "apply_dpdist", "dpdist_distance", "init_dpdist",
+           "resolve_for_grad"]

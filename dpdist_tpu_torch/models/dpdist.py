@@ -1,5 +1,6 @@
-"""DPDist forward and learned distance (port of apply_dpdist with train=False,
-_output_activation and dpdist_distance from dpdist_tpu/models/dpdist.py).
+"""DPDist model: init, forward and learned distance (port of init_dpdist,
+apply_dpdist, resolve_for_grad, _output_activation and dpdist_distance
+from dpdist_tpu/models/dpdist.py).
 
 Forward semantics (the canonical config: 3DmFV encoder, k > 0,
 conv_version 1, BN off, float32):
@@ -11,23 +12,32 @@ conv_version 1, BN off, float32):
      points zeroed by the membership mask.
 pred_AB scores the points of B against the surface encoded from A.
 
-`cfg.fused_gather` picks how step 1-2 run:
-  "off"  the plain composition: threedmfv -> extract_patches ->
-         voxel_assign -> gather -> concat, per direction;
-  "mfv"  the fused kernel (kernels/mfv_gather.py), once over the 2B stack:
-         encode [A; B], query [B; A] (dpdist_tpu/models/dpdist.py:400-417);
-  "auto" "mfv" on CUDA tensors, "off" on the CPU.
+`cfg.fused_gather` picks how steps 1-2 run:
+  "off"   the plain composition: threedmfv -> extract_patches ->
+          voxel_assign -> gather -> concat, per direction;
+  "table" threedmfv, then the table-gather kernel (kernels/table_gather.py)
+          per direction; its backward runs the adjoint kernel;
+  "mfv"   the fused encode + gather kernel (kernels/mfv_gather.py), once
+          over the 2B stack: encode [A; B], query [B; A]
+          (dpdist_tpu/models/dpdist.py:400-417);
+  "auto"  "mfv" on CUDA tensors, "off" on the CPU. Computations that are
+          differentiated resolve "auto" with `resolve_for_grad` instead.
 Configs this port does not cover yet raise NotImplementedError.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
+from dpdist_tpu_torch import resolve_device
 from dpdist_tpu_torch.configs import DPDistConfig
-from dpdist_tpu_torch.kernels.mfv_gather import mfv_table_gather_x, mfv_x_plain
-from dpdist_tpu_torch.nn.layers import mlp_apply
-from dpdist_tpu_torch.ops.voxel import voxel_assign
+from dpdist_tpu_torch.kernels.mfv_gather import mfv_x
+from dpdist_tpu_torch.kernels.table_gather import table_gather_x
+from dpdist_tpu_torch.nn.layers import mlp_apply, mlp_init
+from dpdist_tpu_torch.ops.threedmfv import threedmfv
+from dpdist_tpu_torch.ops.voxel import extract_patches, gather_patches, voxel_assign
 
 
 def check_ported(cfg: DPDistConfig) -> None:
@@ -48,20 +58,55 @@ def check_ported(cfg: DPDistConfig) -> None:
         missing.append("use_bn=True (BatchNorm)")
     if cfg.dtype != "float32":
         missing.append(f"dtype={cfg.dtype!r}")
-    if cfg.fused_gather in ("on", "table", "full"):
+    if cfg.fused_gather in ("on", "full"):
         missing.append(f"fused_gather={cfg.fused_gather!r}")
-    elif cfg.fused_gather not in ("auto", "mfv", "off"):
+    elif cfg.fused_gather not in ("auto", "mfv", "table", "off"):
         raise ValueError(f"unknown fused_gather={cfg.fused_gather!r}")
     if missing:
         raise NotImplementedError("not ported yet: " + ", ".join(missing))
 
 
 def fused_gather_mode(cfg: DPDistConfig, device: torch.device) -> str:
-    """Resolve cfg.fused_gather to "mfv" or "off" for tensors on `device`."""
+    """Resolve cfg.fused_gather to "mfv", "table" or "off" for tensors on `device`."""
     check_ported(cfg)
     if cfg.fused_gather == "auto":
         return "mfv" if device.type == "cuda" else "off"
     return cfg.fused_gather
+
+
+def resolve_for_grad(cfg: DPDistConfig, device) -> DPDistConfig:
+    """Resolve fused_gather="auto" for a computation that will be
+    differentiated (training, the frozen loss): "table" on CUDA, as the
+    reference resolves it on its accelerator; unchanged on the CPU, where
+    "auto" already takes the plain composition. Explicit settings stay.
+
+    Why "table" and not "mfv" there: the mfv kernel serves both directions
+    in one opaque call, so a loss that reads one direction still pays for
+    two, and its backward must replay the 3DmFV encode, which the kernel
+    never saves (dpdist_tpu/models/dpdist.py:315-326).
+    """
+    if cfg.fused_gather != "auto" or torch.device(device).type != "cuda":
+        return cfg
+    return dataclasses.replace(cfg, fused_gather="table")
+
+
+def init_dpdist(cfg: DPDistConfig, generator=None, device="cuda") -> dict:
+    """Decoder parameters {"decoder": {"layers": [{"w", "b"}, ...]}} for
+    the canonical MLP decoder (port of init_dpdist, conv_version 1, BN off):
+    TF xavier-uniform with the reference's conv fans on the first layer,
+    zero biases, and +0.45 on the output bias when output_act is "relu"
+    (the head then starts mid-range, out of relu6's dead zone)."""
+    check_ported(cfg)
+    dev = resolve_device(device)
+    in_dim = cfg.patch_dim + cfg.dims
+    widths = tuple(cfg.mlp) + (cfg.output_channels,)
+    # The reference's first layer was a [1, E+D] conv over one channel.
+    dec = mlp_init(in_dim, widths, conv_fan_first=(in_dim, in_dim * widths[0]),
+                   generator=generator)
+    if cfg.output_act == "relu":
+        dec["layers"][-1]["b"] = dec["layers"][-1]["b"] + 0.45
+    layers = [{key: t.to(dev) for key, t in lp.items()} for lp in dec["layers"]]
+    return {"decoder": {"layers": layers}}
 
 
 def _output_activation(x: torch.Tensor, output_act: str) -> torch.Tensor:
@@ -74,43 +119,73 @@ def _output_activation(x: torch.Tensor, output_act: str) -> torch.Tensor:
     return torch.clamp(x + 3.0, 0.0, 6.0) / 3.0 - 1.0
 
 
-def _plain_x(points, queries, *args):
-    return mfv_x_plain(points, queries, *args)[0]
+def _head(params, cfg: DPDistConfig, x, mask):
+    """Decoder, output activation and the membership mask."""
+    return _output_activation(mlp_apply(params["decoder"], x), cfg.output_act) * mask[..., None]
 
 
-def apply_dpdist(params, cfg: DPDistConfig, pcA, pcB):
+def _decoder_input(cfg: DPDistConfig, mode: str, points_enc, queries):
+    """x = [delta, patch] of `queries` against the surface of `points_enc`."""
+    args = (cfg.embedding_size, cfg.sigma, cfg.grid_size, cfg.k)
+    if mode == "mfv":
+        return mfv_x(points_enc, queries, *args)[0]
+    fv = threedmfv(points_enc, cfg.embedding_size, cfg.sigma)
+    if mode == "table":
+        return table_gather_x(fv, queries, cfg.grid_size, cfg.k)[0]
+    vox, _, delta = voxel_assign(queries, cfg.grid_size)
+    patches = gather_patches(extract_patches(fv, cfg.grid_size, cfg.k), vox)
+    return torch.cat([delta, patches], dim=-1)
+
+
+def _prep(points):
+    return points.to(torch.float32).contiguous()
+
+
+def apply_direction(params, cfg: DPDistConfig, points_enc, queries):
+    """One direction: the (B, N, output_channels) prediction for the points
+    of `queries` against the surface encoded from `points_enc`, masked
+    outside the grid. apply_dpdist is two of these (or one mfv call); a
+    loss that reads one direction calls this alone, since eager PyTorch
+    does not drop an unused direction the way XLA does."""
+    mode = fused_gather_mode(cfg, queries.device)
+    points_enc, queries = _prep(points_enc), _prep(queries)
+    _, mask, _ = voxel_assign(queries, cfg.grid_size)
+    return _head(params, cfg, _decoder_input(cfg, mode, points_enc, queries), mask)
+
+
+def apply_dpdist(params, cfg: DPDistConfig, pcA, pcB, *, noise=None, train: bool = False):
     """Bidirectional forward: (pred_AB, pred_BA), each (B, N, output_channels).
 
-    `params` is the port's decoder state (train.params_from_jax). The
-    reference's encoder-input noise (a training feature) is not ported.
+    `params` is the port's decoder state (init_dpdist or
+    train.params_from_jax). `noise`, if given, is added to the encoder's
+    copy of pcA only; the queries stay exact (the reference's pcA_noise).
+    `train` selects nothing with BN off, the only decoder this port has.
     """
+    del train  # BN off: training and inference forwards are the same
     mode = fused_gather_mode(cfg, pcA.device)
-    pcA = pcA.to(torch.float32).contiguous()
-    pcB = pcB.to(torch.float32).contiguous()
-    dec = params["decoder"]
-    args = (cfg.embedding_size, cfg.sigma, cfg.grid_size, cfg.k)
-    _, maskAB, _ = voxel_assign(pcB, cfg.grid_size)
-    _, maskBA, _ = voxel_assign(pcA, cfg.grid_size)
+    pcA, pcB = _prep(pcA), _prep(pcB)
+    pcA_enc = pcA if noise is None else _prep(pcA + noise)
     if mode == "mfv" and pcA.shape == pcB.shape:
         # Both directions in one kernel call: encode [A; B], query [B; A].
-        x2 = mfv_table_gather_x(torch.cat([pcA, pcB]), torch.cat([pcB, pcA]), *args)
-        yAB, yBA = torch.chunk(mlp_apply(dec, x2), 2, dim=0)
-    else:
-        # BN off: each decoder row is independent, so the directions
-        # decode separately.
-        x_of = mfv_table_gather_x if mode == "mfv" else _plain_x
-        yAB = mlp_apply(dec, x_of(pcA, pcB, *args))   # B's points vs surface(A)
-        yBA = mlp_apply(dec, x_of(pcB, pcA, *args))   # A's points vs surface(B)
-
-    pred_AB = _output_activation(yAB, cfg.output_act) * maskAB[..., None]
-    pred_BA = _output_activation(yBA, cfg.output_act) * maskBA[..., None]
-    return pred_AB, pred_BA
+        args = (cfg.embedding_size, cfg.sigma, cfg.grid_size, cfg.k)
+        x2 = mfv_x(torch.cat([pcA_enc, pcB]), torch.cat([pcB, pcA]), *args)[0]
+        _, maskAB, _ = voxel_assign(pcB, cfg.grid_size)
+        _, maskBA, _ = voxel_assign(pcA, cfg.grid_size)
+        pred = _head(params, cfg, x2, torch.cat([maskAB, maskBA]))
+        pred_AB, pred_BA = torch.chunk(pred, 2, dim=0)
+        return pred_AB, pred_BA
+    # BN off: each decoder row is independent, so the directions decode
+    # separately.
+    return (apply_direction(params, cfg, pcA_enc, pcB),   # B's points vs surface(A)
+            apply_direction(params, cfg, pcB, pcA))       # A's points vs surface(B)
 
 
 def dpdist_distance(params, cfg: DPDistConfig, pcA, pcB, *,
                     per_example: bool = False):
     """(mean(pred_AB[..., 0]) + mean(pred_BA[..., 0])) / 2, over the batch
-    or, with per_example=True, per pair as a (B,) tensor."""
+    or, with per_example=True, per pair as a (B,) tensor. Differentiable
+    in pcA and pcB; detach the parameters at the call site for a frozen
+    loss (losses/dpdist_loss.py)."""
     pred_AB, pred_BA = apply_dpdist(params, cfg, pcA, pcB)
     if per_example:
         return (torch.mean(pred_AB[..., 0], dim=-1) + torch.mean(pred_BA[..., 0], dim=-1)) / 2.0

@@ -6,9 +6,11 @@ semantics of dpdist_tpu/serving.py:export_frozen_distance).
 
 The module maps a (template, source) pair of (B, N, 3) clouds to the
 per-pair learned distance `dpdist_distance(per_example=True)`. It is in
-eval mode and every parameter has requires_grad=False; it is forward
-only (the fused kernel has no backward in this port, and raises if asked
-for one).
+eval mode and every parameter has requires_grad=False. It is
+differentiable in its input clouds: when an input requires a gradient,
+fused_gather resolves for a gradient context (models.resolve_for_grad:
+the table-gather kernels on the card), and the parameters' .grad stays
+None.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from torch import nn
 
 from dpdist_tpu_torch import resolve_device
 from dpdist_tpu_torch.configs import DPDistConfig
-from dpdist_tpu_torch.models.dpdist import check_ported, dpdist_distance
+from dpdist_tpu_torch.models.dpdist import check_ported, dpdist_distance, resolve_for_grad
 from dpdist_tpu_torch.train.checkpoint import load_dpdist_checkpoint, params_from_jax
 
 
@@ -41,7 +43,10 @@ class FrozenDistance(nn.Module):
         return {"decoder": {"layers": [{"w": w, "b": b} for w, b in zip(self.w, self.b)]}}
 
     def forward(self, pcA: torch.Tensor, pcB: torch.Tensor) -> torch.Tensor:
-        return dpdist_distance(self.params(), self.cfg, pcA, pcB, per_example=True)
+        cfg = self.cfg
+        if torch.is_grad_enabled() and (pcA.requires_grad or pcB.requires_grad):
+            cfg = resolve_for_grad(cfg, pcA.device)
+        return dpdist_distance(self.params(), cfg, pcA, pcB, per_example=True)
 
 
 def load_frozen_distance(ckpt_path: str, device="cuda", **cfg_overrides) -> FrozenDistance:

@@ -7,6 +7,7 @@ dpdist_tpu_torch/assets/golden_distance.json from the JAX package:
     PYTHONPATH=. python tests/test_torch_dpdist.py --write-golden
 """
 
+import functools
 import json
 import sys
 
@@ -18,12 +19,15 @@ import jax
 import jax.numpy as jnp
 
 from dpdist_tpu.cli.train_aue import load_dpdist_checkpoint as jax_load
+from dpdist_tpu.losses import make_frozen_dpdist_loss as jax_frozen_loss
 from dpdist_tpu.models import apply_dpdist as jax_apply
 from dpdist_tpu.models import dpdist_distance as jax_distance
 
 from dpdist_tpu_torch.configs import DPDistConfig
 from dpdist_tpu_torch.data.golden import GOLDEN_PATH, golden_clouds, load_golden
 from dpdist_tpu_torch.kernels.mfv_gather import mfv_x
+from dpdist_tpu_torch.kernels.table_gather import table_gather_bwd, table_gather_x
+from dpdist_tpu_torch.losses import make_frozen_dpdist_loss
 from dpdist_tpu_torch.models import apply_dpdist, dpdist_distance
 from dpdist_tpu_torch.serving import load_frozen_distance
 from dpdist_tpu_torch.train import load_dpdist_checkpoint, params_from_jax
@@ -33,6 +37,13 @@ NETS = ("results/ckpt_best", "results/dpdist_multi_r4_ckpt_best")
 # the encode and the decoder sum in other orders; the largest difference
 # measured on these inputs was below 1e-6 (predictions and distances).
 TOL = 1e-4
+# The golden file keeps the frozen loss's gradient in pcA for these pairs
+# only (one in the grid, one partly off it), so that it stays small.
+GRAD_PAIRS = (0, 7)
+# Golden input gradients, per point and relative to the largest entry: the
+# criterion of tests/test_torch_losses_optim.py (the encodes' rounding
+# difference, magnified on a few points by the signed sqrt near 0).
+REL_GRAD, REL_GRAD_FEW, OUTLIERS = 1e-3, 5e-2, 0.05
 
 GOLDEN_PAIRS = [
     {"a": ["chair", 0], "b": ["chair", 1], "scale": 0.8},
@@ -111,23 +122,45 @@ def test_frozen_distance_module(net):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL, rtol=0)
 
 
+@functools.partial(jax.jit, static_argnums=(2, 5))
+def jax_frozen_value_and_grad(params, state, cfg, pcA, pcB, penalty):
+    """JAX's frozen loss and its gradient in pcA, jitted with the
+    parameters as arguments so that the two nets share one compile."""
+    loss_fn = jax_frozen_loss(params, state, cfg, out_of_grid_penalty=penalty)
+    return jax.value_and_grad(loss_fn)(pcA, pcB)
+
+
 def compute_golden():
-    """The golden file's content, computed with the JAX package."""
-    golden = {"num_point": 64, "pairs": GOLDEN_PAIRS, "distance": {}}
+    """The golden file's content, computed with the JAX package: per net,
+    the per-pair distances, and the frozen loss (penalty 1.0) over all
+    pairs with its gradient in pcA for GRAD_PAIRS."""
+    golden = {"num_point": 64, "pairs": GOLDEN_PAIRS, "distance": {},
+              "frozen_loss": {"out_of_grid_penalty": 1.0, "grad_pairs": list(GRAD_PAIRS)}}
     pcA, pcB = golden_clouds(golden)
     for path in NETS:
         cfg, params, state = jax_load(path)
         d = jax_distance(params, state, cfg, jnp.asarray(pcA), jnp.asarray(pcB),
                          per_example=True)
         golden["distance"][path] = [float(v) for v in np.asarray(d)]
+        value, grad = jax_frozen_value_and_grad(params, state, cfg.replace(fused_gather="off"),
+                                                jnp.asarray(pcA), jnp.asarray(pcB), 1.0)
+        golden["frozen_loss"][path] = {
+            "value": float(value),
+            "grad_pcA": [[[float("%.8g" % c) for c in p] for p in np.asarray(grad)[i]]
+                         for i in GRAD_PAIRS]}
     return golden
 
 
-def test_golden_file_holds():
+@pytest.fixture(scope="module")
+def fresh_golden():
+    return compute_golden()
+
+
+def test_golden_file_holds(fresh_golden):
     """The committed golden values are what dpdist_tpu computes now, and
     the port on the CPU reproduces them."""
     stored = load_golden()
-    fresh = compute_golden()
+    fresh = fresh_golden
     assert stored["pairs"] == fresh["pairs"] and stored["num_point"] == fresh["num_point"]
     pcA, pcB = (torch.as_tensor(a) for a in golden_clouds(stored))
     for path in NETS:
@@ -137,6 +170,52 @@ def test_golden_file_holds():
         with torch.no_grad():
             got = model(pcA, pcB).numpy()
         np.testing.assert_allclose(got, stored["distance"][path], atol=TOL, rtol=0)
+
+
+def _close_rel(got, want):
+    err = np.abs(got - want).max(axis=-1) / np.abs(want).max()
+    assert err.max() <= REL_GRAD_FEW, err.max()
+    assert np.mean(err > REL_GRAD) <= OUTLIERS, np.sort(err.ravel())[-8:]
+
+
+def test_golden_frozen_loss_holds(fresh_golden):
+    """The stored frozen-loss values and pcA gradients are what dpdist_tpu
+    computes now, and the port's plain path on the CPU reproduces them."""
+    stored = load_golden()["frozen_loss"]
+    fresh = fresh_golden["frozen_loss"]
+    assert stored["grad_pairs"] == list(GRAD_PAIRS)
+    pcA, pcB = (torch.as_tensor(a) for a in golden_clouds(load_golden()))
+    for path in NETS:
+        want = stored[path]
+        assert abs(want["value"] - fresh[path]["value"]) <= 1e-6
+        np.testing.assert_allclose(want["grad_pcA"], fresh[path]["grad_pcA"], rtol=1e-6, atol=0)
+        cfg, params = load_dpdist_checkpoint(path)
+        loss_fn = make_frozen_dpdist_loss(params_from_jax(params, "cpu"), cfg,
+                                          out_of_grid_penalty=stored["out_of_grid_penalty"])
+        a = pcA.clone().requires_grad_(True)
+        value = loss_fn(a, pcB)
+        (grad,) = torch.autograd.grad(value, a)
+        assert abs(float(value.detach()) - want["value"]) <= TOL
+        _close_rel(grad.numpy()[list(GRAD_PAIRS)], np.asarray(want["grad_pcA"]))
+
+
+def test_table_mode_on_cpu_equals_off(net):
+    """fused_gather="table" on CPU tensors runs the wrappers' plain
+    versions inside their autograd Function: the same predictions as "off",
+    the same input gradients to float rounding (the adjoint sums in another
+    order), and no kernel launch."""
+    _, _, (tcfg, tparams) = net
+    pcA, pcB = _inputs(seed=4, B=2)
+    co = torch.as_tensor(np.random.default_rng(5).normal(size=(2, 64, 3)).astype(np.float32))
+    outs = []
+    for mode in ("table", "off"):
+        a, b = torch.tensor(pcA, requires_grad=True), torch.tensor(pcB, requires_grad=True)
+        pAB, pBA = apply_dpdist(tparams, tcfg.replace(fused_gather=mode), a, b)
+        grads = torch.autograd.grad(((pAB + pBA) * co).sum(), (a, b))
+        outs.append((pAB.detach(), pBA.detach()) + grads)
+    for got, want in zip(*outs):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6, rtol=1e-5)
+    assert table_gather_x.launches == 0 and table_gather_bwd.launches == 0
 
 
 def test_eval_pair_cli_matches_jax(capsys):
@@ -167,7 +246,6 @@ def test_entry_points_default_to_cuda():
     {"conv_version": 3},
     {"use_bn": True},
     {"dtype": "bfloat16"},
-    {"fused_gather": "table"},
     {"fused_gather": "full"},
     {"fused_gather": "on"},
     {"dims": 2, "embedding_size": 64},

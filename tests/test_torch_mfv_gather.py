@@ -72,7 +72,6 @@ def test_cpu_call_launches_no_kernel(rng):
     ("batch", ValueError),
     ("gaussians", ValueError),
     ("even_k", ValueError),
-    ("requires_grad", NotImplementedError),
 ])
 def test_wrapper_rejects_what_the_kernel_does_not_take(case, exc):
     pts = torch.zeros(2, 8, 3)
@@ -90,10 +89,27 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(case, exc):
         G = 512
     elif case == "even_k":
         k = 4
-    elif case == "requires_grad":
-        pts.requires_grad_(True)
     with pytest.raises(exc):
         mfv_x(pts, q, G, 0.25, g, k)
+
+
+def test_requires_grad_inputs_give_the_plain_compositions_gradient(rng):
+    """mfv_x with inputs that require a gradient (on the CPU: the plain
+    forward, then the backward through the adjoint's plain version and the
+    plain encode) gives autograd's gradient of the plain composition."""
+    pts = rng.uniform(-0.9, 0.9, (2, 12, 3)).astype(np.float32)
+    q = rng.uniform(-1.2, 1.2, (2, 16, 3)).astype(np.float32)
+    co = torch.as_tensor(rng.normal(size=(2, 16, 3 + 27 * 20)).astype(np.float32))
+    grads = []
+    for fn in (mfv_x, mfv_x_plain):
+        tp, tq = torch.tensor(pts, requires_grad=True), torch.tensor(q, requires_grad=True)
+        x = fn(tp, tq, 64, 0.25, 4, 3)[0]
+        grads.append(torch.autograd.grad((x * co).sum(), (tp, tq)))
+    (dp, dq), (dp_ref, dq_ref) = grads
+    assert torch.equal(dq, dq_ref)
+    # The same arithmetic, with the adjoint's sums in another order.
+    np.testing.assert_allclose(dp.numpy(), dp_ref.numpy(), atol=1e-5, rtol=1e-5)
+    assert mfv_x.launches == 0
 
 
 def test_build_without_nvcc_raises_and_writes_nothing(monkeypatch, tmp_path):
@@ -109,4 +125,4 @@ def test_build_cache_key_follows_sources():
     path = build.library_path()
     assert path.name == "libdpdist_kernels.so"
     assert path.parent.parent == build.BUILD_DIR
-    assert "mfv_gather.cu" in [s.name for s in build.sources()]
+    assert {"mfv_gather.cu", "table_gather.cu"} <= {s.name for s in build.sources()}

@@ -1,0 +1,224 @@
+"""The table-gather wrappers (kernels/table_gather.py), the backward of the
+fused mfv wrapper, and the gradients of the port's ops, against dpdist_tpu.
+
+On the CPU the wrappers run their plain versions; the JAX side runs as its
+own tests run it (Pallas in interpret mode, or the XLA oracle). The CUDA
+kernels themselves run only on a card (tests/test_torch_kernels_gpu.py).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dpdist_tpu.kernels.mfv_gather_pallas import mfv_table_gather_x as jax_mfv_x
+from dpdist_tpu.kernels.table_gather_pallas import table_gather_bwd as jax_tg_bwd
+from dpdist_tpu.kernels.table_gather_pallas import table_gather_bwd_xla_oracle
+from dpdist_tpu.kernels.table_gather_pallas import table_gather_x as jax_tg_x
+from dpdist_tpu.ops.threedmfv import threedmfv as jax_threedmfv
+from dpdist_tpu.ops.voxel import voxel_assign as jax_voxel_assign
+
+from dpdist_tpu_torch.kernels.mfv_gather import mfv_x
+from dpdist_tpu_torch.kernels.table_gather import (
+    table_gather_bwd,
+    table_gather_bwd_plain,
+    table_gather_x,
+    table_gather_x_plain,
+)
+from dpdist_tpu_torch.ops import threedmfv, voxel_assign
+
+# The adjoint sums the same products in another order where queries share
+# a voxel: the tolerance of the JAX package's own backward-kernel test.
+TOL_BWD = 1e-5
+
+
+def _queries(r, B, N, g):
+    """Queries partly off-grid, some exactly on cell edges and at +-1."""
+    q = r.uniform(-1.2, 1.2, (B, N, 3)).astype(np.float32)
+    edges = (-1.0 + (2.0 / g) * np.arange(g + 1)).astype(np.float32)
+    pick = r.random(q.shape) < 0.15
+    q[pick] = r.choice(edges, pick.sum())
+    return q
+
+
+@pytest.mark.parametrize("B,N,g,k", [(2, 16, 4, 3), (2, 16, 8, 5)])
+def test_table_gather_x_matches_pallas_interpret(B, N, g, k):
+    """Forward exact (x and vox), and both VJPs, against the Pallas kernel
+    in interpret mode (the sizes of tests/test_kernels.py:170-200)."""
+    r = np.random.default_rng(g)
+    fv = r.normal(size=(B, g ** 3, 20)).astype(np.float32)
+    q = _queries(r, B, N, g)
+    co = r.normal(size=(B, N, 3 + k ** 3 * 20)).astype(np.float32)
+    want = np.asarray(jax_tg_x(jnp.asarray(fv), jnp.asarray(q), g, k, interpret=True))
+    jdfv, jdq = jax.grad(lambda f, qq: jnp.sum(jax_tg_x(f, qq, g, k, interpret=True) * co),
+                         (0, 1))(jnp.asarray(fv), jnp.asarray(q))
+
+    tf, tq = torch.tensor(fv, requires_grad=True), torch.tensor(q, requires_grad=True)
+    x, vox = table_gather_x(tf, tq, g, k)
+    np.testing.assert_array_equal(x.detach().numpy(), want)
+    np.testing.assert_array_equal(vox.numpy(), np.asarray(jax_voxel_assign(jnp.asarray(q), g)[0]))
+    dfv, dq = torch.autograd.grad((x * torch.as_tensor(co)).sum(), (tf, tq))
+    np.testing.assert_array_equal(dq.numpy(), co[..., :3])    # d delta / d q = I
+    np.testing.assert_array_equal(dq.numpy(), np.asarray(jdq))
+    np.testing.assert_allclose(dfv.numpy(), np.asarray(jdfv), atol=TOL_BWD, rtol=0)
+
+
+@pytest.mark.parametrize("g,k", [(4, 3), (8, 5)])
+def test_table_gather_bwd_matches_jax_oracle_and_kernel(g, k):
+    """Gradient on every row, off-grid rows included: they carry vox = 0
+    and scatter into cell 0's neighbourhood, as the reference does."""
+    r = np.random.default_rng(10 + g)
+    B, N = 2, 24
+    q = _queries(r, B, N, g)
+    vox, mask, _ = jax_voxel_assign(jnp.asarray(q), g)
+    assert float(np.asarray(mask).min()) == 0.0          # some queries are off the grid
+    grad = r.normal(size=(B, N, k ** 3 * 20)).astype(np.float32)
+    oracle = np.asarray(table_gather_bwd_xla_oracle(vox, jnp.asarray(grad), grid_size=g, k=k,
+                                                    dtype=jnp.float32))
+    kernel = np.asarray(jax_tg_bwd(vox, jnp.asarray(grad), grid_size=g, k=k,
+                                   dtype=jnp.float32, interpret=True))
+    tvox = torch.as_tensor(np.array(vox))
+    got = table_gather_bwd(tvox, torch.as_tensor(grad), g, k)
+    assert got.shape == (B, g ** 3, 20)
+    np.testing.assert_allclose(got.numpy(), oracle, atol=TOL_BWD, rtol=0)
+    np.testing.assert_allclose(got.numpy(), kernel, atol=TOL_BWD, rtol=0)
+    # A strided grad (the patch part of x's gradient) gives the same.
+    wide = np.concatenate([r.normal(size=(B, N, 3)).astype(np.float32), grad], -1)
+    strided = table_gather_bwd(tvox, torch.as_tensor(wide)[..., 3:], g, k)
+    np.testing.assert_array_equal(strided.numpy(), got.numpy())
+
+
+def test_table_gather_x_backward_skips_the_adjoint_without_fv_grad():
+    """Only queries need a gradient: dq flows, the adjoint is never called
+    (its plain version would be; count it through a wrapper)."""
+    import dpdist_tpu_torch.kernels.table_gather as tg
+
+    r = np.random.default_rng(3)
+    fv = torch.as_tensor(r.normal(size=(1, 64, 20)).astype(np.float32))
+    q = torch.tensor(_queries(r, 1, 8, 4), requires_grad=True)
+    calls = []
+    real = tg.table_gather_bwd
+    tg.table_gather_bwd = lambda *a: calls.append(1) or real(*a)
+    try:
+        x, _ = table_gather_x(fv, q, 4, 3)
+        (dq,) = torch.autograd.grad(x.sum(), q)
+        fvg = fv.clone().requires_grad_(True)
+        x, _ = table_gather_x(fvg, q, 4, 3)
+        torch.autograd.grad(x.sum(), (fvg, q))
+    finally:
+        tg.table_gather_bwd = real
+    assert calls == [1]
+    np.testing.assert_array_equal(dq.numpy(), np.ones((1, 8, 3), np.float32))
+    assert table_gather_x.launches == 0 and table_gather_bwd.launches == 0
+
+
+def test_plain_versions_are_the_cpu_path():
+    r = np.random.default_rng(4)
+    fv = torch.as_tensor(r.normal(size=(2, 64, 20)).astype(np.float32))
+    q = torch.as_tensor(_queries(r, 2, 8, 4))
+    x, vox = table_gather_x(fv, q, 4, 3)
+    ref, ref_vox = table_gather_x_plain(fv, q, 4, 3)
+    assert torch.equal(x, ref) and torch.equal(vox, ref_vox) and vox.dtype == torch.int32
+    grad = torch.as_tensor(r.normal(size=(2, 8, 27 * 20)).astype(np.float32))
+    assert torch.equal(table_gather_bwd(vox, grad, 4, 3), table_gather_bwd_plain(vox, grad, 4, 3))
+
+
+@pytest.mark.parametrize("case,exc", [
+    ("float64", TypeError),
+    ("cells", ValueError),
+    ("batch", ValueError),
+    ("even_k", ValueError),
+    ("noncontiguous", ValueError),
+    ("vox_int64", TypeError),
+    ("grad_width", ValueError),
+])
+def test_wrappers_reject_what_the_kernels_do_not_take(case, exc):
+    fv, q, g, k = torch.zeros(2, 64, 20), torch.zeros(2, 8, 3), 4, 3
+    vox, grad = torch.zeros(2, 8, dtype=torch.int32), torch.zeros(2, 8, 540)
+    if case == "float64":
+        fv = fv.double()
+    elif case == "cells":
+        g = 8
+    elif case == "batch":
+        q = torch.zeros(3, 8, 3)
+    elif case == "even_k":
+        k = 4
+    elif case == "noncontiguous":
+        q = torch.zeros(2, 3, 8).transpose(1, 2)
+    elif case == "vox_int64":
+        vox = vox.long()
+    elif case == "grad_width":
+        grad = torch.zeros(2, 8, 541)
+    with pytest.raises(exc):
+        if case in ("vox_int64", "grad_width"):
+            table_gather_bwd(vox, grad, g, k)
+        else:
+            table_gather_x(fv, q, g, k)
+
+
+def test_mfv_x_backward_matches_pallas_vjp():
+    """The port's mfv_x VJP (dq = grad[..., :3]; dfv by the adjoint, then
+    through the plain encode) against jax.vjp of mfv_table_gather_x in
+    interpret mode, at the JAX kernel test's config. The encodes differ by
+    up to 2e-5 (matmul identity against per-dimension sums), which moves
+    the points' gradient relative to its size."""
+    r = np.random.default_rng(0)
+    B, M, N, G, g, k, sigma = 2, 12, 16, 64, 4, 3, 0.25
+    pts = r.uniform(-0.9, 0.9, (B, M, 3)).astype(np.float32)
+    q = _queries(r, B, N, g)
+    co = r.normal(size=(B, N, 3 + k ** 3 * 20)).astype(np.float32)
+    _, vjp = jax.vjp(lambda p, qq: jax_mfv_x(p, qq, G, sigma, g, k, interpret=True),
+                     jnp.asarray(pts), jnp.asarray(q))
+    jdp, jdq = (np.asarray(a) for a in vjp(jnp.asarray(co)))
+    tp, tq = torch.tensor(pts, requires_grad=True), torch.tensor(q, requires_grad=True)
+    x, _ = mfv_x(tp, tq, G, sigma, g, k)
+    dp, dq = torch.autograd.grad((x * torch.as_tensor(co)).sum(), (tp, tq))
+    np.testing.assert_array_equal(dq.numpy(), jdq)
+    np.testing.assert_allclose(dp.numpy(), jdp, atol=1e-3 * np.abs(jdp).max(), rtol=0)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_threedmfv_gradient_matches_jax(seed):
+    """d threedmfv / d points against JAX's XLA encode, relative to the
+    gradient's size: the two form squared distances differently (per
+    dimension here, by the matmul identity there), so the FV values differ
+    by up to 2e-5 and the signed sqrt's slope amplifies that where a pooled
+    value is small."""
+    r = np.random.default_rng(seed)
+    pts = r.uniform(-1.05, 1.05, (2, 40, 3)).astype(np.float32)
+    co = r.normal(size=(2, 512, 20)).astype(np.float32)
+    want = np.asarray(jax.grad(lambda p: jnp.sum(
+        jax_threedmfv(p, 512, 0.125, impl="xla") * co))(jnp.asarray(pts)))
+    tp = torch.tensor(pts, requires_grad=True)
+    (got,) = torch.autograd.grad((threedmfv(tp, 512, 0.125) * torch.as_tensor(co)).sum(), tp)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-3 * np.abs(want).max(), rtol=0)
+
+
+def test_threedmfv_max_ties_split_gradient_evenly():
+    """Two copies of one point tie in every max and min pool; amax/amin
+    split the gradient evenly between them, as JAX's max does, so both
+    copies get the same gradient, and JAX agrees."""
+    r = np.random.default_rng(2)
+    pts = r.uniform(-0.8, 0.8, (1, 6, 3)).astype(np.float32)
+    pts[0, 5] = pts[0, 4]
+    co = r.normal(size=(1, 64, 20)).astype(np.float32)
+    tp = torch.tensor(pts, requires_grad=True)
+    (got,) = torch.autograd.grad((threedmfv(tp, 64, 0.25) * torch.as_tensor(co)).sum(), tp)
+    np.testing.assert_allclose(got[0, 4].numpy(), got[0, 5].numpy(), rtol=1e-5, atol=1e-7)
+    want = np.asarray(jax.grad(lambda p: jnp.sum(
+        jax_threedmfv(p, 64, 0.25, impl="xla") * co))(jnp.asarray(pts)))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-3 * np.abs(want).max(), rtol=0)
+
+
+def test_voxel_assign_gradient_is_identity_and_cells_are_constant():
+    r = np.random.default_rng(3)
+    q = torch.tensor(_queries(r, 2, 32, 8), requires_grad=True)
+    vox, mask, delta = voxel_assign(q, 8)
+    co = torch.as_tensor(r.normal(size=(2, 32, 3)).astype(np.float32))
+    (dq,) = torch.autograd.grad((delta * co).sum(), q)
+    assert torch.equal(dq, co)
+    assert not vox.requires_grad and not mask.requires_grad
+    # A nudge inside a cell keeps the cell.
+    inner = torch.as_tensor(np.float32([[[0.1, -0.3, 0.6]]]))
+    assert torch.equal(voxel_assign(inner, 8)[0], voxel_assign(inner + 1e-3, 8)[0])
