@@ -3,10 +3,12 @@
 
     python3 chip_smoke.py
 
-Drives the port's three paths through their hand-written kernels and
-checks them: the frozen DPDist distance served from the committed nets
-(fused kernel), the frozen loss with its source gradient (table-gather
-kernel and its adjoint), and DPDist training (table-gather kernel).
+Drives the port's paths through their hand-written kernels and checks
+them: the frozen DPDist distance served from the committed nets (fused
+kernel at 64 points; streaming 3DmFV encode and patch-only gather at 256),
+the frozen loss with its source gradient (table-gather kernels and the
+adjoint), DPDist training (table-gather kernel), and eval_pair on two
+10,000-point clouds (encode, patch-only gather and the NN-min kernel).
 
   1. device        the card's name and power limit; fails without CUDA.
   2. build         compiles dpdist_tpu_torch/csrc (one nvcc call over
@@ -21,31 +23,60 @@ kernel and its adjoint), and DPDist training (table-gather kernel).
                    dfv within 1e-6 of its largest entry), and the fused
                    kernel's backward against autograd through the plain
                    composition.
-  5. serving       per committed net: three requests of B = 256 synthetic
+  5. encode_kernel the streaming 3DmFV encode against the plain encode at
+                   B = 256, N = 256; B = 4, N = 1,000 (a ragged tile); and
+                   B = 1, N = 10,000, with points on cell edges and a few
+                   far outside the grid (within 2e-5); its backward (the
+                   plain encode's replay) against autograd through the
+                   plain encode at B = 16, N = 256.
+  6. gather6_kernel the patch-only table gather against its plain version
+                   at B = 256, N = 256 with off-grid queries (exact).
+  7. chamfer_kernel the NN-min kernel against its plain version at B = 1,
+                   N = M = 10,000 and B = 2, N = 1,000, M = 4,099 (within
+                   1e-6 + 1e-5 |d|), and chamfer_distance on the card at
+                   10,000 x 10,000 against the plain path (within 1e-5).
+  8. serving       per committed net: three requests of B = 256 synthetic
                    pairs through load_frozen_distance (launch counters
                    reset before and read after), outputs finite and in
                    [0, 2], the kernel path against the plain path
                    (fused_gather="off") within 1e-4, and the golden pairs
                    against the JAX values within 1e-4.
-  6. frozen_grad   per committed net: the frozen loss and its gradient in
+  9. serving_large the same at np = 256 (2 encode and 2 patch-only gather
+                   launches per request, none of the others), with the
+                   golden np = 256 pairs.
+ 10. frozen_grad   per committed net: the frozen loss and its gradient in
                    pcA on the golden pairs against the JAX values; three
                    source-gradient calls at B = 256 (counters reset before,
                    read after: 2 table-gather and 1 adjoint launch per
                    call), against the plain path and the fused-kernel
                    path; the parameters unchanged and without .grad.
-  7. train         DPDistTrainer at the canonical config, B = 16: 30 steps
+ 11. frozen_grad_large the same at np = 256: per call 2 encode, 2
+                   patch-only gather and 1 adjoint launch, and one encode
+                   replay (pcA's; none for pcB); against the plain path
+                   and the golden np = 256 values.
+ 12. train         DPDistTrainer at the canonical config, B = 16: 30 steps
                    on one synthetic batch whose labels are distances to a
                    10k-point surface (counters reset before, read after:
                    one table-gather launch per step, no adjoint); the loss
                    falls; one step on the kernel path against the plain
                    path; save -> restore gives equal params.
-  8. times         CUDA-event medians of 20 runs after warm-up: each kernel
+ 13. eval_pair_large cli.eval_pair.main in-process on two 10,000-point
+                   synthetic surfaces written as csv (counters: 2 encode,
+                   2 patch-only gather, 2 NN-min launches); each key
+                   against the port's plain path on the same clouds; the
+                   golden np = 256 pairs' chamfer and EMD on the card.
+ 14. times         CUDA-event medians of 20 runs after warm-up: each kernel
                    with its bound, its plain version and a PyTorch library
                    call computing the same function where there is one
-                   (rows 2 and 3 on the first request's pcB, the
-                   queries the frozen loss gives them); the forward, the
-                   frozen source-gradient step and the train step at
-                   B = 256.
+                   (rows 2 and 3 on the first request's pcB, the queries
+                   the frozen loss gives them; row 6 on the np = 256
+                   request's pcB; row 8 on eval_pair's clouds); the encode
+                   kernel against the plain encode at B = 256, N = 64 and
+                   256, and at B = 1, N = 10,000; the
+                   forward, the frozen source-gradient step and the train
+                   step at B = 256, np = 64, and the forward and the
+                   source-gradient step at np = 256; eval_pair at 10,000
+                   points, end to end and per key.
 
 Every phase prints a start and an end line. A wall-clock guard ends the
 run with a non-zero exit naming the phase. The last lines are the
@@ -56,6 +87,8 @@ Imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import signal
@@ -88,6 +121,19 @@ TOL_DIST = 1e-4          # distances and losses: kernel path vs plain path and v
 # a few points (tests/test_torch_losses_optim.py says why).
 REL_GRAD, REL_GRAD_FEW, OUTLIERS = 1e-3, 5e-2, 0.05
 B_TRAIN, TRAIN_STEPS, SURFACE_POINTS = 16, 30, 10000
+NP_LARGE = 256           # the JAX bench's second forward size (bench.py:133-138)
+EVAL_POINTS = 10000      # eval_pair's clouds, dense enough for the NN-min kernel
+FAR = 4.5                # far outside the grid: Q underflows to 0 there
+# NN-min kernel vs plain: nvcc contracts the per-dimension sum to FMA.
+TOL_NN_ABS, TOL_NN_REL = 1e-6, 1e-5
+# chamfer and EMD on the card against the plain path: both sides sum in
+# float32 (tests/test_torch_chamfer_emd.py's tolerance against JAX).
+TOL_CHAMFER = TOL_EMD = 1e-5
+# Float32 operations per (point, Gaussian) pair of the encode: the logit
+# (3 subtractions, 3 divisions, 3 products, 3 additions), the softmax's
+# exp, division and sum, and the 20 pools (d_pi 4, d_mu 12, d_sigma 18).
+ENCODE_OPS_PER_PAIR = 50
+NN_OPS_PER_PAIR = 9      # 3 subtractions, 3 products, 2 additions, 1 minimum
 TIMED_RUNS = 20
 # H100 SXM peaks (NVIDIA's data sheet, dense, at the 700 W limit): device
 # memory rate and float32 outside the tensor cores.
@@ -183,7 +229,22 @@ def make_kernel_inputs(rng, torch, dev, n_clouds):
     return (torch.as_tensor(pts, device=dev), torch.as_tensor(q, device=dev))
 
 
-def make_requests(rng, torch, dev):
+def make_encode_inputs(rng, torch, dev, B, N):
+    """Clouds inside the grid with 10 % of their coordinates on cell edges,
+    and about 1 % of their points (the first one at least) far outside."""
+    import numpy as np
+
+    edges = (-1.0 + (2.0 / GRID) * np.arange(GRID + 1)).astype(np.float32)
+    pts = rng.uniform(-0.95, 0.95, (B, N, 3)).astype(np.float32)
+    on_edge = rng.random(pts.shape) < 0.1
+    pts[on_edge] = rng.choice(edges[1:-1], on_edge.sum())
+    far = rng.random((B, N)) < 0.01
+    far[:, 0] = True
+    pts[far] = (rng.choice([-1.0, 1.0], (far.sum(), 3)) * FAR).astype(np.float32)
+    return torch.as_tensor(pts, device=dev)
+
+
+def make_requests(rng, torch, dev, n_points=NP):
     """REQUESTS batches of B_SERVE synthetic pairs (chair/box/sphere, x0.8)."""
     import numpy as np
     from dpdist_tpu_torch.data.synthetic import synthetic_surface
@@ -194,8 +255,9 @@ def make_requests(rng, torch, dev):
         a, b = [], []
         for i in range(B_SERVE):
             seed = int(rng.integers(0, 2 ** 31 - 2))
-            a.append(synthetic_surface(fams[i % 3], seed=seed, n_points=NP) * 0.8)
-            b.append(synthetic_surface(fams[(i + r) % 3], seed=seed + 1, n_points=NP) * 0.8)
+            a.append(synthetic_surface(fams[i % 3], seed=seed, n_points=n_points) * 0.8)
+            b.append(synthetic_surface(fams[(i + r) % 3], seed=seed + 1,
+                                       n_points=n_points) * 0.8)
         reqs.append(tuple(torch.as_tensor(np.stack(x).astype(np.float32), device=dev)
                           for x in (a, b)))
     return reqs
@@ -229,6 +291,31 @@ def reset_counters(*wrappers):
         w.launches = 0
 
 
+def neighbour_rows(torch, vox, n_cells):
+    """For each (query, offset) of the k^3 window, the row of its neighbour
+    cell in a (B*(V+1), C) volume whose last row per cloud is a zero
+    (gather) or sink (scatter) row; and which windows lie inside the grid.
+    The index a library call needs to compute a patch gather or its adjoint."""
+    kh = K // 2
+    dev = vox.device
+    o = torch.arange(K ** 3, device=dev)
+    shift = torch.stack([o // (K * K) - kh, (o // K) % K - kh, o % K - kh], -1)
+    v = vox.long()
+    digits = torch.stack([v // (GRID * GRID), (v // GRID) % GRID, v % GRID], -1)
+    nb = digits[:, :, None, :] + shift                                  # (B, N, K3, 3)
+    inside = ((nb >= 0) & (nb < GRID)).all(-1)
+    flat = nb[..., 0] * GRID * GRID + nb[..., 1] * GRID + nb[..., 2]
+    base = (torch.arange(vox.shape[0], device=dev) * (n_cells + 1))[:, None, None]
+    rows = (base + torch.where(inside, flat, torch.full_like(flat, n_cells))).reshape(-1)
+    return rows, inside
+
+
+def write_cloud(path, pts):
+    import numpy as np
+
+    np.savetxt(path, pts, delimiter=",", fmt="%.8g")
+
+
 def main() -> int:
     signal.signal(signal.SIGALRM, _time_out)
     signal.alarm(TIME_LIMIT_S)
@@ -245,17 +332,30 @@ def main() -> int:
         import numpy as np
 
         import dpdist_tpu_torch  # noqa: F401  (sets TF32 off)
+        from dpdist_tpu_torch.cli import eval_pair
         from dpdist_tpu_torch.configs import DPDistConfig, TrainConfig
         from dpdist_tpu_torch.data.golden import golden_clouds, load_golden
+        from dpdist_tpu_torch.data.synthetic import synthetic_surface
         from dpdist_tpu_torch.kernels import build
+        from dpdist_tpu_torch.kernels.chamfer import nn_min_sqdist, nn_min_sqdist_plain
         from dpdist_tpu_torch.kernels.mfv_gather import mfv_x, mfv_x_plain
         from dpdist_tpu_torch.kernels.table_gather import (
+            table_gather,
             table_gather_bwd,
             table_gather_bwd_plain,
+            table_gather_plain,
             table_gather_x,
             table_gather_x_plain,
         )
+        from dpdist_tpu_torch.kernels.threedmfv import threedmfv_kernel
         from dpdist_tpu_torch.losses import make_frozen_dpdist_loss
+        from dpdist_tpu_torch.ops import (
+            chamfer_distance,
+            earth_mover_distance,
+            sinkhorn_emd,
+            threedmfv_plain,
+            voxel_assign,
+        )
         from dpdist_tpu_torch.serving import load_frozen_distance
         from dpdist_tpu_torch.train import load_dpdist_checkpoint, params_from_jax
         from dpdist_tpu_torch.train.logging import RunLogger
@@ -338,44 +438,144 @@ def main() -> int:
               f"{err_mfv_bwd:.3e} of max", flush=True)
         del x_ref, gx, grad, dfv_ref, co, grads, dp, dp_ref
 
-    launches = {"mfv_gather_x": 0, "table_gather_x": 0, "table_gather_bwd": 0}
+    with Phase("encode_kernel"):
+        err_enc = 0.0
+        for B, N in ((B_SERVE, NP_LARGE), (4, 1000), (1, EVAL_POINTS)):
+            pe = make_encode_inputs(rng, torch, dev, B, N)
+            with torch.no_grad():
+                fve = threedmfv_kernel(pe, G, SIGMA)
+                torch.cuda.synchronize()
+                fve_ref = threedmfv_plain(pe, G, SIGMA)
+            check(fve.shape == (B, G, C), f"encode shape {tuple(fve.shape)}")
+            check(bool(torch.isfinite(fve).all()), "encode has non-finite values")
+            err = float((fve - fve_ref).abs().max())
+            err_enc = max(err_enc, err)
+            print(f"encode kernel vs plain at B={B}, N={N}: max |d fv| = {err:.3e} (tol {TOL_X})",
+                  flush=True)
+            check(err <= TOL_X, f"encode at B={B}, N={N}: max |d fv| {err} > {TOL_X}")
+            del fve, fve_ref
+        pe = make_encode_inputs(rng, torch, dev, 16, NP_LARGE)
+        co = torch.as_tensor(rng.normal(size=(16, G, C)).astype(np.float32), device=dev)
+        grads = []
+        for fn in (threedmfv_kernel, threedmfv_plain):
+            p_ = pe.clone().requires_grad_()
+            grads.append(torch.autograd.grad((fn(p_, G, SIGMA) * co).sum(), p_)[0])
+        err_enc_bwd = float((grads[0] - grads[1]).abs().max())
+        print(f"encode backward (replay) vs autograd through the plain encode at B=16, "
+              f"N={NP_LARGE}: max |d| = {err_enc_bwd:.3e} (equal expected)", flush=True)
+        check(torch.equal(grads[0], grads[1]), "encode backward differs from the plain encode's")
+        del pe, co, grads
+
+    with Phase("gather6_kernel"):
+        fv6 = torch.as_tensor(rng.normal(size=(B_SERVE, G, C)).astype(np.float32), device=dev)
+        q6 = torch.as_tensor(rng.uniform(-1.2, 1.2, (B_SERVE, NP_LARGE, 3)).astype(np.float32),
+                             device=dev)
+        vox6 = voxel_assign(q6, GRID)[0]
+        with torch.no_grad():
+            out6 = table_gather(fv6, vox6, GRID, K)
+            torch.cuda.synchronize()
+            ref6 = table_gather_plain(fv6, vox6, GRID, K)
+        err_tg6 = float((out6 - ref6).abs().max())
+        off6 = int((voxel_assign(q6, GRID)[1] == 0).sum())
+        print(f"table_gather vs plain at B={B_SERVE}, N={NP_LARGE}: max |d| = {err_tg6:.3e} "
+              f"(exact expected), {off6} off-grid queries", flush=True)
+        check(off6 > 0, "no off-grid query in the gather check")
+        check(torch.equal(out6, ref6), f"table_gather differs from its plain version ({err_tg6})")
+        del fv6, q6, vox6, out6, ref6
+
+    with Phase("chamfer_kernel"):
+        err_nn = 0.0
+        for B, N, M in ((1, EVAL_POINTS, EVAL_POINTS), (2, 1000, 4099)):
+            a_, p_ = (torch.as_tensor(rng.uniform(-1.0, 1.0, (B, n, 3)).astype(np.float32),
+                                      device=dev) for n in (N, M))
+            with torch.no_grad():
+                d = nn_min_sqdist(a_, p_)
+                torch.cuda.synchronize()
+                d_ref = nn_min_sqdist_plain(a_, p_)
+            err = float((d - d_ref).abs().max())
+            err_nn = max(err_nn, err)
+            bad = int(((d - d_ref).abs() > TOL_NN_ABS + TOL_NN_REL * d_ref.abs()).sum())
+            print(f"nn_min_sqdist vs plain at B={B}, N={N}, M={M}: max |d| = {err:.3e}, "
+                  f"entries outside {TOL_NN_ABS} + {TOL_NN_REL}|d|: {bad}", flush=True)
+            check(bad == 0, f"nn_min_sqdist at B={B}, N={N}, M={M} disagrees on {bad} entries")
+        a10, b10 = (torch.as_tensor(rng.uniform(-1.0, 1.0, (1, EVAL_POINTS, 3)).astype(np.float32),
+                                    device=dev) for _ in range(2))
+        with torch.no_grad():
+            for sq in (True, False):
+                got = float(chamfer_distance(a10, b10, sqrt=sq))
+                want = float(chamfer_distance(a10, b10, sqrt=sq, impl="plain"))
+                print(f"chamfer_distance (sqrt={sq}) at {EVAL_POINTS} x {EVAL_POINTS}: kernel "
+                      f"path {got:.7f}, plain path {want:.7f}, |d| = {abs(got - want):.3e} "
+                      f"(tol {TOL_CHAMFER})", flush=True)
+                check(abs(got - want) <= TOL_CHAMFER, "chamfer_distance: kernel vs plain path")
+        del a_, p_, d, d_ref, a10, b10
+
     counters = {"mfv_gather_x": mfv_x, "table_gather_x": table_gather_x,
-                "table_gather_bwd": table_gather_bwd}
+                "table_gather_bwd": table_gather_bwd, "threedmfv": threedmfv_kernel,
+                "table_gather": table_gather, "nn_min_sqdist": nn_min_sqdist}
+    launches = dict.fromkeys(counters, 0)
+
+    def start_count():
+        reset_counters(*counters.values())
+        threedmfv_kernel.replays = 0
+
+    def read_count():
+        """The launches since start_count, added to the run's main-path totals."""
+        torch.cuda.synchronize()
+        launched = {k: w.launches for k, w in counters.items()}
+        for k in launches:
+            launches[k] += launched[k]
+        return launched
+
+    def expected(**nonzero):
+        return {k: nonzero.get(k, 0) for k in counters}
+
     golden = load_golden()
+    large = golden["np256"]
     gA, gB = (torch.as_tensor(a, device=dev) for a in golden_clouds(golden))
-    fwd_model = None
-    with Phase("serving"):
-        requests = make_requests(rng, torch, dev)
+    gA_large, gB_large = (torch.as_tensor(a, device=dev)
+                          for a in golden_clouds(golden, large["num_point"]))
+
+    def serve(requests, section, clouds, want):
+        """Per committed net: the requests through load_frozen_distance,
+        counted; outputs against the plain path and the section's golden
+        distances. Returns the last net's model."""
+        n_points = requests[0][0].shape[1]
         for net in NETS:
             model = load_frozen_distance(str(ROOT / net), device=dev)
             plain = load_frozen_distance(str(ROOT / net), device=dev, fused_gather="off")
-            reset_counters(*counters.values())
+            start_count()
             with torch.no_grad():
                 outs = [model(a, b) for a, b in requests]
-            torch.cuda.synchronize()
-            launched = {k: w.launches for k, w in counters.items()}
-            for k in launches:
-                launches[k] += launched[k]
-            print(f"{net}: {REQUESTS} requests of {B_SERVE} pairs, kernel launches "
-                  f"{launched}", flush=True)
-            check(launched == {"mfv_gather_x": REQUESTS, "table_gather_x": 0,
-                               "table_gather_bwd": 0}, f"{net}: unexpected launches")
+            launched = read_count()
+            print(f"{net}: {REQUESTS} requests of {B_SERVE} pairs at np={n_points}, kernel "
+                  f"launches {launched}", flush=True)
+            check(launched == want, f"{net}: unexpected launches")
             with torch.no_grad():
                 refs = [plain(a, b) for a, b in requests]
-                got_golden = model(gA, gB).cpu().numpy()
+                got_golden = model(*clouds).cpu().numpy()
             for out in outs:
                 check(out.shape == (B_SERVE,), f"output shape {tuple(out.shape)}")
                 check(bool(torch.isfinite(out).all()), "non-finite distance")
                 check(float(out.min()) >= 0.0 and float(out.max()) <= 2.0,
                       f"distance outside [0, 2]: {float(out.min())}..{float(out.max())}")
             err_plain = max(float((o - r).abs().max()) for o, r in zip(outs, refs))
-            err_golden = float(np.abs(got_golden - np.asarray(golden["distance"][net])).max())
+            err_golden = float(np.abs(got_golden - np.asarray(section["distance"][net])).max())
             print(f"{net}: distances {float(outs[0].min()):.4f}..{float(outs[0].max()):.4f}; "
                   f"kernel path vs plain path max |d| = {err_plain:.3e}; vs JAX golden "
                   f"max |d| = {err_golden:.3e} (tol {TOL_DIST})", flush=True)
             check(err_plain <= TOL_DIST, f"{net}: kernel vs plain path {err_plain}")
             check(err_golden <= TOL_DIST, f"{net}: vs golden {err_golden}")
-            fwd_model = model
+        return model
+
+    with Phase("serving"):
+        requests = make_requests(rng, torch, dev)
+        fwd_model = serve(requests, golden, (gA, gB), expected(mfv_gather_x=REQUESTS))
+
+    with Phase("serving_large"):
+        requests_large = make_requests(rng, torch, dev, NP_LARGE)
+        fwd_model_large = serve(requests_large, large, (gA_large, gB_large),
+                                expected(threedmfv=2 * REQUESTS, table_gather=2 * REQUESTS))
 
     def src_grad(loss_fn, a, b):
         a = a.detach().requires_grad_(True)
@@ -383,9 +583,14 @@ def main() -> int:
         (g,) = torch.autograd.grad(value, a)
         return value.detach(), g
 
-    with Phase("frozen_grad"):
-        gold = golden["frozen_loss"]
+    def frozen_grad(requests, section, clouds, want, replays, other_modes):
+        """Per committed net: the frozen loss and d/dpcA on the section's
+        golden pairs against the JAX values; source-gradient calls on the
+        requests, counted, against the paths of other_modes; the parameters
+        unchanged and without .grad."""
+        gold = section["frozen_loss"]
         rows = gold["grad_pairs"]
+        n_points = requests[0][0].shape[1]
         for net in NETS:
             cfg, np_params = load_dpdist_checkpoint(str(ROOT / net))
             params = params_from_jax(np_params, dev)
@@ -394,25 +599,23 @@ def main() -> int:
             before = [t.detach().clone() for t in leaves]
             loss_fn = make_frozen_dpdist_loss(params, cfg,
                                               out_of_grid_penalty=gold["out_of_grid_penalty"])
-            value, g = src_grad(loss_fn, gA, gB)
+            value, g = src_grad(loss_fn, *clouds)
             err_value = abs(float(value) - gold[net]["value"])
             worst = check_grad_rows(g[rows], torch.as_tensor(gold[net]["grad_pcA"], device=dev),
                                     f"{net}: golden d/dpcA")
-            print(f"{net}: golden frozen loss |d| = {err_value:.3e} (tol {TOL_DIST}); d/dpcA "
-                  f"worst point {worst:.3e} of max", flush=True)
+            print(f"{net}: golden frozen loss at np={clouds[0].shape[1]} |d| = {err_value:.3e} "
+                  f"(tol {TOL_DIST}); d/dpcA worst point {worst:.3e} of max", flush=True)
             check(err_value <= TOL_DIST, f"{net}: golden frozen loss off by {err_value}")
 
-            reset_counters(*counters.values())
+            start_count()
             outs = [src_grad(loss_fn, a, b) for a, b in requests]
-            torch.cuda.synchronize()
-            launched = {k: w.launches for k, w in counters.items()}
-            for k in launches:
-                launches[k] += launched[k]
-            print(f"{net}: {REQUESTS} source-gradient calls of {B_SERVE} pairs, kernel "
-                  f"launches {launched}", flush=True)
-            check(launched == {"mfv_gather_x": 0, "table_gather_x": 2 * REQUESTS,
-                               "table_gather_bwd": REQUESTS}, f"{net}: unexpected launches")
-            for mode in ("off", "mfv"):
+            launched = read_count()
+            print(f"{net}: {REQUESTS} source-gradient calls of {B_SERVE} pairs at "
+                  f"np={n_points}, kernel launches {launched}, encode replays "
+                  f"{threedmfv_kernel.replays}", flush=True)
+            check(launched == want, f"{net}: unexpected launches")
+            check(threedmfv_kernel.replays == replays, f"{net}: unexpected encode replays")
+            for mode in other_modes:
                 other = make_frozen_dpdist_loss(params, cfg.replace(fused_gather=mode))
                 for (v, g), (a, b) in zip(outs, requests):
                     v_ref, g_ref = src_grad(other, a, b)
@@ -426,6 +629,18 @@ def main() -> int:
             check(all(torch.equal(t, b) for t, b in zip(leaves, before)),
                   f"{net}: a parameter changed")
 
+    with Phase("frozen_grad"):
+        frozen_grad(requests, golden, (gA, gB),
+                    expected(table_gather_x=2 * REQUESTS, table_gather_bwd=REQUESTS), 0,
+                    ("off", "mfv"))
+
+    with Phase("frozen_grad_large"):
+        # One encode replay per call: pcA's. pcB needs no gradient, so its
+        # encode is not replayed, and its surface needs no adjoint.
+        frozen_grad(requests_large, large, (gA_large, gB_large),
+                    expected(threedmfv=2 * REQUESTS, table_gather=2 * REQUESTS,
+                             table_gather_bwd=REQUESTS), REQUESTS, ("off",))
+
     with Phase("train"), tempfile.TemporaryDirectory() as tmp:
         mcfg, tcfg = DPDistConfig(), TrainConfig(batch_size=B_TRAIN, augment=False)
         data, labels = make_train_batch(rng, torch, dev)
@@ -433,18 +648,14 @@ def main() -> int:
                                 logger=RunLogger(os.path.join(tmp, "run"), echo=False))
         start = [t.detach().clone() for lp in trainer.params["decoder"]["layers"]
                  for t in lp.values()]
-        reset_counters(*counters.values())
+        start_count()
         losses = [trainer.train_step(data, labels)["loss"] for _ in range(TRAIN_STEPS)]
-        torch.cuda.synchronize()
-        launched = {k: w.launches for k, w in counters.items()}
-        for k in launches:
-            launches[k] += launched[k]
+        launched = read_count()
         losses = torch.stack(losses).cpu().numpy()
         print(f"train: {TRAIN_STEPS} steps at B={B_TRAIN}, kernel launches {launched}; loss "
               f"{losses[0]:.5f} -> {losses[-1]:.5f} (first 5 mean {losses[:5].mean():.5f}, last "
               f"5 mean {losses[-5:].mean():.5f})", flush=True)
-        check(launched == {"mfv_gather_x": 0, "table_gather_x": TRAIN_STEPS,
-                           "table_gather_bwd": 0}, "train: unexpected launches")
+        check(launched == expected(table_gather_x=TRAIN_STEPS), "train: unexpected launches")
         check(bool(np.isfinite(losses).all()), "train: non-finite loss")
         check(losses[-5:].mean() < losses[:5].mean(), "train: the loss did not fall")
 
@@ -487,6 +698,62 @@ def main() -> int:
               "train: save -> restore")
         del restored, steps
 
+    with Phase("eval_pair_large"), tempfile.TemporaryDirectory() as tmp:
+        files = []
+        for fname, family, seed in (("a.txt", "chair", 7), ("b.txt", "box", 8)):
+            files.append(os.path.join(tmp, fname))
+            write_cloud(files[-1], synthetic_surface(family, seed=seed,
+                                                     n_points=EVAL_POINTS) * 0.8)
+        eval_args = ["--dpdist_ckpt", str(ROOT / NETS[0]), "--cloud_a", files[0],
+                     "--cloud_b", files[1], "--num_point", str(EVAL_POINTS)]
+        start_count()
+        with contextlib.redirect_stdout(io.StringIO()) as printed:
+            t0 = time.perf_counter()
+            result = eval_pair.main(eval_args)
+            torch.cuda.synchronize()
+            eval_s = time.perf_counter() - t0
+        launched = read_count()
+        print(f"eval_pair on two {EVAL_POINTS}-point clouds: {result} in {eval_s:.3f} s "
+              f"(first call), kernel launches {launched}", flush=True)
+        check(json.loads(printed.getvalue()) == result, "eval_pair printed another result")
+        check(launched == expected(threedmfv=2, table_gather=2, nn_min_sqdist=2),
+              "eval_pair: unexpected launches")
+        # The same clouds through the port's plain path.
+        eA, eB = (torch.as_tensor(np.loadtxt(f, delimiter=",")[None].astype(np.float32),
+                                  device=dev) for f in files)
+        plain = load_frozen_distance(str(ROOT / NETS[0]), device=dev, fused_gather="off")
+        with torch.no_grad():
+            want = {"dpdist": float(plain(eA, eB).mean()),
+                    "chamfer": float(chamfer_distance(eA, eB, impl="plain")),
+                    "emd": float(earth_mover_distance(eA, eB))}
+        diffs = {k: abs(result[k] - want[k]) for k in want}
+        print(f"eval_pair vs the plain path: {want}; |d| {diffs} (tol dpdist {TOL_DIST}, "
+              f"chamfer {TOL_CHAMFER}, emd {TOL_EMD})", flush=True)
+        check(all(np.isfinite(list(result.values()))), "eval_pair: non-finite result")
+        check(diffs["dpdist"] <= TOL_DIST and diffs["chamfer"] <= TOL_CHAMFER
+              and diffs["emd"] <= TOL_EMD, "eval_pair: kernel path vs plain path")
+        # The golden np = 256 pairs' chamfer and EMD on the card.
+        with torch.no_grad():
+            g_chamfer = [float(chamfer_distance(gA_large[i:i + 1], gB_large[i:i + 1]))
+                         for i in range(gA_large.shape[0])]
+            g_emd = sinkhorn_emd(gA_large, gB_large).cpu().numpy()
+        err_c = float(np.abs(np.asarray(g_chamfer) - np.asarray(large["chamfer"])).max())
+        err_e = float(np.abs(g_emd - np.asarray(large["emd"])).max())
+        print(f"golden np={NP_LARGE} pairs vs JAX: chamfer max |d| = {err_c:.3e} (tol "
+              f"{TOL_CHAMFER}), EMD max |d| = {err_e:.3e} (tol {TOL_EMD})", flush=True)
+        check(err_c <= TOL_CHAMFER and err_e <= TOL_EMD, "golden chamfer / EMD")
+        del plain
+        # End to end (checkpoint load, file parse, the three keys), host
+        # clock, warm.
+        walls = []
+        for _ in range(3):
+            with contextlib.redirect_stdout(io.StringIO()):
+                t0 = time.perf_counter()
+                eval_pair.main(eval_args)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+        eval_e2e_ms = statistics.median(walls) * 1e3
+
     with Phase("times"):
         records = []
         B, N, V, E = B_SERVE, NP, G, K ** 3 * C
@@ -496,19 +763,9 @@ def main() -> int:
         a, b = requests[0]
         with torch.no_grad():
             x, vox = table_gather_x(fv, b, GRID, K)
-        # Neighbour rows of each (query, offset) for the library calls: the
-        # cell's row in a (B*(V+1), C) volume whose last row per cloud is a
-        # zero (gather) or sink (scatter) row. Built outside the timed region.
-        kh = K // 2
-        o = torch.arange(K ** 3, device=dev)
-        shift = torch.stack([o // (K * K) - kh, (o // K) % K - kh, o % K - kh], -1)
-        v = vox.long()
-        digits = torch.stack([v // (GRID * GRID), (v // GRID) % GRID, v % GRID], -1)
-        nb = digits[:, :, None, :] + shift                                  # (B, N, K3, 3)
-        inside = ((nb >= 0) & (nb < GRID)).all(-1)
-        flat = nb[..., 0] * GRID * GRID + nb[..., 1] * GRID + nb[..., 2]
-        base = (torch.arange(B, device=dev) * (V + 1))[:, None, None]
-        rows_idx = (base + torch.where(inside, flat, torch.full_like(flat, V))).reshape(-1)
+        # Neighbour rows of each (query, offset) for the library calls,
+        # built outside the timed region.
+        rows_idx, inside = neighbour_rows(torch, vox, V)
         fv_pad = torch.cat([fv, torch.zeros(B, 1, C, device=dev)], 1).reshape(-1, C)
         grad_rows = torch.as_tensor(rng.normal(size=(B, N, 3 + E)).astype(np.float32),
                                     device=dev)
@@ -572,6 +829,79 @@ def main() -> int:
                             "launches": launches["table_gather_bwd"], "max_abs_err": err_bwd,
                             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                             "library_ms": lib_ms})
+
+            # Rows 7 and 6 on the np = 256 path's inputs: pcA of the first
+            # large request is encoded, and pcB queries that surface.
+            aL, bL = requests_large[0]
+            NL = NP_LARGE
+            fvL = threedmfv_kernel(aL, G, SIGMA)
+            ms = cuda_median_ms(lambda: threedmfv_kernel(aL, G, SIGMA))
+            plain_ms = cuda_median_ms(lambda: threedmfv_plain(aL, G, SIGMA))
+            # Points and Gaussian centres in, the volumes out.
+            b_ms, b_by = bound(4 * (B * NL * 3 + G * 3 + B * G * C),
+                               ENCODE_OPS_PER_PAIR * B * NL * G)
+            records.append({"name": "threedmfv", "route": "cuda",
+                            "source": "dpdist_tpu_torch/csrc/threedmfv.cu",
+                            "replaces": "dpdist_tpu/kernels/threedmfv_pallas.py:192",
+                            "launches": launches["threedmfv"], "max_abs_err": err_enc,
+                            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                            "library_ms": None})
+            # The crossover against the plain encode, and eval_pair's one
+            # large cloud (one block on one SM).
+            for cloud in (a, aL, eA):
+                k_ms = cuda_median_ms(lambda: threedmfv_kernel(cloud, G, SIGMA))
+                p_ms = cuda_median_ms(lambda: threedmfv_plain(cloud, G, SIGMA))
+                print(f"encode at B={cloud.shape[0]}, N={cloud.shape[1]}: kernel {k_ms:.4f} ms, "
+                      f"plain {p_ms:.4f} ms (kernel / plain = {k_ms / p_ms:.3f}); on {card}",
+                      flush=True)
+
+            voxL = voxel_assign(bL, GRID)[0]
+            rows6, inside6 = neighbour_rows(torch, voxL, V)
+            fv_pad6 = torch.cat([fvL, torch.zeros(B, 1, C, device=dev)], 1).reshape(-1, C)
+            reached6 = torch.zeros(B * (V + 1), dtype=torch.bool, device=dev)
+            reached6[rows6] = True
+            n_reached6 = int(reached6.view(B, V + 1)[:, :V].sum())
+            check(torch.equal(fv_pad6.index_select(0, rows6).view(B, NL, E),
+                              table_gather(fvL, voxL, GRID, K)),
+                  "index_select does not reproduce table_gather")
+            print(f"row 6 timed inputs: {B} clouds x {NL} queries, {int((~inside6).sum())} of "
+                  f"{inside6.numel()} windows off the grid, {n_reached6} of {B * V} cells "
+                  f"reached", flush=True)
+            ms = cuda_median_ms(lambda: table_gather(fvL, voxL, GRID, K))
+            plain_ms = cuda_median_ms(lambda: table_gather_plain(fvL, voxL, GRID, K))
+            lib_ms = cuda_median_ms(lambda: fv_pad6.index_select(0, rows6))
+            # The reached cells of fv and vox in, the patch rows out; no arithmetic.
+            b_ms, b_by = bound(4 * (n_reached6 * C + B * NL + B * NL * E), 0)
+            records.append({"name": "table_gather", "route": "cuda",
+                            "source": "dpdist_tpu_torch/csrc/table_gather.cu",
+                            "replaces": "dpdist_tpu/kernels/table_gather_pallas.py:106",
+                            "launches": launches["table_gather"], "max_abs_err": err_tg6,
+                            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                            "library_ms": lib_ms})
+            del fv_pad6, reached6, rows6
+
+            # Row 8 on eval_pair's clouds, one direction.
+            NE = eA.shape[1]
+            lib_nn = torch.cdist(eA, eB, compute_mode="donot_use_mm_for_euclid_dist").square()
+            lib_nn = lib_nn.amin(-1)
+            d_nn = nn_min_sqdist(eA, eB)
+            check(bool(((lib_nn - d_nn).abs() <= TOL_NN_ABS + TOL_NN_REL * d_nn.abs()).all()),
+                  "torch.cdist does not reproduce nn_min_sqdist")
+            ms = cuda_median_ms(lambda: nn_min_sqdist(eA, eB))
+            plain_ms = cuda_median_ms(lambda: nn_min_sqdist_plain(eA, eB))
+            lib_ms = cuda_median_ms(lambda: torch.cdist(
+                eA, eB, compute_mode="donot_use_mm_for_euclid_dist").square().amin(-1))
+            # Both clouds in, the minima out.
+            b_ms, b_by = bound(4 * (NE * 3 + eB.shape[1] * 3 + NE),
+                               NN_OPS_PER_PAIR * NE * eB.shape[1])
+            records.append({"name": "nn_min_sqdist", "route": "cuda",
+                            "source": "dpdist_tpu_torch/csrc/chamfer.cu",
+                            "replaces": "dpdist_tpu/kernels/chamfer_pallas.py:74",
+                            "launches": launches["nn_min_sqdist"], "max_abs_err": err_nn,
+                            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                            "library_ms": lib_ms})
+            del lib_nn, d_nn
+
             for r in records:
                 print(f"{r['name']} kernel: {r['ms']:.4f} ms; bound {r['bound_ms']:.4f} ms "
                       f"({r['bound_by']}) = {r['bound_ms'] / r['ms']:.1%} of bound; plain "
@@ -599,6 +929,26 @@ def main() -> int:
         step_ms = cuda_median_ms(train_step)
         print(f"train step (table path, Adam) at B={B_SERVE} pairs: {step_ms:.4f} ms, "
               f"{B_SERVE / step_ms * 1e3:.1f} pairs/s; on {card}", flush=True)
+
+        with torch.no_grad():
+            fwd_ms = cuda_median_ms(lambda: fwd_model_large(aL, bL))
+        print(f"forward (encode + patch-only gather path) at B={B_SERVE} pairs, np={NL}: "
+              f"{fwd_ms:.4f} ms, {B_SERVE / fwd_ms * 1e3:.1f} pairs/s; on {card}", flush=True)
+        loss_fn = make_frozen_dpdist_loss(params, cfg)
+        step_ms = cuda_median_ms(lambda: src_grad(loss_fn, aL, bL))
+        print(f"frozen source-gradient step at B={B_SERVE} pairs, np={NL}: {step_ms:.4f} ms, "
+              f"{B_SERVE / step_ms * 1e3:.1f} pairs/s; on {card}", flush=True)
+
+        eval_model = load_frozen_distance(str(ROOT / NETS[0]), device=dev)
+        with torch.no_grad():
+            key_ms = {"dpdist": cuda_median_ms(lambda: eval_model(eA, eB), runs=5),
+                      "chamfer": cuda_median_ms(lambda: chamfer_distance(eA, eB), runs=5),
+                      "emd": cuda_median_ms(lambda: earth_mover_distance(eA, eB), runs=3,
+                                            warmup=1)}
+        print(f"eval_pair at {EVAL_POINTS} points: end to end {eval_e2e_ms:.1f} ms (host "
+              f"clock, median of 3, checkpoint load and file parse included); per key "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in key_ms.items()) + f"; on {card}",
+              flush=True)
 
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": records}), flush=True)

@@ -8,15 +8,13 @@
 // output element reads its value from there by index.
 //
 // One block per cloud b (the grid is the 2B stacked clouds):
-//   1. stage the cloud's M points and the Gaussian centres in shared memory;
-//   2. softmax statistics per point (max and sum of exp over G), one warp
-//      per point with shuffles;
-//   3. one thread per Gaussian pools the 20 channels over the M points
-//      (sum, max, min), then the finalize: mean rows divided by M, signed
-//      sqrt, and an L2 norm per channel over G (block reduction);
-//   4. voxel id and delta of each query (cells strict below, inclusive
+//   1. the cloud's finalised FV volume, by the streaming encode of
+//      fv_encode.cuh (point tiles through shared memory, one thread per
+//      Gaussian pooling 20 channels, then signed sqrt and the L2 norm over
+//      G), kept in shared memory;
+//   2. voxel id and delta of each query (cells strict below, inclusive
 //      above; off-grid queries read cell 0);
-//   5. one warp per query row writes x[b, n, :] = [delta, patch], lanes on
+//   3. one warp per query row writes x[b, n, :] = [delta, patch], lanes on
 //      neighbouring addresses; patch element e = o*20 + c reads channel c
 //      of the neighbour voxel at offset o, or 0 outside the grid.
 //
@@ -27,8 +25,8 @@
 // the write coalesced; the (o, c) split of the row walk is carried
 // incrementally so no integer division sits in the write loop.
 //
-// Steps 1 (offsets), 4 and 5 use the helpers of patch_rows.cuh, which
-// table_gather.cu shares.
+// Steps 2 and 3 use the helpers of patch_rows.cuh, which table_gather.cu
+// shares; step 1 is the encode that threedmfv.cu runs alone.
 //
 // Plain C interface for ctypes; no PyTorch headers. Built with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC
@@ -38,38 +36,14 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "fv_encode.cuh"
 #include "patch_rows.cuh"
 
 namespace {
 
 using dpdist::kWarp;
 
-constexpr int kC = 20;          // FV channels (full_fv, D = 3)
-constexpr float kEps = 1e-12f;
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = kWarp / 2; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = kWarp / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// -0.5 * ||(p - mu) / sigma||^2, the per-dimension form of the TPU kernel.
-__device__ __forceinline__ float logit_of(float px, float py, float pz,
-                                          float mx, float my, float mz, float sigma) {
-  const float dx = (px - mx) / sigma;
-  const float dy = (py - my) / sigma;
-  const float dz = (pz - mz) / sigma;
-  return -0.5f * (dx * dx + dy * dy + dz * dz);
-}
-
-__device__ __forceinline__ float signed_sqrt(float v) {
-  const float s = (v > 0.f) ? 1.f : ((v < 0.f) ? -1.f : 0.f);
-  return s * sqrtf(fmaxf(fabsf(v), kEps));
-}
+constexpr int kC = dpdist::kFvChannels;
 
 __global__ void mfv_gather_x_kernel(const float* __restrict__ points,   // (B, M, 3)
                                     const float* __restrict__ queries,  // (B, N, 3)
@@ -77,9 +51,7 @@ __global__ void mfv_gather_x_kernel(const float* __restrict__ points,   // (B, M
                                     const float* __restrict__ centers,  // (G, 3)
                                     float* __restrict__ x,              // (B, N, 3 + k^3*20)
                                     int* __restrict__ vox_out,          // (B, N)
-                                    int M, int N, int g, int k, float sigma,
-                                    float w, float pi_scale, float sw, float sw2,
-                                    float inv_m) {
+                                    int M, int N, int g, int k, dpdist::EncodeConsts consts) {
   extern __shared__ float smem[];
   const int G = g * g * g;
   const int K3 = k * k * k;
@@ -91,112 +63,24 @@ __global__ void mfv_gather_x_kernel(const float* __restrict__ points,   // (B, M
   const int warp = tid / kWarp;
   const int b = blockIdx.x;
 
-  float* fv_s = smem;                    // G * 20
-  float* mu_s = fv_s + G * kC;           // G * 3
-  float* pts_s = mu_s + G * 3;           // M * 3
-  float* pmax_s = pts_s + M * 3;         // M
-  float* psum_s = pmax_s + M;            // M
-  float* red_s = psum_s + M;             // nwarps * 20
-  float* nrm_s = red_s + nwarps * kC;    // 20
-  float* qd_s = nrm_s + kC;              // N * 3
-  int* qv_s = reinterpret_cast<int*>(qd_s + N * 3);  // N
-  int* offs_s = qv_s + N;                // K3: flat neighbour offset
-  char4* off3_s = reinterpret_cast<char4*>(offs_s + K3);  // K3: (sx, sy, sz)
+  float* fv_s = smem;                                            // G * 20
+  float* enc_s = fv_s + G * kC;                                  // the encode's scratch
+  float* qd_s = enc_s + dpdist::encode_smem_floats(G, nwarps);   // N * 3
+  int* qv_s = reinterpret_cast<int*>(qd_s + N * 3);              // N
+  int* offs_s = qv_s + N;                                        // K3: flat neighbour offset
+  char4* off3_s = reinterpret_cast<char4*>(offs_s + K3);         // K3: (sx, sy, sz)
 
-  // 1. Stage points, centres and the k^3 offsets.
-  const float* pb = points + static_cast<size_t>(b) * M * 3;
-  for (int i = tid; i < M * 3; i += blockDim.x) pts_s[i] = pb[i];
-  for (int i = tid; i < G * 3; i += blockDim.x) mu_s[i] = mu[i];
+  // 1. The FV volume of cloud b (the encode's barriers also publish the
+  //    window offsets).
   dpdist::stage_window_offsets(offs_s, off3_s, g, k);
-  __syncthreads();
-
-  // 2. Softmax statistics over G per point: one warp per point.
-  for (int m = warp; m < M; m += nwarps) {
-    const float px = pts_s[m * 3], py = pts_s[m * 3 + 1], pz = pts_s[m * 3 + 2];
-    float mx = -INFINITY;
-    for (int j = lane; j < G; j += kWarp)
-      mx = fmaxf(mx, logit_of(px, py, pz, mu_s[j * 3], mu_s[j * 3 + 1], mu_s[j * 3 + 2], sigma));
-    mx = warp_max(mx);
-    float s = 0.f;
-    for (int j = lane; j < G; j += kWarp)
-      s += expf(logit_of(px, py, pz, mu_s[j * 3], mu_s[j * 3 + 1], mu_s[j * 3 + 2], sigma) - mx);
-    s = warp_sum(s);
-    if (lane == 0) {
-      pmax_s[m] = mx;
-      psum_s[m] = s;
-    }
-  }
-  __syncthreads();
-
-  // 3. Pool the 20 channels over the points: thread j owns Gaussian j.
   float ch[kC];
+  dpdist::encode_cloud(points + static_cast<size_t>(b) * M * 3, M, mu, G, consts, enc_s, ch);
+  if (tid < G) {
 #pragma unroll
-  for (int c = 0; c < kC; ++c) ch[c] = 0.f;
-  const int j = tid;
-  if (j < G) {
-    const float mx = mu_s[j * 3], my = mu_s[j * 3 + 1], mz = mu_s[j * 3 + 2];
-    float pi_sum = 0.f, pi_max = -INFINITY;
-    float mu_sum[3] = {0.f, 0.f, 0.f}, mu_max[3], mu_min[3];
-    float sg_sum[3] = {0.f, 0.f, 0.f}, sg_max[3], sg_min[3];
-#pragma unroll
-    for (int d = 0; d < 3; ++d) {
-      mu_max[d] = -INFINITY; mu_min[d] = INFINITY;
-      sg_max[d] = -INFINITY; sg_min[d] = INFINITY;
-    }
-    for (int m = 0; m < M; ++m) {
-      const float px = pts_s[m * 3], py = pts_s[m * 3 + 1], pz = pts_s[m * 3 + 2];
-      const float q = expf(logit_of(px, py, pz, mx, my, mz, sigma) - pmax_s[m]) / psum_s[m];
-      const float dpi = (q - w) / pi_scale;
-      pi_sum += dpi;
-      pi_max = fmaxf(pi_max, dpi);
-      const float diff[3] = {(px - mx) / sigma, (py - my) / sigma, (pz - mz) / sigma};
-#pragma unroll
-      for (int d = 0; d < 3; ++d) {
-        const float tm = q * diff[d];
-        const float ts = q * (diff[d] * diff[d] - 1.f);
-        mu_sum[d] += tm;
-        mu_max[d] = fmaxf(mu_max[d], tm);
-        mu_min[d] = fminf(mu_min[d], tm);
-        sg_sum[d] += ts;
-        sg_max[d] = fmaxf(sg_max[d], ts);
-        sg_min[d] = fminf(sg_min[d], ts);
-      }
-    }
-    // Channel rows: [pi_mean, pi_max, mu_mean(3), mu_max(3), mu_min(3),
-    //                sig_mean(3), sig_max(3), sig_min(3)]; mean rows / M.
-    ch[0] = pi_sum * inv_m;
-    ch[1] = pi_max;
-#pragma unroll
-    for (int d = 0; d < 3; ++d) {
-      ch[2 + d] = mu_sum[d] / sw * inv_m;
-      ch[5 + d] = mu_max[d] / sw;
-      ch[8 + d] = mu_min[d] / sw;
-      ch[11 + d] = sg_sum[d] / sw2 * inv_m;
-      ch[14 + d] = sg_max[d] / sw2;
-      ch[17 + d] = sg_min[d] / sw2;
-    }
-#pragma unroll
-    for (int c = 0; c < kC; ++c) ch[c] = signed_sqrt(ch[c]);
-  }
-  // L2 norm of each channel over G (threads past G hold zeros).
-#pragma unroll
-  for (int c = 0; c < kC; ++c) {
-    const float s = warp_sum(ch[c] * ch[c]);
-    if (lane == 0) red_s[warp * kC + c] = s;
-  }
-  __syncthreads();
-  if (tid < kC) {
-    float s = 0.f;
-    for (int i = 0; i < nwarps; ++i) s += red_s[i * kC + tid];
-    nrm_s[tid] = 1.f / sqrtf(fmaxf(s, kEps));
-  }
-  __syncthreads();
-  if (j < G) {
-#pragma unroll
-    for (int c = 0; c < kC; ++c) fv_s[j * kC + c] = ch[c] * nrm_s[c];
+    for (int c = 0; c < kC; ++c) fv_s[tid * kC + c] = ch[c];
   }
 
-  // 4. Queries: voxel id (flat v = iy*g^2 + ix*g + iz) and delta.
+  // 2. Queries: voxel id (flat v = iy*g^2 + ix*g + iz) and delta.
   for (int n = tid; n < N; n += blockDim.x) {
     const float* q = queries + (static_cast<size_t>(b) * N + n) * 3;
     const int v = dpdist::assign_voxel(q, g);
@@ -207,7 +91,7 @@ __global__ void mfv_gather_x_kernel(const float* __restrict__ points,   // (B, M
   }
   __syncthreads();
 
-  // 5. Rows of x: one warp per query, lanes on neighbouring addresses.
+  // 3. Rows of x: one warp per query, lanes on neighbouring addresses.
   for (int n = warp; n < N; n += nwarps)
     dpdist::write_x_row(x + (static_cast<size_t>(b) * N + n) * W, qd_s + n * 3, qv_s[n], fv_s,
                         offs_s, off3_s, g, kC, E, lane);
@@ -221,12 +105,12 @@ const char* dpdist_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Shared memory bytes the kernel takes for these sizes.
-size_t dpdist_mfv_gather_x_smem(int M, int N, int g, int k, int threads) {
+// Shared memory bytes the kernel takes for these sizes; the encoded clouds
+// stream through it, so their point count does not matter.
+size_t dpdist_mfv_gather_x_smem(int N, int g, int k, int threads) {
   const size_t G = static_cast<size_t>(g) * g * g;
   const size_t K3 = static_cast<size_t>(k) * k * k;
-  const size_t nwarps = threads / kWarp;
-  return 4 * (G * kC + G * 3 + static_cast<size_t>(M) * 5 + nwarps * kC + kC +
+  return 4 * (G * kC + dpdist::encode_smem_floats(static_cast<int>(G), threads / kWarp) +
               static_cast<size_t>(N) * 4 + K3 * 2);
 }
 
@@ -242,14 +126,15 @@ int dpdist_mfv_gather_x(const float* points, const float* queries, const float* 
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = dpdist_mfv_gather_x_smem(M, N, g, k, threads);
+  const size_t smem = dpdist_mfv_gather_x_smem(N, g, k, threads);
   if (smem > 48 * 1024) {
     err = cudaFuncSetAttribute(mfv_gather_x_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
+  const dpdist::EncodeConsts consts{sigma, w, pi_scale, sw, sw2, inv_m};
   mfv_gather_x_kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      points, queries, mu, centers, x, vox, M, N, g, k, sigma, w, pi_scale, sw, sw2, inv_m);
+      points, queries, mu, centers, x, vox, M, N, g, k, consts);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,6 +1,6 @@
 // Device helpers shared by the patch-gather kernels (mfv_gather.cu,
 // table_gather.cu): the k^3 window's offsets, a query's voxel, and the
-// walk over one decoder-input row x = [delta, patch].
+// walk over one patch row or decoder-input row x = [delta, patch].
 //
 // Flat voxel order is the reference's meshgrid order, v = iy*g^2 + ix*g + iz;
 // the window's offsets act on the three digits of v (v/g^2, (v/g)%g, v%g),
@@ -70,17 +70,23 @@ __device__ __forceinline__ void for_each_patch_element(int v, int first, int str
   }
 }
 
-// One warp writes row xrow = [delta, patch] of a query in voxel v, lanes
-// on neighbouring addresses: patch element e reads channel c of the
-// neighbour at offset o from the (G, C) volume fv_s, or 0 outside the grid.
+// One warp writes the patch row of a query in voxel v, lanes on
+// neighbouring addresses: patch element e reads channel c of the neighbour
+// at offset o from the (G, C) volume fv_s, or 0 outside the grid.
+__device__ __forceinline__ void write_patch_row(float* patch, int v, const float* fv_s,
+                                                const int* offs_s, const char4* off3_s, int g,
+                                                int C, int E, int lane) {
+  for_each_patch_element(v, lane, kWarp, g, C, E, offs_s, off3_s, [&](int e, int u, int c) {
+    patch[e] = (u >= 0) ? fv_s[u * C + c] : 0.f;
+  });
+}
+
+// The same for a decoder-input row xrow = [delta, patch].
 __device__ __forceinline__ void write_x_row(float* xrow, const float* delta, int v,
                                             const float* fv_s, const int* offs_s,
                                             const char4* off3_s, int g, int C, int E, int lane) {
   if (lane < 3) xrow[lane] = delta[lane];
-  float* patch = xrow + 3;
-  for_each_patch_element(v, lane, kWarp, g, C, E, offs_s, off3_s, [&](int e, int u, int c) {
-    patch[e] = (u >= 0) ? fv_s[u * C + c] : 0.f;
-  });
+  write_patch_row(xrow + 3, v, fv_s, offs_s, off3_s, g, C, E, lane);
 }
 
 }  // namespace dpdist

@@ -13,6 +13,18 @@
 // The output is a pure copy plus q - centre, so it equals the plain
 // PyTorch composition exactly.
 //
+// table_gather replaces the TPU kernel
+// dpdist_tpu/kernels/table_gather_pallas.py:_kernel (reached through
+// table_gather, `pl.pallas_call` in _table_gather_impl): the same patch rows
+// without voxel assignment and delta, for given voxel ids,
+// (V, C) volume + (N,) vox -> (N, k^3*C). The reference takes it for
+// N > 128 queries, where its VMEM budget forces that split. Here it is
+// table_gather_x's design without the delta: the volume in shared memory,
+// one warp per row. Off-grid queries carry vox = 0 and read cell 0's patch,
+// as the reference does; the model's mask zeroes them later. A vox outside
+// [0, V) (never made by voxel_assign) gives a zero row. A pure copy: it
+// equals the plain gather_patches(extract_patches(fv), vox) exactly.
+//
 // table_gather_bwd replaces dpdist_tpu/kernels/table_gather_pallas.py:
 // _bwd_kernel + _fold_and_emit (`pl.pallas_call` in _table_gather_bwd_impl),
 // and with it the two V-in-lanes layouts of the same adjoint
@@ -29,10 +41,11 @@
 // carry vox = 0 and scatter into cell 0's neighbourhood, as the reference
 // does; the kernel follows vox, never the mask.
 //
-// What bounds both on an H100: device memory. At B = 256 clouds, N = 64
-// queries, k = 5, C = 20, table_gather_x writes 164 MB of x and
+// What bounds all three on an H100: device memory. At B = 256 clouds,
+// N = 64 queries, k = 5, C = 20, table_gather_x writes 164 MB of x and
 // table_gather_bwd reads 164 MB of grad (about 0.05 ms each at 3.35 TB/s);
-// the volumes are 10 MB. The designs keep the volume on chip, touch each
+// at N = 256, table_gather writes 655 MB (about 0.2 ms); the volumes are
+// 10 MB. The designs keep the volume on chip, touch each
 // x / grad element once, coalesced, and do no integer division per element.
 //
 // Plain C interface for ctypes; no PyTorch headers. Built with
@@ -86,6 +99,42 @@ __global__ void table_gather_x_kernel(const float* __restrict__ fv,       // (B,
   }
 }
 
+__global__ void table_gather_kernel(const float* __restrict__ fv,   // (B, G, C)
+                                    const int* __restrict__ vox,    // (B, N)
+                                    float* __restrict__ out,        // (B, N, k^3*C)
+                                    int N, int g, int k, int C, int rows_per_block) {
+  extern __shared__ float smem[];
+  const int G = g * g * g;
+  const int K3 = k * k * k;
+  const int E = K3 * C;
+  const int lane = threadIdx.x % kWarp;
+  const int warp = threadIdx.x / kWarp;
+  const int nwarps = blockDim.x / kWarp;
+  const int b = blockIdx.x;
+  const int n0 = blockIdx.y * rows_per_block;
+  const int n1 = min(N, n0 + rows_per_block);
+
+  float* fv_s = smem;                                     // G * C
+  int* offs_s = reinterpret_cast<int*>(fv_s + G * C);     // K3
+  char4* off3_s = reinterpret_cast<char4*>(offs_s + K3);  // K3
+
+  const float* fb = fv + static_cast<size_t>(b) * G * C;
+  for (int i = threadIdx.x; i < G * C; i += blockDim.x) fv_s[i] = fb[i];
+  dpdist::stage_window_offsets(offs_s, off3_s, g, k);
+  __syncthreads();
+
+  for (int n = n0 + warp; n < n1; n += nwarps) {
+    const size_t row = static_cast<size_t>(b) * N + n;
+    const int v = vox[row];   // every lane, same value
+    float* orow = out + row * E;
+    if (v >= 0 && v < G) {
+      dpdist::write_patch_row(orow, v, fv_s, offs_s, off3_s, g, C, E, lane);
+    } else {
+      for (int e = lane; e < E; e += kWarp) orow[e] = 0.f;
+    }
+  }
+}
+
 __global__ void table_gather_bwd_kernel(const int* __restrict__ vox,     // (B, N)
                                         const float* __restrict__ grad,  // (B, N, k^3*C), strided
                                         int64_t stride_b, int64_t stride_n,
@@ -130,7 +179,7 @@ bool bad_window(int g, int k, int C) {
 
 extern "C" {
 
-// Shared memory bytes either kernel takes: the (G, C) volume and the
+// Shared memory bytes each kernel takes: the (G, C) volume and the
 // window's offset tables.
 size_t dpdist_table_gather_smem(int g, int k, int C) {
   const size_t G = static_cast<size_t>(g) * g * g;
@@ -138,7 +187,7 @@ size_t dpdist_table_gather_smem(int g, int k, int C) {
   return 4 * (G * C + K3 * 2);
 }
 
-// Both launch on `stream` and return cudaGetLastError() after the launch (0
+// All three launch on `stream` and return cudaGetLastError() after the launch (0
 // on success) or cudaErrorInvalidValue for sizes the kernels do not take.
 int dpdist_table_gather_x(const float* fv, const float* queries, const float* centers, float* x,
                           int* vox, int B, int N, int g, int k, int C, int rows_per_block,
@@ -157,6 +206,25 @@ int dpdist_table_gather_x(const float* fv, const float* queries, const float* ce
   const dim3 grid(B, (N + rows_per_block - 1) / rows_per_block);
   table_gather_x_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       fv, queries, centers, x, vox, N, g, k, C, rows_per_block);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int dpdist_table_gather(const float* fv, const int* vox, float* out, int B, int N, int g, int k,
+                        int C, int rows_per_block, int threads, int device, void* stream) {
+  if (B < 1 || N < 1 || bad_window(g, k, C) || rows_per_block < 1 || threads < kWarp ||
+      threads > 1024 || threads % kWarp != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = dpdist_table_gather_smem(g, k, C);
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(table_gather_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid(B, (N + rows_per_block - 1) / rows_per_block);
+  table_gather_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      fv, vox, out, N, g, k, C, rows_per_block);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,8 +1,10 @@
 """Golden distance pairs: seeded synthetic clouds with reference distances.
 
 The file assets/golden_distance.json lists each pair as two
-(family, seed) surfaces of `num_point` points times a scale, and, per
-committed net, the per-pair distance the JAX package computes for it.
+(family, seed) surfaces times a scale. At its `num_point` points it holds,
+per committed net, the per-pair distance the JAX package computes and its
+frozen loss; its "np256" section holds the same at 256 points, and the
+pairs' chamfer and EMD.
 """
 
 from __future__ import annotations
@@ -22,9 +24,10 @@ def load_golden(path=GOLDEN_PATH) -> dict:
         return json.load(f)
 
 
-def golden_clouds(golden: dict):
-    """(pcA, pcB), each (P, num_point, 3) float32, for the file's P pairs."""
-    n = golden["num_point"]
+def golden_clouds(golden: dict, num_point: int = None):
+    """(pcA, pcB), each (P, n, 3) float32, for the file's P pairs at
+    n = num_point points (default: the file's num_point)."""
+    n = num_point or golden["num_point"]
 
     def cloud(spec):
         family, seed = spec

@@ -105,17 +105,28 @@ def library() -> ctypes.CDLL:
         lib.dpdist_mfv_gather_x.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
                                             cf, cf, cf, cf, cf, cf, ci, ci, vp]
         lib.dpdist_mfv_gather_x.restype = ci
-        lib.dpdist_mfv_gather_x_smem.argtypes = [ci, ci, ci, ci, ci]
+        lib.dpdist_mfv_gather_x_smem.argtypes = [ci, ci, ci, ci]
         lib.dpdist_mfv_gather_x_smem.restype = ctypes.c_size_t
+        lib.dpdist_threedmfv.argtypes = [vp, vp, vp, ci, ci, ci, cf, cf, cf, cf, cf, cf, ci, ci,
+                                         vp]
+        lib.dpdist_threedmfv.restype = ci
+        lib.dpdist_threedmfv_smem.argtypes = [ci, ci]
+        lib.dpdist_threedmfv_smem.restype = ctypes.c_size_t
         lib.dpdist_table_gather_smem.argtypes = [ci, ci, ci]
         lib.dpdist_table_gather_smem.restype = ctypes.c_size_t
         lib.dpdist_table_gather_x.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci,
                                               ci, vp]
         lib.dpdist_table_gather_x.restype = ci
+        lib.dpdist_table_gather.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, vp]
+        lib.dpdist_table_gather.restype = ci
         i64 = ctypes.c_int64
         lib.dpdist_table_gather_bwd.argtypes = [vp, vp, i64, i64, vp, ci, ci, ci, ci, ci, ci,
                                                 ci, vp]
         lib.dpdist_table_gather_bwd.restype = ci
+        lib.dpdist_nn_min_points_per_block.argtypes = [ci]
+        lib.dpdist_nn_min_points_per_block.restype = ci
+        lib.dpdist_nn_min_sqdist.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
+        lib.dpdist_nn_min_sqdist.restype = ci
         lib.dpdist_error_string.argtypes = [ci]
         lib.dpdist_error_string.restype = ctypes.c_char_p
         _lib = lib

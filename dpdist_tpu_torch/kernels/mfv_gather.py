@@ -26,7 +26,7 @@ import math
 import torch
 
 from dpdist_tpu_torch.kernels.table_gather import table_gather_bwd
-from dpdist_tpu_torch.ops.threedmfv import threedmfv, threedmfv_grid
+from dpdist_tpu_torch.ops.threedmfv import threedmfv_grid, threedmfv_plain
 from dpdist_tpu_torch.ops.voxel import (
     extract_patches,
     gather_patches,
@@ -41,7 +41,7 @@ def mfv_x_plain(points, queries, n_gaussians: int, sigma: float,
                 grid_size: int, k: int):
     """Plain PyTorch version: (B, M, 3), (B, N, 3) -> x (B, N, 3 + k^3*20)
     float32 and vox (B, N) int32."""
-    fv = threedmfv(points, n_gaussians, sigma)
+    fv = threedmfv_plain(points, n_gaussians, sigma)
     table = extract_patches(fv, grid_size, k)
     vox, _, delta = voxel_assign(queries, grid_size)
     x = torch.cat([delta, gather_patches(table, vox)], dim=-1)
@@ -96,9 +96,9 @@ def _mfv_x_impl(points, queries, n_gaussians, sigma, grid_size, k):
     threads = min(1024, max(256, -(-G // 32) * 32))
     if G > threads:
         raise ValueError(f"the kernel takes at most 1024 Gaussians, got {G}")
-    smem = lib.dpdist_mfv_gather_x_smem(M, N, grid_size, k, threads)
+    smem = lib.dpdist_mfv_gather_x_smem(N, grid_size, k, threads)
     if smem > build.MAX_SMEM:
-        raise ValueError(f"M={M}, N={N} need {smem} B of shared memory, "
+        raise ValueError(f"N={N} queries need {smem} B of shared memory, "
                          f"more than the {build.MAX_SMEM} B a block has")
     mu, centers = _grid_tables(G, dev)
     x = torch.empty((B, N, 3 + k ** 3 * C), dtype=torch.float32, device=dev)
@@ -132,7 +132,7 @@ class _MfvX(torch.autograd.Function):
             dfv = table_gather_bwd(vox, grad_x[..., 3:], grid_size, k)
             with torch.enable_grad():
                 p = points.detach().requires_grad_(True)
-                fv = threedmfv(p, n_gaussians, sigma)
+                fv = threedmfv_plain(p, n_gaussians, sigma)
                 (dpoints,) = torch.autograd.grad(fv, p, dfv)
         if ctx.needs_input_grad[1]:
             dq = grad_x[..., :3]

@@ -1,8 +1,9 @@
 """Patch gather from a Fisher-vector volume, and its adjoint.
 
 Port of dpdist_tpu/kernels/table_gather_pallas.py: `table_gather_x`
-(TPU kernel `_x_kernel`) and `table_gather_bwd` (TPU kernels `_bwd_kernel`
-+ `_fold_and_emit`, and the two V-in-lanes layouts of the same adjoint,
+(TPU kernel `_x_kernel`), `table_gather` (TPU kernel `_kernel`) and
+`table_gather_bwd` (TPU kernels `_bwd_kernel` + `_fold_and_emit`, and the
+two V-in-lanes layouts of the same adjoint,
 `_table_gather_bwd_transposed_ng` and `_table_gather_bwd_transposed`). The
 CUDA kernels are dpdist_tpu_torch/csrc/table_gather.cu; its header says
 what bounds them on an H100 and how the designs meet that.
@@ -14,15 +15,21 @@ what bounds them on an H100 and how the designs meet that.
         dq = grad[..., :3] (the cell is piecewise constant) and
         dfv = table_gather_bwd(vox, grad[..., 3:]); where autograd says fv
         needs no gradient, table_gather_bwd is not called.
+    patches = table_gather(fv, vox, grid_size, k)
+        (B, V, C) volume + (B, N) int32 voxel ids -> the patch rows
+        (B, N, k^3*C) float32, x without delta, for given ids (off-grid
+        queries carry 0). Differentiable in fv: dfv = table_gather_bwd(vox,
+        grad), called only where fv needs a gradient.
     dfv = table_gather_bwd(vox, grad, grid_size, k)
         (B, N) voxel ids + (B, N, k^3*C) grad -> (B, V, C), the adjoint of
         the patch gather in fv.
 
-On CPU tensors both run their plain versions (`table_gather_x_plain`,
-`table_gather_bwd_plain`), which are also the kernels' oracles on the
-card. On CUDA tensors they launch the kernel or raise; they never fall
-back. `table_gather_x.launches` and `table_gather_bwd.launches` count
-kernel launches, and nothing else.
+On CPU tensors all three run their plain versions (`table_gather_x_plain`,
+`table_gather_plain`, `table_gather_bwd_plain`), which are also the
+kernels' oracles on the card. On CUDA tensors they launch the kernel or
+raise; they never fall back. `table_gather_x.launches`,
+`table_gather.launches` and `table_gather_bwd.launches` count kernel
+launches, and nothing else.
 """
 
 from __future__ import annotations
@@ -38,7 +45,7 @@ from dpdist_tpu_torch.ops.voxel import (
     voxel_assign,
 )
 
-X_ROWS_PER_BLOCK = 32       # queries per block of the forward kernel
+X_ROWS_PER_BLOCK = 32       # queries per block of the forward kernels
 X_THREADS = 256
 BWD_THREADS = 512
 
@@ -49,6 +56,11 @@ def table_gather_x_plain(fv, queries, grid_size: int, k: int):
     vox, _, delta = voxel_assign(queries, grid_size)
     patches = gather_patches(extract_patches(fv, grid_size, k), vox)
     return torch.cat([delta, patches], dim=-1), vox
+
+
+def table_gather_plain(fv, vox, grid_size: int, k: int):
+    """Plain PyTorch version: gather_patches(extract_patches(fv), vox)."""
+    return gather_patches(extract_patches(fv, grid_size, k), vox)
 
 
 def table_gather_bwd_plain(vox, grad, grid_size: int, k: int):
@@ -153,14 +165,71 @@ def table_gather_x(fv, queries, grid_size: int, k: int):
 table_gather_x.launches = 0
 
 
+def _check_vox(vox):
+    if not isinstance(vox, torch.Tensor) or vox.dtype != torch.int32 or vox.dim() != 2:
+        raise TypeError("vox must be a (B, N) int32 tensor")
+
+
+def _table_gather_impl(fv, vox, grid_size, k):
+    dev = fv.device
+    if dev.type == "cpu":
+        return table_gather_plain(fv, vox, grid_size, k)
+
+    from dpdist_tpu_torch.kernels import build
+
+    B, V, C = fv.shape
+    N = vox.shape[1]
+    out = torch.empty((B, N, k ** 3 * C), dtype=torch.float32, device=dev)
+    err = build.library().dpdist_table_gather(
+        fv.data_ptr(), vox.data_ptr(), out.data_ptr(), B, N, grid_size, k, C, X_ROWS_PER_BLOCK,
+        X_THREADS, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    build.check_launch(err, "table_gather")
+    table_gather.launches += 1
+    return out
+
+
+class _TableGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, fv, vox, grid_size, k):
+        ctx.save_for_backward(vox)
+        ctx.window = (grid_size, k)
+        return _table_gather_impl(fv, vox, grid_size, k)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (vox,) = ctx.saved_tensors
+        dfv = table_gather_bwd(vox, grad, *ctx.window) if ctx.needs_input_grad[0] else None
+        return dfv, None, None, None
+
+
+def table_gather(fv, vox, grid_size: int, k: int):
+    """(B, V, C) volume + (B, N) int32 voxel ids in [0, grid_size^3) ->
+    (B, N, k^3*C) patch rows; see the module docstring."""
+    _check_vox(vox)
+    if not isinstance(fv, torch.Tensor) or fv.dtype != torch.float32 or fv.dim() != 3:
+        raise TypeError("fv must be a (B, V, C) float32 tensor")
+    if not fv.is_contiguous() or not vox.is_contiguous():
+        raise ValueError("fv and vox must be contiguous")
+    if fv.shape[1] != grid_size ** 3:
+        raise ValueError(f"fv has {fv.shape[1]} cells, expected grid_size^3 = {grid_size ** 3}")
+    if fv.shape[0] != vox.shape[0] or vox.shape[1] < 1:
+        raise ValueError(f"fv {tuple(fv.shape)} and vox {tuple(vox.shape)} do not match")
+    if fv.device != vox.device:
+        raise ValueError(f"device mismatch: {fv.device} vs {vox.device}")
+    _check_window(grid_size, k, fv.shape[2], fv.device)
+    return _TableGather.apply(fv, vox, grid_size, k)
+
+
+table_gather.launches = 0
+
+
 def table_gather_bwd(vox, grad, grid_size: int, k: int):
     """(B, N) int32 voxel ids + (B, N, k^3*C) grad -> (B, V, C) dfv.
 
     `grad` may be a strided view (the patch part of x's gradient) as long
     as its last axis is contiguous; vox must lie in [0, grid_size^3).
     """
-    if not isinstance(vox, torch.Tensor) or vox.dtype != torch.int32 or vox.dim() != 2:
-        raise TypeError("vox must be a (B, N) int32 tensor")
+    _check_vox(vox)
     if not isinstance(grad, torch.Tensor) or grad.dtype != torch.float32:
         raise TypeError("grad must be a float32 tensor")
     if grad.dim() != 3 or grad.shape[:2] != vox.shape or grad.shape[2] % k ** 3:

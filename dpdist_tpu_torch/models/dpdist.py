@@ -12,14 +12,26 @@ conv_version 1, BN off, float32):
      points zeroed by the membership mask.
 pred_AB scores the points of B against the surface encoded from A.
 
-`cfg.fused_gather` picks how steps 1-2 run:
+`cfg.fused_gather` picks how steps 1-2 run, and `route` says which
+kernels that takes for given cloud sizes, along the reference's dispatch
+(dpdist_tpu/models/dpdist.py:400-432, :243-266, and
+dpdist_tpu/ops/threedmfv.py:111-113):
   "off"   the plain composition: threedmfv -> extract_patches ->
-          voxel_assign -> gather -> concat, per direction;
-  "table" threedmfv, then the table-gather kernel (kernels/table_gather.py)
-          per direction; its backward runs the adjoint kernel;
-  "mfv"   the fused encode + gather kernel (kernels/mfv_gather.py), once
-          over the 2B stack: encode [A; B], query [B; A]
-          (dpdist_tpu/models/dpdist.py:400-417);
+          voxel_assign -> gather -> concat, per direction, on every
+          device (the reference's _fused_gather_mode has no case for
+          "off" and resolves it as "auto" on its accelerator);
+  "table" per cloud, the 3DmFV encode: the streaming kernel
+          (kernels/threedmfv.py) for clouds of >= 128 points, the plain
+          encode below; per direction, the decoder input: the
+          table-gather kernel table_gather_x for <= 128 queries, else
+          voxel_assign + the patch-only gather table_gather + a concat of
+          delta (kernels/table_gather.py); backwards run the adjoint kernel
+          and the encode's replay;
+  "mfv"   the fused encode + gather kernel (kernels/mfv_gather.py) when
+          both clouds hold <= 128 points, once over the 2B stack (encode
+          [A; B], query [B; A]) for clouds of one size; "table" otherwise;
+  "full"  the reference's bf16 serving kernel; in float32 it runs "table",
+          as the reference resolves it;
   "auto"  "mfv" on CUDA tensors, "off" on the CPU. Computations that are
           differentiated resolve "auto" with `resolve_for_grad` instead.
 Configs this port does not cover yet raise NotImplementedError.
@@ -34,10 +46,15 @@ import torch
 from dpdist_tpu_torch import resolve_device
 from dpdist_tpu_torch.configs import DPDistConfig
 from dpdist_tpu_torch.kernels.mfv_gather import mfv_x
-from dpdist_tpu_torch.kernels.table_gather import table_gather_x
+from dpdist_tpu_torch.kernels.table_gather import table_gather, table_gather_x
 from dpdist_tpu_torch.nn.layers import mlp_apply, mlp_init
-from dpdist_tpu_torch.ops.threedmfv import threedmfv
+from dpdist_tpu_torch.ops.threedmfv import KERNEL_MIN_POINTS, threedmfv
 from dpdist_tpu_torch.ops.voxel import extract_patches, gather_patches, voxel_assign
+
+# Clouds up to this size take the fused mfv kernel, and queries up to this
+# size the table_gather_x kernel: one TPU query tile
+# (dpdist_tpu/models/dpdist.py:400, :258).
+MAX_TILE_POINTS = 128
 
 
 def check_ported(cfg: DPDistConfig) -> None:
@@ -58,20 +75,56 @@ def check_ported(cfg: DPDistConfig) -> None:
         missing.append("use_bn=True (BatchNorm)")
     if cfg.dtype != "float32":
         missing.append(f"dtype={cfg.dtype!r}")
-    if cfg.fused_gather in ("on", "full"):
+    if cfg.fused_gather == "on":
         missing.append(f"fused_gather={cfg.fused_gather!r}")
-    elif cfg.fused_gather not in ("auto", "mfv", "table", "off"):
+    elif cfg.fused_gather not in ("auto", "mfv", "table", "full", "off"):
         raise ValueError(f"unknown fused_gather={cfg.fused_gather!r}")
     if missing:
         raise NotImplementedError("not ported yet: " + ", ".join(missing))
 
 
-def fused_gather_mode(cfg: DPDistConfig, device: torch.device) -> str:
-    """Resolve cfg.fused_gather to "mfv", "table" or "off" for tensors on `device`."""
+@dataclasses.dataclass(frozen=True)
+class Route:
+    """The kernels one bidirectional forward runs: `encode` per cloud
+    (pcA, pcB), `gather` per direction (AB: B's points against surface(A);
+    BA), each a kernel's counter name ("mfv_gather_x", "threedmfv",
+    "table_gather_x", "table_gather") or "plain". Under "mfv" the fused
+    kernel does both steps."""
+
+    mode: str
+    encode: tuple
+    gather: tuple
+
+
+def route(cfg: DPDistConfig, device_type: str, n_a: int, n_b: int, grad: bool = False) -> Route:
+    """The kernels apply_dpdist runs for clouds of n_a and n_b points on a
+    `device_type` device; grad=True for a computation that will be
+    differentiated (it resolves "auto" as `resolve_for_grad` does).
+
+    The reference's conditions: "mfv" only when both clouds hold <= 128
+    points, else the table branch for both directions; there, each cloud's
+    encode takes the kernel at >= 128 points, and each direction's gather
+    takes table_gather_x at <= 128 queries, else table_gather."""
     check_ported(cfg)
-    if cfg.fused_gather == "auto":
-        return "mfv" if device.type == "cuda" else "off"
-    return cfg.fused_gather
+    if grad:
+        cfg = resolve_for_grad(cfg, device_type)
+    mode = cfg.fused_gather
+    if mode == "auto":
+        mode = "mfv" if device_type == "cuda" else "off"
+    elif mode == "full":
+        # The fused serving kernel is bf16 only, and check_ported refuses
+        # bf16; in float32 the reference runs "table"
+        # (dpdist_tpu/models/dpdist.py:293-297).
+        mode = "table"
+    if mode == "mfv" and max(n_a, n_b) <= MAX_TILE_POINTS:
+        return Route("mfv", ("mfv_gather_x",) * 2, ("mfv_gather_x",) * 2)
+    if mode == "off":
+        return Route("off", ("plain",) * 2, ("plain",) * 2)
+    encode = tuple("threedmfv" if n >= KERNEL_MIN_POINTS else "plain" for n in (n_a, n_b))
+    # AB queries B's points, BA queries A's.
+    gather = tuple("table_gather_x" if n <= MAX_TILE_POINTS else "table_gather"
+                   for n in (n_b, n_a))
+    return Route("table", encode, gather)
 
 
 def resolve_for_grad(cfg: DPDistConfig, device) -> DPDistConfig:
@@ -124,16 +177,21 @@ def _head(params, cfg: DPDistConfig, x, mask):
     return _output_activation(mlp_apply(params["decoder"], x), cfg.output_act) * mask[..., None]
 
 
-def _decoder_input(cfg: DPDistConfig, mode: str, points_enc, queries):
-    """x = [delta, patch] of `queries` against the surface of `points_enc`."""
+def _decoder_input(cfg: DPDistConfig, encode: str, gather: str, points_enc, queries, vox,
+                   delta):
+    """x = [delta, patch] of `queries` against the surface of `points_enc`,
+    by the kernels `route` names (vox and delta: voxel_assign(queries))."""
     args = (cfg.embedding_size, cfg.sigma, cfg.grid_size, cfg.k)
-    if mode == "mfv":
+    if gather == "mfv_gather_x":
         return mfv_x(points_enc, queries, *args)[0]
-    fv = threedmfv(points_enc, cfg.embedding_size, cfg.sigma)
-    if mode == "table":
+    impl = "kernel" if encode == "threedmfv" else "plain"
+    fv = threedmfv(points_enc, cfg.embedding_size, cfg.sigma, impl=impl)
+    if gather == "table_gather_x":
         return table_gather_x(fv, queries, cfg.grid_size, cfg.k)[0]
-    vox, _, delta = voxel_assign(queries, cfg.grid_size)
-    patches = gather_patches(extract_patches(fv, cfg.grid_size, cfg.k), vox)
+    if gather == "table_gather":
+        patches = table_gather(fv, vox, cfg.grid_size, cfg.k)
+    else:
+        patches = gather_patches(extract_patches(fv, cfg.grid_size, cfg.k), vox)
     return torch.cat([delta, patches], dim=-1)
 
 
@@ -141,16 +199,22 @@ def _prep(points):
     return points.to(torch.float32).contiguous()
 
 
+def _direction(params, cfg, encode, gather, points_enc, queries):
+    vox, mask, delta = voxel_assign(queries, cfg.grid_size)
+    x = _decoder_input(cfg, encode, gather, points_enc, queries, vox, delta)
+    return _head(params, cfg, x, mask)
+
+
 def apply_direction(params, cfg: DPDistConfig, points_enc, queries):
     """One direction: the (B, N, output_channels) prediction for the points
     of `queries` against the surface encoded from `points_enc`, masked
-    outside the grid. apply_dpdist is two of these (or one mfv call); a
-    loss that reads one direction calls this alone, since eager PyTorch
-    does not drop an unused direction the way XLA does."""
-    mode = fused_gather_mode(cfg, queries.device)
+    outside the grid, by the kernels `route` names for it. apply_dpdist is
+    two of these (or one mfv call); a loss that reads one direction calls
+    this alone, since eager PyTorch does not drop an unused direction the
+    way XLA does."""
     points_enc, queries = _prep(points_enc), _prep(queries)
-    _, mask, _ = voxel_assign(queries, cfg.grid_size)
-    return _head(params, cfg, _decoder_input(cfg, mode, points_enc, queries), mask)
+    r = route(cfg, queries.device.type, points_enc.shape[1], queries.shape[1])
+    return _direction(params, cfg, r.encode[0], r.gather[0], points_enc, queries)
 
 
 def apply_dpdist(params, cfg: DPDistConfig, pcA, pcB, *, noise=None, train: bool = False):
@@ -162,10 +226,10 @@ def apply_dpdist(params, cfg: DPDistConfig, pcA, pcB, *, noise=None, train: bool
     `train` selects nothing with BN off, the only decoder this port has.
     """
     del train  # BN off: training and inference forwards are the same
-    mode = fused_gather_mode(cfg, pcA.device)
     pcA, pcB = _prep(pcA), _prep(pcB)
     pcA_enc = pcA if noise is None else _prep(pcA + noise)
-    if mode == "mfv" and pcA.shape == pcB.shape:
+    r = route(cfg, pcA.device.type, pcA.shape[1], pcB.shape[1])
+    if r.mode == "mfv" and pcA.shape == pcB.shape:
         # Both directions in one kernel call: encode [A; B], query [B; A].
         args = (cfg.embedding_size, cfg.sigma, cfg.grid_size, cfg.k)
         x2 = mfv_x(torch.cat([pcA_enc, pcB]), torch.cat([pcB, pcA]), *args)[0]
@@ -176,8 +240,8 @@ def apply_dpdist(params, cfg: DPDistConfig, pcA, pcB, *, noise=None, train: bool
         return pred_AB, pred_BA
     # BN off: each decoder row is independent, so the directions decode
     # separately.
-    return (apply_direction(params, cfg, pcA_enc, pcB),   # B's points vs surface(A)
-            apply_direction(params, cfg, pcB, pcA))       # A's points vs surface(B)
+    return (_direction(params, cfg, r.encode[0], r.gather[0], pcA_enc, pcB),  # B vs surface(A)
+            _direction(params, cfg, r.encode[1], r.gather[1], pcB, pcA))      # A vs surface(B)
 
 
 def dpdist_distance(params, cfg: DPDistConfig, pcA, pcB, *,

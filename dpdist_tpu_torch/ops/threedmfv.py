@@ -1,6 +1,15 @@
-"""3D modified Fisher Vector (3DmFV) encoder, plain PyTorch
-(port of dpdist_tpu/ops/threedmfv.py, the impl="xla" math but for how the
-squared distances are formed).
+"""3D modified Fisher Vector (3DmFV) encoder (port of
+dpdist_tpu/ops/threedmfv.py).
+
+`threedmfv(points, G, sigma, impl="auto")` dispatches as the reference
+does (dpdist_tpu/ops/threedmfv.py:111-113): "auto" takes the streaming
+encode kernel (kernels/threedmfv.py) for CUDA tensors of at least
+KERNEL_MIN_POINTS points, and the plain encode otherwise; "kernel" and
+"plain" force one or the other ("kernel" on a CPU tensor runs the plain
+version, as every wrapper does).
+
+`threedmfv_plain` is the plain PyTorch encode: the reference's impl="xla"
+math but for how the squared distances are formed.
 
 Gaussian responsibilities are a softmax over -||x - mu_g||^2 / (2 sigma^2)
 for a uniform-weight isotropic GMM on a grid. The squared distance is
@@ -46,8 +55,28 @@ def _power_normalize(x: torch.Tensor, alpha: float = 0.5, eps: float = 1e-12) ->
     return torch.sign(x) * torch.pow(torch.clamp(torch.abs(x), min=eps), alpha)
 
 
-def threedmfv(points: torch.Tensor, n_gaussians: int = 512,
-              sigma: float = 0.125) -> torch.Tensor:
+# The reference's crossover (a v5e measurement) for impl="auto".
+KERNEL_MIN_POINTS = 128
+
+
+def threedmfv(points: torch.Tensor, n_gaussians: int = 512, sigma: float = 0.125,
+              impl: str = "auto") -> torch.Tensor:
+    """Normalized full 3DmFV of (B, N, 3) clouds, (B, G, 20) float32, by
+    the kernel or the plain encode (see the module docstring)."""
+    if impl == "auto":
+        impl = ("kernel" if points.device.type == "cuda" and points.shape[1] >= KERNEL_MIN_POINTS
+                else "plain")
+    if impl == "plain":
+        return threedmfv_plain(points, n_gaussians, sigma)
+    if impl == "kernel":
+        from dpdist_tpu_torch.kernels.threedmfv import threedmfv_kernel
+
+        return threedmfv_kernel(points.to(torch.float32).contiguous(), n_gaussians, sigma)
+    raise ValueError(f"impl must be 'auto', 'kernel' or 'plain', got {impl!r}")
+
+
+def threedmfv_plain(points: torch.Tensor, n_gaussians: int = 512,
+                    sigma: float = 0.125) -> torch.Tensor:
     """Normalized full 3DmFV (mean, max and min pools) of 3-D point clouds.
 
     Args:

@@ -22,6 +22,8 @@ from dpdist_tpu.cli.train_aue import load_dpdist_checkpoint as jax_load
 from dpdist_tpu.losses import make_frozen_dpdist_loss as jax_frozen_loss
 from dpdist_tpu.models import apply_dpdist as jax_apply
 from dpdist_tpu.models import dpdist_distance as jax_distance
+from dpdist_tpu.ops.chamfer import chamfer_distance as jax_chamfer
+from dpdist_tpu.ops.emd import sinkhorn_emd as jax_sinkhorn_emd
 
 from dpdist_tpu_torch.configs import DPDistConfig
 from dpdist_tpu_torch.data.golden import GOLDEN_PATH, golden_clouds, load_golden
@@ -29,6 +31,7 @@ from dpdist_tpu_torch.kernels.mfv_gather import mfv_x
 from dpdist_tpu_torch.kernels.table_gather import table_gather_bwd, table_gather_x
 from dpdist_tpu_torch.losses import make_frozen_dpdist_loss
 from dpdist_tpu_torch.models import apply_dpdist, dpdist_distance
+from dpdist_tpu_torch.ops import chamfer_distance, sinkhorn_emd
 from dpdist_tpu_torch.serving import load_frozen_distance
 from dpdist_tpu_torch.train import load_dpdist_checkpoint, params_from_jax
 
@@ -44,6 +47,13 @@ GRAD_PAIRS = (0, 7)
 # criterion of tests/test_torch_losses_optim.py (the encodes' rounding
 # difference, magnified on a few points by the signed sqrt near 0).
 REL_GRAD, REL_GRAD_FEW, OUTLIERS = 1e-3, 5e-2, 0.05
+# The golden file's second section: the same pairs at 256 points, the
+# JAX bench's second forward size (bench.py:133-138), where the port's
+# card path runs the streaming encode and the patch-only gather.
+NP_LARGE, LARGE = 256, "np256"
+# Chamfer and EMD, port (CPU) against the stored JAX values
+# (tests/test_torch_chamfer_emd.py's tolerance).
+TOL_CHAMFER = TOL_EMD = 1e-5
 
 GOLDEN_PAIRS = [
     {"a": ["chair", 0], "b": ["chair", 1], "scale": 0.8},
@@ -130,24 +140,38 @@ def jax_frozen_value_and_grad(params, state, cfg, pcA, pcB, penalty):
     return jax.value_and_grad(loss_fn)(pcA, pcB)
 
 
-def compute_golden():
-    """The golden file's content, computed with the JAX package: per net,
-    the per-pair distances, and the frozen loss (penalty 1.0) over all
-    pairs with its gradient in pcA for GRAD_PAIRS."""
-    golden = {"num_point": 64, "pairs": GOLDEN_PAIRS, "distance": {},
-              "frozen_loss": {"out_of_grid_penalty": 1.0, "grad_pairs": list(GRAD_PAIRS)}}
-    pcA, pcB = golden_clouds(golden)
+def _golden_section(pcA, pcB):
+    """Per net, the per-pair distances, and the frozen loss (penalty 1.0)
+    over all pairs with its gradient in pcA for GRAD_PAIRS."""
+    section = {"distance": {},
+               "frozen_loss": {"out_of_grid_penalty": 1.0, "grad_pairs": list(GRAD_PAIRS)}}
     for path in NETS:
         cfg, params, state = jax_load(path)
         d = jax_distance(params, state, cfg, jnp.asarray(pcA), jnp.asarray(pcB),
                          per_example=True)
-        golden["distance"][path] = [float(v) for v in np.asarray(d)]
+        section["distance"][path] = [float(v) for v in np.asarray(d)]
         value, grad = jax_frozen_value_and_grad(params, state, cfg.replace(fused_gather="off"),
                                                 jnp.asarray(pcA), jnp.asarray(pcB), 1.0)
-        golden["frozen_loss"][path] = {
+        section["frozen_loss"][path] = {
             "value": float(value),
             "grad_pcA": [[[float("%.8g" % c) for c in p] for p in np.asarray(grad)[i]]
                          for i in GRAD_PAIRS]}
+    return section
+
+
+def compute_golden():
+    """The golden file's content, computed with the JAX package: the
+    section of _golden_section at 64 points, and under LARGE the same at
+    NP_LARGE points plus each pair's chamfer and EMD."""
+    golden = {"num_point": 64, "pairs": GOLDEN_PAIRS}
+    golden.update(_golden_section(*golden_clouds(golden)))
+    pcA, pcB = golden_clouds(golden, NP_LARGE)
+    large = {"num_point": NP_LARGE, **_golden_section(pcA, pcB)}
+    large["chamfer"] = [float(jax_chamfer(jnp.asarray(pcA[i:i + 1]), jnp.asarray(pcB[i:i + 1])))
+                        for i in range(len(pcA))]
+    large["emd"] = [float(v) for v in np.asarray(jax_sinkhorn_emd(jnp.asarray(pcA),
+                                                                  jnp.asarray(pcB)))]
+    golden[LARGE] = large
     return golden
 
 
@@ -157,19 +181,31 @@ def fresh_golden():
 
 
 def test_golden_file_holds(fresh_golden):
-    """The committed golden values are what dpdist_tpu computes now, and
-    the port on the CPU reproduces them."""
+    """The committed golden values are what dpdist_tpu computes now, at 64
+    and at 256 points, and the port on the CPU reproduces them (the
+    distances and, at 256 points, chamfer and EMD)."""
     stored = load_golden()
     fresh = fresh_golden
     assert stored["pairs"] == fresh["pairs"] and stored["num_point"] == fresh["num_point"]
-    pcA, pcB = (torch.as_tensor(a) for a in golden_clouds(stored))
-    for path in NETS:
-        np.testing.assert_allclose(stored["distance"][path], fresh["distance"][path],
-                                   atol=1e-6, rtol=0)
-        model = load_frozen_distance(path, device="cpu")
-        with torch.no_grad():
-            got = model(pcA, pcB).numpy()
-        np.testing.assert_allclose(got, stored["distance"][path], atol=TOL, rtol=0)
+    assert stored[LARGE]["num_point"] == fresh[LARGE]["num_point"] == NP_LARGE
+    for section, n in ((stored, None), (stored[LARGE], NP_LARGE)):
+        fresh_section = fresh if n is None else fresh[LARGE]
+        pcA, pcB = (torch.as_tensor(a) for a in golden_clouds(stored, n))
+        for path in NETS:
+            np.testing.assert_allclose(section["distance"][path], fresh_section["distance"][path],
+                                       atol=1e-6, rtol=0)
+            model = load_frozen_distance(path, device="cpu")
+            with torch.no_grad():
+                got = model(pcA, pcB).numpy()
+            np.testing.assert_allclose(got, section["distance"][path], atol=TOL, rtol=0)
+    large = stored[LARGE]
+    np.testing.assert_allclose(large["chamfer"], fresh[LARGE]["chamfer"], atol=1e-7, rtol=0)
+    np.testing.assert_allclose(large["emd"], fresh[LARGE]["emd"], atol=1e-7, rtol=0)
+    pcA, pcB = (torch.as_tensor(a) for a in golden_clouds(stored, NP_LARGE))
+    chamfer = [float(chamfer_distance(pcA[i:i + 1], pcB[i:i + 1])) for i in range(len(pcA))]
+    np.testing.assert_allclose(chamfer, large["chamfer"], atol=TOL_CHAMFER, rtol=0)
+    np.testing.assert_allclose(sinkhorn_emd(pcA, pcB).numpy(), large["emd"], atol=TOL_EMD,
+                               rtol=0)
 
 
 def _close_rel(got, want):
@@ -180,23 +216,27 @@ def _close_rel(got, want):
 
 def test_golden_frozen_loss_holds(fresh_golden):
     """The stored frozen-loss values and pcA gradients are what dpdist_tpu
-    computes now, and the port's plain path on the CPU reproduces them."""
-    stored = load_golden()["frozen_loss"]
-    fresh = fresh_golden["frozen_loss"]
-    assert stored["grad_pairs"] == list(GRAD_PAIRS)
-    pcA, pcB = (torch.as_tensor(a) for a in golden_clouds(load_golden()))
-    for path in NETS:
-        want = stored[path]
-        assert abs(want["value"] - fresh[path]["value"]) <= 1e-6
-        np.testing.assert_allclose(want["grad_pcA"], fresh[path]["grad_pcA"], rtol=1e-6, atol=0)
-        cfg, params = load_dpdist_checkpoint(path)
-        loss_fn = make_frozen_dpdist_loss(params_from_jax(params, "cpu"), cfg,
-                                          out_of_grid_penalty=stored["out_of_grid_penalty"])
-        a = pcA.clone().requires_grad_(True)
-        value = loss_fn(a, pcB)
-        (grad,) = torch.autograd.grad(value, a)
-        assert abs(float(value.detach()) - want["value"]) <= TOL
-        _close_rel(grad.numpy()[list(GRAD_PAIRS)], np.asarray(want["grad_pcA"]))
+    computes now, at 64 and at 256 points, and the port's plain path on the
+    CPU reproduces them."""
+    golden = load_golden()
+    for n, stored, fresh in ((None, golden["frozen_loss"], fresh_golden["frozen_loss"]),
+                             (NP_LARGE, golden[LARGE]["frozen_loss"],
+                              fresh_golden[LARGE]["frozen_loss"])):
+        assert stored["grad_pairs"] == list(GRAD_PAIRS)
+        pcA, pcB = (torch.as_tensor(a) for a in golden_clouds(golden, n))
+        for path in NETS:
+            want = stored[path]
+            assert abs(want["value"] - fresh[path]["value"]) <= 1e-6
+            np.testing.assert_allclose(want["grad_pcA"], fresh[path]["grad_pcA"], rtol=1e-6,
+                                       atol=0)
+            cfg, params = load_dpdist_checkpoint(path)
+            loss_fn = make_frozen_dpdist_loss(params_from_jax(params, "cpu"), cfg,
+                                              out_of_grid_penalty=stored["out_of_grid_penalty"])
+            a = pcA.clone().requires_grad_(True)
+            value = loss_fn(a, pcB)
+            (grad,) = torch.autograd.grad(value, a)
+            assert abs(float(value.detach()) - want["value"]) <= TOL
+            _close_rel(grad.numpy()[list(GRAD_PAIRS)], np.asarray(want["grad_pcA"]))
 
 
 def test_table_mode_on_cpu_equals_off(net):
@@ -246,7 +286,7 @@ def test_entry_points_default_to_cuda():
     {"conv_version": 3},
     {"use_bn": True},
     {"dtype": "bfloat16"},
-    {"fused_gather": "full"},
+    {"fused_gather": "full", "dtype": "bfloat16"},   # the fused serving kernel is bf16 only
     {"fused_gather": "on"},
     {"dims": 2, "embedding_size": 64},
     {"k": 0},

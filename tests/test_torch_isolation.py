@@ -26,10 +26,11 @@ def _imported_modules(tree):
 
 def test_scan_covers_the_port():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
-    for module in ("kernels/mfv_gather.py", "kernels/table_gather.py", "models/dpdist.py",
+    for module in ("kernels/mfv_gather.py", "kernels/table_gather.py", "kernels/threedmfv.py",
+                   "kernels/chamfer.py", "models/dpdist.py", "ops/chamfer.py", "ops/emd.py",
                    "losses/dpdist_loss.py", "losses/standard.py", "nn/schedules.py",
                    "train/optim.py", "train/trainer.py", "train/logging.py",
-                   "data/batching.py", "data/prefetch.py"):
+                   "data/batching.py", "data/prefetch.py", "cli/eval_pair.py"):
         assert "dpdist_tpu_torch/" + module in names
     assert "chip_smoke.py" in names
 

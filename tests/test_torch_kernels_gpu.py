@@ -10,13 +10,18 @@ import numpy as np
 import pytest
 import torch
 
+from dpdist_tpu_torch.kernels.chamfer import nn_min_sqdist, nn_min_sqdist_plain
 from dpdist_tpu_torch.kernels.mfv_gather import mfv_x, mfv_x_plain
 from dpdist_tpu_torch.kernels.table_gather import (
+    table_gather,
     table_gather_bwd,
     table_gather_bwd_plain,
+    table_gather_plain,
     table_gather_x,
     table_gather_x_plain,
 )
+from dpdist_tpu_torch.kernels.threedmfv import threedmfv_kernel
+from dpdist_tpu_torch.ops.threedmfv import threedmfv_plain
 
 # Kernel vs plain version: both form squared distances per dimension and
 # differ only in summation order and in the device's exp.
@@ -28,6 +33,9 @@ TOL_X = 2e-5
 # the largest entry at B = 256, N = 64 (7.63e-6 of 28.6) and at N = 200
 # (1.14e-5 of 42.6).
 REL_BWD = 1e-6
+# NN-min kernel vs plain: nvcc contracts the per-dimension sum to FMA, so
+# the last bits may differ; within TOL_NN_ABS + TOL_NN_REL * |d|.
+TOL_NN_ABS, TOL_NN_REL = 1e-6, 1e-5
 
 
 @pytest.fixture
@@ -145,3 +153,87 @@ def test_frozen_loss_launch_counts(cuda):
            mfv_x.launches - counts[2])
     assert got == (2, 1, 0)
     assert bool(torch.isfinite(dA).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,N,G,sigma", [
+    (4, 256, 512, 0.125),     # the np = 256 path
+    (3, 1000, 512, 0.125),    # a ragged last tile
+    (2, 130, 64, 0.25),       # a small grid
+    (2, 1, 512, 0.125),       # one point
+])
+def test_threedmfv_kernel_matches_plain(cuda, B, N, G, sigma):
+    """With coordinates on cell edges and a few points far outside the grid."""
+    pts = _edge_inputs(B, N, 1, 8, seed=8)[0]
+    pts[:, : max(1, N // 50)] = np.float32(4.5)
+    pts = torch.as_tensor(pts, device=cuda)
+    before = threedmfv_kernel.launches
+    fv = threedmfv_kernel(pts, G, sigma)
+    torch.cuda.synchronize()
+    assert threedmfv_kernel.launches == before + 1
+    ref = threedmfv_plain(pts, G, sigma)
+    assert fv.shape == ref.shape and bool(torch.isfinite(fv).all())
+    assert float((fv - ref).abs().max()) <= TOL_X
+
+
+@pytest.mark.gpu
+def test_threedmfv_kernel_backward_replays_the_plain_encode(cuda):
+    pts = torch.as_tensor(_edge_inputs(4, 256, 1, 8, seed=9)[0], device=cuda)
+    co = torch.as_tensor(np.random.default_rng(10).normal(size=(4, 512, 20)).astype(np.float32),
+                         device=cuda)
+    grads = []
+    for fn in (threedmfv_kernel, threedmfv_plain):
+        p = pts.clone().requires_grad_()
+        grads.append(torch.autograd.grad((fn(p, 512, 0.125) * co).sum(), p)[0])
+    # The replay is the plain encode's own backward: equal.
+    assert torch.equal(grads[0], grads[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,N,g,k,C", [(256, 256, 8, 5, 20), (2, 16, 4, 3, 7), (3, 200, 8, 5, 20)])
+def test_table_gather_kernel_matches_plain(cuda, B, N, g, k, C):
+    """Exact, off-grid queries (vox 0) included."""
+    r = np.random.default_rng(11)
+    fv = torch.as_tensor(r.normal(size=(B, g ** 3, C)).astype(np.float32), device=cuda)
+    q = torch.as_tensor(_edge_inputs(B, 1, N, g, seed=12)[1], device=cuda)
+    vox = table_gather_x_plain(torch.zeros(B, g ** 3, C, device=cuda), q, g, k)[1]
+    before = table_gather.launches
+    out = table_gather(fv, vox, g, k)
+    torch.cuda.synchronize()
+    assert table_gather.launches == before + 1
+    assert torch.equal(out, table_gather_plain(fv, vox, g, k))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,N,M", [(1, 10000, 10000), (2, 1000, 4099), (3, 37, 5), (256, 64, 64)])
+def test_nn_min_sqdist_kernel_matches_plain(cuda, B, N, M):
+    r = np.random.default_rng(N + M)
+    a, p = (torch.as_tensor(r.uniform(-1, 1, (B, n, 3)).astype(np.float32), device=cuda)
+            for n in (N, M))
+    before = nn_min_sqdist.launches
+    d = nn_min_sqdist(a, p)
+    torch.cuda.synchronize()
+    assert nn_min_sqdist.launches == before + 1
+    ref = nn_min_sqdist_plain(a, p)
+    assert bool(((d - ref).abs() <= TOL_NN_ABS + TOL_NN_REL * ref.abs()).all())
+
+
+@pytest.mark.gpu
+def test_served_forward_on_large_clouds(cuda):
+    """M = N = 5,083 points, where the fused kernel's shared memory used to
+    run out: the forward takes the table path, rows 7 and 6, twice each."""
+    from dpdist_tpu_torch.serving import load_frozen_distance
+
+    model = load_frozen_distance("results/ckpt_best", device=cuda)
+    r = np.random.default_rng(13)
+    pcA, pcB = (torch.as_tensor(r.uniform(-0.9, 0.9, (1, 5083, 3)).astype(np.float32),
+                                device=cuda) for _ in range(2))
+    counts = (threedmfv_kernel.launches, table_gather.launches, mfv_x.launches,
+              table_gather_x.launches)
+    with torch.no_grad():
+        d = model(pcA, pcB)
+    torch.cuda.synchronize()
+    got = (threedmfv_kernel.launches - counts[0], table_gather.launches - counts[1],
+           mfv_x.launches - counts[2], table_gather_x.launches - counts[3])
+    assert got == (2, 2, 0, 0)
+    assert d.shape == (1,) and bool(torch.isfinite(d).all())

@@ -125,4 +125,5 @@ def test_build_cache_key_follows_sources():
     path = build.library_path()
     assert path.name == "libdpdist_kernels.so"
     assert path.parent.parent == build.BUILD_DIR
-    assert {"mfv_gather.cu", "table_gather.cu"} <= {s.name for s in build.sources()}
+    assert {"mfv_gather.cu", "table_gather.cu", "threedmfv.cu", "chamfer.cu"} <= {
+        s.name for s in build.sources()}
