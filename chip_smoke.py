@@ -6,13 +6,16 @@
 Drives the port's paths through their hand-written kernels and checks
 them: the frozen DPDist distance served from the committed nets (fused
 kernel at 64 points; streaming 3DmFV encode and patch-only gather at 256),
-the frozen loss with its source gradient (table-gather kernels and the
-adjoint), DPDist training (table-gather kernel), and eval_pair on two
-10,000-point clouds (encode, patch-only gather and the NN-min kernel).
+served in bfloat16 (the fused gather + decoder kernel, fused_gather="full";
+the composed bf16 path, "auto") and through the per-query gather
+(fused_gather="on"), the frozen loss with its source gradient (table-gather
+kernels and the adjoint; "on"), DPDist training (table-gather kernel), and
+eval_pair on two 10,000-point clouds (encode, patch-only gather and the
+NN-min kernel).
 
   1. device        the card's name and power limit; fails without CUDA.
-  2. build         compiles dpdist_tpu_torch/csrc (one nvcc call over
-                   all the sources).
+  2. build         compiles dpdist_tpu_torch/csrc (one nvcc per source,
+                   all started together, and one link).
   3. kernel        the fused 3DmFV + patch-gather kernel against its plain
                    PyTorch version at 2B = 512 clouds, M = N = 64, with
                    off-grid queries and points on cell edges (x within
@@ -65,7 +68,39 @@ adjoint), DPDist training (table-gather kernel), and eval_pair on two
                    2 patch-only gather, 2 NN-min launches); each key
                    against the port's plain path on the same clouds; the
                    golden np = 256 pairs' chamfer and EMD on the card.
- 14. times         CUDA-event medians of 20 runs after warm-up: each kernel
+ 14. fused_forward_kernel the fused gather + decoder kernel against its
+                   plain version on the first np = 64 request (2B = 512
+                   clouds, the committed net's decoder in bf16) with 5 % of
+                   the queries pushed off the grid, and on the first
+                   np = 256 request (within 2e-2 on pre-activation outputs,
+                   all finite); both against the same rounding points with
+                   float64 sums, printed.
+ 15. gather_fused_kernel the per-query gather against its plain version on
+                   the first np = 64 request's pcA volumes and pcB queries,
+                   partly off the grid (exact), and its backward (the
+                   adjoint kernel on the masked gradient) against autograd
+                   through the plain version (within 1e-6 of its largest
+                   entry).
+ 16. bf16_kernels  the bf16 outputs of the fused mfv kernel, the table
+                   gather and the patch-only gather against their float32
+                   outputs rounded (within one bf16 ulp; equal expected).
+ 17. serving_bf16  per committed net, "full" and "auto" in bf16 at np = 64
+                   and np = 256: three requests of B = 256 (counters: "full"
+                   1 fused forward per request, plus 2 encodes at 256;
+                   "auto" 1 fused mfv at 64, 2 encodes and 2 patch-only
+                   gathers at 256); the golden pairs against the JAX bf16
+                   values within 2e-3 and the float32 ones within 0.03;
+                   "full" against "auto" within 2e-3; off-grid queries
+                   exactly 0.
+ 18. serving_on    per committed net, "on" in float32 at np = 64 and 256
+                   (counters: 2 per-query gathers per request, plus 2
+                   encodes at 256); against the plain path and the golden
+                   pairs within 1e-4.
+ 19. frozen_grad_on the frozen loss with "on" at np = 64 and 256 as in
+                   frozen_grad: per call 2 per-query gathers and 1 adjoint
+                   launch (plus 2 encodes and one replay at 256); d/dpcA
+                   against the table path's by the per-point criterion.
+ 20. times         CUDA-event medians of 20 runs after warm-up: each kernel
                    with its bound, its plain version and a PyTorch library
                    call computing the same function where there is one
                    (rows 2 and 3 on the first request's pcB, the queries
@@ -75,8 +110,9 @@ adjoint), DPDist training (table-gather kernel), and eval_pair on two
                    256, and at B = 1, N = 10,000; the
                    forward, the frozen source-gradient step and the train
                    step at B = 256, np = 64, and the forward and the
-                   source-gradient step at np = 256; eval_pair at 10,000
-                   points, end to end and per key.
+                   source-gradient step at np = 256; the bf16 forwards
+                   ("full", "auto") and the "on" forward at np = 64 and
+                   256; eval_pair at 10,000 points, end to end and per key.
 
 Every phase prints a start and an end line. A wall-clock guard ends the
 run with a non-zero exit naming the phase. The last lines are the
@@ -136,9 +172,26 @@ ENCODE_OPS_PER_PAIR = 50
 NN_OPS_PER_PAIR = 9      # 3 subtractions, 3 products, 2 additions, 1 minimum
 TIMED_RUNS = 20
 # H100 SXM peaks (NVIDIA's data sheet, dense, at the 700 W limit): device
-# memory rate and float32 outside the tensor cores.
+# memory rate, float32 outside the tensor cores, and bf16 on the tensor
+# cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
+# Fused gather + decoder kernel vs its plain version, on pre-activation
+# outputs: both sum exact bf16 products in float32, in other orders (the
+# tensor cores' float32 accumulation does not round to nearest at each
+# add), and a hidden activation at a bf16 rounding edge may round the other
+# way. On the H100, against the same rounding points with float64 sums,
+# the plain version strayed by up to 8.7e-3 and the kernel by up to 9.8e-3
+# on off-grid rows, where |y| reaches 31 (in-grid rows: 2.8e-3 and
+# 3.7e-3); the phase prints both each run.
+TOL_FF = 2e-2
+# bf16 served distances against the JAX golden bf16 values and "full"
+# against the composed bf16 path: the JAX package's own bound between its
+# two bf16 paths (tests/test_kernels.py:146-166); against float32: its
+# bf16-vs-f32 tolerance (tests/test_dpdist_model.py:37-56).
+TOL_BF16, TOL_BF16_VS_F32 = 2e-3, 0.03
+OFF_GRID_SHARE = 0.05    # queries pushed off the grid in the kernel checks
 
 _phase = "start"
 
@@ -207,10 +260,11 @@ def cuda_median_ms(fn, runs=TIMED_RUNS, warmup=3):
     return statistics.median(times)
 
 
-def bound(bytes_moved, flops):
-    """(ms, "bytes" or "operations"): the least time the card could take."""
+def bound(bytes_moved, flops, peak=F32_FLOP_PER_S):
+    """(ms, "bytes" or "operations"): the least time the card could take,
+    with the operations at `peak` per second."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
+    t_ops = flops / peak * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -338,6 +392,15 @@ def main() -> int:
         from dpdist_tpu_torch.data.synthetic import synthetic_surface
         from dpdist_tpu_torch.kernels import build
         from dpdist_tpu_torch.kernels.chamfer import nn_min_sqdist, nn_min_sqdist_plain
+        from dpdist_tpu_torch.kernels.fused_forward import (
+            fused_forward,
+            fused_forward_plain,
+            pack_decoder,
+        )
+        from dpdist_tpu_torch.kernels.gather_fused import (
+            gather_patches_fused,
+            gather_patches_fused_plain,
+        )
         from dpdist_tpu_torch.kernels.mfv_gather import mfv_x, mfv_x_plain
         from dpdist_tpu_torch.kernels.table_gather import (
             table_gather,
@@ -349,10 +412,14 @@ def main() -> int:
         )
         from dpdist_tpu_torch.kernels.threedmfv import threedmfv_kernel
         from dpdist_tpu_torch.losses import make_frozen_dpdist_loss
+        from dpdist_tpu_torch.models import apply_dpdist
+        from dpdist_tpu_torch.nn import mlp_apply
         from dpdist_tpu_torch.ops import (
             chamfer_distance,
             earth_mover_distance,
+            neighbor_ids,
             sinkhorn_emd,
+            threedmfv,
             threedmfv_plain,
             voxel_assign,
         )
@@ -512,7 +579,8 @@ def main() -> int:
 
     counters = {"mfv_gather_x": mfv_x, "table_gather_x": table_gather_x,
                 "table_gather_bwd": table_gather_bwd, "threedmfv": threedmfv_kernel,
-                "table_gather": table_gather, "nn_min_sqdist": nn_min_sqdist}
+                "table_gather": table_gather, "nn_min_sqdist": nn_min_sqdist,
+                "fused_forward": fused_forward, "gather_patches_fused": gather_patches_fused}
     launches = dict.fromkeys(counters, 0)
 
     def start_count():
@@ -583,16 +651,21 @@ def main() -> int:
         (g,) = torch.autograd.grad(value, a)
         return value.detach(), g
 
-    def frozen_grad(requests, section, clouds, want, replays, other_modes):
+    def frozen_grad(requests, section, clouds, want, replays, other_modes, mode=None):
         """Per committed net: the frozen loss and d/dpcA on the section's
         golden pairs against the JAX values; source-gradient calls on the
         requests, counted, against the paths of other_modes; the parameters
-        unchanged and without .grad."""
+        unchanged and without .grad. `mode` sets fused_gather (default: the
+        checkpoint's, "auto", which a gradient context resolves as
+        "table")."""
         gold = section["frozen_loss"]
         rows = gold["grad_pairs"]
         n_points = requests[0][0].shape[1]
+        label = mode or "table"
         for net in NETS:
             cfg, np_params = load_dpdist_checkpoint(str(ROOT / net))
+            if mode:
+                cfg = cfg.replace(fused_gather=mode)
             params = params_from_jax(np_params, dev)
             leaves = [t.requires_grad_(True) for lp in params["decoder"]["layers"]
                       for t in lp.values()]
@@ -615,16 +688,16 @@ def main() -> int:
                   f"{threedmfv_kernel.replays}", flush=True)
             check(launched == want, f"{net}: unexpected launches")
             check(threedmfv_kernel.replays == replays, f"{net}: unexpected encode replays")
-            for mode in other_modes:
-                other = make_frozen_dpdist_loss(params, cfg.replace(fused_gather=mode))
+            for other_mode in other_modes:
+                other = make_frozen_dpdist_loss(params, cfg.replace(fused_gather=other_mode))
                 for (v, g), (a, b) in zip(outs, requests):
                     v_ref, g_ref = src_grad(other, a, b)
                     check(bool(torch.isfinite(g).all()), "non-finite gradient")
                     d = abs(float(v - v_ref))
-                    worst = check_grad_rows(g, g_ref, f"{net}: table vs {mode} path")
-                    check(d <= TOL_DIST, f"{net}: loss, table vs {mode} path: {d}")
-                print(f"{net}: table path vs {mode} path: loss |d| = {d:.3e}, d/dpcA worst "
-                      f"point {worst:.3e} of max (last request)", flush=True)
+                    worst = check_grad_rows(g, g_ref, f"{net}: {label} vs {other_mode} path")
+                    check(d <= TOL_DIST, f"{net}: loss, {label} vs {other_mode} path: {d}")
+                print(f"{net}: {label} path vs {other_mode} path: loss |d| = {d:.3e}, d/dpcA "
+                      f"worst point {worst:.3e} of max (last request)", flush=True)
             check(all(t.grad is None for t in leaves), f"{net}: a parameter received .grad")
             check(all(torch.equal(t, b) for t, b in zip(leaves, before)),
                   f"{net}: a parameter changed")
@@ -754,6 +827,206 @@ def main() -> int:
                 walls.append(time.perf_counter() - t0)
         eval_e2e_ms = statistics.median(walls) * 1e3
 
+    def push_off_grid(clouds):
+        """A copy with OFF_GRID_SHARE of each cloud's points (the first one
+        at least) moved far outside the grid."""
+        out = clouds.clone()
+        far = torch.as_tensor(rng.random(out.shape[:2]) < OFF_GRID_SHARE, device=dev)
+        far[:, 0] = True
+        out[far] = FAR
+        return out
+
+    def ff_inputs(a, b, off_grid):
+        """Row 9's inputs for one request, as the "full" route builds them:
+        the bf16 volumes [A; B] and the queries [B; A] (pushed partly off
+        the grid if asked)."""
+        with torch.no_grad():
+            fv2 = torch.cat([threedmfv(a, G, SIGMA), threedmfv(b, G, SIGMA)]).to(torch.bfloat16)
+        q2 = torch.cat([b, a])
+        if off_grid:
+            q2 = push_off_grid(q2)
+        vox2, mask2, delta2 = voxel_assign(q2, GRID)
+        return fv2, vox2, mask2, delta2
+
+    cfg0, np_params0 = load_dpdist_checkpoint(str(ROOT / NETS[0]))
+    params0 = params_from_jax(np_params0, dev)
+    packed0 = pack_decoder(params0["decoder"]["layers"])
+
+    def fused_forward_f64(fv2, vox2, delta2, packed):
+        """fused_forward_plain's rounding points with float64 sums: the
+        yardstick for how far float32 summation moves the outputs."""
+        x = torch.cat([table_gather_plain(fv2.float(), vox2, GRID, K).double(),
+                       delta2.to(torch.bfloat16).double()], -1)
+        h = torch.relu(x @ packed.w[0][:packed.in_dim].double() + packed.b[0].double())
+        for w_, b_ in zip(packed.w[1:], packed.b[1:]):
+            h = torch.relu(h.to(torch.bfloat16).double() @ w_.double() + b_.double())
+        return h.to(torch.bfloat16).double() @ packed.w_out.t().double() + packed.b_out.double()
+
+    with Phase("fused_forward_kernel"):
+        err_ff = 0.0
+        for reqs in (requests, requests_large):
+            fv2, vox2, mask2, delta2 = ff_inputs(*reqs[0], off_grid=True)
+            with torch.no_grad():
+                y = fused_forward(fv2, vox2, delta2, packed0, GRID, K)
+                torch.cuda.synchronize()
+                y_ref = fused_forward_plain(fv2, vox2, delta2, packed0, GRID, K)
+                y64 = fused_forward_f64(fv2, vox2, delta2, packed0)
+            n_q = vox2.shape[1]
+            check(y.shape == (2 * B_SERVE, n_q, 3), f"fused_forward shape {tuple(y.shape)}")
+            check(bool(torch.isfinite(y).all()), "fused_forward has non-finite values")
+            err = float((y - y_ref).abs().max())
+            err_ff = max(err_ff, err)
+            inside = mask2 > 0
+            vs64 = {k_: ((v_.double() - y64).abs()[inside].max().item(),
+                         (v_.double() - y64).abs()[~inside].max().item())
+                    for k_, v_ in (("kernel", y), ("plain", y_ref))}
+            print(f"fused_forward vs plain at 2B={2 * B_SERVE}, N={n_q} ({NETS[0]}): max |dy| = "
+                  f"{err:.3e} (tol {TOL_FF}; max |y| {float(y_ref.abs().max()):.2f}), "
+                  f"{int((~inside).sum())} off-grid queries; against float64 sums (in-grid, "
+                  f"off-grid rows): kernel {vs64['kernel'][0]:.3e}, {vs64['kernel'][1]:.3e}; "
+                  f"plain {vs64['plain'][0]:.3e}, {vs64['plain'][1]:.3e}", flush=True)
+            check(err <= TOL_FF, f"fused_forward: max |dy| {err} > {TOL_FF}")
+            del y, y_ref, y64
+
+    with Phase("gather_fused_kernel"):
+        a, b = requests[0]
+        fv10 = threedmfv(a, G, SIGMA).detach()
+        vox10, mask10, _ = voxel_assign(push_off_grid(b), GRID)
+        with torch.no_grad():
+            out10 = gather_patches_fused(fv10, vox10, mask10, GRID, K)
+            torch.cuda.synchronize()
+            ref10 = gather_patches_fused_plain(fv10, vox10, mask10, GRID, K)
+        err_g10 = float((out10 - ref10).abs().max())
+        check(torch.equal(out10, ref10), f"gather_patches_fused differs from its plain version "
+              f"({err_g10})")
+        grad10 = torch.as_tensor(rng.normal(size=out10.shape).astype(np.float32), device=dev)
+        dfvs = []
+        for fn in (gather_patches_fused, gather_patches_fused_plain):
+            f = fv10.clone().requires_grad_()
+            dfvs.append(torch.autograd.grad(fn(f, vox10, mask10, GRID, K), f, grad10)[0])
+        err_g10_bwd = float((dfvs[0] - dfvs[1]).abs().max())
+        tol_g10_bwd = REL_BWD * float(dfvs[1].abs().max())
+        print(f"gather_patches_fused vs plain at B={B_SERVE}, N={NP}: equal, "
+              f"{int((mask10 == 0).sum())} off-grid queries; backward (adjoint on the masked "
+              f"grad) vs autograd: max |d dfv| = {err_g10_bwd:.3e} (tol {tol_g10_bwd:.3e})",
+              flush=True)
+        check(err_g10_bwd <= tol_g10_bwd, "gather_patches_fused backward vs autograd")
+        del out10, ref10, grad10, dfvs
+
+    with Phase("bf16_kernels"):
+        # The main path's shapes: row 1 over the np = 64 2B stack, row 2 on
+        # a request's queries, row 6 at np = 256.
+        bf = torch.bfloat16
+        aL, bL = requests_large[0]
+        fvL6 = threedmfv(aL, G, SIGMA).detach()
+        voxL6 = voxel_assign(push_off_grid(bL), GRID)[0]
+        with torch.no_grad():
+            pairs = {
+                "mfv_gather_x": (mfv_x(pts, q, G, SIGMA, GRID, K, dtype=bf)[0],
+                                 mfv_x(pts, q, G, SIGMA, GRID, K)[0]),
+                "table_gather_x": (table_gather_x(fv, b, GRID, K, dtype=bf)[0],
+                                   table_gather_x(fv, b, GRID, K)[0]),
+                "table_gather": (table_gather(fvL6, voxL6, GRID, K, dtype=bf),
+                                 table_gather(fvL6, voxL6, GRID, K)),
+            }
+        torch.cuda.synchronize()
+        bf16_equal = {}
+        for name_, (got, f32) in pairs.items():
+            rounded = f32.to(bf)
+            # One bf16 ulp of the rounded value: 2^(exponent - 7).
+            ulp = torch.ldexp(torch.ones_like(f32), torch.frexp(rounded.float())[1] - 8)
+            off = ((got.float() - rounded.float()).abs() > ulp).sum()
+            bf16_equal[name_] = bool(torch.equal(got, rounded))
+            print(f"{name_} bf16 output vs its float32 output rounded: equal "
+                  f"{bf16_equal[name_]}, entries beyond one ulp {int(off)}", flush=True)
+            check(got.dtype == bf and int(off) == 0, f"{name_}: bf16 output off by > 1 ulp")
+        del pairs
+
+    def serve_bf16(reqs, n_key, clouds, want):
+        """Per committed net, "full" and "auto" in bf16: the requests,
+        counted; the golden pairs against the JAX bf16 and float32 values;
+        "full" against "auto"; off-grid queries exactly 0."""
+        n_points = reqs[0][0].shape[1]
+        f32_gold = golden if n_points == golden["num_point"] else large
+        for net in NETS:
+            outs, gold = {}, {}
+            for mode in ("full", "auto"):
+                model = load_frozen_distance(str(ROOT / net), device=dev, dtype="bfloat16",
+                                             fused_gather=mode)
+                start_count()
+                with torch.no_grad():
+                    outs[mode] = [model(a, b) for a, b in reqs]
+                launched = read_count()
+                print(f"{net} bf16 {mode}: {REQUESTS} requests of {B_SERVE} pairs at "
+                      f"np={n_points}, kernel launches {launched}", flush=True)
+                check(launched == want[mode], f"{net} bf16 {mode}: unexpected launches")
+                for out in outs[mode]:
+                    check(out.shape == (B_SERVE,) and bool(torch.isfinite(out).all()),
+                          "bf16: non-finite distance or wrong shape")
+                    check(float(out.min()) >= 0.0 and float(out.max()) <= 2.0,
+                          "bf16: distance outside [0, 2]")
+                with torch.no_grad():
+                    gold[mode] = model(*clouds).cpu().numpy()
+                    a, b = reqs[0]
+                    b_off = push_off_grid(b)
+                    pred_AB, _ = apply_dpdist(model.params(), model.cfg, a, b_off)
+                off_mask = voxel_assign(b_off, GRID)[1] == 0
+                check(bool((pred_AB[off_mask] == 0).all()), f"bf16 {mode}: off-grid queries "
+                      f"not exactly 0")
+                err_g = float(np.abs(gold[mode] - np.asarray(golden["bf16"][mode][n_key][net]))
+                              .max())
+                err_f32 = float(np.abs(gold[mode] - np.asarray(f32_gold["distance"][net])).max())
+                print(f"{net} bf16 {mode} at np={n_points}: vs JAX golden bf16 max |d| = "
+                      f"{err_g:.3e} (tol {TOL_BF16}); vs float32 golden max |d| = {err_f32:.3e} "
+                      f"(tol {TOL_BF16_VS_F32}); {int(off_mask.sum())} off-grid queries "
+                      f"exactly 0", flush=True)
+                check(err_g <= TOL_BF16, f"{net} bf16 {mode}: vs golden {err_g}")
+                check(err_f32 <= TOL_BF16_VS_F32, f"{net} bf16 {mode}: vs float32 {err_f32}")
+            err_fc = max(float((f - c).abs().max()) for f, c in zip(outs["full"], outs["auto"]))
+            print(f"{net} bf16 at np={n_points}: full vs auto max |d| = {err_fc:.3e} (tol "
+                  f"{TOL_BF16})", flush=True)
+            check(err_fc <= TOL_BF16, f"{net}: bf16 full vs auto {err_fc}")
+
+    with Phase("serving_bf16"):
+        serve_bf16(requests, "np64", (gA, gB),
+                   {"full": expected(fused_forward=REQUESTS),
+                    "auto": expected(mfv_gather_x=REQUESTS)})
+        serve_bf16(requests_large, "np256", (gA_large, gB_large),
+                   {"full": expected(threedmfv=2 * REQUESTS, fused_forward=REQUESTS),
+                    "auto": expected(threedmfv=2 * REQUESTS, table_gather=2 * REQUESTS)})
+
+    with Phase("serving_on"):
+        for reqs, section, clouds, enc in ((requests, golden, (gA, gB), 0),
+                                           (requests_large, large, (gA_large, gB_large),
+                                            2 * REQUESTS)):
+            for net in NETS:
+                model = load_frozen_distance(str(ROOT / net), device=dev, fused_gather="on")
+                plain = load_frozen_distance(str(ROOT / net), device=dev, fused_gather="off")
+                start_count()
+                with torch.no_grad():
+                    outs = [model(a, b) for a, b in reqs]
+                launched = read_count()
+                print(f"{net} on: {REQUESTS} requests at np={reqs[0][0].shape[1]}, kernel "
+                      f"launches {launched}", flush=True)
+                check(launched == expected(gather_patches_fused=2 * REQUESTS, threedmfv=enc),
+                      f"{net} on: unexpected launches")
+                with torch.no_grad():
+                    err_plain = max(float((o - plain(a, b)).abs().max())
+                                    for o, (a, b) in zip(outs, reqs))
+                    got_golden = model(*clouds).cpu().numpy()
+                err_golden = float(np.abs(got_golden - np.asarray(section["distance"][net])).max())
+                print(f"{net} on: vs plain path max |d| = {err_plain:.3e}; vs JAX golden max "
+                      f"|d| = {err_golden:.3e} (tol {TOL_DIST})", flush=True)
+                check(err_plain <= TOL_DIST and err_golden <= TOL_DIST, f"{net} on: distances")
+
+    with Phase("frozen_grad_on"):
+        frozen_grad(requests, golden, (gA, gB),
+                    expected(gather_patches_fused=2 * REQUESTS, table_gather_bwd=REQUESTS), 0,
+                    ("table",), mode="on")
+        frozen_grad(requests_large, large, (gA_large, gB_large),
+                    expected(threedmfv=2 * REQUESTS, gather_patches_fused=2 * REQUESTS,
+                             table_gather_bwd=REQUESTS), REQUESTS, ("table",), mode="on")
+
     with Phase("times"):
         records = []
         B, N, V, E = B_SERVE, NP, G, K ** 3 * C
@@ -828,7 +1101,10 @@ def main() -> int:
                             "replaces": "dpdist_tpu/kernels/table_gather_pallas.py:237",
                             "launches": launches["table_gather_bwd"], "max_abs_err": err_bwd,
                             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                            "library_ms": lib_ms})
+                            "library_ms": lib_ms,
+                            # Rows 4 and 5: the same adjoint in two TPU lane layouts.
+                            "covers": ["dpdist_tpu/kernels/table_gather_pallas.py:379",
+                                       "dpdist_tpu/kernels/table_gather_pallas.py:425"]})
 
             # Rows 7 and 6 on the np = 256 path's inputs: pcA of the first
             # large request is encoded, and pcB queries that surface.
@@ -902,6 +1178,94 @@ def main() -> int:
                             "library_ms": lib_ms})
             del lib_nn, d_nn
 
+            # Row 9 on the first np = 64 request as the "full" route builds
+            # it (2B = 512 clouds, all queries inside the grid).
+            fv2, vox2, _, delta2 = ff_inputs(a, b, off_grid=False)
+            rows9 = vox2.numel()
+            layers_bf = [{k_: t.to(torch.bfloat16) for k_, t in lp.items()}
+                         for lp in params0["decoder"]["layers"]]
+            rows_idx9, _ = neighbour_rows(torch, vox2, V)
+            fv_pad9 = torch.cat([fv2, torch.zeros(2 * B, 1, C, dtype=torch.bfloat16, device=dev)],
+                                1).reshape(-1, C)
+
+            def composed_bf16():
+                """The composed bf16 path over the same rows: index_select
+                gathers the patches, cuBLAS runs the decoder (a composition
+                of library calls, not one call)."""
+                x9 = torch.cat([delta2.to(torch.bfloat16),
+                                fv_pad9.index_select(0, rows_idx9).view(2 * B, N, E)], -1)
+                return mlp_apply({"layers": layers_bf}, x9, torch.bfloat16)
+
+            y_lib = composed_bf16().float()
+            y9 = fused_forward(fv2, vox2, delta2, packed0, GRID, K)
+            print(f"row 9 timed inputs: {2 * B} clouds x {N} queries; the composed bf16 "
+                  f"path's output vs the kernel's: max |dy| = "
+                  f"{float((y_lib - y9).abs().max()):.3e} (it rounds each product to bf16 "
+                  f"before the bias and the head's output)", flush=True)
+            ms = cuda_median_ms(lambda: fused_forward(fv2, vox2, delta2, packed0, GRID, K))
+            plain_ms = cuda_median_ms(lambda: fused_forward_plain(fv2, vox2, delta2, packed0,
+                                                                  GRID, K))
+            lib_ms = cuda_median_ms(composed_bf16)
+            x9 = torch.cat([delta2.to(torch.bfloat16),
+                            fv_pad9.index_select(0, rows_idx9).view(2 * B, N, E)], -1)
+            dec_ms = cuda_median_ms(lambda: mlp_apply({"layers": layers_bf}, x9, torch.bfloat16))
+            widths9 = [lp["w"].shape for lp in params0["decoder"]["layers"]]
+            flops9 = 2 * rows9 * sum(i * o for i, o in widths9)
+            # fv, vox and delta in, y out, the weights and biases once.
+            bytes9 = (fv2.numel() * 2 + rows9 * (4 + 12 + 4 * 3)
+                      + sum(i * o * 2 + o * 4 for i, o in widths9))
+            b_ms, b_by = bound(bytes9, flops9, BF16_FLOP_PER_S)
+            records.append({"name": "fused_forward", "route": "cuda",
+                            "source": "dpdist_tpu_torch/csrc/fused_forward.cu",
+                            "replaces": "dpdist_tpu/kernels/fused_forward_pallas.py:121",
+                            "launches": launches["fused_forward"], "max_abs_err": err_ff,
+                            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                            "library_ms": lib_ms, "library_is": "composition: index_select "
+                            "gather + torch.matmul bf16 decoder (cuBLAS)"})
+            print(f"row 9: {flops9 / 1e12:.4f} TFLOP over {rows9} rows, bound at the "
+                  f"{BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s dense bf16 peak (H100 SXM data "
+                  f"sheet); the composed path's decoder "
+                  f"alone (cuBLAS bf16) {dec_ms:.4f} ms = {flops9 / dec_ms / 1e9:.1f} TFLOP/s, "
+                  f"the kernel {flops9 / ms / 1e9:.1f} TFLOP/s; on {card}", flush=True)
+            del x9, y_lib, y9, fv_pad9, rows_idx9
+
+            # Row 10 on the first np = 64 request: pcA's volumes, pcB's queries.
+            fv10 = threedmfv(a, G, SIGMA).detach()
+            vox10, mask10, _ = voxel_assign(b, GRID)
+            nid = neighbor_ids(vox10, mask10, GRID, K).long()
+            base10 = (torch.arange(B, device=dev) * (V + 1))[:, None, None]
+            rows10 = (base10 + torch.where(nid >= 0, nid, torch.full_like(nid, V))).reshape(-1)
+            fv_pad10 = torch.cat([fv10, torch.zeros(B, 1, C, device=dev)], 1).reshape(-1, C)
+            check(torch.equal(fv_pad10.index_select(0, rows10).view(B, N, E),
+                              gather_patches_fused(fv10, vox10, mask10, GRID, K)),
+                  "index_select does not reproduce gather_patches_fused")
+            reached10 = torch.zeros(B * (V + 1), dtype=torch.bool, device=dev)
+            reached10[rows10] = True
+            n_reached10 = int(reached10.view(B, V + 1)[:, :V].sum())
+            ms = cuda_median_ms(lambda: gather_patches_fused(fv10, vox10, mask10, GRID, K))
+            plain_ms = cuda_median_ms(lambda: gather_patches_fused_plain(fv10, vox10, mask10,
+                                                                         GRID, K))
+            lib_ms = cuda_median_ms(lambda: fv_pad10.index_select(0, rows10))
+            # The reached cells of fv, vox and mask in, the patch rows out; no
+            # arithmetic.
+            b_ms, b_by = bound(4 * (n_reached10 * C + 2 * B * N + B * N * E), 0)
+            records.append({"name": "gather_patches_fused", "route": "cuda",
+                            "source": "dpdist_tpu_torch/csrc/gather_fused.cu",
+                            "replaces": "dpdist_tpu/kernels/gather_pallas.py:137",
+                            "launches": launches["gather_patches_fused"], "max_abs_err": err_g10,
+                            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                            "library_ms": lib_ms})
+            del fv_pad10, rows10, reached10, nid
+
+            # The bf16 outputs of rows 1, 2 and 6 beside their float32 times.
+            bf = torch.bfloat16
+            for name_, fn in (
+                    ("mfv_gather_x", lambda: mfv_x(pts, q, G, SIGMA, GRID, K, dtype=bf)),
+                    ("table_gather_x", lambda: table_gather_x(fv, b, GRID, K, dtype=bf)),
+                    ("table_gather", lambda: table_gather(fvL, voxL, GRID, K, dtype=bf))):
+                print(f"{name_} kernel with a bf16 output: {cuda_median_ms(fn):.4f} ms; on "
+                      f"{card}", flush=True)
+
             for r in records:
                 print(f"{r['name']} kernel: {r['ms']:.4f} ms; bound {r['bound_ms']:.4f} ms "
                       f"({r['bound_by']}) = {r['bound_ms'] / r['ms']:.1%} of bound; plain "
@@ -938,6 +1302,18 @@ def main() -> int:
         step_ms = cuda_median_ms(lambda: src_grad(loss_fn, aL, bL))
         print(f"frozen source-gradient step at B={B_SERVE} pairs, np={NL}: {step_ms:.4f} ms, "
               f"{B_SERVE / step_ms * 1e3:.1f} pairs/s; on {card}", flush=True)
+
+        for reqs in (requests, requests_large):
+            a_, b_ = reqs[0]
+            for over in ({"dtype": "bfloat16", "fused_gather": "full"},
+                         {"dtype": "bfloat16", "fused_gather": "auto"},
+                         {"fused_gather": "on"}):
+                model = load_frozen_distance(str(ROOT / NETS[-1]), device=dev, **over)
+                with torch.no_grad():
+                    fwd_ms = cuda_median_ms(lambda: model(a_, b_))
+                print(f"forward ({over}) at B={B_SERVE} pairs, np={a_.shape[1]}: "
+                      f"{fwd_ms:.4f} ms, {B_SERVE / fwd_ms * 1e3:.1f} pairs/s; on {card}",
+                      flush=True)
 
         eval_model = load_frozen_distance(str(ROOT / NETS[0]), device=dev)
         with torch.no_grad():

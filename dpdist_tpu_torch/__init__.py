@@ -5,8 +5,9 @@ module layout mirrors `dpdist_tpu/`, so each port module sits at the path
 of its reference. This package imports neither `jax` nor `dpdist_tpu`.
 
 Slices covered so far: the frozen DPDist distance served from the
-committed checkpoints, its gradient in the input clouds (the frozen
-loss), and DPDist training on one device.
+committed checkpoints (float32, and bfloat16 through the fused
+gather + decoder kernel or the composed bf16 path), its gradient in the
+input clouds (the frozen loss), and DPDist training on one device.
 
   configs/    DPDistConfig, TrainConfig (same fields, defaults and JSON form)
   train/      checkpoints (read and write), optimizer, run logger, trainer
@@ -23,16 +24,20 @@ loss), and DPDist training on one device.
 Entry points run on the card (`device="cuda"`) unless the caller asks for
 the CPU; without a card they raise.
 
-Numerics: float32 everywhere, with TF32 switched off for matmuls and
-convolutions. The JAX package pins HIGHEST matmul precision because
-lower precision moved its accuracy cells; TF32 is the same hazard on
-Hopper, so importing this package sets both flags to False.
+Numerics: float32 unless a config asks for bfloat16, with TF32 switched
+off for matmuls and convolutions. The JAX package pins HIGHEST matmul
+precision because lower precision moved its accuracy cells; TF32 is the
+same hazard on Hopper, so importing this package sets both flags to
+False. bfloat16 products accumulate in float32, as the reference's
+(preferred_element_type=float32); cuBLAS may otherwise reduce a bf16
+GEMM in bf16, so importing the package also switches that off.
 """
 
 import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 __version__ = "0.1.0"
 

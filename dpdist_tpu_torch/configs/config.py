@@ -46,9 +46,8 @@ class DPDistConfig(_JsonMixin):
     output_act: str = "relu"      # "relu" -> relu6(x)/3 in [0,2]; "tanh"; other -> relu6(x+3)/3-1
     use_bn: bool = False
     output_channels: int = 3      # decoder output channels; the distance reads channel 0
-    dtype: str = "float32"        # compute dtype for the decoder matmuls
-    fused_gather: str = "auto"    # "auto" | "mfv" | "table" | "off" in this port
-                                  # ("on" | "full" are not ported yet)
+    dtype: str = "float32"        # compute dtype for the decoder matmuls: "float32" | "bfloat16"
+    fused_gather: str = "auto"    # "auto" | "mfv" | "table" | "on" | "full" | "off"
 
     @property
     def grid_size(self) -> int:

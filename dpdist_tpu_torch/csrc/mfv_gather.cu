@@ -18,6 +18,11 @@
 //      neighbouring addresses; patch element e = o*20 + c reads channel c
 //      of the neighbour voxel at offset o, or 0 outside the grid.
 //
+// x is written as float32 or, for the bf16 serving path ("auto" in
+// bfloat16), as bfloat16: each value rounded once to nearest even, as the
+// reference's .astype(dtype) on its table and on delta
+// (mfv_gather_pallas.py:169-175). Forward only.
+//
 // What bounds it on an H100: the write of x. At 2B = 512 clouds and
 // N = 64 queries that is 512*64*2503*4 B = 328 MB; the inputs are 0.8 MB
 // and the encode is ~17 M exp. The design keeps everything else on chip
@@ -33,6 +38,7 @@
 // (no --use_fast_math: it changes division and ceil at cell edges, and so
 // which voxel a boundary point gets).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -45,11 +51,12 @@ using dpdist::kWarp;
 
 constexpr int kC = dpdist::kFvChannels;
 
+template <typename T>
 __global__ void mfv_gather_x_kernel(const float* __restrict__ points,   // (B, M, 3)
                                     const float* __restrict__ queries,  // (B, N, 3)
                                     const float* __restrict__ mu,       // (G, 3)
                                     const float* __restrict__ centers,  // (G, 3)
-                                    float* __restrict__ x,              // (B, N, 3 + k^3*20)
+                                    T* __restrict__ x,                  // (B, N, 3 + k^3*20)
                                     int* __restrict__ vox_out,          // (B, N)
                                     int M, int N, int g, int k, dpdist::EncodeConsts consts) {
   extern __shared__ float smem[];
@@ -115,11 +122,13 @@ size_t dpdist_mfv_gather_x_smem(int N, int g, int k, int threads) {
 }
 
 // Launches on `stream`; returns cudaGetLastError() after the launch (0 on
-// success) or cudaErrorInvalidValue for sizes the kernel does not take.
+// success) or cudaErrorInvalidValue for sizes the kernel does not take. x is
+// float32, or bfloat16 where out_bf16 is set.
 int dpdist_mfv_gather_x(const float* points, const float* queries, const float* mu,
-                        const float* centers, float* x, int* vox, int B, int M, int N,
+                        const float* centers, void* x, int* vox, int B, int M, int N,
                         int g, int k, float sigma, float w, float pi_scale, float sw,
-                        float sw2, float inv_m, int threads, int device, void* stream) {
+                        float sw2, float inv_m, int threads, int out_bf16, int device,
+                        void* stream) {
   const int G = g * g * g;
   if (B < 1 || M < 1 || N < 1 || g < 1 || k < 1 || (k % 2) == 0 || G > threads ||
       threads > 1024 || threads % kWarp != 0 || k > 2 * g + 1)
@@ -127,14 +136,20 @@ int dpdist_mfv_gather_x(const float* points, const float* queries, const float* 
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem = dpdist_mfv_gather_x_smem(N, g, k, threads);
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(mfv_gather_x_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
   const dpdist::EncodeConsts consts{sigma, w, pi_scale, sw, sw2, inv_m};
-  mfv_gather_x_kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      points, queries, mu, centers, x, vox, M, N, g, k, consts);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (out_bf16) {
+    err = dpdist::set_smem(mfv_gather_x_kernel<__nv_bfloat16>, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    mfv_gather_x_kernel<<<B, threads, smem, s>>>(points, queries, mu, centers,
+                                                 static_cast<__nv_bfloat16*>(x), vox, M, N, g, k,
+                                                 consts);
+  } else {
+    err = dpdist::set_smem(mfv_gather_x_kernel<float>, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    mfv_gather_x_kernel<<<B, threads, smem, s>>>(points, queries, mu, centers,
+                                                 static_cast<float*>(x), vox, M, N, g, k, consts);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

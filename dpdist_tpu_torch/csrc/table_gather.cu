@@ -20,10 +20,16 @@
 // (V, C) volume + (N,) vox -> (N, k^3*C). The reference takes it for
 // N > 128 queries, where its VMEM budget forces that split. Here it is
 // table_gather_x's design without the delta: the volume in shared memory,
-// one warp per row. Off-grid queries carry vox = 0 and read cell 0's patch,
-// as the reference does; the model's mask zeroes them later. A vox outside
-// [0, V) (never made by voxel_assign) gives a zero row. A pure copy: it
-// equals the plain gather_patches(extract_patches(fv), vox) exactly.
+// one warp per row (patch_rows.cuh:gather_patch_rows, which gather_fused.cu
+// shares). Off-grid queries carry vox = 0 and read cell 0's patch, as the
+// reference does; the model's mask zeroes them later. A vox outside [0, V)
+// (never made by voxel_assign) gives a zero row. A pure copy: it equals the
+// plain gather_patches(extract_patches(fv), vox) exactly.
+//
+// Both forward kernels write float32 or, for the bf16 serving paths,
+// bfloat16: each value of x (the patch and delta) is the float32 value
+// rounded once to nearest even, as the reference's .astype(dtype) on its
+// table and on delta (table_gather_pallas.py:84, :119). Forward only.
 //
 // table_gather_bwd replaces dpdist_tpu/kernels/table_gather_pallas.py:
 // _bwd_kernel + _fold_and_emit (`pl.pallas_call` in _table_gather_bwd_impl),
@@ -59,11 +65,13 @@
 namespace {
 
 using dpdist::kWarp;
+using dpdist::set_smem;
 
+template <typename T>
 __global__ void table_gather_x_kernel(const float* __restrict__ fv,       // (B, G, C)
                                       const float* __restrict__ queries,  // (B, N, 3)
                                       const float* __restrict__ centers,  // (G, 3)
-                                      float* __restrict__ x,              // (B, N, 3 + k^3*C)
+                                      T* __restrict__ x,                  // (B, N, 3 + k^3*C)
                                       int* __restrict__ vox_out,          // (B, N)
                                       int N, int g, int k, int C, int rows_per_block) {
   extern __shared__ float smem[];
@@ -99,40 +107,13 @@ __global__ void table_gather_x_kernel(const float* __restrict__ fv,       // (B,
   }
 }
 
+template <typename T>
 __global__ void table_gather_kernel(const float* __restrict__ fv,   // (B, G, C)
                                     const int* __restrict__ vox,    // (B, N)
-                                    float* __restrict__ out,        // (B, N, k^3*C)
+                                    T* __restrict__ out,            // (B, N, k^3*C)
                                     int N, int g, int k, int C, int rows_per_block) {
-  extern __shared__ float smem[];
-  const int G = g * g * g;
-  const int K3 = k * k * k;
-  const int E = K3 * C;
-  const int lane = threadIdx.x % kWarp;
-  const int warp = threadIdx.x / kWarp;
-  const int nwarps = blockDim.x / kWarp;
-  const int b = blockIdx.x;
-  const int n0 = blockIdx.y * rows_per_block;
-  const int n1 = min(N, n0 + rows_per_block);
-
-  float* fv_s = smem;                                     // G * C
-  int* offs_s = reinterpret_cast<int*>(fv_s + G * C);     // K3
-  char4* off3_s = reinterpret_cast<char4*>(offs_s + K3);  // K3
-
-  const float* fb = fv + static_cast<size_t>(b) * G * C;
-  for (int i = threadIdx.x; i < G * C; i += blockDim.x) fv_s[i] = fb[i];
-  dpdist::stage_window_offsets(offs_s, off3_s, g, k);
-  __syncthreads();
-
-  for (int n = n0 + warp; n < n1; n += nwarps) {
-    const size_t row = static_cast<size_t>(b) * N + n;
-    const int v = vox[row];   // every lane, same value
-    float* orow = out + row * E;
-    if (v >= 0 && v < G) {
-      dpdist::write_patch_row(orow, v, fv_s, offs_s, off3_s, g, C, E, lane);
-    } else {
-      for (int e = lane; e < E; e += kWarp) orow[e] = 0.f;
-    }
-  }
+  dpdist::gather_patch_rows(fv, vox, out, N, g, k, C, rows_per_block,
+                            [](size_t) { return true; });
 }
 
 __global__ void table_gather_bwd_kernel(const int* __restrict__ vox,     // (B, N)
@@ -182,49 +163,59 @@ extern "C" {
 // Shared memory bytes each kernel takes: the (G, C) volume and the
 // window's offset tables.
 size_t dpdist_table_gather_smem(int g, int k, int C) {
-  const size_t G = static_cast<size_t>(g) * g * g;
-  const size_t K3 = static_cast<size_t>(k) * k * k;
-  return 4 * (G * C + K3 * 2);
+  return 4 * dpdist::patch_rows_smem_floats(g, k, C);
 }
 
 // All three launch on `stream` and return cudaGetLastError() after the launch (0
-// on success) or cudaErrorInvalidValue for sizes the kernels do not take.
-int dpdist_table_gather_x(const float* fv, const float* queries, const float* centers, float* x,
+// on success) or cudaErrorInvalidValue for sizes the kernels do not take. The
+// two forward kernels write float32, or bfloat16 where out_bf16 is set.
+int dpdist_table_gather_x(const float* fv, const float* queries, const float* centers, void* x,
                           int* vox, int B, int N, int g, int k, int C, int rows_per_block,
-                          int threads, int device, void* stream) {
+                          int threads, int out_bf16, int device, void* stream) {
   if (B < 1 || N < 1 || bad_window(g, k, C) || rows_per_block < 1 || threads < kWarp ||
       threads > 1024 || threads % kWarp != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem = dpdist_table_gather_smem(g, k, C);
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(table_gather_x_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
   const dim3 grid(B, (N + rows_per_block - 1) / rows_per_block);
-  table_gather_x_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      fv, queries, centers, x, vox, N, g, k, C, rows_per_block);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (out_bf16) {
+    err = set_smem(table_gather_x_kernel<__nv_bfloat16>, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    table_gather_x_kernel<<<grid, threads, smem, s>>>(
+        fv, queries, centers, static_cast<__nv_bfloat16*>(x), vox, N, g, k, C, rows_per_block);
+  } else {
+    err = set_smem(table_gather_x_kernel<float>, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    table_gather_x_kernel<<<grid, threads, smem, s>>>(
+        fv, queries, centers, static_cast<float*>(x), vox, N, g, k, C, rows_per_block);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-int dpdist_table_gather(const float* fv, const int* vox, float* out, int B, int N, int g, int k,
-                        int C, int rows_per_block, int threads, int device, void* stream) {
+int dpdist_table_gather(const float* fv, const int* vox, void* out, int B, int N, int g, int k,
+                        int C, int rows_per_block, int threads, int out_bf16, int device,
+                        void* stream) {
   if (B < 1 || N < 1 || bad_window(g, k, C) || rows_per_block < 1 || threads < kWarp ||
       threads > 1024 || threads % kWarp != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem = dpdist_table_gather_smem(g, k, C);
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(table_gather_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
   const dim3 grid(B, (N + rows_per_block - 1) / rows_per_block);
-  table_gather_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      fv, vox, out, N, g, k, C, rows_per_block);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (out_bf16) {
+    err = set_smem(table_gather_kernel<__nv_bfloat16>, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    table_gather_kernel<<<grid, threads, smem, s>>>(
+        fv, vox, static_cast<__nv_bfloat16*>(out), N, g, k, C, rows_per_block);
+  } else {
+    err = set_smem(table_gather_kernel<float>, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    table_gather_kernel<<<grid, threads, smem, s>>>(
+        fv, vox, static_cast<float*>(out), N, g, k, C, rows_per_block);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -237,11 +228,8 @@ int dpdist_table_gather_bwd(const int* vox, const float* grad, int64_t stride_b,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem = dpdist_table_gather_smem(g, k, C);
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(table_gather_bwd_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  err = set_smem(table_gather_bwd_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   table_gather_bwd_kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       vox, grad, stride_b, stride_n, dfv, N, g, k, C);
   return static_cast<int>(cudaGetLastError());

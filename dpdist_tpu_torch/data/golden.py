@@ -4,7 +4,8 @@ The file assets/golden_distance.json lists each pair as two
 (family, seed) surfaces times a scale. At its `num_point` points it holds,
 per committed net, the per-pair distance the JAX package computes and its
 frozen loss; its "np256" section holds the same at 256 points, and the
-pairs' chamfer and EMD.
+pairs' chamfer and EMD; its "bf16" section holds the distances served in
+bfloat16 ("full" and "auto") at 64 and 256 points.
 """
 
 from __future__ import annotations

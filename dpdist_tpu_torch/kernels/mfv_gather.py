@@ -11,6 +11,11 @@ function in plain PyTorch (threedmfv -> extract_patches -> voxel_assign
 a CUDA tensor it launches the kernel or raises; it never falls back.
 `mfv_x.launches` counts kernel launches, and nothing else.
 
+With dtype=torch.bfloat16 x is written in bfloat16, each value the float32
+one rounded once, as the reference's `dtype=` (the bf16 serving path);
+that output is forward only, and asking for it on inputs that need a
+gradient raises.
+
 Gradients follow the reference's VJP: dq = grad[..., :3]; for the
 points, dfv = table_gather_bwd(vox, grad[..., 3:]) (the row-3 kernel on
 the card) and then autograd through the plain threedmfv of the points,
@@ -25,7 +30,7 @@ import math
 
 import torch
 
-from dpdist_tpu_torch.kernels.table_gather import table_gather_bwd
+from dpdist_tpu_torch.kernels.table_gather import check_forward_only, table_gather_bwd
 from dpdist_tpu_torch.ops.threedmfv import threedmfv_grid, threedmfv_plain
 from dpdist_tpu_torch.ops.voxel import (
     extract_patches,
@@ -80,10 +85,11 @@ def _check(points, queries, n_gaussians, grid_size, k):
         raise ValueError(f"k must be odd and positive, got {k}")
 
 
-def _mfv_x_impl(points, queries, n_gaussians, sigma, grid_size, k):
+def _mfv_x_impl(points, queries, n_gaussians, sigma, grid_size, k, dtype):
     dev = points.device
     if dev.type == "cpu":
-        return mfv_x_plain(points, queries, n_gaussians, sigma, grid_size, k)
+        x, vox = mfv_x_plain(points, queries, n_gaussians, sigma, grid_size, k)
+        return x.to(dtype), vox
     if dev.type != "cuda":
         raise ValueError(f"mfv_x runs on cpu or cuda tensors, got {dev}")
 
@@ -101,14 +107,15 @@ def _mfv_x_impl(points, queries, n_gaussians, sigma, grid_size, k):
         raise ValueError(f"N={N} queries need {smem} B of shared memory, "
                          f"more than the {build.MAX_SMEM} B a block has")
     mu, centers = _grid_tables(G, dev)
-    x = torch.empty((B, N, 3 + k ** 3 * C), dtype=torch.float32, device=dev)
+    x = torch.empty((B, N, 3 + k ** 3 * C), dtype=dtype, device=dev)
     vox = torch.empty((B, N), dtype=torch.int32, device=dev)
     w = 1.0 / G
     err = lib.dpdist_mfv_gather_x(
         points.data_ptr(), queries.data_ptr(), mu.data_ptr(), centers.data_ptr(),
         x.data_ptr(), vox.data_ptr(), B, M, N, grid_size, k, float(sigma),
         w, math.sqrt(w) * M, math.sqrt(w), math.sqrt(2.0 * w), 1.0 / M,
-        threads, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+        threads, int(dtype == torch.bfloat16), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch(err, "mfv_gather_x")
     mfv_x.launches += 1
     return x, vox
@@ -117,7 +124,7 @@ def _mfv_x_impl(points, queries, n_gaussians, sigma, grid_size, k):
 class _MfvX(torch.autograd.Function):
     @staticmethod
     def forward(ctx, points, queries, n_gaussians, sigma, grid_size, k):
-        x, vox = _mfv_x_impl(points, queries, n_gaussians, sigma, grid_size, k)
+        x, vox = _mfv_x_impl(points, queries, n_gaussians, sigma, grid_size, k, torch.float32)
         ctx.save_for_backward(points, vox)
         ctx.args = (n_gaussians, sigma, grid_size, k)
         ctx.mark_non_differentiable(vox)
@@ -140,21 +147,25 @@ class _MfvX(torch.autograd.Function):
 
 
 def mfv_x(points, queries, n_gaussians: int, sigma: float, grid_size: int,
-          k: int):
+          k: int, dtype: torch.dtype = torch.float32):
     """(B, M, 3) encoded clouds + (B, N, 3) queries -> (x, vox).
 
-    x = [delta, patch] (B, N, 3 + k^3*20) float32, the decoder input, and
-    vox (B, N) int32, each query's flat cell (0 outside the grid).
-    Differentiable in points and queries (see the module docstring).
+    x = [delta, patch] (B, N, 3 + k^3*20) in `dtype` (float32 or
+    bfloat16), the decoder input, and vox (B, N) int32, each query's flat
+    cell (0 outside the grid). Differentiable in points and queries in
+    float32 (see the module docstring).
     """
     _check(points, queries, n_gaussians, grid_size, k)
-    return _MfvX.apply(points, queries, n_gaussians, sigma, grid_size, k)
+    if dtype == torch.float32:
+        return _MfvX.apply(points, queries, n_gaussians, sigma, grid_size, k)
+    check_forward_only(dtype, points, queries)
+    return _mfv_x_impl(points, queries, n_gaussians, sigma, grid_size, k, dtype)
 
 
 mfv_x.launches = 0
 
 
 def mfv_table_gather_x(points, queries, n_gaussians: int, sigma: float,
-                       grid_size: int, k: int):
+                       grid_size: int, k: int, dtype: torch.dtype = torch.float32):
     """The decoder input x of `mfv_x` alone, as the JAX function returns it."""
-    return mfv_x(points, queries, n_gaussians, sigma, grid_size, k)[0]
+    return mfv_x(points, queries, n_gaussians, sigma, grid_size, k, dtype)[0]

@@ -24,6 +24,12 @@ what bounds them on an H100 and how the designs meet that.
         (B, N) voxel ids + (B, N, k^3*C) grad -> (B, V, C), the adjoint of
         the patch gather in fv.
 
+`table_gather_x` and `table_gather` take dtype=torch.bfloat16 for the
+bf16 serving paths: x or the patch rows are then written in bfloat16, each
+value the float32 one rounded once, as the reference's .astype(dtype).
+That output is forward only; asking for it on inputs that need a gradient
+raises.
+
 On CPU tensors all three run their plain versions (`table_gather_x_plain`,
 `table_gather_plain`, `table_gather_bwd_plain`), which are also the
 kernels' oracles on the card. On CUDA tensors they launch the kernel or
@@ -75,6 +81,16 @@ def table_gather_bwd_plain(vox, grad, grid_size: int, k: int):
         return torch.autograd.grad(patches, fv, grad)[0]
 
 
+def check_forward_only(dtype, *inputs):
+    """Raise for a bfloat16 output asked for on inputs that need a
+    gradient: the bf16 backward is not ported."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the output dtype must be float32 or bfloat16, got {dtype}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        raise NotImplementedError("not ported yet: the bf16 gradient paths (a bfloat16 "
+                                  "gather output has no backward)")
+
+
 @functools.lru_cache(maxsize=8)
 def _centers(G: int, device: torch.device):
     return torch.as_tensor(grid_centers(G), device=device).contiguous()
@@ -115,21 +131,22 @@ def _check_x(fv, queries, grid_size, k):
     _check_window(grid_size, k, fv.shape[2], fv.device)
 
 
-def _table_gather_x_impl(fv, queries, grid_size, k):
+def _table_gather_x_impl(fv, queries, grid_size, k, dtype=torch.float32):
     dev = fv.device
     if dev.type == "cpu":
-        return table_gather_x_plain(fv, queries, grid_size, k)
+        x, vox = table_gather_x_plain(fv, queries, grid_size, k)
+        return x.to(dtype), vox
 
     from dpdist_tpu_torch.kernels import build
 
     B, V, C = fv.shape
     N = queries.shape[1]
-    x = torch.empty((B, N, 3 + k ** 3 * C), dtype=torch.float32, device=dev)
+    x = torch.empty((B, N, 3 + k ** 3 * C), dtype=dtype, device=dev)
     vox = torch.empty((B, N), dtype=torch.int32, device=dev)
     err = build.library().dpdist_table_gather_x(
         fv.data_ptr(), queries.data_ptr(), _centers(V, dev).data_ptr(), x.data_ptr(),
-        vox.data_ptr(), B, N, grid_size, k, C, X_ROWS_PER_BLOCK, X_THREADS, dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
+        vox.data_ptr(), B, N, grid_size, k, C, X_ROWS_PER_BLOCK, X_THREADS,
+        int(dtype == torch.bfloat16), dev.index, torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch(err, "table_gather_x")
     table_gather_x.launches += 1
     return x, vox
@@ -155,11 +172,14 @@ class _TableGatherX(torch.autograd.Function):
         return dfv, dq, None, None
 
 
-def table_gather_x(fv, queries, grid_size: int, k: int):
-    """(B, V, C) volume + (B, N, 3) queries -> (x, vox); see the module
-    docstring."""
+def table_gather_x(fv, queries, grid_size: int, k: int, dtype: torch.dtype = torch.float32):
+    """(B, V, C) volume + (B, N, 3) queries -> (x, vox), x in `dtype`; see
+    the module docstring."""
     _check_x(fv, queries, grid_size, k)
-    return _TableGatherX.apply(fv, queries, grid_size, k)
+    if dtype == torch.float32:
+        return _TableGatherX.apply(fv, queries, grid_size, k)
+    check_forward_only(dtype, fv, queries)
+    return _table_gather_x_impl(fv, queries, grid_size, k, dtype)
 
 
 table_gather_x.launches = 0
@@ -170,19 +190,20 @@ def _check_vox(vox):
         raise TypeError("vox must be a (B, N) int32 tensor")
 
 
-def _table_gather_impl(fv, vox, grid_size, k):
+def _table_gather_impl(fv, vox, grid_size, k, dtype=torch.float32):
     dev = fv.device
     if dev.type == "cpu":
-        return table_gather_plain(fv, vox, grid_size, k)
+        return table_gather_plain(fv, vox, grid_size, k).to(dtype)
 
     from dpdist_tpu_torch.kernels import build
 
     B, V, C = fv.shape
     N = vox.shape[1]
-    out = torch.empty((B, N, k ** 3 * C), dtype=torch.float32, device=dev)
+    out = torch.empty((B, N, k ** 3 * C), dtype=dtype, device=dev)
     err = build.library().dpdist_table_gather(
         fv.data_ptr(), vox.data_ptr(), out.data_ptr(), B, N, grid_size, k, C, X_ROWS_PER_BLOCK,
-        X_THREADS, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+        X_THREADS, int(dtype == torch.bfloat16), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch(err, "table_gather")
     table_gather.launches += 1
     return out
@@ -202,9 +223,9 @@ class _TableGather(torch.autograd.Function):
         return dfv, None, None, None
 
 
-def table_gather(fv, vox, grid_size: int, k: int):
+def table_gather(fv, vox, grid_size: int, k: int, dtype: torch.dtype = torch.float32):
     """(B, V, C) volume + (B, N) int32 voxel ids in [0, grid_size^3) ->
-    (B, N, k^3*C) patch rows; see the module docstring."""
+    (B, N, k^3*C) patch rows in `dtype`; see the module docstring."""
     _check_vox(vox)
     if not isinstance(fv, torch.Tensor) or fv.dtype != torch.float32 or fv.dim() != 3:
         raise TypeError("fv must be a (B, V, C) float32 tensor")
@@ -217,7 +238,10 @@ def table_gather(fv, vox, grid_size: int, k: int):
     if fv.device != vox.device:
         raise ValueError(f"device mismatch: {fv.device} vs {vox.device}")
     _check_window(grid_size, k, fv.shape[2], fv.device)
-    return _TableGather.apply(fv, vox, grid_size, k)
+    if dtype == torch.float32:
+        return _TableGather.apply(fv, vox, grid_size, k)
+    check_forward_only(dtype, fv)
+    return _table_gather_impl(fv, vox, grid_size, k, dtype)
 
 
 table_gather.launches = 0

@@ -3,7 +3,10 @@ dense_apply, mlp_init and mlp_apply with BN off, dpdist_tpu/nn/layers.py).
 
 Parameters keep the JAX package's layout: a dense layer is {"w": (in, out),
 "b": (out,)} and computes `x @ w + b`. The decoder runs in float32 with
-TF32 off (set when the package is imported).
+TF32 off (set when the package is imported), or in bfloat16 when asked:
+then params and x are cast to bfloat16, each product accumulates in
+float32 and rounds to bfloat16, as the reference's composed bf16 decoder
+(dpdist_tpu/models/dpdist.py:448-463).
 
 Initialisation follows TF's xavier_initializer as the reference does
 (uniform on +-sqrt(6 / (fan_in + fan_out)), zero biases), drawn from an
@@ -52,12 +55,17 @@ def dense_apply(params, x: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x, params["w"]) + params["b"]
 
 
-def mlp_apply(params, x: torch.Tensor) -> torch.Tensor:
-    """ReLU after every layer but the last, which is linear. BatchNorm is
-    not ported yet and raises."""
+def mlp_apply(params, x: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """ReLU after every layer but the last, which is linear. With dtype
+    bfloat16, params and x are cast to it and the result is bfloat16 (the
+    caller casts it back to float32). BatchNorm is not ported yet and
+    raises."""
     if "bn" in params:
         raise NotImplementedError("BatchNorm in the MLP is not ported yet")
     layers = params["layers"]
+    if dtype != torch.float32:
+        layers = [{k: t.to(dtype) for k, t in lp.items()} for lp in layers]
+        x = x.to(dtype)
     for i, lp in enumerate(layers):
         x = dense_apply(lp, x)
         if i < len(layers) - 1:

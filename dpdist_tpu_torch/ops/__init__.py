@@ -5,9 +5,10 @@ from dpdist_tpu_torch.ops.voxel import (
     extract_patches,
     gather_patches,
     grid_centers,
+    neighbor_ids,
     voxel_assign,
 )
 
 __all__ = ["chamfer_distance", "nn_distance", "pairwise_sqdist", "earth_mover_distance",
            "sinkhorn_emd", "threedmfv", "threedmfv_grid", "threedmfv_plain", "extract_patches",
-           "gather_patches", "grid_centers", "voxel_assign"]
+           "gather_patches", "grid_centers", "neighbor_ids", "voxel_assign"]

@@ -1,6 +1,7 @@
 """Voxel-grid operations for the DPDist implicit decoder, plain PyTorch
 (port of grid_centers, voxel_assign, extract_patches and gather_patches
-from dpdist_tpu/ops/voxel.py).
+from dpdist_tpu/ops/voxel.py, and of neighbor_ids from
+dpdist_tpu/kernels/gather_pallas.py).
 
 Cells are strict below and inclusive above along each axis
 (u = (x+1)/step, idx = ceil(u) - 1); the flat cell index is in meshgrid
@@ -93,3 +94,24 @@ def gather_patches(patch_table: torch.Tensor, vox: torch.Tensor) -> torch.Tensor
     B, V, E = patch_table.shape
     index = vox.long()[..., None].expand(B, vox.shape[1], E)
     return torch.gather(patch_table, 1, index)
+
+
+def neighbor_ids(vox: torch.Tensor, mask: torch.Tensor, grid_size: int, k: int) -> torch.Tensor:
+    """(B, N) voxel ids -> (B, N, k^3) int32 flat ids of each query's
+    window, -1 where the neighbour falls outside the grid or the query
+    itself is off the grid (mask 0).
+
+    Offsets run in extract_patches' order: row-major over (di, dj, dl),
+    which shift the three digits of the flat id (v // g^2, v // g % g,
+    v % g).
+    """
+    g = grid_size
+    kh = k // 2
+    v = vox.long()
+    digits = torch.stack([v // (g * g), (v // g) % g, v % g], dim=-1)         # (B, N, 3)
+    r = torch.arange(k, device=vox.device) - kh
+    offs = torch.stack(torch.meshgrid(r, r, r, indexing="ij"), dim=-1).reshape(-1, 3)
+    nb = digits[..., None, :] + offs                                          # (B, N, k^3, 3)
+    valid = ((nb >= 0) & (nb < g)).all(dim=-1) & (mask[..., None] > 0)
+    nid = nb[..., 0] * (g * g) + nb[..., 1] * g + nb[..., 2]
+    return torch.where(valid, nid, torch.full_like(nid, -1)).to(torch.int32)

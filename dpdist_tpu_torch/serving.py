@@ -4,13 +4,18 @@ semantics of dpdist_tpu/serving.py:export_frozen_distance).
     model = load_frozen_distance("results/ckpt_best")        # on the card
     d = model(pcA, pcB)                                        # (B,) distances
 
+    # bfloat16 serving through the fused gather + decoder kernel:
+    model = load_frozen_distance("results/ckpt_best", dtype="bfloat16",
+                                 fused_gather="full")
+
 The module maps a (template, source) pair of (B, N, 3) clouds to the
 per-pair learned distance `dpdist_distance(per_example=True)`. It is in
 eval mode and every parameter has requires_grad=False. It is
 differentiable in its input clouds: when an input requires a gradient,
 fused_gather resolves for a gradient context (models.resolve_for_grad:
 the table-gather kernels on the card), and the parameters' .grad stays
-None.
+None. A bfloat16 config is forward only: under autograd it raises
+NotImplementedError rather than run another path.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from torch import nn
 
 from dpdist_tpu_torch import resolve_device
 from dpdist_tpu_torch.configs import DPDistConfig
+from dpdist_tpu_torch.kernels.fused_forward import pack_decoder
 from dpdist_tpu_torch.models.dpdist import check_ported, dpdist_distance, resolve_for_grad
 from dpdist_tpu_torch.train.checkpoint import load_dpdist_checkpoint, params_from_jax
 
@@ -28,6 +34,9 @@ class FrozenDistance(nn.Module):
     """The learned DPDist distance with frozen decoder weights.
 
     Weights keep the JAX (in, out) layout: layer i computes x @ w_i + b_i.
+    A bfloat16 fused_gather="full" config also holds the decoder packed once
+    for the fused kernel (kernels.fused_forward.pack_decoder), on the
+    parameters' device.
     """
 
     def __init__(self, cfg: DPDistConfig, params: dict):
@@ -38,9 +47,15 @@ class FrozenDistance(nn.Module):
             nn.Parameter(lp["w"], requires_grad=False) for lp in params["decoder"]["layers"])
         self.b = nn.ParameterList(
             nn.Parameter(lp["b"], requires_grad=False) for lp in params["decoder"]["layers"])
+        self.packed = None
+        if cfg.dtype == "bfloat16" and cfg.fused_gather == "full":
+            self.packed = pack_decoder(params["decoder"]["layers"])
 
     def params(self) -> dict:
-        return {"decoder": {"layers": [{"w": w, "b": b} for w, b in zip(self.w, self.b)]}}
+        p = {"decoder": {"layers": [{"w": w, "b": b} for w, b in zip(self.w, self.b)]}}
+        if self.packed is not None:
+            p["packed"] = self.packed
+        return p
 
     def forward(self, pcA: torch.Tensor, pcB: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg

@@ -54,6 +54,15 @@ NP_LARGE, LARGE = 256, "np256"
 # Chamfer and EMD, port (CPU) against the stored JAX values
 # (tests/test_torch_chamfer_emd.py's tolerance).
 TOL_CHAMFER = TOL_EMD = 1e-5
+# The golden file's bf16 section: per-pair distances of both nets served
+# in bfloat16 at these sizes, through JAX's fused_forward kernel ("full",
+# in interpret mode on the CPU) and its composed bf16 path ("auto", the XLA
+# composition on the CPU). The port's CPU path meets them within TOL (a
+# hidden activation at a bf16 rounding edge may round the other way where
+# sums run in another order; measured up to 1.8e-5), and they lie within
+# the JAX package's bounds of each other (2e-3) and of float32 (0.03).
+BF16, BF16_MODES, BF16_SIZES = "bf16", ("full", "auto"), (64, NP_LARGE)
+TOL_FULL_VS_COMPOSED, TOL_BF16_VS_F32 = 2e-3, 0.03
 
 GOLDEN_PAIRS = [
     {"a": ["chair", 0], "b": ["chair", 1], "scale": 0.8},
@@ -161,8 +170,9 @@ def _golden_section(pcA, pcB):
 
 def compute_golden():
     """The golden file's content, computed with the JAX package: the
-    section of _golden_section at 64 points, and under LARGE the same at
-    NP_LARGE points plus each pair's chamfer and EMD."""
+    section of _golden_section at 64 points, under LARGE the same at
+    NP_LARGE points plus each pair's chamfer and EMD, and under BF16 the
+    bf16 distances of both nets at both sizes."""
     golden = {"num_point": 64, "pairs": GOLDEN_PAIRS}
     golden.update(_golden_section(*golden_clouds(golden)))
     pcA, pcB = golden_clouds(golden, NP_LARGE)
@@ -172,6 +182,15 @@ def compute_golden():
     large["emd"] = [float(v) for v in np.asarray(jax_sinkhorn_emd(jnp.asarray(pcA),
                                                                   jnp.asarray(pcB)))]
     golden[LARGE] = large
+    golden[BF16] = {mode: {f"np{n}": {} for n in BF16_SIZES} for mode in BF16_MODES}
+    for n in BF16_SIZES:
+        pcA, pcB = (jnp.asarray(a) for a in golden_clouds(golden, n))
+        for path in NETS:
+            cfg, params, state = jax_load(path)
+            for mode in BF16_MODES:
+                d = jax_distance(params, state, cfg.replace(dtype="bfloat16", fused_gather=mode),
+                                 pcA, pcB, per_example=True)
+                golden[BF16][mode][f"np{n}"][path] = [float(v) for v in np.asarray(d)]
     return golden
 
 
@@ -206,6 +225,32 @@ def test_golden_file_holds(fresh_golden):
     np.testing.assert_allclose(chamfer, large["chamfer"], atol=TOL_CHAMFER, rtol=0)
     np.testing.assert_allclose(sinkhorn_emd(pcA, pcB).numpy(), large["emd"], atol=TOL_EMD,
                                rtol=0)
+
+
+def test_golden_bf16_holds(fresh_golden):
+    """The stored bf16 distances are what dpdist_tpu computes now; the
+    port's CPU path ("full": fused_forward's plain version; "auto": the
+    composed bf16 path) reproduces them; "full" and "auto" agree, and both
+    track the float32 golden values."""
+    stored = load_golden()
+    for n in BF16_SIZES:
+        pcA, pcB = (torch.as_tensor(a) for a in golden_clouds(stored, n))
+        f32 = stored["distance"] if n == stored["num_point"] else stored[LARGE]["distance"]
+        for path in NETS:
+            vals = {}
+            for mode in BF16_MODES:
+                want = stored[BF16][mode][f"np{n}"][path]
+                np.testing.assert_allclose(want, fresh_golden[BF16][mode][f"np{n}"][path],
+                                           atol=1e-6, rtol=0)
+                model = load_frozen_distance(path, device="cpu", dtype="bfloat16",
+                                             fused_gather=mode)
+                with torch.no_grad():
+                    got = model(pcA, pcB).numpy()
+                np.testing.assert_allclose(got, want, atol=TOL, rtol=0)
+                np.testing.assert_allclose(want, f32[path], atol=TOL_BF16_VS_F32, rtol=0)
+                vals[mode] = want
+            np.testing.assert_allclose(vals["full"], vals["auto"], atol=TOL_FULL_VS_COMPOSED,
+                                       rtol=0)
 
 
 def _close_rel(got, want):
@@ -285,19 +330,24 @@ def test_entry_points_default_to_cuda():
     {"encoder": "pointnet"},
     {"conv_version": 3},
     {"use_bn": True},
-    {"dtype": "bfloat16"},
-    {"fused_gather": "full", "dtype": "bfloat16"},   # the fused serving kernel is bf16 only
-    {"fused_gather": "on"},
+    {"dtype": "bfloat16"},                           # bf16 is forward only
+    {"fused_gather": "full", "dtype": "bfloat16"},   # the fused serving kernel has no VJP
+    {"fused_gather": "on", "dtype": "bfloat16"},
     {"dims": 2, "embedding_size": 64},
     {"k": 0},
     {"full_fv": False},
+    {"dtype": "float16"},
 ])
 def test_unported_configs_raise(change):
+    """Configs the port does not cover raise NotImplementedError under
+    autograd (pcA needs a gradient): those not ported at all, and the
+    bfloat16 configs, whose gradient paths are not ported (their forward
+    is; tests/test_torch_fused_forward.py)."""
     cfg = DPDistConfig().replace(**change)
     pcA, pcB = (torch.as_tensor(a) for a in _inputs(B=1, N=8))
     params = {"decoder": {"layers": []}}
     with pytest.raises(NotImplementedError, match="not ported"):
-        apply_dpdist(params, cfg, pcA, pcB)
+        apply_dpdist(params, cfg, pcA.requires_grad_(True), pcB)
 
 
 def test_unported_params_raise():

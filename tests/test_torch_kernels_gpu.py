@@ -11,6 +11,8 @@ import pytest
 import torch
 
 from dpdist_tpu_torch.kernels.chamfer import nn_min_sqdist, nn_min_sqdist_plain
+from dpdist_tpu_torch.kernels.fused_forward import fused_forward, fused_forward_plain, pack_decoder
+from dpdist_tpu_torch.kernels.gather_fused import gather_patches_fused, gather_patches_fused_plain
 from dpdist_tpu_torch.kernels.mfv_gather import mfv_x, mfv_x_plain
 from dpdist_tpu_torch.kernels.table_gather import (
     table_gather,
@@ -36,6 +38,13 @@ REL_BWD = 1e-6
 # NN-min kernel vs plain: nvcc contracts the per-dimension sum to FMA, so
 # the last bits may differ; within TOL_NN_ABS + TOL_NN_REL * |d|.
 TOL_NN_ABS, TOL_NN_REL = 1e-6, 1e-5
+# Fused forward kernel vs plain, on pre-activation outputs: both sum exact
+# bf16 products in float32, in other orders (the tensor cores' float32
+# accumulation does not round to nearest at each add), and a hidden
+# activation at a bf16 rounding edge may round the other way. On the H100,
+# against float64 sums, the plain version strayed by up to 8.7e-3 and the
+# kernel by up to 9.8e-3 on a committed net (chip_smoke.py prints both).
+TOL_FF = 2e-2
 
 
 @pytest.fixture
@@ -237,3 +246,121 @@ def test_served_forward_on_large_clouds(cuda):
            mfv_x.launches - counts[2], table_gather_x.launches - counts[3])
     assert got == (2, 2, 0, 0)
     assert d.shape == (1,) and bool(torch.isfinite(d).all())
+
+
+def _decoder_layers(r, in_dim, widths, device):
+    """Random decoder layers {"w": (in, out), "b": (out,)} at xavier scale."""
+    layers, d = [], in_dim
+    for w in widths:
+        lim = np.sqrt(6.0 / (d + w))
+        layers.append({"w": torch.as_tensor(r.uniform(-lim, lim, (d, w)).astype(np.float32),
+                                            device=device),
+                       "b": torch.as_tensor(r.normal(0, 0.1, w).astype(np.float32),
+                                            device=device)})
+        d = w
+    return layers
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,N,g,k,widths", [
+    (512, 64, 8, 5, (1024, 1024, 1024, 3)),   # the main path: 2B = 512 clouds, np = 64
+    (4, 256, 8, 5, (1024, 1024, 1024, 3)),    # np = 256
+    (2, 16, 4, 3, (32, 32, 32, 3)),           # the JAX kernel test's small config
+    (3, 50, 8, 5, (48, 96, 1)),               # ragged N, other widths and depth
+])
+def test_fused_forward_kernel_matches_plain(cuda, B, N, g, k, widths):
+    """Off-grid queries (vox 0, cell 0's row) included; no NaN or Inf."""
+    r = np.random.default_rng(14)
+    fv = torch.as_tensor(r.normal(0, 0.3, (B, g ** 3, 20)).astype(np.float32),
+                         device=cuda).to(torch.bfloat16)
+    q = torch.as_tensor(_edge_inputs(B, 1, N, g, seed=15)[1], device=cuda)
+    from dpdist_tpu_torch.ops.voxel import voxel_assign
+
+    vox, _, delta = voxel_assign(q, g)
+    packed = pack_decoder(_decoder_layers(r, 3 + k ** 3 * 20, widths, cuda))
+    before = fused_forward.launches
+    with torch.no_grad():
+        y = fused_forward(fv, vox, delta, packed, g, k)
+        torch.cuda.synchronize()
+        assert fused_forward.launches == before + 1
+        ref = fused_forward_plain(fv, vox, delta, packed, g, k)
+    assert y.shape == ref.shape == (B, N, widths[-1]) and y.dtype == torch.float32
+    assert bool(torch.isfinite(y).all())
+    assert float((y - ref).abs().max()) <= TOL_FF
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,N,g,k,C", [(256, 64, 8, 5, 20), (2, 16, 4, 3, 7), (3, 200, 8, 5, 20)])
+def test_gather_fused_kernel_matches_plain(cuda, B, N, g, k, C):
+    """Exact, with zero rows for off-grid queries; the backward (the
+    adjoint kernel on the masked gradient) against autograd through the
+    plain version."""
+    from dpdist_tpu_torch.ops.voxel import voxel_assign
+
+    r = np.random.default_rng(16)
+    fv = torch.as_tensor(r.normal(size=(B, g ** 3, C)).astype(np.float32), device=cuda)
+    q = torch.as_tensor(_edge_inputs(B, 1, N, g, seed=17)[1], device=cuda)
+    vox, mask, _ = voxel_assign(q, g)
+    assert float(mask.min()) == 0.0
+    before = gather_patches_fused.launches
+    with torch.no_grad():
+        out = gather_patches_fused(fv, vox, mask, g, k)
+        torch.cuda.synchronize()
+    assert gather_patches_fused.launches == before + 1
+    assert torch.equal(out, gather_patches_fused_plain(fv, vox, mask, g, k))
+    grad = torch.as_tensor(r.normal(size=out.shape).astype(np.float32), device=cuda)
+    dfvs = []
+    for fn in (gather_patches_fused, gather_patches_fused_plain):
+        f = fv.clone().requires_grad_()
+        dfvs.append(torch.autograd.grad(fn(f, vox, mask, g, k), f, grad)[0])
+    assert float((dfvs[0] - dfvs[1]).abs().max()) <= REL_BWD * float(dfvs[1].abs().max())
+
+
+@pytest.mark.gpu
+def test_bf16_outputs_are_the_float32_kernels_rounded(cuda):
+    """Rows 1, 2 and 6 with a bfloat16 output: the float32 kernel's values
+    rounded once (to nearest even), so equal to them rounded."""
+    pts, q = (torch.as_tensor(a, device=cuda) for a in _edge_inputs(64, 64, 64, 8, seed=18))
+    r = np.random.default_rng(19)
+    fv = torch.as_tensor(r.normal(size=(64, 512, 20)).astype(np.float32), device=cuda)
+    bf = torch.bfloat16
+    with torch.no_grad():
+        pairs = [(mfv_x(pts, q, 512, 0.125, 8, 5, dtype=bf)[0], mfv_x(pts, q, 512, 0.125, 8, 5)[0]),
+                 (table_gather_x(fv, q, 8, 5, dtype=bf)[0], table_gather_x(fv, q, 8, 5)[0])]
+        vox = table_gather_x(fv, q, 8, 5)[1]
+        pairs.append((table_gather(fv, vox, 8, 5, dtype=bf), table_gather(fv, vox, 8, 5)))
+    for got, f32 in pairs:
+        assert got.dtype == bf and torch.equal(got, f32.to(bf))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,np_,want", [
+    ("full", 64, {"fused_forward": 1}),
+    ("full", 256, {"fused_forward": 1, "threedmfv": 2}),
+    ("auto", 64, {"mfv_x": 1}),
+    ("auto", 256, {"threedmfv": 2, "table_gather": 2}),
+])
+def test_served_bf16_launch_counts(cuda, mode, np_, want):
+    """bf16 serving from a committed net: the kernels each path launches
+    per request, finite distances in [0, 2], and a bf16 input gradient
+    refused."""
+    from dpdist_tpu_torch.serving import load_frozen_distance
+
+    wrappers = {"fused_forward": fused_forward, "threedmfv": threedmfv_kernel, "mfv_x": mfv_x,
+                "table_gather": table_gather, "table_gather_x": table_gather_x,
+                "gather_patches_fused": gather_patches_fused}
+    model = load_frozen_distance("results/ckpt_best", device=cuda, dtype="bfloat16",
+                                 fused_gather=mode)
+    r = np.random.default_rng(20)
+    pcA, pcB = (torch.as_tensor(r.uniform(-0.9, 0.9, (8, np_, 3)).astype(np.float32),
+                                device=cuda) for _ in range(2))
+    before = {k: w.launches for k, w in wrappers.items()}
+    with torch.no_grad():
+        d = model(pcA, pcB)
+    torch.cuda.synchronize()
+    got = {k: w.launches - before[k] for k, w in wrappers.items()}
+    assert got == {k: want.get(k, 0) for k in wrappers}
+    assert d.shape == (8,) and bool(torch.isfinite(d).all())
+    assert float(d.min()) >= 0.0 and float(d.max()) <= 2.0
+    with pytest.raises(NotImplementedError, match="bf16 gradient"):
+        model(pcA.clone().requires_grad_(), pcB)

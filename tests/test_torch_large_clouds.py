@@ -92,7 +92,7 @@ def test_route_on_cuda_follows_the_reference(n_a, n_b, grad, want):
 
 @pytest.mark.parametrize("fused_gather,grad", [
     ("auto", False), ("auto", True), ("mfv", False), ("mfv", True), ("table", False),
-    ("full", False), ("full", True),
+    ("full", False), ("full", True), ("on", False), ("on", True),
 ])
 def test_route_mode_is_the_reference_mode_on_its_accelerator(monkeypatch, fused_gather, grad):
     """The mode before the size rules is what the reference resolves on

@@ -125,5 +125,6 @@ def test_build_cache_key_follows_sources():
     path = build.library_path()
     assert path.name == "libdpdist_kernels.so"
     assert path.parent.parent == build.BUILD_DIR
-    assert {"mfv_gather.cu", "table_gather.cu", "threedmfv.cu", "chamfer.cu"} <= {
+    assert {"mfv_gather.cu", "table_gather.cu", "threedmfv.cu", "chamfer.cu", "gather_fused.cu",
+            "fused_forward.cu"} <= {
         s.name for s in build.sources()}
