@@ -27,10 +27,11 @@ NN-min kernel).
                    kernel's backward against autograd through the plain
                    composition.
   5. encode_kernel the streaming 3DmFV encode against the plain encode at
-                   B = 256, N = 256; B = 4, N = 1,000 (a ragged tile); and
-                   B = 1, N = 10,000, with points on cell edges and a few
-                   far outside the grid (within 2e-5); its backward (the
-                   plain encode's replay) against autograd through the
+                   B = 256, N = 256 (one pass per cloud that finalises);
+                   B = 4, N = 1,000 and B = 1, N = 10,000 (each cloud split
+                   over blocks, then merged), with points on cell edges and
+                   a few far outside the grid (within 2e-5); its backward
+                   (the plain encode's replay) against autograd through the
                    plain encode at B = 16, N = 256.
   6. gather6_kernel the patch-only table gather against its plain version
                    at B = 256, N = 256 with off-grid queries (exact).
@@ -107,7 +108,11 @@ NN-min kernel).
                    the frozen loss gives them; row 6 on the np = 256
                    request's pcB; row 8 on eval_pair's clouds); the encode
                    kernel against the plain encode at B = 256, N = 64 and
-                   256, and at B = 1, N = 10,000; the
+                   256, and at B = 1, N = 10,000; row 9 at np = 256 and its
+                   TFLOP/s at both sizes; the cuBLAS bf16 decoder with the
+                   first layer's K padded to the pack's (a yardstick the
+                   port never runs); the device time of each CUDA kernel
+                   that rows 9 and 7 launch (torch.profiler); the
                    forward, the frozen source-gradient step and the train
                    step at B = 256, np = 64, and the forward and the
                    source-gradient step at np = 256; the bf16 forwards
@@ -410,7 +415,7 @@ def main() -> int:
             table_gather_x,
             table_gather_x_plain,
         )
-        from dpdist_tpu_torch.kernels.threedmfv import threedmfv_kernel
+        from dpdist_tpu_torch.kernels.threedmfv import split_plan, threedmfv_kernel
         from dpdist_tpu_torch.losses import make_frozen_dpdist_loss
         from dpdist_tpu_torch.models import apply_dpdist
         from dpdist_tpu_torch.nn import mlp_apply
@@ -517,8 +522,9 @@ def main() -> int:
             check(bool(torch.isfinite(fve).all()), "encode has non-finite values")
             err = float((fve - fve_ref).abs().max())
             err_enc = max(err_enc, err)
-            print(f"encode kernel vs plain at B={B}, N={N}: max |d fv| = {err:.3e} (tol {TOL_X})",
-                  flush=True)
+            S, chunk = split_plan(B, N, torch.cuda.get_device_properties(dev).multi_processor_count)
+            print(f"encode kernel vs plain at B={B}, N={N} ({S} chunk(s) of {chunk} points per "
+                  f"cloud): max |d fv| = {err:.3e} (tol {TOL_X})", flush=True)
             check(err <= TOL_X, f"encode at B={B}, N={N}: max |d fv| {err} > {TOL_X}")
             del fve, fve_ref
         pe = make_encode_inputs(rng, torch, dev, 16, NP_LARGE)
@@ -854,12 +860,13 @@ def main() -> int:
 
     def fused_forward_f64(fv2, vox2, delta2, packed):
         """fused_forward_plain's rounding points with float64 sums: the
-        yardstick for how far float32 summation moves the outputs."""
+        yardstick for how far float32 summation moves the outputs. The
+        pack holds each W as W^T, padded with zeros."""
         x = torch.cat([table_gather_plain(fv2.float(), vox2, GRID, K).double(),
                        delta2.to(torch.bfloat16).double()], -1)
-        h = torch.relu(x @ packed.w[0][:packed.in_dim].double() + packed.b[0].double())
+        h = torch.relu(x @ packed.w[0][:, :packed.in_dim].double().t() + packed.b[0].double())
         for w_, b_ in zip(packed.w[1:], packed.b[1:]):
-            h = torch.relu(h.to(torch.bfloat16).double() @ w_.double() + b_.double())
+            h = torch.relu(h.to(torch.bfloat16).double() @ w_.double().t() + b_.double())
         return h.to(torch.bfloat16).double() @ packed.w_out.t().double() + packed.b_out.double()
 
     with Phase("fused_forward_kernel"):
@@ -1227,7 +1234,49 @@ def main() -> int:
                   f"sheet); the composed path's decoder "
                   f"alone (cuBLAS bf16) {dec_ms:.4f} ms = {flops9 / dec_ms / 1e9:.1f} TFLOP/s, "
                   f"the kernel {flops9 / ms / 1e9:.1f} TFLOP/s; on {card}", flush=True)
-            del x9, y_lib, y9, fv_pad9, rows_idx9
+            # The same cuBLAS bf16 decoder with the first layer's K padded
+            # with zeros to the pack's K (a yardstick only: the port never
+            # runs it).
+            k_pad = packed0.w[0].shape[1]
+            x9_pad = torch.cat([x9, torch.zeros(*x9.shape[:-1], k_pad - x9.shape[-1],
+                                                dtype=torch.bfloat16, device=dev)], -1)
+            layers_pad = [{"w": torch.cat([layers_bf[0]["w"], torch.zeros(
+                k_pad - layers_bf[0]["w"].shape[0], layers_bf[0]["w"].shape[1],
+                dtype=torch.bfloat16, device=dev)]), "b": layers_bf[0]["b"]}] + layers_bf[1:]
+            dec_pad_ms = cuda_median_ms(lambda: mlp_apply({"layers": layers_pad}, x9_pad,
+                                                          torch.bfloat16))
+            print(f"cuBLAS bf16 decoder with the first layer's K padded from {x9.shape[-1]} to "
+                  f"{k_pad}: {dec_pad_ms:.4f} ms = {flops9 / dec_pad_ms / 1e9:.1f} TFLOP/s "
+                  f"(unpadded {dec_ms:.4f} ms); on {card}", flush=True)
+            # Row 9 at np = 256: the "full" route's 2B = 512 clouds of 256 queries.
+            fv2L, vox2L, _, delta2L = ff_inputs(aL, bL, off_grid=False)
+            rows9L = vox2L.numel()
+            ms9L = cuda_median_ms(lambda: fused_forward(fv2L, vox2L, delta2L, packed0, GRID, K))
+            flops9L = 2 * rows9L * sum(i * o for i, o in widths9)
+            b9L, _ = bound(fv2L.numel() * 2 + rows9L * (4 + 12 + 4 * 3)
+                           + sum(i * o * 2 + o * 4 for i, o in widths9), flops9L, BF16_FLOP_PER_S)
+            print(f"row 9 at np={NL}: {ms9L:.4f} ms over {rows9L} rows = "
+                  f"{flops9L / ms9L / 1e9:.1f} TFLOP/s, {b9L / ms9L:.1%} of its {b9L:.4f} ms "
+                  f"bound; at np={N}: {ms:.4f} ms = {flops9 / ms / 1e9:.1f} TFLOP/s; on {card}",
+                  flush=True)
+            # Device time per CUDA kernel of rows 9 and 7 (a call of either
+            # launches more than one): torch.profiler over 5 calls each.
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    fused_forward(fv2, vox2, delta2, packed0, GRID, K)
+                for cloud in (aL, eA):
+                    for _ in range(5):
+                        threedmfv_kernel(cloud, G, SIGMA)
+                torch.cuda.synchronize()
+            for e in prof.key_averages():
+                if any(k_ in e.key for k_ in ("layer_kernel", "head_kernel", "partial_kernel",
+                                              "merge_kernel")):
+                    print(f"profiled kernel {e.key[:60]}: {e.count} launches, "
+                          f"{e.self_device_time_total / e.count:.1f} us each (rows 9 at np={N}, 7 at B={B}, N={NL} "
+                          f"and B=1, N={eA.shape[1]}); on {card}", flush=True)
+            del x9, y_lib, y9, fv_pad9, rows_idx9, x9_pad, layers_pad, fv2L, vox2L, delta2L
 
             # Row 10 on the first np = 64 request: pcA's volumes, pcB's queries.
             fv10 = threedmfv(a, G, SIGMA).detach()

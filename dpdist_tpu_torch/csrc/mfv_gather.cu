@@ -136,7 +136,7 @@ int dpdist_mfv_gather_x(const float* points, const float* queries, const float* 
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem = dpdist_mfv_gather_x_smem(N, g, k, threads);
-  const dpdist::EncodeConsts consts{sigma, w, pi_scale, sw, sw2, inv_m};
+  const dpdist::EncodeConsts consts = dpdist::make_consts(sigma, w, pi_scale, sw, sw2, inv_m);
   const auto s = static_cast<cudaStream_t>(stream);
   if (out_bf16) {
     err = dpdist::set_smem(mfv_gather_x_kernel<__nv_bfloat16>, smem);

@@ -127,8 +127,8 @@ def library() -> ctypes.CDLL:
         lib.dpdist_mfv_gather_x.restype = ci
         lib.dpdist_mfv_gather_x_smem.argtypes = [ci, ci, ci, ci]
         lib.dpdist_mfv_gather_x_smem.restype = ctypes.c_size_t
-        lib.dpdist_threedmfv.argtypes = [vp, vp, vp, ci, ci, ci, cf, cf, cf, cf, cf, cf, ci, ci,
-                                         vp]
+        lib.dpdist_threedmfv.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, cf, cf, cf, cf,
+                                         cf, cf, ci, ci, vp]
         lib.dpdist_threedmfv.restype = ci
         lib.dpdist_threedmfv_smem.argtypes = [ci, ci]
         lib.dpdist_threedmfv_smem.restype = ctypes.c_size_t
@@ -143,10 +143,10 @@ def library() -> ctypes.CDLL:
                                                     ci, vp]
         lib.dpdist_gather_patches_fused.restype = ci
         ip, pp = ctypes.POINTER(ci), ctypes.POINTER(vp)
-        lib.dpdist_fused_forward_smem.argtypes = [ci, ci, ci, ip, ci]
+        lib.dpdist_fused_forward_smem.argtypes = [ci]
         lib.dpdist_fused_forward_smem.restype = ctypes.c_size_t
         lib.dpdist_fused_forward.argtypes = [vp, vp, vp, vp, pp, pp, ip, ci, ci, vp, vp, ci,
-                                             ci, ci, ci, ci, ci, ci, vp]
+                                             vp, vp, ci, ci, ci, ci, ci, ci, vp]
         lib.dpdist_fused_forward.restype = ci
         i64 = ctypes.c_int64
         lib.dpdist_table_gather_bwd.argtypes = [vp, vp, i64, i64, vp, ci, ci, ci, ci, ci, ci,

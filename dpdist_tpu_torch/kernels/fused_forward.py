@@ -26,8 +26,11 @@ through fused_forward raises. On CPU tensors it runs `fused_forward_plain`,
 float32 matmuls on the bfloat16-rounded operands (a product of two bfloat16
 values is exact in float32, so it differs from the kernel only in
 summation order), which is also the kernel's oracle on the card. On CUDA
-tensors it launches the kernel or raises; it never falls back.
-`fused_forward.launches` counts kernel launches, and nothing else.
+tensors it launches the kernels or raises; it never falls back. One call
+makes one CUDA launch per hidden layer and one for the head (4 for the
+committed nets), passing the hidden activations between them in two bf16
+scratch buffers it allocates; `fused_forward.launches` counts calls that
+launched, one per call, and nothing else.
 """
 
 from __future__ import annotations
@@ -40,21 +43,29 @@ import torch
 from dpdist_tpu_torch.ops.voxel import extract_patches, gather_patches
 
 # The kernel's limits (csrc/fused_forward.cu): hidden widths are multiples
-# of 16 up to 1024, at most 8 hidden layers, and the first layer's K is
-# padded to a multiple of 16.
-MAX_WIDTH, MAX_HIDDEN, K_ALIGN = 1024, 8, 16
+# of 16 up to 1024 and there are at most 8 hidden layers. The pack pads the
+# first layer's K and every hidden width to a multiple of K_ALIGN, the
+# kernel's K step.
+MAX_WIDTH, MAX_HIDDEN, WIDTH_ALIGN, K_ALIGN = 1024, 8, 16, 64
+
+
+def _pad(n: int) -> int:
+    return -(-n // K_ALIGN) * K_ALIGN
 
 
 @dataclasses.dataclass(frozen=True)
 class PackedDecoder:
     """The decoder in the kernel's layout, every value rounded to bfloat16.
 
-    w: the hidden layers' weights, bfloat16, row-major (K, width): w[0] is
-       [W1[3:]; W1[:3]; zero rows up to a multiple of 16], so that it meets
-       the A operand [patch, delta, 0 ...]; w[i] is layer i's (in, out).
-    b: the hidden layers' biases, float32 holding bfloat16-rounded values.
+    w: the hidden layers' weights, bfloat16, K-major: w[i] is layer i's
+       W^T, (width_i, K_i) with width_i and K_i padded to multiples of 64
+       by zeros. w[0]'s K columns are [W1[3:]; W1[:3]; 0 ...], so that it
+       meets the A operand [patch, delta, 0 ...]; w[i]'s K_i is the previous
+       layer's padded width.
+    b: the hidden layers' biases, float32 holding bfloat16-rounded values,
+       zero in the padding.
     w_out: the linear head, transposed to (out, width), float32 holding
-       bfloat16-rounded values; b_out its bias, likewise.
+       bfloat16-rounded values, zero in the padding; b_out its bias.
     in_dim: the decoder input's width, 3 + k^3*C.
     """
 
@@ -75,30 +86,43 @@ def pack_decoder(layers) -> PackedDecoder:
     if len(layers) < 2 or len(layers) - 1 > MAX_HIDDEN:
         raise ValueError(f"the fused forward takes 1 to {MAX_HIDDEN} hidden layers and a "
                          f"linear head, got {len(layers)} layers")
+    for lp in layers[:-1]:
+        width = lp["w"].shape[1]
+        if width % WIDTH_ALIGN or width > MAX_WIDTH:
+            raise ValueError(f"hidden widths must be multiples of {WIDTH_ALIGN} up to "
+                             f"{MAX_WIDTH}, got {width}")
     w1 = layers[0]["w"].detach()
-    in_dim, width = w1.shape
-    k1 = -(-in_dim // K_ALIGN) * K_ALIGN
-    w0 = torch.zeros((k1, width), dtype=torch.bfloat16, device=w1.device)
-    w0[:in_dim - 3] = w1[3:]
-    w0[in_dim - 3:in_dim] = w1[:3]
-    ws = [w0] + [lp["w"].detach().to(torch.bfloat16).contiguous() for lp in layers[1:-1]]
-    for w in ws:
-        if w.shape[1] % K_ALIGN or w.shape[1] > MAX_WIDTH:
-            raise ValueError(f"hidden widths must be multiples of {K_ALIGN} up to {MAX_WIDTH}, "
-                             f"got {w.shape[1]}")
-    return PackedDecoder(w=tuple(ws), b=tuple(_bf16_values(lp["b"]) for lp in layers[:-1]),
-                         w_out=_bf16_values(layers[-1]["w"].t()),
+    in_dim = w1.shape[0]
+    dev = w1.device
+    ws, bs = [], []
+    for i, lp in enumerate(layers[:-1]):
+        k_in, width = lp["w"].shape
+        wt = torch.zeros((_pad(width), _pad(k_in)), dtype=torch.bfloat16, device=dev)
+        if i == 0:
+            wt[:width, :in_dim - 3] = w1[3:].t()
+            wt[:width, in_dim - 3:in_dim] = w1[:3].t()
+        else:
+            wt[:width, :k_in] = lp["w"].detach().t()
+        b = torch.zeros(_pad(width), dtype=torch.float32, device=dev)
+        b[:width] = _bf16_values(lp["b"])
+        ws.append(wt)
+        bs.append(b)
+    head = layers[-1]["w"].detach()
+    w_out = torch.zeros((head.shape[1], _pad(head.shape[0])), dtype=torch.float32, device=dev)
+    w_out[:, :head.shape[0]] = _bf16_values(head.t())
+    return PackedDecoder(w=tuple(ws), b=tuple(bs), w_out=w_out,
                          b_out=_bf16_values(layers[-1]["b"]), in_dim=in_dim)
 
 
 def fused_forward_plain(fv, vox, delta, packed: PackedDecoder, grid_size: int, k: int):
     """Plain PyTorch version: the gather and float32 matmuls on the
-    bfloat16-rounded operands, with the reference kernel's rounding points."""
+    bfloat16-rounded operands, with the reference kernel's rounding points,
+    over the pack's padded widths."""
     emb = gather_patches(extract_patches(fv.to(torch.float32), grid_size, k), vox)
     x = torch.cat([emb, delta.to(torch.bfloat16).to(torch.float32)], dim=-1)
-    h = torch.relu(x @ packed.w[0][:packed.in_dim].to(torch.float32) + packed.b[0])
+    h = torch.relu(x @ packed.w[0][:, :packed.in_dim].to(torch.float32).t() + packed.b[0])
     for w, b in zip(packed.w[1:], packed.b[1:]):
-        h = torch.relu(h.to(torch.bfloat16).to(torch.float32) @ w.to(torch.float32) + b)
+        h = torch.relu(h.to(torch.bfloat16).to(torch.float32) @ w.to(torch.float32).t() + b)
     return h.to(torch.bfloat16).to(torch.float32) @ packed.w_out.t() + packed.b_out
 
 
@@ -148,20 +172,26 @@ def fused_forward(fv, vox, delta, packed: PackedDecoder, grid_size: int, k: int)
     lib = build.library()
     B, V, C = fv.shape
     N = vox.shape[1]
-    n_hidden = len(packed.w)
-    widths = (ctypes.c_int * n_hidden)(*(w.shape[1] for w in packed.w))
-    smem = lib.dpdist_fused_forward_smem(grid_size, k, C, widths, n_hidden)
+    k1 = packed.w[0].shape[1]
+    smem = lib.dpdist_fused_forward_smem(k)
     if smem > build.MAX_SMEM:
         raise ValueError(f"the fused forward needs {smem} B of shared memory, more than the "
                          f"{build.MAX_SMEM} B a block has")
+    n_hidden = len(packed.w)
+    widths = (ctypes.c_int * n_hidden)(*(w.shape[0] for w in packed.w))
     out = packed.b_out.shape[0]
     y = torch.empty((B, N, out), dtype=torch.float32, device=dev)
+    # The hidden activations between the layer launches, ping-ponged (one
+    # buffer serves a single hidden layer).
+    h = [torch.empty((B * N, max(widths)), dtype=torch.bfloat16, device=dev)
+         for _ in range(min(n_hidden, 2))]
     w_ptrs = (ctypes.c_void_p * n_hidden)(*(w.data_ptr() for w in packed.w))
     b_ptrs = (ctypes.c_void_p * n_hidden)(*(b.data_ptr() for b in packed.b))
     err = lib.dpdist_fused_forward(
         fv.data_ptr(), vox.data_ptr(), delta.data_ptr(), y.data_ptr(), w_ptrs, b_ptrs, widths,
-        n_hidden, packed.w[0].shape[0], packed.w_out.data_ptr(), packed.b_out.data_ptr(), out,
-        B, N, grid_size, k, C, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+        n_hidden, k1, packed.w_out.data_ptr(), packed.b_out.data_ptr(), out,
+        h[0].data_ptr(), h[-1].data_ptr(), B, N, grid_size, k, C, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch(err, "fused_forward")
     fused_forward.launches += 1
     return y

@@ -8,8 +8,10 @@ csrc/fv_encode.cuh; its header says what bounds it on an H100.
 
 `threedmfv_kernel` is the wrapper. On a CPU tensor it runs the plain
 encode (ops.threedmfv.threedmfv_plain), which is also the kernel's oracle
-on the card. On a CUDA tensor it launches the kernel or raises; it never
-falls back. `threedmfv_kernel.launches` counts kernel launches, and
+on the card. On a CUDA tensor it launches the kernels or raises; it never
+falls back. One call makes one or two CUDA launches: the pools over a
+(B, S) grid of point chunks (`split_plan`), and their merge where S > 1;
+`threedmfv_kernel.launches` counts calls that launched, one per call, and
 nothing else.
 
 The kernel has no backward of its own, as on the TPU: the max and min
@@ -37,6 +39,35 @@ def _mu(G: int, device: torch.device):
 
 def _threads(G: int) -> int:
     return min(1024, max(256, -(-G // 32) * 32))
+
+
+# The split of each cloud's points over blocks: about BLOCKS_PER_SM blocks
+# per SM in all, no chunk below MIN_CHUNK_POINTS points, chunks a multiple
+# of the kernel's TILE_POINTS-point logit tile (csrc/fv_encode.cuh).
+BLOCKS_PER_SM, MIN_CHUNK_POINTS, TILE_POINTS = 2, 32, 32
+
+
+@functools.lru_cache(maxsize=8)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def merge_groups(B: int, sm_count: int) -> int:
+    """Blocks per cloud of the merge, each taking every merge_groups-th of
+    the 20 channels: 20 for a single cloud, 1 once B alone gives about
+    BLOCKS_PER_SM blocks per SM."""
+    return max(1, min(20, BLOCKS_PER_SM * sm_count // B))
+
+
+def split_plan(B: int, N: int, sm_count: int) -> tuple[int, int]:
+    """(S, chunk): cloud b's points [s*chunk, min(N, (s+1)*chunk)) go to
+    block (b, s) for s < S; every chunk holds at least one point. S = 1
+    (no merge) once B is more than half the card's BLOCKS_PER_SM * sm_count
+    blocks."""
+    want = max(1, min(BLOCKS_PER_SM * sm_count // B, -(-N // MIN_CHUNK_POINTS)))
+    chunk = -(-N // want)
+    chunk = -(-chunk // TILE_POINTS) * TILE_POINTS
+    return -(-N // chunk), chunk
 
 
 def _check(points, n_gaussians):
@@ -70,12 +101,15 @@ def _threedmfv_impl(points, n_gaussians, sigma):
     if smem > build.MAX_SMEM:
         raise ValueError(f"G={G} needs {smem} B of shared memory, more than the "
                          f"{build.MAX_SMEM} B a block has")
+    sms = _sm_count(dev.index)
+    S, chunk = split_plan(B, N, sms)
     out = torch.empty((B, G, 20), dtype=torch.float32, device=dev)
+    partial = torch.empty((B, S, 20, G), dtype=torch.float32, device=dev) if S > 1 else out
     w = 1.0 / G
     err = lib.dpdist_threedmfv(
-        points.data_ptr(), _mu(G, dev).data_ptr(), out.data_ptr(), B, N, G, float(sigma), w,
-        math.sqrt(w) * N, math.sqrt(w), math.sqrt(2.0 * w), 1.0 / N, threads, dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
+        points.data_ptr(), _mu(G, dev).data_ptr(), partial.data_ptr(), out.data_ptr(), B, N, S,
+        chunk, merge_groups(B, sms), G, float(sigma), w, math.sqrt(w) * N, math.sqrt(w),
+        math.sqrt(2.0 * w), 1.0 / N, threads, dev.index, torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch(err, "threedmfv")
     threedmfv_kernel.launches += 1
     return out
@@ -105,6 +139,8 @@ def threedmfv_kernel(points, n_gaussians: int = 512, sigma: float = 0.125):
     """(B, N, 3) float32 contiguous points -> (B, G, 20) float32 normalised
     full 3DmFV; differentiable in points (see the module docstring)."""
     _check(points, n_gaussians)
+    if not (torch.is_grad_enabled() and points.requires_grad):
+        return _threedmfv_impl(points, n_gaussians, sigma)
     return _ThreeDmFV.apply(points, n_gaussians, sigma)
 
 

@@ -39,7 +39,7 @@ from dpdist_tpu_torch.kernels.table_gather import (
 from dpdist_tpu_torch.losses import make_frozen_dpdist_loss
 from dpdist_tpu_torch.models import apply_direction, apply_dpdist, resolve_for_grad
 from dpdist_tpu_torch.models.dpdist import Route, route
-from dpdist_tpu_torch.ops.voxel import voxel_assign
+from dpdist_tpu_torch.ops.voxel import extract_patches, gather_patches, voxel_assign
 from dpdist_tpu_torch.serving import load_frozen_distance
 from dpdist_tpu_torch.train import params_from_jax
 from dpdist_tpu_torch.train.trainer import DPDistTrainer
@@ -78,25 +78,65 @@ def _clouds(seed, B=2, N=16):
 
 
 def test_pack_decoder_layout(small_net):
-    """W1's rows as [W1[3:]; W1[:3]; zeros up to a multiple of 16], every
-    value rounded to bf16 once, the head transposed."""
+    """Each W stored K-major (W^T), K and the widths padded with zeros to
+    multiples of 64: W1's rows as [W1[3:]; W1[:3]; 0 ...], zero biases and
+    zero head columns in the padding; every value rounded to bf16 once."""
     _, _, _, tparams = small_net
     layers = tparams["decoder"]["layers"]
     p = pack_decoder(layers)
     w1 = layers[0]["w"]
     in_dim = w1.shape[0]
     assert isinstance(p, PackedDecoder) and p.in_dim == in_dim == 3 + 27 * 20
-    assert p.w[0].dtype == BF16 and p.w[0].shape == (-(-in_dim // 16) * 16, 32)
-    assert torch.equal(p.w[0][:in_dim - 3], w1[3:].to(BF16))
-    assert torch.equal(p.w[0][in_dim - 3:in_dim], w1[:3].to(BF16))
-    assert not p.w[0][in_dim:].any()
+    assert p.w[0].dtype == BF16 and p.w[0].shape == (64, -(-in_dim // 64) * 64)
+    assert torch.equal(p.w[0][:32, :in_dim - 3], w1[3:].t().to(BF16))
+    assert torch.equal(p.w[0][:32, in_dim - 3:in_dim], w1[:3].t().to(BF16))
+    assert not p.w[0][:, in_dim:].any() and not p.w[0][32:].any()
     assert len(p.w) == len(p.b) == len(layers) - 1
     for i in range(1, len(p.w)):
-        assert torch.equal(p.w[i], layers[i]["w"].to(BF16))
+        assert p.w[i].shape == (64, 64) and p.w[i].is_contiguous()
+        assert torch.equal(p.w[i][:32, :32], layers[i]["w"].t().to(BF16))
+        assert not p.w[i][32:].any() and not p.w[i][:, 32:].any()
     for b, lp in zip(p.b, layers):
-        assert b.dtype == torch.float32 and torch.equal(b, lp["b"].to(BF16).float())
-    assert torch.equal(p.w_out, layers[-1]["w"].t().to(BF16).float())
+        assert b.dtype == torch.float32 and b.shape == (64,)
+        assert torch.equal(b[:32], lp["b"].to(BF16).float()) and not b[32:].any()
+    assert p.w_out.shape == (3, 64)
+    assert torch.equal(p.w_out[:, :32], layers[-1]["w"].t().to(BF16).float())
+    assert not p.w_out[:, 32:].any()
     assert torch.equal(p.b_out, layers[-1]["b"].to(BF16).float())
+
+
+@pytest.mark.parametrize("widths", [(32, 32, 32, 3), (48, 96, 1), (1024, 1024, 1024, 3)])
+def test_plain_on_the_padded_pack_matches_the_unpadded_decoder(widths):
+    """fused_forward_plain over the padded pack against the reference
+    kernel's arithmetic written out on the unpadded layers: the padded
+    units are relu(0) = 0 and meet zero rows, so only float32 rounding
+    (sums of another length) may differ (1e-5 relative)."""
+    r = np.random.default_rng(21)
+    g, k, C = 4, 3, 20
+    in_dim = 3 + k ** 3 * C
+    layers, d = [], in_dim
+    for w in widths:
+        lim = np.sqrt(6.0 / (d + w))
+        layers.append({"w": torch.as_tensor(r.uniform(-lim, lim, (d, w)).astype(np.float32)),
+                       "b": torch.as_tensor(r.normal(0, 0.1, w).astype(np.float32))})
+        d = w
+    fv = torch.as_tensor(r.normal(0, 0.3, (3, g ** 3, C)).astype(np.float32)).to(BF16)
+    vox, _, delta = voxel_assign(torch.as_tensor(r.uniform(-1.2, 1.2, (3, 40, 3))
+                                                 .astype(np.float32)), g)
+    got = fused_forward_plain(fv, vox, delta, pack_decoder(layers), g, k)
+
+    def rnd(t):
+        return t.to(BF16).float()
+
+    emb = gather_patches(extract_patches(fv.float(), g, k), vox)
+    w1 = rnd(layers[0]["w"])
+    h = torch.relu(emb @ w1[3:] + rnd(delta) @ w1[:3] + rnd(layers[0]["b"]))
+    for lp in layers[1:-1]:
+        h = torch.relu(rnd(h) @ rnd(lp["w"]) + rnd(lp["b"]))
+    want = rnd(h) @ rnd(layers[-1]["w"]) + rnd(layers[-1]["b"])
+    assert got.shape == want.shape == (3, 40, widths[-1])
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))
 
 
 @pytest.mark.parametrize("g,k", [(4, 3), (8, 5)])

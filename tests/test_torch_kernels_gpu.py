@@ -170,6 +170,7 @@ def test_frozen_loss_launch_counts(cuda):
     (3, 1000, 512, 0.125),    # a ragged last tile
     (2, 130, 64, 0.25),       # a small grid
     (2, 1, 512, 0.125),       # one point
+    (3, 300, 64, 0.3),        # a sigma that is no power of two: true divisions
 ])
 def test_threedmfv_kernel_matches_plain(cuda, B, N, G, sigma):
     """With coordinates on cell edges and a few points far outside the grid."""
@@ -183,6 +184,38 @@ def test_threedmfv_kernel_matches_plain(cuda, B, N, G, sigma):
     ref = threedmfv_plain(pts, G, sigma)
     assert fv.shape == ref.shape and bool(torch.isfinite(fv).all())
     assert float((fv - ref).abs().max()) <= TOL_X
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,N", [
+    (1, 10000),   # eval_pair: one cloud split over about 160 blocks
+    (3, 129),     # chunks of 32 points, the last one ragged
+    (256, 256),   # the np = 256 path: one block per cloud, no merge
+    (300, 64),    # the batch fills the card alone
+    (2, 1),       # one point, one chunk
+])
+def test_threedmfv_split_kernel_matches_plain(cuda, B, N):
+    """The encode split over blocks (partial pools, then the merge)
+    against the plain encode, with coordinates on cell edges and about 1 %
+    of the points (the first one at least) far outside the grid."""
+    from dpdist_tpu_torch.kernels.threedmfv import split_plan
+
+    S, chunk = split_plan(B, N, torch.cuda.get_device_properties(cuda).multi_processor_count)
+    assert (S - 1) * chunk < N <= S * chunk
+    r = np.random.default_rng(B * N)
+    pts = _edge_inputs(B, N, 1, 8, seed=B + N)[0]
+    far = r.random((B, N)) < 0.01
+    far[:, 0] = True
+    pts[far] = (r.choice([-1.0, 1.0], (int(far.sum()), 3)) * 4.5).astype(np.float32)
+    pts = torch.as_tensor(pts, device=cuda)
+    before = threedmfv_kernel.launches
+    fv = threedmfv_kernel(pts, 512, 0.125)
+    torch.cuda.synchronize()
+    assert threedmfv_kernel.launches == before + 1
+    ref = threedmfv_plain(pts, 512, 0.125)
+    assert fv.shape == ref.shape == (B, 512, 20) and bool(torch.isfinite(fv).all())
+    assert float((fv - ref).abs().max()) <= TOL_X
+    assert torch.equal(threedmfv_kernel(pts, 512, 0.125), fv)   # the same from run to run
 
 
 @pytest.mark.gpu
@@ -267,6 +300,9 @@ def _decoder_layers(r, in_dim, widths, device):
     (4, 256, 8, 5, (1024, 1024, 1024, 3)),    # np = 256
     (2, 16, 4, 3, (32, 32, 32, 3)),           # the JAX kernel test's small config
     (3, 50, 8, 5, (48, 96, 1)),               # ragged N, other widths and depth
+    (7, 100, 8, 5, (1024, 1024, 1024, 3)),    # 128-row tiles that span clouds at N = 100
+    (5, 200, 8, 5, (1024, 1024, 1024, 3)),    # ... and at N = 200
+    (9, 64, 8, 5, (1024, 1024, 1024, 3)),     # two clouds per tile, the last tile ragged
 ])
 def test_fused_forward_kernel_matches_plain(cuda, B, N, g, k, widths):
     """Off-grid queries (vox 0, cell 0's row) included; no NaN or Inf."""
@@ -285,6 +321,33 @@ def test_fused_forward_kernel_matches_plain(cuda, B, N, g, k, widths):
         assert fused_forward.launches == before + 1
         ref = fused_forward_plain(fv, vox, delta, packed, g, k)
     assert y.shape == ref.shape == (B, N, widths[-1]) and y.dtype == torch.float32
+    assert bool(torch.isfinite(y).all())
+    assert float((y - ref).abs().max()) <= TOL_FF
+
+
+@pytest.mark.gpu
+def test_fused_forward_kernel_vox_outside_the_grid(cuda):
+    """A vox outside [0, V) (never made by voxel_assign) gathers a zero
+    patch and keeps its delta: such rows equal the plain version's rows on
+    an all-zero volume."""
+    from dpdist_tpu_torch.ops.voxel import voxel_assign
+
+    B, N, g, k = 6, 100, 8, 5
+    r = np.random.default_rng(22)
+    fv = torch.as_tensor(r.normal(0, 0.3, (B, g ** 3, 20)).astype(np.float32),
+                         device=cuda).to(torch.bfloat16)
+    q = torch.as_tensor(_edge_inputs(B, 1, N, g, seed=23)[1], device=cuda)
+    vox, _, delta = voxel_assign(q, g)
+    bad = torch.as_tensor(r.random((B, N)) < 0.1, device=cuda)
+    bad[:, 0] = True
+    vox_bad = torch.where(bad, torch.where(torch.as_tensor(r.random((B, N)) < 0.5, device=cuda),
+                                           -1 - vox, g ** 3 + vox), vox).to(torch.int32)
+    packed = pack_decoder(_decoder_layers(r, 3 + k ** 3 * 20, (1024, 1024, 1024, 3), cuda))
+    with torch.no_grad():
+        y = fused_forward(fv, vox_bad, delta, packed, g, k)
+        ref = fused_forward_plain(fv, vox, delta, packed, g, k)
+        ref_zero = fused_forward_plain(torch.zeros_like(fv), vox, delta, packed, g, k)
+    ref = torch.where(bad[..., None], ref_zero, ref)
     assert bool(torch.isfinite(y).all())
     assert float((y - ref).abs().max()) <= TOL_FF
 

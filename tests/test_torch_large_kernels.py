@@ -30,8 +30,9 @@ from dpdist_tpu_torch.kernels.table_gather import (
     table_gather_bwd,
     table_gather_plain,
 )
-from dpdist_tpu_torch.kernels.threedmfv import threedmfv_kernel
+from dpdist_tpu_torch.kernels.threedmfv import merge_groups, split_plan, threedmfv_kernel
 from dpdist_tpu_torch.ops import threedmfv, threedmfv_plain
+from dpdist_tpu_torch.ops.threedmfv import threedmfv_grid
 
 # The encode against the Pallas kernel: the JAX package's own kernel
 # tolerance (tests/test_kernels.py:14).
@@ -139,6 +140,89 @@ def test_threedmfv_wrapper_rejects_what_the_kernel_does_not_take(case, exc):
         G = 100
     with pytest.raises(exc):
         threedmfv_kernel(pts, G, 0.25)
+
+
+@pytest.mark.parametrize("B,N", [(1, 10000), (1, 1), (2, 1), (3, 129), (4, 1000), (16, 256),
+                                 (132, 256), (133, 64), (256, 256), (256, 64), (300, 64),
+                                 (512, 64), (1, 33), (7, 5000)])
+@pytest.mark.parametrize("sms", [132, 114])
+def test_threedmfv_split_plan_covers_every_point_once(B, N, sms):
+    """Row 7's split of each cloud over blocks: chunks of `chunk` points
+    (a multiple of the kernel's 32-point tile), none empty, every point in
+    exactly one; S = 1 once B is more than half the card's two blocks per
+    SM; at most about two blocks per SM in all."""
+    S, chunk = split_plan(B, N, sms)
+    assert S >= 1 and chunk % 32 == 0
+    assert (S - 1) * chunk < N <= S * chunk
+    owner = np.zeros(N, dtype=int)
+    for s in range(S):
+        owner[s * chunk:min(N, (s + 1) * chunk)] += 1
+    assert (owner == 1).all()
+    if B > sms:
+        assert S == 1
+    assert S == 1 or (chunk >= 32 and B * S <= 2 * sms)
+    assert 1 <= merge_groups(B, sms) <= 20
+
+
+def _split_encode_mirror(points, n_gaussians, sigma, S, chunk):
+    """The kernel's structure in plain PyTorch: pools (sum, max, min) per
+    chunk of points, merged in chunk order, then the finalisation with the
+    whole cloud's N in pi_scale = sqrt(w) * N and in the mean (never the
+    chunk's)."""
+    B, N, _ = points.shape
+    mu = torch.as_tensor(threedmfv_grid(n_gaussians))
+    w = 1.0 / mu.shape[0]
+    sums, maxs, mins = None, None, None
+    for s in range(S):
+        p = points[:, s * chunk:(s + 1) * chunk]
+        diff = (p[:, :, None, :] - mu) / sigma
+        q = torch.softmax(-0.5 * torch.sum(diff * diff, dim=-1), dim=-1)
+        d_pi = ((q - w) / (np.sqrt(w) * N))[..., None]
+        d_mu = q[..., None] * diff
+        d_sig = q[..., None] * (diff * diff - 1.0)
+        part = torch.cat([d_pi, d_mu, d_sig], dim=-1)          # (B, n, G, 7)
+        ps, pmax, pmin = part.sum(1), part.amax(1), part.amin(1)
+        if sums is None:
+            sums, maxs, mins = ps, pmax, pmin
+        else:
+            sums, maxs, mins = sums + ps, torch.maximum(maxs, pmax), torch.minimum(mins, pmin)
+    mean = sums / N
+    d_pi = torch.cat([mean[..., :1], maxs[..., :1]], dim=-1)
+    d_mu = torch.cat([mean[..., 1:4], maxs[..., 1:4], mins[..., 1:4]], dim=-1) / np.sqrt(w)
+    d_sig = torch.cat([mean[..., 4:], maxs[..., 4:], mins[..., 4:]], dim=-1) / np.sqrt(2.0 * w)
+
+    def norm(x):
+        x = torch.sign(x) * torch.sqrt(torch.clamp(torch.abs(x), min=1e-12))
+        return x * torch.rsqrt(torch.clamp(torch.sum(x * x, dim=1, keepdim=True), min=1e-12))
+
+    return torch.cat([norm(d_pi), norm(d_mu), norm(d_sig)], dim=2)
+
+
+@pytest.mark.parametrize("B,N,far", [
+    (1, 1, False),      # one point, one chunk
+    (2, 1, True),       # one far point per cloud
+    (1, 150, False),    # chunks of 32 points, the last one ragged (150 = 4 x 32 + 22)
+    (3, 129, True),     # ragged, with points far off the grid
+    (1, 1000, True),    # many chunks
+])
+def test_threedmfv_split_mirror_matches_plain_and_pallas(B, N, far):
+    """Partial pools over the split plan's chunks, merged, against the
+    plain encode and JAX's Pallas encode in interpret mode (within 1e-6):
+    splitting a cloud changes only the order of the sums, and only the
+    whole cloud's N enters the mean and pi_scale."""
+    pts = _clouds(N + B, B, N)
+    if far:
+        pts[:, : max(1, N // 20)] = np.float32(4.5)
+        pts[:, -1] = np.float32(-6.0)
+    S, chunk = split_plan(B, N, 132)
+    if N > 32:
+        assert S > 1
+    t = torch.as_tensor(pts)
+    got = _split_encode_mirror(t, 512, 0.125, S, chunk).numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, threedmfv_plain(t, 512, 0.125).numpy(), atol=1e-6, rtol=0)
+    want = np.asarray(jax_threedmfv_pallas(jnp.asarray(pts), 512, 0.125, interpret=True))
+    np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
 
 
 # ---------------------------------------------------------------------------
