@@ -23,7 +23,9 @@ NN-min kernel).
   4. table_kernels the table-gather kernel and its adjoint against their
                    plain versions at B = 256, N = 64, with off-grid and
                    cell-edge queries carrying gradient (x and vox exact;
-                   dfv within 1e-6 of its largest entry), and the fused
+                   dfv within 1e-6 of its largest entry, the same from run
+                   to run, and equal bit for bit to the ordered plain sum,
+                   one index_add_ per query in query order), and the fused
                    kernel's backward against autograd through the plain
                    composition.
   5. encode_kernel the streaming 3DmFV encode against the plain encode at
@@ -112,7 +114,13 @@ NN-min kernel).
                    TFLOP/s at both sizes; the cuBLAS bf16 decoder with the
                    first layer's K padded to the pack's (a yardstick the
                    port never runs); the device time of each CUDA kernel
-                   that rows 9 and 7 launch (torch.profiler); the
+                   that rows 9 and 7 launch (torch.profiler); rows 2 (also
+                   with its bf16 output) and 3 with their device times
+                   (torch.profiler) and % of bound on both times, and row 3
+                   at N = 256 on the np = 256 frozen loss's inputs (the
+                   patch part of row 6's gradient) with its bound,
+                   index_add_, the ordered plain sum (bit for bit) and
+                   float64 sums (within 1e-6 of the largest entry); the
                    forward, the frozen source-gradient step and the train
                    step at B = 256, np = 64, and the forward and the
                    source-gradient step at np = 256; the bf16 forwards
@@ -265,6 +273,23 @@ def cuda_median_ms(fn, runs=TIMED_RUNS, warmup=3):
     return statistics.median(times)
 
 
+def device_ms(fn, match, calls=5):
+    """Mean device time (ms) per call of fn of the CUDA kernels whose name
+    holds `match`, over `calls` calls under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages() if match in e.key)
+    check(us > 0, f"torch.profiler saw no device time of {match}")
+    return us / calls / 1e3
+
+
 def bound(bytes_moved, flops, peak=F32_FLOP_PER_S):
     """(ms, "bytes" or "operations"): the least time the card could take,
     with the operations at `peak` per second."""
@@ -410,6 +435,7 @@ def main() -> int:
         from dpdist_tpu_torch.kernels.table_gather import (
             table_gather,
             table_gather_bwd,
+            table_gather_bwd_ordered,
             table_gather_bwd_plain,
             table_gather_plain,
             table_gather_x,
@@ -487,14 +513,17 @@ def main() -> int:
         dfv_again = table_gather_bwd(vox, grad, GRID, K)
         torch.cuda.synchronize()
         dfv_ref = table_gather_bwd_plain(vox, grad, GRID, K)
+        ordered_equal = bool(torch.equal(dfv, table_gather_bwd_ordered(vox, grad, GRID, K)))
         err_bwd = float((dfv - dfv_ref).abs().max())
         tol_bwd = REL_BWD * float(dfv_ref.abs().max())
         print(f"table_gather_x vs plain: x and vox equal ({int((vox == 0).sum())} queries in "
               f"cell 0); table_gather_bwd vs plain: max |d dfv| = {err_bwd:.3e} (tol "
               f"{tol_bwd:.3e} = {REL_BWD} x max |dfv|), run to run equal: "
-              f"{bool(torch.equal(dfv, dfv_again))}", flush=True)
+              f"{bool(torch.equal(dfv, dfv_again))}, equal to the ordered plain sum: "
+              f"{ordered_equal}", flush=True)
         check(err_bwd <= tol_bwd, f"table_gather_bwd: max |d dfv| {err_bwd} > {tol_bwd}")
         check(torch.equal(dfv, dfv_again), "table_gather_bwd differs from run to run")
+        check(ordered_equal, "table_gather_bwd differs from the ordered plain sum")
         # The fused kernel's backward against autograd through the plain composition.
         co = torch.as_tensor(rng.normal(size=(B_SERVE, NP, 3 + K ** 3 * C)).astype(np.float32),
                              device=dev)
@@ -1060,9 +1089,13 @@ def main() -> int:
         check(torch.equal(fv_pad.index_select(0, rows_idx).view(B, N, E), x[..., 3:]),
               "index_select does not reproduce table_gather_x's patches")
         lib_dfv = sink.zero_().index_add_(0, rows_idx, src_rows).view(B, V + 1, C)[:, :V]
-        err_lib = float((lib_dfv - table_gather_bwd(vox, grad_patch, GRID, K)).abs().max())
+        dfv_t = table_gather_bwd(vox, grad_patch, GRID, K)
+        err_lib = float((lib_dfv - dfv_t).abs().max())
         check(err_lib <= REL_BWD * float(lib_dfv.abs().max()),
               f"index_add_ does not reproduce table_gather_bwd ({err_lib})")
+        check(torch.equal(dfv_t, table_gather_bwd_ordered(vox, grad_patch, GRID, K)),
+              "table_gather_bwd differs from the ordered plain sum on the timed inputs")
+        del dfv_t
         print(f"timed inputs: {B} clouds x {N} queries, {int((~inside).sum())} of "
               f"{inside.numel()} (query, offset) windows off the grid, {n_reached} of {B * V} "
               f"cells reached", flush=True)
@@ -1089,12 +1122,23 @@ def main() -> int:
             # no arithmetic but q - centre.
             b_ms, b_by = bound(4 * (n_reached * C + B * N * 3 + V * 3 + B * N * (3 + E) + B * N),
                                3 * B * N)
+            dev_ms = device_ms(lambda: table_gather_x(fv, b, GRID, K), "table_gather_x_kernel<float")
+            # The bf16 output: x in half the bytes.
+            ms_bf = cuda_median_ms(lambda: table_gather_x(fv, b, GRID, K, dtype=bf))
+            dev_bf = device_ms(lambda: table_gather_x(fv, b, GRID, K, dtype=bf),
+                               "table_gather_x_kernel<__nv_bfloat16")
+            b_bf, _ = bound(4 * (n_reached * C + B * N * 3 + V * 3 + B * N) + 2 * B * N * (3 + E),
+                            3 * B * N)
             records.append({"name": "table_gather_x", "route": "cuda",
                             "source": "dpdist_tpu_torch/csrc/table_gather.cu",
                             "replaces": "dpdist_tpu/kernels/table_gather_pallas.py:539",
                             "launches": launches["table_gather_x"], "max_abs_err": err_tgx,
                             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                            "library_ms": lib_ms})
+                            "library_ms": lib_ms, "device_ms": dev_ms,
+                            "bf16": {"ms": ms_bf, "device_ms": dev_bf, "bound_ms": b_bf}})
+            print(f"table_gather_x with a bf16 output: {ms_bf:.4f} ms, {dev_bf:.4f} ms on the "
+                  f"device; bound {b_bf:.4f} ms = {b_bf / ms_bf:.1%} / {b_bf / dev_bf:.1%} of "
+                  f"bound; on {card}", flush=True)
 
             ms = cuda_median_ms(lambda: table_gather_bwd(vox, grad_patch, GRID, K))
             plain_ms = cuda_median_ms(lambda: table_gather_bwd_plain(vox, grad_patch, GRID, K))
@@ -1103,12 +1147,14 @@ def main() -> int:
             # dfv out; one add per such entry.
             adds = int(inside.sum()) * C
             b_ms, b_by = bound(4 * (adds + B * N + B * V * C), adds)
+            dev_ms = device_ms(lambda: table_gather_bwd(vox, grad_patch, GRID, K),
+                               "table_gather_bwd_kernel")
             records.append({"name": "table_gather_bwd", "route": "cuda",
                             "source": "dpdist_tpu_torch/csrc/table_gather.cu",
                             "replaces": "dpdist_tpu/kernels/table_gather_pallas.py:237",
                             "launches": launches["table_gather_bwd"], "max_abs_err": err_bwd,
                             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                            "library_ms": lib_ms,
+                            "library_ms": lib_ms, "device_ms": dev_ms,
                             # Rows 4 and 5: the same adjoint in two TPU lane layouts.
                             "covers": ["dpdist_tpu/kernels/table_gather_pallas.py:379",
                                        "dpdist_tpu/kernels/table_gather_pallas.py:425"]})
@@ -1161,7 +1207,42 @@ def main() -> int:
                             "launches": launches["table_gather"], "max_abs_err": err_tg6,
                             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                             "library_ms": lib_ms})
-            del fv_pad6, reached6, rows6
+
+            # Row 3 at N = 256 on the np = 256 frozen loss's inputs: pcB's
+            # voxels, and a contiguous grad as row 6's backward hands it.
+            gradL = torch.as_tensor(rng.normal(size=(B, NL, E)).astype(np.float32), device=dev)
+            srcL = gradL.reshape(-1, C)
+            sinkL = torch.zeros(B * (V + 1), C, device=dev)
+            # Against float64 sums: two float32 orders of up to 4x as many
+            # terms a slot as at N = 64 differ by up to ~8e-7 of the largest
+            # entry; each alone strays from the exact sum by less.
+            dfvL = table_gather_bwd(voxL, gradL, GRID, K)
+            refL = table_gather_bwd_plain(voxL, gradL.double(), GRID, K)
+            libL = sinkL.zero_().index_add_(0, rows6, srcL).view(B, V + 1, C)[:, :V]
+            tolL = REL_BWD * float(refL.abs().max())
+            errL = float((dfvL.double() - refL).abs().max())
+            check(errL <= tolL, f"table_gather_bwd at N={NL}: max |d dfv| {errL} > {tolL}")
+            check(float((libL.double() - refL).abs().max()) <= tolL,
+                  f"index_add_ does not compute table_gather_bwd's function at N={NL}")
+            check(torch.equal(dfvL, table_gather_bwd_ordered(voxL, gradL, GRID, K)),
+                  f"table_gather_bwd at N={NL} differs from the ordered plain sum")
+            del refL, libL
+            msL = cuda_median_ms(lambda: table_gather_bwd(voxL, gradL, GRID, K))
+            devL = device_ms(lambda: table_gather_bwd(voxL, gradL, GRID, K),
+                             "table_gather_bwd_kernel")
+            libL_ms = cuda_median_ms(lambda: sinkL.zero_().index_add_(0, rows6, srcL))
+            addsL = int(inside6.sum()) * C
+            bnd_L, _ = bound(4 * (addsL + B * NL + B * V * C), addsL)
+            next(r for r in records if r["name"] == "table_gather_bwd")[f"n{NL}"] = {
+                "ms": msL, "device_ms": devL, "bound_ms": bnd_L, "library_ms": libL_ms,
+                "max_abs_err": errL}
+            print(f"table_gather_bwd at B={B}, N={NL} (contiguous grad): {msL:.4f} ms, "
+                  f"{devL:.4f} ms on the device; bound {bnd_L:.4f} ms = {bnd_L / msL:.1%} / "
+                  f"{bnd_L / devL:.1%} of bound; index_add_ {libL_ms:.4f} ms; max |d dfv| "
+                  f"{errL:.3e} from float64 sums (tol {tolL:.3e}), equal to the ordered plain "
+                  f"sum; on {card}",
+                  flush=True)
+            del fv_pad6, reached6, rows6, gradL, srcL, sinkL, dfvL
 
             # Row 8 on eval_pair's clouds, one direction.
             NE = eA.shape[1]
@@ -1316,10 +1397,13 @@ def main() -> int:
                       f"{card}", flush=True)
 
             for r in records:
+                on_device = (f", {r['device_ms']:.4f} ms on the device = "
+                             f"{r['bound_ms'] / r['device_ms']:.1%} of bound"
+                             if "device_ms" in r else "")
                 print(f"{r['name']} kernel: {r['ms']:.4f} ms; bound {r['bound_ms']:.4f} ms "
-                      f"({r['bound_by']}) = {r['bound_ms'] / r['ms']:.1%} of bound; plain "
-                      f"{r['plain_ms']:.4f} ms; library call {r['library_ms']} ms; main-path "
-                      f"launches {r['launches']}; on {card}", flush=True)
+                      f"({r['bound_by']}) = {r['bound_ms'] / r['ms']:.1%} of bound{on_device}; "
+                      f"plain {r['plain_ms']:.4f} ms; library call {r['library_ms']} ms; "
+                      f"main-path launches {r['launches']}; on {card}", flush=True)
 
             fwd_ms = cuda_median_ms(lambda: fwd_model(a, b))
         print(f"forward (mfv kernel path) at B={B_SERVE} pairs: {fwd_ms:.4f} ms, "

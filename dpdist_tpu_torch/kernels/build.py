@@ -135,7 +135,7 @@ def library() -> ctypes.CDLL:
         lib.dpdist_table_gather_smem.argtypes = [ci, ci, ci]
         lib.dpdist_table_gather_smem.restype = ctypes.c_size_t
         lib.dpdist_table_gather_x.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci,
-                                              ci, ci, vp]
+                                              vp]
         lib.dpdist_table_gather_x.restype = ci
         lib.dpdist_table_gather.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci, vp]
         lib.dpdist_table_gather.restype = ci
@@ -150,7 +150,7 @@ def library() -> ctypes.CDLL:
         lib.dpdist_fused_forward.restype = ci
         i64 = ctypes.c_int64
         lib.dpdist_table_gather_bwd.argtypes = [vp, vp, i64, i64, vp, ci, ci, ci, ci, ci, ci,
-                                                ci, vp]
+                                                vp]
         lib.dpdist_table_gather_bwd.restype = ci
         lib.dpdist_nn_min_points_per_block.argtypes = [ci]
         lib.dpdist_nn_min_points_per_block.restype = ci

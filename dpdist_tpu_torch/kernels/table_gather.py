@@ -6,7 +6,19 @@ Port of dpdist_tpu/kernels/table_gather_pallas.py: `table_gather_x`
 two V-in-lanes layouts of the same adjoint,
 `_table_gather_bwd_transposed_ng` and `_table_gather_bwd_transposed`). The
 CUDA kernels are dpdist_tpu_torch/csrc/table_gather.cu; its header says
-what bounds them on an H100 and how the designs meet that.
+what bounds each on an H100 and how its design meets that:
+
+- table_gather_x: persistent blocks, one per SM, walk runs of a cloud's
+  rows; each run's volume arrives in shared memory by one bulk copy while
+  the previous run is written, and rows leave in 16-byte-aligned groups
+  (4 float32 or 8 bfloat16 rows) by bulk stores from a double buffer.
+- table_gather: one block per (cloud, tile of queries), one warp per row.
+- table_gather_bwd: owner-computes. One block per (cloud, slab of g^2
+  cells); each thread owns a few dfv slots in registers and pulls the grad
+  entries of the queries whose window meets its slab, in query order: no
+  atomics, no barrier per query. Each slot is summed from 0 in query
+  order, so the kernel equals `table_gather_bwd_ordered` (one index_add_
+  per query, in query order) bit for bit and is the same from run to run.
 
     x, vox = table_gather_x(fv, queries, grid_size, k)
         (B, V, C) volume + (B, N, 3) queries -> x = [delta, patch]
@@ -32,7 +44,8 @@ raises.
 
 On CPU tensors all three run their plain versions (`table_gather_x_plain`,
 `table_gather_plain`, `table_gather_bwd_plain`), which are also the
-kernels' oracles on the card. On CUDA tensors they launch the kernel or
+kernels' oracles on the card, with `table_gather_bwd_ordered` for the
+adjoint's order of sums. On CUDA tensors they launch the kernel or
 raise; they never fall back. `table_gather_x.launches`,
 `table_gather.launches` and `table_gather_bwd.launches` count kernel
 launches, and nothing else.
@@ -48,12 +61,12 @@ from dpdist_tpu_torch.ops.voxel import (
     extract_patches,
     gather_patches,
     grid_centers,
+    neighbor_ids,
     voxel_assign,
 )
 
-X_ROWS_PER_BLOCK = 32       # queries per block of the forward kernels
+X_ROWS_PER_BLOCK = 32       # queries per block of the patch-only gather (and gather_fused)
 X_THREADS = 256
-BWD_THREADS = 512
 
 
 def table_gather_x_plain(fv, queries, grid_size: int, k: int):
@@ -79,6 +92,25 @@ def table_gather_bwd_plain(vox, grad, grid_size: int, k: int):
                          device=grad.device, requires_grad=True)
         patches = gather_patches(extract_patches(fv, grid_size, k), vox)
         return torch.autograd.grad(patches, fv, grad)[0]
+
+
+def table_gather_bwd_ordered(vox, grad, grid_size: int, k: int):
+    """The adjoint as an ordered plain sum: from zeros, one index_add_ per
+    query, in query order. Within one query every dfv slot takes at most
+    one term, so the sums run in table_gather_bwd's kernel's order and the
+    two agree bit for bit. A vox outside [0, grid_size^3) adds nothing."""
+    B, N, E = grad.shape
+    V, K3 = grid_size ** 3, k ** 3
+    C = E // K3
+    valid = ((vox >= 0) & (vox < V)).to(grad.dtype)
+    nid = neighbor_ids(vox, valid, grid_size, k).long()              # (B, N, K3), -1: no cell
+    base = (torch.arange(B, device=grad.device) * (V + 1))[:, None, None]
+    rows = base + torch.where(nid >= 0, nid, torch.full_like(nid, V))   # row V: a sink
+    terms = grad.reshape(B, N, K3, C)
+    out = torch.zeros(B * (V + 1), C, dtype=grad.dtype, device=grad.device)
+    for n in range(N):
+        out.index_add_(0, rows[:, n].reshape(-1), terms[:, n].reshape(-1, C))
+    return out.view(B, V + 1, C)[:, :V].contiguous()
 
 
 def check_forward_only(dtype, *inputs):
@@ -145,8 +177,8 @@ def _table_gather_x_impl(fv, queries, grid_size, k, dtype=torch.float32):
     vox = torch.empty((B, N), dtype=torch.int32, device=dev)
     err = build.library().dpdist_table_gather_x(
         fv.data_ptr(), queries.data_ptr(), _centers(V, dev).data_ptr(), x.data_ptr(),
-        vox.data_ptr(), B, N, grid_size, k, C, X_ROWS_PER_BLOCK, X_THREADS,
-        int(dtype == torch.bfloat16), dev.index, torch.cuda.current_stream(dev).cuda_stream)
+        vox.data_ptr(), B, N, grid_size, k, C, int(dtype == torch.bfloat16), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch(err, "table_gather_x")
     table_gather_x.launches += 1
     return x, vox
@@ -177,7 +209,9 @@ def table_gather_x(fv, queries, grid_size: int, k: int, dtype: torch.dtype = tor
     the module docstring."""
     _check_x(fv, queries, grid_size, k)
     if dtype == torch.float32:
-        return _TableGatherX.apply(fv, queries, grid_size, k)
+        if torch.is_grad_enabled() and (fv.requires_grad or queries.requires_grad):
+            return _TableGatherX.apply(fv, queries, grid_size, k)
+        return _table_gather_x_impl(fv, queries, grid_size, k)   # no graph to record
     check_forward_only(dtype, fv, queries)
     return _table_gather_x_impl(fv, queries, grid_size, k, dtype)
 
@@ -251,7 +285,8 @@ def table_gather_bwd(vox, grad, grid_size: int, k: int):
     """(B, N) int32 voxel ids + (B, N, k^3*C) grad -> (B, V, C) dfv.
 
     `grad` may be a strided view (the patch part of x's gradient) as long
-    as its last axis is contiguous; vox must lie in [0, grid_size^3).
+    as its last axis is contiguous. vox should lie in [0, grid_size^3): on
+    the card a vox outside adds nothing; the plain version raises.
     """
     _check_vox(vox)
     if not isinstance(grad, torch.Tensor) or grad.dtype != torch.float32:
@@ -276,8 +311,7 @@ def table_gather_bwd(vox, grad, grid_size: int, k: int):
     dfv = torch.empty((B, grid_size ** 3, C), dtype=torch.float32, device=dev)
     err = build.library().dpdist_table_gather_bwd(
         vox.data_ptr(), grad.data_ptr(), grad.stride(0), grad.stride(1), dfv.data_ptr(),
-        B, N, grid_size, k, C, BWD_THREADS, dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
+        B, N, grid_size, k, C, dev.index, torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch(err, "table_gather_bwd")
     table_gather_bwd.launches += 1
     return dfv

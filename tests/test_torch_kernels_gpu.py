@@ -17,6 +17,7 @@ from dpdist_tpu_torch.kernels.mfv_gather import mfv_x, mfv_x_plain
 from dpdist_tpu_torch.kernels.table_gather import (
     table_gather,
     table_gather_bwd,
+    table_gather_bwd_ordered,
     table_gather_bwd_plain,
     table_gather_plain,
     table_gather_x,
@@ -86,43 +87,111 @@ def test_mfv_x_kernel_matches_plain(cuda, B, M, N, G, g, k, sigma):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,N,g,k,C", [
     (256, 64, 8, 5, 20),   # the main path
     (2, 16, 4, 3, 20),     # the JAX kernel test's small config
     (3, 200, 8, 5, 20),    # N not a multiple of the block's 32 rows
+    (1, 1, 8, 5, 20),      # one row, shorter than a row group
+    (3, 13, 8, 5, 20),     # clouds 2 and 3 start off the 4- and 8-row group boundaries
+    (1, 200, 8, 5, 20),    # one cloud split over many work items
+    (3, 13, 4, 3, 20),     # W = 543
+    (3, 13, 4, 3, 7),      # C = 7: one-element chunks, W = 192
+    (2, 13, 3, 3, 7),      # a volume of 756 B: staged by the threads, not one bulk copy
+    (2, 13, 8, 7, 20),     # W = 6,863: no room for row groups
+    (2, 13, 10, 5, 20),    # an 80 KB volume: one volume buffer, staged after each item
 ])
-def test_table_gather_x_kernel_matches_plain(cuda, B, N, g, k, C):
+def test_table_gather_x_kernel_matches_plain(cuda, B, N, g, k, C, dtype):
+    """x and vox exact; a bf16 x is the float32 one rounded once."""
     r = np.random.default_rng(1)
     fv = torch.as_tensor(r.normal(size=(B, g ** 3, C)).astype(np.float32), device=cuda)
     q = torch.as_tensor(_edge_inputs(B, 1, N, g, seed=2)[1], device=cuda)
     before = table_gather_x.launches
-    x, vox = table_gather_x(fv, q, g, k)
+    with torch.no_grad():
+        x, vox = table_gather_x(fv, q, g, k, dtype=dtype)
     torch.cuda.synchronize()
     assert table_gather_x.launches == before + 1
     ref, ref_vox = table_gather_x_plain(fv, q, g, k)
     assert torch.equal(vox, ref_vox)
-    assert torch.equal(x, ref)      # a copy plus q - centre: exact
+    assert x.dtype == dtype and torch.equal(x, ref.to(dtype))   # a copy plus q - centre: exact
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,N,g,k", [(256, 64, 8, 5), (2, 16, 4, 3), (3, 200, 8, 5)])
-def test_table_gather_bwd_kernel_matches_plain(cuda, B, N, g, k):
+@pytest.mark.parametrize("strided", [True, False])
+@pytest.mark.parametrize("B,N,g,k", [
+    (256, 64, 8, 5),    # the main path
+    (2, 16, 4, 3),      # the JAX kernel test's small config
+    (3, 200, 8, 5),
+    (1, 1, 8, 5),       # one query
+    (3, 13, 8, 5),      # a list shorter than one ring stage
+])
+def test_table_gather_bwd_kernel_matches_plain(cuda, B, N, g, k, strided):
     """Gradient on every row, off-grid ones included (they scatter into
     cell 0's neighbourhood); the grad is the strided patch part of x's
-    gradient; two runs agree bit for bit (no atomics)."""
+    gradient or a contiguous one (row 6's backward); two runs agree bit for
+    bit, and with the ordered plain sum (the kernel sums in query order)."""
     q = torch.as_tensor(_edge_inputs(B, 1, N, g, seed=3)[1], device=cuda)
     _, vox = table_gather_x_plain(torch.zeros(B, g ** 3, 20, device=cuda), q, g, k)
     r = np.random.default_rng(4)
     gx = torch.as_tensor(r.normal(size=(B, N, 3 + k ** 3 * 20)).astype(np.float32), device=cuda)
-    grad = gx[..., 3:]
+    grad = gx[..., 3:] if strided else gx[..., 3:].contiguous()
     before = table_gather_bwd.launches
     dfv = table_gather_bwd(vox, grad, g, k)
     dfv2 = table_gather_bwd(vox, grad, g, k)
     torch.cuda.synchronize()
     assert table_gather_bwd.launches == before + 2
     assert torch.equal(dfv, dfv2)
+    assert torch.equal(dfv, table_gather_bwd_ordered(vox, grad, g, k))
     ref = table_gather_bwd_plain(vox, grad, g, k)
     assert float((dfv - ref).abs().max()) <= REL_BWD * float(ref.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("strided", [True, False])
+def test_table_gather_bwd_kernel_at_256_queries(cuda, strided):
+    """The np = 256 frozen loss's size (more ring stages than the ring
+    holds): bit for bit the ordered plain sum and the same from run to run,
+    and within REL_BWD of float64 sums. Against a float32 plain version in
+    another order the slots with the most terms (cell 0's neighbourhood)
+    differ by up to ~8e-7 of the largest entry, both sides rounding."""
+    B, N, g, k = 256, 256, 8, 5
+    q = torch.as_tensor(_edge_inputs(B, 1, N, g, seed=26)[1], device=cuda)
+    _, vox = table_gather_x_plain(torch.zeros(B, g ** 3, 20, device=cuda), q, g, k)
+    gx = torch.as_tensor(np.random.default_rng(27).normal(
+        size=(B, N, 3 + k ** 3 * 20)).astype(np.float32), device=cuda)
+    grad = gx[..., 3:] if strided else gx[..., 3:].contiguous()
+    dfv = table_gather_bwd(vox, grad, g, k)
+    assert torch.equal(dfv, table_gather_bwd(vox, grad, g, k))
+    assert torch.equal(dfv, table_gather_bwd_ordered(vox, grad, g, k))
+    ref = table_gather_bwd_plain(vox, grad.double(), g, k)
+    assert float((dfv.double() - ref).abs().max()) <= REL_BWD * float(ref.abs().max())
+
+
+@pytest.mark.gpu
+def test_table_gather_bwd_kernel_vox_outside_the_grid_and_off_grid_rows(cuda):
+    """A vox outside [0, V) adds nothing; off-grid rows (vox 0) scatter
+    into cell 0's neighbourhood and nowhere else."""
+    B, N, g, k = 3, 40, 8, 5
+    r = np.random.default_rng(24)
+    q = torch.as_tensor(_edge_inputs(B, 1, N, g, seed=25)[1], device=cuda)
+    _, vox = table_gather_x_plain(torch.zeros(B, g ** 3, 20, device=cuda), q, g, k)
+    grad = torch.as_tensor(r.normal(size=(B, N, k ** 3 * 20)).astype(np.float32), device=cuda)
+    bad = torch.as_tensor(r.random((B, N)) < 0.2, device=cuda)
+    bad[:, 0] = True
+    vox_bad = torch.where(bad, torch.where(torch.as_tensor(r.random((B, N)) < 0.5, device=cuda),
+                                           -1 - vox, g ** 3 + vox), vox).to(torch.int32)
+    dfv = table_gather_bwd(vox_bad, grad, g, k)
+    assert torch.equal(dfv, table_gather_bwd_ordered(vox_bad, grad, g, k))
+    alone = table_gather_bwd_plain(vox, torch.where(bad[..., None], 0.0, grad), g, k)
+    assert float((dfv - alone).abs().max()) <= REL_BWD * float(alone.abs().max())
+    # Every query off the grid: only cells within k/2 of cell 0 on each axis.
+    zero = torch.zeros(B, N, dtype=torch.int32, device=cuda)
+    dfv0 = table_gather_bwd(zero, grad, g, k).view(B, g, g, g, 20)
+    assert torch.equal(dfv0.flatten(1), table_gather_bwd_ordered(zero, grad, g, k).flatten(1))
+    kh = k // 2
+    assert bool((dfv0[:, kh + 1:] == 0).all() and (dfv0[:, :, kh + 1:] == 0).all()
+                and (dfv0[:, :, :, kh + 1:] == 0).all())
+    assert bool((dfv0[:, :kh + 1, :kh + 1, :kh + 1] != 0).all())
 
 
 @pytest.mark.gpu

@@ -22,15 +22,19 @@ from dpdist_tpu.ops.voxel import voxel_assign as jax_voxel_assign
 from dpdist_tpu_torch.kernels.mfv_gather import mfv_x
 from dpdist_tpu_torch.kernels.table_gather import (
     table_gather_bwd,
+    table_gather_bwd_ordered,
     table_gather_bwd_plain,
     table_gather_x,
     table_gather_x_plain,
 )
-from dpdist_tpu_torch.ops import threedmfv, voxel_assign
+from dpdist_tpu_torch.ops import neighbor_ids, threedmfv, voxel_assign
 
 # The adjoint sums the same products in another order where queries share
 # a voxel: the tolerance of the JAX package's own backward-kernel test.
 TOL_BWD = 1e-5
+# The same, relative to the largest |dfv|: the bound tests/test_torch_kernels_gpu.py
+# and chip_smoke.py hold the adjoint kernel to.
+REL_BWD = 1e-6
 
 
 def _queries(r, B, N, g):
@@ -87,6 +91,88 @@ def test_table_gather_bwd_matches_jax_oracle_and_kernel(g, k):
     wide = np.concatenate([r.normal(size=(B, N, 3)).astype(np.float32), grad], -1)
     strided = table_gather_bwd(tvox, torch.as_tensor(wide)[..., 3:], g, k)
     np.testing.assert_array_equal(strided.numpy(), got.numpy())
+
+
+def _slab_tiling_mirror(vox, grad, g, k):
+    """The adjoint kernel's tiling (csrc/table_gather.cu) in numpy. Block
+    (b, slab) owns slots s = cell * C + c of the slab's g^2 cells; its list
+    holds, in query order, the queries whose vox lies in [0, g^3) and whose
+    window meets the slab, at first-digit offset di; slot (ny, nz, c) takes
+    element (dj * k + dl) * C + c of the query's run grad[n, di * k^2 * C:],
+    dj = ny - vy + k/2, dl = nz - vz + k/2, when both lie in [0, k).
+    Returns each slot's float32 sum in list order, from 0, and how often
+    each grad entry (b, n, e) was read."""
+    B, N, E = grad.shape
+    C, kh, gg = E // k ** 3, k // 2, g * g
+    s = np.arange(gg * C)
+    ty, tz, c = s // C // g + kh, s // C % g + kh, s % C
+    off = (ty * k + tz) * C + c
+    dfv = np.zeros((B, gg * g, C), np.float32)
+    reads = np.zeros(grad.shape, np.int64)
+    for b in range(B):
+        for slab in range(g):
+            acc = np.zeros(gg * C, np.float32)
+            for n in range(N):
+                v = int(vox[b, n])
+                di = slab - v // gg + kh
+                if not (0 <= v < gg * g and 0 <= di < k):
+                    continue
+                vy, vz = v // g % g, v % g
+                inside = (0 <= ty - vy) & (ty - vy < k) & (0 <= tz - vz) & (tz - vz < k)
+                e = di * k * k * C + off - (vy * k + vz) * C
+                acc = acc + np.where(inside, grad[b, n, np.where(inside, e, 0)], np.float32(0))
+                np.add.at(reads[b, n], e[inside], 1)
+            dfv[b, slab * gg:(slab + 1) * gg] = acc.reshape(gg, C)
+    return dfv, reads
+
+
+@pytest.mark.parametrize("g,k,C,pallas", [(4, 3, 20, True), (8, 5, 20, False), (4, 3, 7, False)])
+def test_table_gather_bwd_slab_tiling_matches_jax(g, k, C, pallas):
+    """The kernel's tiling reads every in-grid (n, o, c) entry in exactly
+    one (block, slot) and no other; its sums equal the ordered plain sum
+    bit for bit; both hold JAX's adjoint (the XLA oracle, and the Pallas
+    kernel in interpret mode at the small config) within REL_BWD of the
+    largest |dfv|, off-grid rows (vox 0, cell 0's neighbourhood) included."""
+    r = np.random.default_rng(20 + g + C)
+    B, N = 2, 24
+    q = _queries(r, B, N, g)
+    vox, mask, _ = jax_voxel_assign(jnp.asarray(q), g)
+    assert float(np.asarray(mask).min()) == 0.0
+    vox = np.array(vox)
+    grad = r.normal(size=(B, N, k ** 3 * C)).astype(np.float32)
+    mirror, reads = _slab_tiling_mirror(vox, grad, g, k)
+    tvox = torch.as_tensor(vox)
+    in_grid = neighbor_ids(tvox, torch.ones(B, N), g, k).numpy() >= 0       # (B, N, k^3)
+    np.testing.assert_array_equal(reads, np.repeat(in_grid, C, axis=-1).astype(np.int64))
+    ordered = table_gather_bwd_ordered(tvox, torch.as_tensor(grad), g, k).numpy()
+    np.testing.assert_array_equal(mirror, ordered)
+    wants = [np.asarray(table_gather_bwd_xla_oracle(jnp.asarray(vox), jnp.asarray(grad),
+                                                    grid_size=g, k=k, dtype=jnp.float32))]
+    if pallas:
+        wants.append(np.asarray(jax_tg_bwd(jnp.asarray(vox), jnp.asarray(grad), grid_size=g, k=k,
+                                           dtype=jnp.float32, interpret=True)))
+    for want in wants:
+        tol = REL_BWD * float(np.abs(want).max())
+        assert float(np.abs(ordered - want).max()) <= tol
+
+
+def test_table_gather_bwd_ordered_skips_vox_outside_the_grid():
+    """A vox outside [0, g^3) adds nothing, in the tiling and in the ordered
+    plain sum alike; the other rows give what they give alone."""
+    r = np.random.default_rng(31)
+    g, k, B, N = 4, 3, 2, 16
+    vox = np.asarray(jax_voxel_assign(jnp.asarray(_queries(r, B, N, g)), g)[0]).copy()
+    bad = np.zeros((B, N), bool)
+    bad[:, ::5] = True
+    vox[bad] = np.where(r.random(int(bad.sum())) < 0.5, -1 - vox[bad], g ** 3 + vox[bad])
+    grad = r.normal(size=(B, N, k ** 3 * 20)).astype(np.float32)
+    mirror, reads = _slab_tiling_mirror(vox, grad, g, k)
+    assert reads[bad].sum() == 0
+    ordered = table_gather_bwd_ordered(torch.as_tensor(vox), torch.as_tensor(grad), g, k)
+    np.testing.assert_array_equal(mirror, ordered.numpy())
+    kept = torch.as_tensor(np.where(bad, 0, vox).astype(np.int32))
+    alone = table_gather_bwd_plain(kept, torch.as_tensor(np.where(bad[..., None], 0, grad)), g, k)
+    assert float((ordered - alone).abs().max()) <= REL_BWD * float(alone.abs().max())
 
 
 def test_table_gather_x_backward_skips_the_adjoint_without_fv_grad():
