@@ -116,7 +116,10 @@ NN-min kernel).
                    port never runs); the device time of each CUDA kernel
                    that rows 9 and 7 launch (torch.profiler); rows 2 (also
                    with its bf16 output) and 3 with their device times
-                   (torch.profiler) and % of bound on both times, and row 3
+                   (torch.profiler) and % of bound on both times, as rows 1
+                   (also with its bf16 output and at M = N = 128, checked
+                   against its plain version there), 10, 6 and 8 have
+                   theirs; row 3
                    at N = 256 on the np = 256 frozen loss's inputs (the
                    patch part of row 6's gradient) with its bound,
                    index_add_, the ordered plain sum (bit for bit) and
@@ -275,17 +278,20 @@ def cuda_median_ms(fn, runs=TIMED_RUNS, warmup=3):
 
 def device_ms(fn, match, calls=5):
     """Mean device time (ms) per call of fn of the CUDA kernels whose name
-    holds `match`, over `calls` calls under torch.profiler."""
+    holds `match` (or one of the names in a tuple), over `calls` calls under
+    torch.profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    matches = (match,) if isinstance(match, str) else match
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages() if match in e.key)
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if any(m in e.key for m in matches))
     check(us > 0, f"torch.profiler saw no device time of {match}")
     return us / calls / 1e3
 
@@ -1108,12 +1114,50 @@ def main() -> int:
             b_ms, b_by = bound(4 * (B_KERNEL * NP * 6 + 2 * G * 3
                                     + B_KERNEL * NP * (3 + E) + B_KERNEL * NP),
                                40 * B_KERNEL * NP * G)
+            dev_ms = device_ms(lambda: mfv_x(pts, q, G, SIGMA, GRID, K), "mfv_gather_x_kernel<float")
+            # The bf16 output: x in half the bytes.
+            ms_bf = cuda_median_ms(lambda: mfv_x(pts, q, G, SIGMA, GRID, K, dtype=bf))
+            dev_bf = device_ms(lambda: mfv_x(pts, q, G, SIGMA, GRID, K, dtype=bf),
+                               "mfv_gather_x_kernel<__nv_bfloat16")
+            b_bf, _ = bound(4 * (B_KERNEL * NP * 6 + 2 * G * 3 + B_KERNEL * NP)
+                            + 2 * B_KERNEL * NP * (3 + E), 40 * B_KERNEL * NP * G)
+            # N = 128, the most the route sends to row 1: 2B clouds of 128
+            # points and 128 queries (inputs of their own, so that the
+            # other phases' draws stay as they were).
+            N1 = 2 * NP
+            r128 = np.random.default_rng(128)
+            p128 = torch.as_tensor(r128.uniform(-0.95, 0.95, (B_KERNEL, N1, 3)).astype(np.float32),
+                                   device=dev)
+            q128 = torch.as_tensor(r128.uniform(-1.2, 1.2, (B_KERNEL, N1, 3)).astype(np.float32),
+                                   device=dev)
+            x128, vox128 = mfv_x(p128, q128, G, SIGMA, GRID, K)
+            x128_ref, vox128_ref = mfv_x_plain(p128, q128, G, SIGMA, GRID, K)
+            err128 = float((x128 - x128_ref).abs().max())
+            check(err128 <= TOL_X and torch.equal(vox128, vox128_ref),
+                  f"mfv_x at N={N1}: max |dx| {err128} > {TOL_X} or vox differs")
+            del x128, x128_ref, vox128, vox128_ref
+            ms128 = cuda_median_ms(lambda: mfv_x(p128, q128, G, SIGMA, GRID, K))
+            dev128 = device_ms(lambda: mfv_x(p128, q128, G, SIGMA, GRID, K),
+                               "mfv_gather_x_kernel<float")
+            b128, _ = bound(4 * (B_KERNEL * N1 * 6 + 2 * G * 3 + B_KERNEL * N1 * (3 + E)
+                                 + B_KERNEL * N1), 40 * B_KERNEL * N1 * G)
             records.append({"name": "mfv_gather_x", "route": "cuda",
                             "source": "dpdist_tpu_torch/csrc/mfv_gather.cu",
                             "replaces": "dpdist_tpu/kernels/mfv_gather_pallas.py:209",
                             "launches": launches["mfv_gather_x"], "max_abs_err": err_mfv,
                             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                            "library_ms": None})
+                            "library_ms": None, "device_ms": dev_ms,
+                            "bf16": {"ms": ms_bf, "device_ms": dev_bf, "bound_ms": b_bf},
+                            f"n{N1}": {"ms": ms128, "device_ms": dev128, "bound_ms": b128,
+                                       "max_abs_err": err128}})
+            print(f"mfv_gather_x with a bf16 output: {ms_bf:.4f} ms, {dev_bf:.4f} ms on the "
+                  f"device; bound {b_bf:.4f} ms = {b_bf / ms_bf:.1%} / {b_bf / dev_bf:.1%} of "
+                  f"bound; on {card}", flush=True)
+            print(f"mfv_gather_x at 2B={B_KERNEL}, M=N={N1}: {ms128:.4f} ms, {dev128:.4f} ms on "
+                  f"the device; bound {b128:.4f} ms = {b128 / ms128:.1%} / {b128 / dev128:.1%} "
+                  f"of bound; max |dx| {err128:.3e} (tol {TOL_X}), vox equal; on {card}",
+                  flush=True)
+            del p128, q128
 
             ms = cuda_median_ms(lambda: table_gather_x(fv, b, GRID, K))
             plain_ms = cuda_median_ms(lambda: table_gather_x_plain(fv, b, GRID, K))
@@ -1201,12 +1245,13 @@ def main() -> int:
             lib_ms = cuda_median_ms(lambda: fv_pad6.index_select(0, rows6))
             # The reached cells of fv and vox in, the patch rows out; no arithmetic.
             b_ms, b_by = bound(4 * (n_reached6 * C + B * NL + B * NL * E), 0)
+            dev_ms = device_ms(lambda: table_gather(fvL, voxL, GRID, K), "table_gather_kernel<float")
             records.append({"name": "table_gather", "route": "cuda",
                             "source": "dpdist_tpu_torch/csrc/table_gather.cu",
                             "replaces": "dpdist_tpu/kernels/table_gather_pallas.py:106",
                             "launches": launches["table_gather"], "max_abs_err": err_tg6,
                             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                            "library_ms": lib_ms})
+                            "library_ms": lib_ms, "device_ms": dev_ms})
 
             # Row 3 at N = 256 on the np = 256 frozen loss's inputs: pcB's
             # voxels, and a contiguous grad as row 6's backward hands it.
@@ -1258,12 +1303,15 @@ def main() -> int:
             # Both clouds in, the minima out.
             b_ms, b_by = bound(4 * (NE * 3 + eB.shape[1] * 3 + NE),
                                NN_OPS_PER_PAIR * NE * eB.shape[1])
+            # Both of its CUDA kernels: the partial minima and the minimum over splits.
+            dev_ms = device_ms(lambda: nn_min_sqdist(eA, eB),
+                               ("nn_min_partial_kernel", "min_over_splits_kernel"))
             records.append({"name": "nn_min_sqdist", "route": "cuda",
                             "source": "dpdist_tpu_torch/csrc/chamfer.cu",
                             "replaces": "dpdist_tpu/kernels/chamfer_pallas.py:74",
                             "launches": launches["nn_min_sqdist"], "max_abs_err": err_nn,
                             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                            "library_ms": lib_ms})
+                            "library_ms": lib_ms, "device_ms": dev_ms})
             del lib_nn, d_nn
 
             # Row 9 on the first np = 64 request as the "full" route builds
@@ -1379,12 +1427,14 @@ def main() -> int:
             # The reached cells of fv, vox and mask in, the patch rows out; no
             # arithmetic.
             b_ms, b_by = bound(4 * (n_reached10 * C + 2 * B * N + B * N * E), 0)
+            dev_ms = device_ms(lambda: gather_patches_fused(fv10, vox10, mask10, GRID, K),
+                               "gather_fused_kernel")
             records.append({"name": "gather_patches_fused", "route": "cuda",
                             "source": "dpdist_tpu_torch/csrc/gather_fused.cu",
                             "replaces": "dpdist_tpu/kernels/gather_pallas.py:137",
                             "launches": launches["gather_patches_fused"], "max_abs_err": err_g10,
                             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                            "library_ms": lib_ms})
+                            "library_ms": lib_ms, "device_ms": dev_ms})
             del fv_pad10, rows10, reached10, nid
 
             # The bf16 outputs of rows 1, 2 and 6 beside their float32 times.

@@ -1,7 +1,8 @@
-// The normalised full 3DmFV encode by one block, in pieces: fold a run of
-// points into running pools, finalise. Shared by threedmfv.cu
-// (the encode alone, a cloud's points split over blocks) and mfv_gather.cu
-// (the encode fused with the patch gather, one block per cloud).
+// The normalised full 3DmFV encode by one team of threads, in pieces: fold
+// a run of points into running pools, finalise. Shared by threedmfv.cu
+// (the encode alone, a cloud's points split over blocks; the team is the
+// block) and mfv_gather.cu (the encode fused with the patch gather; the
+// team is the block's encode warps, which encode one cloud after another).
 //
 // Thread j < G owns Gaussian j and keeps its 20 running pools (sum, max,
 // min) in registers. Per tile of kEncodeTile points:
@@ -44,6 +45,15 @@ namespace dpdist {
 constexpr int kFvChannels = 20;   // full FV, D = 3
 constexpr int kEncodeTile = 32;   // points per shared-memory logit tile
 constexpr float kFvEps = 1e-12f;
+
+// The threads that run an encode together. BlockTeam: the whole block
+// (row 7); the fused kernel of row 1 encodes with its first warps only, on
+// a named barrier (mfv_gather.cu).
+struct BlockTeam {
+  __device__ __forceinline__ int rank() const { return threadIdx.x; }
+  __device__ __forceinline__ int size() const { return blockDim.x; }
+  __device__ __forceinline__ void sync() const { __syncthreads(); }
+};
 
 // Scalars of the encode for the whole cloud of n points (never a chunk's):
 // w = 1/G, inv_pi_scale = 1 / (sqrt(w) * n), sw = sqrt(w), sw2 = sqrt(2w),
@@ -110,18 +120,19 @@ __host__ __device__ inline size_t encode_smem_floats(int G, int nwarps) {
          static_cast<size_t>(nwarps) * kFvChannels + kFvChannels;
 }
 
-// Folds the n points pts (n, 3) into the pools of thread j = threadIdx.x
-// (Gaussian j, centre mu[j] in device memory). Every thread of the block
-// calls it; blockDim.x is a multiple of 32 and at least G; threads past G
-// keep their pools untouched. smem holds encode_smem_floats floats.
-template <bool kPow2>
+// Folds the n points pts (n, 3) into the pools of thread j = team.rank()
+// (Gaussian j, centre mu[j] in device memory). Every thread of the team
+// calls it; the team's size is a multiple of 32, at least G and at least
+// 3 * kEncodeTile; threads past G keep their pools untouched. smem holds
+// encode_smem_floats floats.
+template <bool kPow2, typename Team>
 __device__ inline void pool_points_as(const float* __restrict__ pts, int n,
                                       const float* __restrict__ mu, int G, const EncodeConsts& p,
-                                      float* smem, Pools& pools) {
-  const int j = threadIdx.x;
+                                      float* smem, Pools& pools, const Team& team) {
+  const int j = team.rank();
   const int lane = j % kWarp;
   const int warp = j / kWarp;
-  const int nwarps = blockDim.x / kWarp;
+  const int nwarps = team.size() / kWarp;
   float* lt = smem;                       // kEncodeTile * G: logits, then e
   float* sum_s = lt + kEncodeTile * G;    // kEncodeTile: 1 / each point's sum
   float* tile_s = sum_s + kEncodeTile;    // 2 * kEncodeTile * 3: this tile's and the next's points
@@ -131,7 +142,7 @@ __device__ inline void pool_points_as(const float* __restrict__ pts, int n,
   const float mz = owner ? mu[j * 3 + 2] : 0.f;
 
   if (j < min(kEncodeTile, n) * 3) tile_s[j] = __ldg(pts + j);
-  __syncthreads();
+  team.sync();
   for (int t0 = 0, buf = 0; t0 < n; t0 += kEncodeTile, buf ^= 1) {
     const int T = min(kEncodeTile, n - t0);
     const float* tp = tile_s + buf * kEncodeTile * 3;
@@ -145,7 +156,7 @@ __device__ inline void pool_points_as(const float* __restrict__ pts, int n,
         lt[m * G + j] = -0.5f * (dx * dx + dy * dy + dz * dz);
       }
     }
-    __syncthreads();
+    team.sync();
 
     // 2. Softmax over G per point: one warp per point. Meanwhile the last
     //    warp's lanes stage the next tile's points.
@@ -168,7 +179,7 @@ __device__ inline void pool_points_as(const float* __restrict__ pts, int n,
       s = warp_sum(s);
       if (lane == 0) sum_s[m] = 1.f / s;
     }
-    __syncthreads();
+    team.sync();
 
     // 3. Fold the tile into the pools.
     if (owner) {
@@ -194,17 +205,18 @@ __device__ inline void pool_points_as(const float* __restrict__ pts, int n,
         }
       }
     }
-    __syncthreads();  // the tile's logits are read before the next overwrites them
+    team.sync();  // the tile's logits are read before the next overwrites them
   }
 }
 
+template <typename Team = BlockTeam>
 __device__ inline void pool_points(const float* __restrict__ pts, int n,
                                    const float* __restrict__ mu, int G, const EncodeConsts& p,
-                                   float* smem, Pools& pools) {
+                                   float* smem, Pools& pools, const Team& team = Team()) {
   if (p.inv_sigma != 0.f) {
-    pool_points_as<true>(pts, n, mu, G, p, smem, pools);
+    pool_points_as<true>(pts, n, mu, G, p, smem, pools, team);
   } else {
-    pool_points_as<false>(pts, n, mu, G, p, smem, pools);
+    pool_points_as<false>(pts, n, mu, G, p, smem, pools, team);
   }
 }
 
@@ -230,14 +242,16 @@ __device__ __forceinline__ float channel_value(int c, float v, const EncodeConst
 
 // Turns the whole cloud's pools into normalised channels: mean rows / n,
 // divide by sqrt(w) or sqrt(2w), signed sqrt, then an L2 norm per channel
-// over G. Every thread of the block calls it; thread j < G returns
+// over G. Every thread of the team calls it; thread j < G returns
 // Gaussian j's channels in ch, threads past G zeros. smem as pool_points'.
+template <typename Team = BlockTeam>
 __device__ inline void finalize_channels(const Pools& pools, int G, const EncodeConsts& p,
-                                         float* smem, float (&ch)[kFvChannels]) {
-  const int tid = threadIdx.x;
+                                         float* smem, float (&ch)[kFvChannels],
+                                         const Team& team = Team()) {
+  const int tid = team.rank();
   const int lane = tid % kWarp;
   const int warp = tid / kWarp;
-  const int nwarps = blockDim.x / kWarp;
+  const int nwarps = team.size() / kWarp;
   float* red_s = smem + kEncodeTile * G + kEncodeTile + 2 * kEncodeTile * 3;   // nwarps * 20
   float* nrm_s = red_s + nwarps * kFvChannels;           // 20
   const bool owner = tid < G;
@@ -249,30 +263,32 @@ __device__ inline void finalize_channels(const Pools& pools, int G, const Encode
     const float s = warp_sum(ch[c] * ch[c]);
     if (lane == 0) red_s[warp * kFvChannels + c] = s;
   }
-  __syncthreads();
+  team.sync();
   if (tid < kFvChannels) {
     float s = 0.f;
     for (int i = 0; i < nwarps; ++i) s += red_s[i * kFvChannels + tid];
     nrm_s[tid] = 1.f / sqrtf(fmaxf(s, kFvEps));
   }
-  __syncthreads();
+  team.sync();
   if (owner) {
 #pragma unroll
     for (int c = 0; c < kFvChannels; ++c) ch[c] = ch[c] * nrm_s[c];
   }
 }
 
-// Encodes the n points pts (n, 3) of one cloud by one block: thread j < G
+// Encodes the n points pts (n, 3) of one cloud by a team: thread j < G
 // returns the normalised channels of Gaussian j in ch (layout
 // [pi_mean, pi_max, mu_mean(3), mu_max(3), mu_min(3), sig_mean(3),
-//  sig_max(3), sig_min(3)]), threads past G zeros. Every thread calls it.
+//  sig_max(3), sig_min(3)]), threads past G zeros. Every thread of the team
+// calls it.
+template <typename Team>
 __device__ inline void encode_cloud(const float* __restrict__ pts, int n,
                                     const float* __restrict__ mu, int G, const EncodeConsts& p,
-                                    float* smem, float (&ch)[kFvChannels]) {
+                                    float* smem, float (&ch)[kFvChannels], const Team& team) {
   Pools pools;
   init_pools(pools);
-  pool_points(pts, n, mu, G, p, smem, pools);
-  finalize_channels(pools, G, p, smem, ch);
+  pool_points(pts, n, mu, G, p, smem, pools, team);
+  finalize_channels(pools, G, p, smem, ch, team);
 }
 
 }  // namespace dpdist

@@ -1,8 +1,9 @@
 // Device helpers shared by the patch-gather kernels (mfv_gather.cu,
 // table_gather.cu, gather_fused.cu, fused_forward.cu): the k^3 window's
-// offsets, a query's voxel, the walk over one patch row or decoder-input
-// row x = [delta, patch], and a block's patch rows for given voxels. Rows
-// are written as float32 or, rounded once to nearest even, as bfloat16.
+// offsets, a query's voxel, the output's store (float32 or, rounded once to
+// nearest even, bfloat16), and the warp-per-row patch gather of
+// table_gather.cu's patch-only kernel (row 6). The persistent gathers' row
+// machinery is in row_groups.cuh.
 //
 // Flat voxel order is the reference's meshgrid order, v = iy*g^2 + ix*g + iz;
 // the window's offsets act on the three digits of v (v/g^2, (v/g)%g, v%g),
@@ -99,15 +100,6 @@ __device__ __forceinline__ void write_patch_row(T* patch, int v, const float* fv
   });
 }
 
-// The same for a decoder-input row xrow = [delta, patch].
-template <typename T>
-__device__ __forceinline__ void write_x_row(T* xrow, const float* delta, int v,
-                                            const float* fv_s, const int* offs_s,
-                                            const char4* off3_s, int g, int C, int E, int lane) {
-  if (lane < 3) store_out(xrow + lane, delta[lane]);
-  write_patch_row(xrow + 3, v, fv_s, offs_s, off3_s, g, C, E, lane);
-}
-
 // Shared memory floats of gather_patch_rows: the (G, C) volume and the
 // window's two offset tables.
 __host__ __device__ inline size_t patch_rows_smem_floats(int g, int k, int C) {
@@ -116,17 +108,16 @@ __host__ __device__ inline size_t patch_rows_smem_floats(int g, int k, int C) {
   return G * C + K3 * 2;
 }
 
-// The body of a patch-gather block: cloud blockIdx.x, queries
+// The body of a patch-gather block (row 6): cloud blockIdx.x, queries
 // blockIdx.y * rows_per_block onwards. Stages the cloud's (G, C) volume and
 // the window offsets in shared memory, then one warp per query row writes
-// out[b, n, :] (k^3*C wide). A row is zero where keep(row) is false or its
-// vox lies outside [0, G) (never made by voxel_assign).
-template <typename T, typename Keep>
+// out[b, n, :] (k^3*C wide). A row is zero where its vox lies outside
+// [0, G) (never made by voxel_assign).
+template <typename T>
 __device__ __forceinline__ void gather_patch_rows(const float* __restrict__ fv,   // (B, G, C)
                                                   const int* __restrict__ vox,    // (B, N)
                                                   T* __restrict__ out,            // (B, N, k^3*C)
-                                                  int N, int g, int k, int C, int rows_per_block,
-                                                  Keep keep) {
+                                                  int N, int g, int k, int C, int rows_per_block) {
   extern __shared__ float smem[];
   const int G = g * g * g;
   const int K3 = k * k * k;
@@ -151,7 +142,7 @@ __device__ __forceinline__ void gather_patch_rows(const float* __restrict__ fv, 
     const size_t row = static_cast<size_t>(b) * N + n;
     const int v = vox[row];   // every lane, same value
     T* orow = out + row * E;
-    if (keep(row) && v >= 0 && v < G) {
+    if (v >= 0 && v < G) {
       write_patch_row(orow, v, fv_s, offs_s, off3_s, g, C, E, lane);
     } else {
       for (int e = lane; e < E; e += kWarp) store_out(orow + e, 0.f);

@@ -13,9 +13,10 @@
 // exactly.
 //   What bounds it on an H100: device memory, almost all of it the x it
 //   writes (164 MB at B = 256 clouds, N = 64 queries, k = 5, C = 20: about
-//   0.05 ms at 3.35 TB/s; 10.5 MB of volumes in). The design keeps the
-//   copy engine writing while the threads build rows, and the volume loads
-//   off the threads' path:
+//   0.05 ms at 3.35 TB/s; 10.5 MB of volumes in). The design, the
+//   persistent gather of row_groups.cuh (which gather_fused.cu and
+//   mfv_gather.cu share), keeps the copy engine writing while the threads
+//   build rows, and the volume loads off the threads' path:
 //   - one persistent block per SM walks work items (a cloud's run of at
 //     most 128 rows); each item's volume arrives by one bulk copy
 //     (cp.async.bulk, completion on an mbarrier), and the next item's
@@ -43,7 +44,7 @@
 // (V, C) volume + (N,) vox -> (N, k^3*C). The reference takes it for
 // N > 128 queries, where its VMEM budget forces that split. One block per
 // (cloud, tile of queries) stages the volume in shared memory, then one warp
-// per row (patch_rows.cuh:gather_patch_rows, which gather_fused.cu shares).
+// per row (patch_rows.cuh:gather_patch_rows).
 // Off-grid queries carry vox = 0 and read cell 0's patch, as the reference
 // does; the model's mask zeroes them later. A vox outside [0, V) (never made
 // by voxel_assign) gives a zero row. A pure copy: it equals the plain
@@ -95,201 +96,22 @@
 #include <algorithm>
 
 #include "patch_rows.cuh"
+#include "row_groups.cuh"
 
 namespace {
 
+using dpdist::bulk_load;
+using dpdist::fence_proxy_async;
 using dpdist::kWarp;
+using dpdist::mbar_expect;
+using dpdist::mbar_init;
+using dpdist::mbar_wait;
 using dpdist::set_smem;
-using dpdist::store_out;
 
-// --- bulk copies (the copy engine), completion on an mbarrier or a bulk group
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(1u) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// Orders this thread's generic-proxy shared memory accesses before the
-// copy engine's (async proxy) accesses that follow.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-
-// One thread: arrives on `bar` (count 1), whose phase then completes once
-// `bytes` have landed by bulk_load.
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// One thread: `bytes` (a multiple of 16, both addresses 16-byte aligned)
-// from device memory into shared memory, counted on `bar`.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
-          "r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// One thread: `bytes` from shared memory to device memory, as one bulk group.
-__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
-  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(
-                   reinterpret_cast<uint64_t>(dst)),
-               "r"(smem_u32(src)), "r"(bytes)
-               : "memory");
-  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-}
-
-// Until at most one of this thread's bulk stores still reads shared memory.
-__device__ __forceinline__ void bulk_wait_read_all_but_one() {
-  asm volatile("cp.async.bulk.wait_group.read 1;" ::: "memory");
-}
-
-// Until all of this thread's bulk stores are complete.
-__device__ __forceinline__ void bulk_wait_all() {
-  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
-}
-
-// --- table_gather_x (row 2)
+// --- table_gather_x (row 2): the persistent gather of row_groups.cuh on
+// decoder-input rows of queries.
 
 constexpr int kXThreads = 512;   // threads of a block
-constexpr int kXMaxRows = 128;   // rows of one work item
-
-// One query row of the item in hand.
-struct XRow {
-  int vC;         // v * C: the row of the query's cell in the volume
-  char4 digits;   // (v / g^2, (v / g) % g, v % g)
-  float delta[3];
-};
-
-// The patch elements of a run of rows fall into chunks of CW consecutive
-// elements of one neighbour cell (CW divides C), numbered q = r * E / CW +
-// e / CW. In one pass a thread owns chunks q0 + threadIdx.x + j * blockDim.x,
-// j < J; for each it keeps where the chunk lies in the rows being built
-// (pos = r * W + 3 + e), its offset in the volume from the row's cell
-// (eoff = shift * C + c) and its digit shift (s.x, s.y, s.z), with its row
-// in s.w (-1: no chunk).
-template <int J>
-struct Chunks {
-  int pos[J];
-  int eoff[J];
-  char4 s[J];
-};
-
-template <int CW, int J>
-__device__ __forceinline__ void fill_chunks(Chunks<J>& ch, int q0, int rows, int W, int g, int k,
-                                            int C) {
-  const int kh = k / 2;
-  const int per_row = (W - 3) / CW;
-#pragma unroll
-  for (int j = 0; j < J; ++j) {
-    const int q = q0 + threadIdx.x + j * blockDim.x;
-    ch.pos[j] = ch.eoff[j] = 0;
-    ch.s[j] = make_char4(0, 0, 0, -1);
-    if (q < rows * per_row) {
-      const int r = q / per_row;
-      const int e = (q - r * per_row) * CW;
-      const int o = e / C, c = e - (e / C) * C;
-      const int sx = o / (k * k) - kh, sy = (o / k) % k - kh, sz = o % k - kh;
-      ch.pos[j] = r * W + 3 + e;
-      ch.eoff[j] = (sx * g * g + sy * g + sz) * C + c;
-      ch.s[j] = make_char4(static_cast<signed char>(sx), static_cast<signed char>(sy),
-                           static_cast<signed char>(sz), static_cast<signed char>(r));
-    }
-  }
-}
-
-// Writes this thread's chunks of rows rows_s[0 ..) to dst (shared or device
-// memory): each element from the volume fv_s, 0 outside the grid. All
-// loads are issued before the first store, which might alias them.
-template <int CW, int J, typename T>
-__device__ __forceinline__ void emit_chunks(T* dst, const XRow* rows_s, const Chunks<J>& ch,
-                                            const float* fv_s, int g) {
-  float val[J][CW];
-#pragma unroll
-  for (int j = 0; j < J; ++j) {
-    const char4 s = ch.s[j];
-    const XRow& ri = rows_s[s.w < 0 ? 0 : s.w];
-    const int vC = ri.vC;
-    const char4 d = ri.digits;
-    const bool in = s.w >= 0 &&
-                    static_cast<unsigned>(d.x + s.x) < static_cast<unsigned>(g) &&
-                    static_cast<unsigned>(d.y + s.y) < static_cast<unsigned>(g) &&
-                    static_cast<unsigned>(d.z + s.z) < static_cast<unsigned>(g);
-    const float* src = fv_s + (vC + ch.eoff[j]);
-    if constexpr (CW == 4) {
-      const float4 t = in ? *reinterpret_cast<const float4*>(src) : make_float4(0.f, 0.f, 0.f, 0.f);
-      val[j][0] = t.x;
-      val[j][1] = t.y;
-      val[j][2] = t.z;
-      val[j][3] = t.w;
-    } else {
-#pragma unroll
-      for (int i = 0; i < CW; ++i) val[j][i] = in ? src[i] : 0.f;
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < J; ++j)
-    if (ch.s[j].w >= 0) {
-#pragma unroll
-      for (int i = 0; i < CW; ++i) store_out(dst + ch.pos[j] + i, val[j][i]);
-    }
-}
-
-// Rows rows_s[0 .. rows) of the item in hand, written to dst (their first
-// row): the delta of each and its patch chunks, in passes of J chunks per
-// thread. `cached` holds the first pass's chunks where the caller filled
-// them for these many rows (passes == 1).
-template <int CW, int J, typename T>
-__device__ __forceinline__ void emit_rows(T* dst, const XRow* rows_s, int rows, Chunks<J>& ch,
-                                          bool cached, const float* fv_s, int W, int g, int k,
-                                          int C) {
-  if (threadIdx.x < 3 * rows) {
-    const int r = threadIdx.x / 3, d = threadIdx.x - (threadIdx.x / 3) * 3;
-    store_out(dst + r * W + d, rows_s[r].delta[d]);
-  }
-  const int n_chunks = rows * ((W - 3) / CW);
-  for (int q0 = 0; q0 < n_chunks; q0 += J * blockDim.x) {
-    if (!cached) fill_chunks<CW>(ch, q0, rows, W, g, k, C);
-    emit_chunks<CW>(dst, rows_s, ch, fv_s, g);
-  }
-}
-
-// What the host decides for one launch of table_gather_x_kernel.
-struct XPlan {
-  int rows_per_item;     // L: an item is rows [n0, n0 + L) of one cloud
-  int items_per_cloud;
-  int n_items;
-  int group_rows;        // R; 0: every row by per-thread stores
-  int prefetch;          // 1: two volume buffers, the next item's volume loads during this one
-  int bulk_volume;       // 1: a volume arrives by one bulk copy; 0: by per-thread loads
-  uint32_t vol_bytes;    // G * C * 4
-  uint32_t vol_stride;   // bytes of a volume buffer
-  uint32_t buf_off, buf_stride, rows_off, bar_off;
-  size_t smem;           // 0: no layout fits
-};
 
 // CW: elements per chunk (4 where C is a multiple of 4, else 1); J: chunks
 // per thread per pass, so that 512 * J * CW covers a float32 group of 4
@@ -301,156 +123,9 @@ __global__ void __launch_bounds__(kXThreads, 1)
                           const float* __restrict__ centers,  // (G, 3)
                           T* __restrict__ x,                  // (B, N, W)
                           int* __restrict__ vox_out,          // (B, N)
-                          int N, int g, int k, int C, const XPlan plan) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int G = g * g * g;
-  const int W = 3 + k * k * k * C;
-  const int R = plan.group_rows;
-  const int tid = threadIdx.x, n_blocks = gridDim.x;
-  XRow* rows_s = reinterpret_cast<XRow*>(smem + plan.rows_off);
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + plan.bar_off);
-  auto volume = [&](int slot) {
-    return reinterpret_cast<float*>(smem + slot * plan.vol_stride);
-  };
-  auto stage = [&](int item, int slot) {   // one thread, bulk_volume only
-    const size_t b = item / plan.items_per_cloud;
-    fence_proxy_async();
-    mbar_expect(&bars[slot], plan.vol_bytes);
-    bulk_load(volume(slot), fv + b * G * C, plan.vol_bytes, &bars[slot]);
-  };
-
-  if (tid == 0 && plan.bulk_volume) {
-    mbar_init(&bars[0]);
-    mbar_init(&bars[1]);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  // A group's chunks, worked out once where one pass covers them.
-  Chunks<J> ch;
-  const bool cached = R > 0 && R * ((W - 3) / CW) <= J * kXThreads;
-  bool ch_groups = false;   // ch holds the groups' chunks
-  __syncthreads();
-  if (tid == 0 && plan.bulk_volume) stage(blockIdx.x, 0);   // the grid has no more blocks than items
-
-  int group = 0;   // groups this block has stored: which row buffer is next
-  int it = 0;      // items this block has taken
-  for (int item = blockIdx.x; item < plan.n_items; item += n_blocks, ++it) {
-    const int b = item / plan.items_per_cloud;
-    const int n0 = (item % plan.items_per_cloud) * plan.rows_per_item;
-    const int n1 = min(N, n0 + plan.rows_per_item);
-    const int slot = plan.prefetch ? (it & 1) : 0;
-    const int64_t r0 = static_cast<int64_t>(b) * N + n0, r1 = r0 + (n1 - n0);
-
-    if (tid < n1 - n0) {   // the item's rows: voxel, delta
-      const float* q = queries + (r0 + tid) * 3;
-      const int v = dpdist::assign_voxel(q, g);
-      vox_out[r0 + tid] = v;
-      XRow ri;
-      ri.vC = v * C;
-      ri.digits = make_char4(static_cast<signed char>(v / (g * g)),
-                             static_cast<signed char>((v / g) % g),
-                             static_cast<signed char>(v % g), 0);
-#pragma unroll
-      for (int d = 0; d < 3; ++d) ri.delta[d] = q[d] - centers[v * 3 + d];
-      rows_s[tid] = ri;
-    }
-    float* fv_s = volume(slot);
-    if (plan.bulk_volume) {
-      // The other buffer's last reader, the previous item, is done (the
-      // barrier at the end of its loop).
-      if (tid == 0 && plan.prefetch && item + n_blocks < plan.n_items)
-        stage(item + n_blocks, slot ^ 1);
-      mbar_wait(&bars[slot], plan.prefetch ? (it >> 1) & 1 : it & 1);
-    } else {
-      const float* fb = fv + static_cast<size_t>(b) * G * C;
-      for (int i0 = tid; i0 < G * C; i0 += kXThreads * 8) {
-        float t[8];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int i = i0 + j * kXThreads;
-          t[j] = i < G * C ? fb[i] : 0.f;
-        }
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int i = i0 + j * kXThreads;
-          if (i < G * C) fv_s[i] = t[j];
-        }
-      }
-    }
-    __syncthreads();
-
-    // Rows [r0, a) and [z, r1) by per-thread stores, whole groups in [a, z).
-    int64_t a = r1, z = r1;
-    if (R > 0) {
-      const int64_t first = (r0 + R - 1) / R * R, last = r1 / R * R;
-      a = first < r1 ? first : r1;
-      z = last > a ? last : a;
-    }
-    // A row by per-thread stores fills ch for itself; the groups' chunks
-    // are worked out again after it.
-    for (int64_t r = r0; r < a; ++r, ch_groups = false)
-      emit_rows<CW>(x + r * W, rows_s + (r - r0), 1, ch, false, fv_s, W, g, k, C);
-    if (cached && !ch_groups && a < z) {
-      fill_chunks<CW>(ch, 0, R, W, g, k, C);
-      ch_groups = true;
-    }
-    for (int64_t g0 = a; g0 < z; g0 += R, ++group) {
-      T* buf = reinterpret_cast<T*>(smem + plan.buf_off + (group & 1) * plan.buf_stride);
-      if (tid == 0) bulk_wait_read_all_but_one();   // the store that last read buf is done
-      __syncthreads();
-      emit_rows<CW>(buf, rows_s + (g0 - r0), R, ch, cached, fv_s, W, g, k, C);
-      fence_proxy_async();
-      __syncthreads();
-      if (tid == 0) bulk_store(x + g0 * W, buf, static_cast<uint32_t>(R * W * sizeof(T)));
-    }
-    for (int64_t r = z; r < r1; ++r, ch_groups = false)
-      emit_rows<CW>(x + r * W, rows_s + (r - r0), 1, ch, false, fv_s, W, g, k, C);
-    __syncthreads();   // this item's volume and rows are no longer read
-    if (tid == 0 && plan.bulk_volume && !plan.prefetch && item + n_blocks < plan.n_items)
-      stage(item + n_blocks, 0);
-  }
-  if (tid == 0) bulk_wait_all();
-}
-
-uint32_t align128(size_t b) { return static_cast<uint32_t>((b + 127) / 128 * 128); }
-
-int gcd(int a, int b) { return b == 0 ? a : gcd(b, a % b); }
-
-// The largest layout that fits: two volume buffers and two row-group
-// buffers; else one volume; else rows by per-thread stores only.
-XPlan plan_x(int B, int N, int g, int k, int C, int out_bytes, bool fv_aligned, bool x_aligned,
-             int n_sm, size_t max_smem) {
-  XPlan p{};
-  const int G = g * g * g;
-  const int W = 3 + k * k * k * C;
-  p.vol_bytes = static_cast<uint32_t>(G) * C * 4;
-  p.vol_stride = align128(p.vol_bytes);
-  p.bulk_volume = fv_aligned && (G * C) % 4 == 0;
-  const int R = x_aligned ? 16 / gcd(W * out_bytes, 16) : 0;
-  const uint32_t buf_stride = align128(static_cast<size_t>(R) * W * out_bytes);
-  const uint32_t rows_bytes = align128(kXMaxRows * sizeof(XRow));
-  const int options[][2] = {{1, 1}, {1, 0}, {0, 1}, {0, 0}};   // {row groups, prefetch}
-  for (const auto& o : options) {
-    if ((o[0] && R == 0) || (o[1] && !p.bulk_volume)) continue;
-    p.group_rows = o[0] ? R : 0;
-    p.prefetch = o[1];
-    p.buf_stride = p.group_rows ? buf_stride : 0;
-    p.buf_off = p.vol_stride * (p.prefetch ? 2 : 1);
-    p.rows_off = p.buf_off + 2 * p.buf_stride;
-    p.bar_off = p.rows_off + rows_bytes;
-    p.smem = p.bar_off + 2 * sizeof(uint64_t);
-    if (p.smem <= max_smem) break;
-    p.smem = 0;
-  }
-  // Rows per item: a multiple of R, at most kXMaxRows, halved while the
-  // items do not fill the card.
-  const int unit = p.group_rows > 0 ? p.group_rows : 1;
-  int L = std::min((N + unit - 1) / unit * unit, kXMaxRows / unit * unit);
-  while (L > unit && static_cast<int64_t>(B) * ((N + L - 1) / L) < n_sm)
-    L = std::max(unit, (L / 2 + unit - 1) / unit * unit);
-  p.rows_per_item = L;
-  p.items_per_cloud = (N + L - 1) / L;
-  p.n_items = B * p.items_per_cloud;
-  return p;
+                          int N, int g, int k, int C, const dpdist::XPlan plan) {
+  dpdist::gather_rows<kXThreads, T, CW, J>(fv, x, N, g, k, C, 3 + k * k * k * C, plan,
+                                           dpdist::QueryRows{queries, centers, vox_out, g, C});
 }
 
 // --- table_gather (row 6)
@@ -460,8 +135,7 @@ __global__ void table_gather_kernel(const float* __restrict__ fv,   // (B, G, C)
                                     const int* __restrict__ vox,    // (B, N)
                                     T* __restrict__ out,            // (B, N, k^3*C)
                                     int N, int g, int k, int C, int rows_per_block) {
-  dpdist::gather_patch_rows(fv, vox, out, N, g, k, C, rows_per_block,
-                            [](size_t) { return true; });
+  dpdist::gather_patch_rows(fv, vox, out, N, g, k, C, rows_per_block);
 }
 
 // --- table_gather_bwd (rows 3, 4, 5)
@@ -642,9 +316,10 @@ int dpdist_table_gather_x(const float* fv, const float* queries, const float* ce
       (err = cudaDeviceGetAttribute(&sm_smem, cudaDevAttrMaxSharedMemoryPerMultiprocessor,
                                     device)))
     return static_cast<int>(err);
-  const XPlan plan = plan_x(B, N, g, k, C, out_bf16 ? 2 : 4,
-                            reinterpret_cast<uintptr_t>(fv) % 16 == 0,
-                            reinterpret_cast<uintptr_t>(x) % 16 == 0, n_sm, max_smem);
+  const dpdist::XPlan plan = dpdist::plan_rows(
+      B, N, g * g * g, C, 3 + k * k * k * C, out_bf16 ? 2 : 4, 0,
+      reinterpret_cast<uintptr_t>(fv) % 16 == 0, reinterpret_cast<uintptr_t>(x) % 16 == 0, n_sm,
+      max_smem);
   if (plan.smem == 0) return static_cast<int>(cudaErrorInvalidValue);
   // Persistent blocks: as many as fit on the card at once, or one per item.
   const int per_sm =

@@ -123,10 +123,10 @@ def library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()))
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.dpdist_mfv_gather_x.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
-                                            cf, cf, cf, cf, cf, cf, ci, ci, ci, vp]
+                                            cf, cf, cf, cf, cf, cf, ci, ci, vp]
         lib.dpdist_mfv_gather_x.restype = ci
-        lib.dpdist_mfv_gather_x_smem.argtypes = [ci, ci, ci, ci]
-        lib.dpdist_mfv_gather_x_smem.restype = ctypes.c_size_t
+        lib.dpdist_mfv_gather_x_max_gaussians.argtypes = []
+        lib.dpdist_mfv_gather_x_max_gaussians.restype = ci
         lib.dpdist_threedmfv.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, cf, cf, cf, cf,
                                          cf, cf, ci, ci, vp]
         lib.dpdist_threedmfv.restype = ci
@@ -139,8 +139,7 @@ def library() -> ctypes.CDLL:
         lib.dpdist_table_gather_x.restype = ci
         lib.dpdist_table_gather.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci, vp]
         lib.dpdist_table_gather.restype = ci
-        lib.dpdist_gather_patches_fused.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci,
-                                                    ci, vp]
+        lib.dpdist_gather_patches_fused.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
         lib.dpdist_gather_patches_fused.restype = ci
         ip, pp = ctypes.POINTER(ci), ctypes.POINTER(vp)
         lib.dpdist_fused_forward_smem.argtypes = [ci]

@@ -4,7 +4,12 @@ for fused_gather="on".
 Port of dpdist_tpu/kernels/gather_pallas.py (`gather_patches_fused`, TPU
 kernel `_kernel` over the ids of `neighbor_ids`, and its custom VJP). The
 CUDA kernel is dpdist_tpu_torch/csrc/gather_fused.cu; its header says what
-bounds it on an H100 and how the design meets that.
+bounds it on an H100 and how the design meets that: the persistent gather
+of `table_gather_x` (csrc/row_groups.cuh) without delta. One block per SM
+walks runs of a cloud's rows; each run's volume arrives in shared memory by
+one bulk copy while the previous run is written, and rows leave in groups
+of up to 40 KB by bulk stores from a double buffer. A row whose query is
+masked out is built as zeros without reading the volume.
 
     patches = gather_patches_fused(fv, vox, mask, grid_size, k)
         (B, V, C) float32 volume + (B, N) int32 voxel ids + (B, N) mask ->
@@ -14,7 +19,8 @@ bounds it on an H100 and how the design meets that.
         gather (kernels.table_gather.table_gather_bwd) on grad * mask, the
         VJP of the reference's oracle gather_patches(extract_patches(fv),
         vox) * mask (gather_pallas.py:94-116), called only where fv needs a
-        gradient.
+        gradient. Where no gradient is recorded (grad mode off, or fv
+        needs none) the autograd Function is skipped.
 
 On CPU tensors it runs `gather_patches_fused_plain`, which is also the
 kernel's oracle on the card. On CUDA tensors it launches the kernel or
@@ -26,7 +32,7 @@ from __future__ import annotations
 
 import torch
 
-from dpdist_tpu_torch.kernels.table_gather import X_ROWS_PER_BLOCK, X_THREADS, table_gather_bwd
+from dpdist_tpu_torch.kernels.table_gather import table_gather_bwd
 from dpdist_tpu_torch.ops.voxel import extract_patches, gather_patches
 
 
@@ -76,7 +82,7 @@ def _gather_fused_impl(fv, vox, mask, grid_size, k):
     out = torch.empty((B, N, k ** 3 * C), dtype=torch.float32, device=dev)
     err = lib.dpdist_gather_patches_fused(
         fv.data_ptr(), vox.data_ptr(), mask.data_ptr(), out.data_ptr(), B, N, grid_size, k, C,
-        X_ROWS_PER_BLOCK, X_THREADS, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+        dev.index, torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch(err, "gather_patches_fused")
     gather_patches_fused.launches += 1
     return out
@@ -102,7 +108,9 @@ def gather_patches_fused(fv, vox, mask, grid_size: int, k: int):
     and (B, N) float32 mask -> (B, N, k^3*C) float32 patches; see the
     module docstring. vox and mask carry no gradient."""
     _check(fv, vox, mask, grid_size, k)
-    return _GatherFused.apply(fv, vox, mask.detach(), grid_size, k)
+    if torch.is_grad_enabled() and fv.requires_grad:
+        return _GatherFused.apply(fv, vox, mask.detach(), grid_size, k)
+    return _gather_fused_impl(fv, vox, mask.detach(), grid_size, k)   # no graph to record
 
 
 gather_patches_fused.launches = 0

@@ -3,7 +3,12 @@
 Port of dpdist_tpu/kernels/mfv_gather_pallas.py (`mfv_table_gather_x`,
 TPU kernel `_mfv_x_kernel`, and its VJP `_mfv_x_bwd`). The CUDA kernel is
 dpdist_tpu_torch/csrc/mfv_gather.cu; its header says what bounds it on an
-H100 (the write of x) and how the design meets that.
+H100 (the write of x) and how the design meets that: one persistent block
+per SM with warps specialised for the encode and for the rows. The encode
+warps pool the next cloud while the row warps write the rows of the one
+before, in 16-byte-aligned groups of 4 float32 or 8 bfloat16 rows that
+leave by bulk stores (csrc/row_groups.cuh), so the encode hides behind the
+stores.
 
 `mfv_x` is the wrapper. On a CPU tensor it runs `mfv_x_plain`, the same
 function in plain PyTorch (threedmfv -> extract_patches -> voxel_assign
@@ -20,7 +25,8 @@ Gradients follow the reference's VJP: dq = grad[..., :3]; for the
 points, dfv = table_gather_bwd(vox, grad[..., 3:]) (the row-3 kernel on
 the card) and then autograd through the plain threedmfv of the points,
 whose forward is replayed there, since the kernel keeps the FV volume on
-chip and saves none.
+chip and saves none. Where no gradient is recorded (grad mode off, or
+neither input needs one) the autograd Function is skipped.
 """
 
 from __future__ import annotations
@@ -99,13 +105,9 @@ def _mfv_x_impl(points, queries, n_gaussians, sigma, grid_size, k, dtype):
     B, M, _ = points.shape
     N = queries.shape[1]
     G = n_gaussians
-    threads = min(1024, max(256, -(-G // 32) * 32))
-    if G > threads:
-        raise ValueError(f"the kernel takes at most 1024 Gaussians, got {G}")
-    smem = lib.dpdist_mfv_gather_x_smem(N, grid_size, k, threads)
-    if smem > build.MAX_SMEM:
-        raise ValueError(f"N={N} queries need {smem} B of shared memory, "
-                         f"more than the {build.MAX_SMEM} B a block has")
+    most = lib.dpdist_mfv_gather_x_max_gaussians()
+    if G > most:
+        raise ValueError(f"the kernel takes at most {most} Gaussians, got {G}")
     mu, centers = _grid_tables(G, dev)
     x = torch.empty((B, N, 3 + k ** 3 * C), dtype=dtype, device=dev)
     vox = torch.empty((B, N), dtype=torch.int32, device=dev)
@@ -114,7 +116,7 @@ def _mfv_x_impl(points, queries, n_gaussians, sigma, grid_size, k, dtype):
         points.data_ptr(), queries.data_ptr(), mu.data_ptr(), centers.data_ptr(),
         x.data_ptr(), vox.data_ptr(), B, M, N, grid_size, k, float(sigma),
         w, math.sqrt(w) * M, math.sqrt(w), math.sqrt(2.0 * w), 1.0 / M,
-        threads, int(dtype == torch.bfloat16), dev.index,
+        int(dtype == torch.bfloat16), dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch(err, "mfv_gather_x")
     mfv_x.launches += 1
@@ -156,9 +158,10 @@ def mfv_x(points, queries, n_gaussians: int, sigma: float, grid_size: int,
     float32 (see the module docstring).
     """
     _check(points, queries, n_gaussians, grid_size, k)
-    if dtype == torch.float32:
+    if (dtype == torch.float32 and torch.is_grad_enabled()
+            and (points.requires_grad or queries.requires_grad)):
         return _MfvX.apply(points, queries, n_gaussians, sigma, grid_size, k)
-    check_forward_only(dtype, points, queries)
+    check_forward_only(dtype, points, queries)   # no graph to record past here
     return _mfv_x_impl(points, queries, n_gaussians, sigma, grid_size, k, dtype)
 
 

@@ -65,7 +65,7 @@ from dpdist_tpu_torch.ops.voxel import (
     voxel_assign,
 )
 
-X_ROWS_PER_BLOCK = 32       # queries per block of the patch-only gather (and gather_fused)
+X_ROWS_PER_BLOCK = 32       # queries per block of the patch-only gather
 X_THREADS = 256
 
 

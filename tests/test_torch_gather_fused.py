@@ -8,6 +8,8 @@ so the backward the card runs (the adjoint gather on the masked gradient)
 is exercised here too.
 """
 
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,6 +24,7 @@ from dpdist_tpu.models import init_dpdist as jax_init
 from dpdist_tpu.ops.voxel import voxel_assign as jax_voxel_assign
 
 from dpdist_tpu_torch.configs import DPDistConfig
+from dpdist_tpu_torch.kernels import gather_fused
 from dpdist_tpu_torch.kernels.gather_fused import gather_patches_fused, gather_patches_fused_plain
 from dpdist_tpu_torch.kernels.table_gather import table_gather_bwd
 from dpdist_tpu_torch.models import apply_dpdist
@@ -127,6 +130,49 @@ def _args(**change):
 def test_wrapper_rejects_what_the_kernel_does_not_take(case, exc):
     with pytest.raises(exc):
         gather_patches_fused(**_args(**case))
+
+
+@pytest.mark.parametrize("how", ["no_grad", "fv_needs_none", "only_mask_needs_grad"])
+def test_wrapper_without_a_gradient_records_no_graph(how, monkeypatch):
+    """Where no gradient is recorded (grad mode off, or fv needs none; the
+    mask never carries one) the wrapper skips its autograd Function: the
+    output has no grad_fn and equals the plain version; on the CPU nothing
+    is launched (the counter counts kernel launches only)."""
+    args = _args()
+    if how == "no_grad":
+        args["fv"] = args["fv"].clone().requires_grad_(True)
+    if how == "only_mask_needs_grad":
+        args["mask"] = args["mask"].clone().requires_grad_(True)
+
+    def refuse(*_):
+        raise AssertionError("the autograd Function ran")
+
+    monkeypatch.setattr(gather_fused._GatherFused, "apply", refuse)
+    before = gather_patches_fused.launches
+    with torch.no_grad() if how == "no_grad" else contextlib.nullcontext():
+        out = gather_patches_fused(**args)
+    assert out.grad_fn is None and not out.requires_grad
+    assert gather_patches_fused.launches == before
+    want = gather_patches_fused_plain(args["fv"].detach(), args["vox"], args["mask"].detach(), 4, 3)
+    assert torch.equal(out, want)
+
+
+def test_wrapper_with_fv_needing_a_gradient_records_its_backward():
+    """fv needing a gradient takes the autograd Function: d/dfv is the
+    adjoint gather on the masked gradient, equal to autograd through the
+    plain version; the mask, which may require a gradient, gets none."""
+    args = _args()
+    fv = args["fv"].clone().requires_grad_(True)
+    mask = args["mask"].clone().requires_grad_(True)
+    out = gather_patches_fused(fv, args["vox"], mask, 4, 3)
+    assert out.grad_fn is not None
+    grad = torch.as_tensor(np.random.default_rng(8).normal(size=out.shape).astype(np.float32))
+    (dfv,) = torch.autograd.grad(out, fv, grad)
+    f = args["fv"].clone().requires_grad_(True)
+    (want,) = torch.autograd.grad(
+        gather_patches_fused_plain(f, args["vox"], args["mask"], 4, 3), f, grad)
+    np.testing.assert_allclose(dfv.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
+    assert torch.autograd.grad(out, mask, grad, allow_unused=True)[0] is None
 
 
 @pytest.mark.parametrize("n,grad", [(64, False), (64, True), (300, False), (300, True)])

@@ -69,21 +69,39 @@ def _edge_inputs(B, M, N, g, seed=0):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,M,N,G,g,k,sigma", [
     (512, 64, 64, 512, 8, 5, 0.125),   # the main path: 2B = 512 clouds
     (2, 12, 16, 64, 4, 3, 0.25),       # the JAX kernel test's config
-    (3, 61, 200, 512, 8, 5, 0.125),    # ragged M, N above one TPU query tile
+    (3, 61, 200, 512, 8, 5, 0.125),    # ragged M, N above one TPU query tile: two runs a cloud
+    (3, 61, 13, 512, 8, 5, 0.125),     # clouds 2 and 3 start off the 4- and 8-row groups
+    (1, 1, 1, 512, 8, 5, 0.125),       # one point, one query: no whole row group
+    (1, 64, 128, 512, 8, 5, 0.125),    # N = 128, the most the route sends
+    (3, 1, 128, 512, 8, 5, 0.125),     # M = 1
+    (3, 37, 13, 64, 4, 3, 0.25),       # g = 4, k = 3: W = 543
+    (2, 20, 13, 729, 9, 5, 0.1),       # 729 encode threads in a block of 1,024, rows by
+                                       # per-thread stores; sigma not a power of two
 ])
-def test_mfv_x_kernel_matches_plain(cuda, B, M, N, G, g, k, sigma):
+def test_mfv_x_kernel_matches_plain(cuda, B, M, N, G, g, k, sigma, dtype):
+    """x within TOL_X of the plain version, vox exact, with queries off the
+    grid and on cell edges; a bf16 x is the float32 kernel's x rounded once.
+    With no input needing a gradient the call records no graph and counts
+    one launch."""
     pts, q = (torch.as_tensor(a, device=cuda) for a in _edge_inputs(B, M, N, g))
     before = mfv_x.launches
-    x, vox = mfv_x(pts, q, G, sigma, g, k)
+    x, vox = mfv_x(pts, q, G, sigma, g, k, dtype=dtype)
     torch.cuda.synchronize()
     assert mfv_x.launches == before + 1
+    assert x.grad_fn is None and x.dtype == dtype
     ref, ref_vox = mfv_x_plain(pts, q, G, sigma, g, k)
     assert x.shape == ref.shape and vox.dtype == torch.int32
     assert torch.equal(vox, ref_vox)
-    assert float((x - ref).abs().max()) <= TOL_X
+    if dtype == torch.float32:
+        assert float((x - ref).abs().max()) <= TOL_X
+    else:
+        with torch.no_grad():
+            x32 = mfv_x(pts, q, G, sigma, g, k)[0]
+        assert torch.equal(x, x32.to(dtype))
 
 
 @pytest.mark.gpu
@@ -446,6 +464,44 @@ def test_gather_fused_kernel_matches_plain(cuda, B, N, g, k, C):
         f = fv.clone().requires_grad_()
         dfvs.append(torch.autograd.grad(fn(f, vox, mask, g, k), f, grad)[0])
     assert float((dfvs[0] - dfvs[1]).abs().max()) <= REL_BWD * float(dfvs[1].abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mask_kind", ["all", "none", "some"])
+@pytest.mark.parametrize("B,N,g,k,C", [
+    (1, 1, 8, 5, 20),      # one row
+    (3, 13, 8, 5, 20),     # runs that do not fill a 4-row group
+    (1, 64, 8, 5, 20),
+    (3, 200, 8, 5, 20),    # two runs a cloud
+    (3, 13, 4, 3, 7),      # C = 7: one-element chunks, groups of 52 rows
+    (2, 64, 4, 3, 20),     # g = 4, k = 3
+])
+def test_gather_fused_kernel_masks_and_vox_outside_the_grid(cuda, B, N, g, k, C, mask_kind):
+    """Every query masked, none, or some, with some vox outside [0, G)
+    (never made by voxel_assign): a zero row wherever the mask is 0 or the
+    vox is outside, the plain gather elsewhere; two runs equal bit for bit;
+    under no_grad no graph and one launch."""
+    r = np.random.default_rng(21)
+    G = g ** 3
+    fv = torch.as_tensor(r.normal(size=(B, G, C)).astype(np.float32), device=cuda)
+    vox_np = r.integers(0, G, (B, N)).astype(np.int32)
+    mask_np = {"all": np.zeros((B, N)), "none": np.ones((B, N)),
+               "some": (r.random((B, N)) < 0.7)}[mask_kind].astype(np.float32)
+    if mask_kind == "some":
+        vox_np.flat[::5] = r.choice([-1, G, G + 7], vox_np.flat[::5].shape)
+    vox, mask = torch.as_tensor(vox_np, device=cuda), torch.as_tensor(mask_np, device=cuda)
+    before = gather_patches_fused.launches
+    with torch.no_grad():
+        out = gather_patches_fused(fv, vox, mask, g, k)
+        again = gather_patches_fused(fv, vox, mask, g, k)
+    torch.cuda.synchronize()
+    assert gather_patches_fused.launches == before + 2
+    assert out.grad_fn is None
+    inside = (vox >= 0) & (vox < G)
+    want = gather_patches_fused_plain(fv, torch.where(inside, vox, torch.zeros_like(vox)),
+                                      ((mask > 0) & inside).float(), g, k)
+    assert torch.equal(out, want)
+    assert torch.equal(out, again)
 
 
 @pytest.mark.gpu

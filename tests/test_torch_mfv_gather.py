@@ -5,6 +5,8 @@ On the CPU the wrapper runs its plain version; the CUDA kernel itself runs
 only on a card (tests/test_torch_kernels_gpu.py).
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -17,7 +19,7 @@ from dpdist_tpu.ops.voxel import extract_patches as jax_extract_patches
 from dpdist_tpu.ops.voxel import gather_patches as jax_gather_patches
 from dpdist_tpu.ops.voxel import voxel_assign as jax_voxel_assign
 
-from dpdist_tpu_torch.kernels import build
+from dpdist_tpu_torch.kernels import build, mfv_gather
 from dpdist_tpu_torch.kernels.mfv_gather import mfv_table_gather_x, mfv_x, mfv_x_plain
 
 # The encode's tolerance in the JAX package's own kernel test
@@ -110,6 +112,49 @@ def test_requires_grad_inputs_give_the_plain_compositions_gradient(rng):
     # The same arithmetic, with the adjoint's sums in another order.
     np.testing.assert_allclose(dp.numpy(), dp_ref.numpy(), atol=1e-5, rtol=1e-5)
     assert mfv_x.launches == 0
+
+
+@pytest.mark.parametrize("how", ["no_grad", "no_input_needs_grad"])
+def test_wrapper_without_a_gradient_records_no_graph(rng, monkeypatch, how):
+    """Where no gradient is recorded (grad mode off, or neither input needs
+    one) mfv_x skips its autograd Function: x has no grad_fn and equals the
+    plain version; on the CPU nothing is launched (the counter counts kernel
+    launches only)."""
+    pts = torch.as_tensor(rng.uniform(-0.9, 0.9, (2, 12, 3)).astype(np.float32))
+    q = torch.as_tensor(rng.uniform(-1.2, 1.2, (2, 16, 3)).astype(np.float32))
+    if how == "no_grad":
+        pts.requires_grad_(True)
+        q.requires_grad_(True)
+
+    def refuse(*_):
+        raise AssertionError("the autograd Function ran")
+
+    monkeypatch.setattr(mfv_gather._MfvX, "apply", refuse)
+    before = mfv_x.launches
+    with torch.no_grad() if how == "no_grad" else contextlib.nullcontext():
+        x, vox = mfv_x(pts, q, 64, 0.25, 4, 3)
+    assert x.grad_fn is None and not x.requires_grad
+    assert mfv_x.launches == before
+    ref, ref_vox = mfv_x_plain(pts.detach(), q.detach(), 64, 0.25, 4, 3)
+    assert torch.equal(x, ref) and torch.equal(vox, ref_vox)
+
+
+@pytest.mark.parametrize("needs", ["points", "queries"])
+def test_one_input_needing_a_gradient_gets_the_plain_compositions_gradient(rng, needs):
+    """Only one input needing a gradient still takes the autograd Function,
+    and that input's gradient is autograd's through the plain composition."""
+    pts = rng.uniform(-0.9, 0.9, (2, 12, 3)).astype(np.float32)
+    q = rng.uniform(-1.2, 1.2, (2, 16, 3)).astype(np.float32)
+    co = torch.as_tensor(rng.normal(size=(2, 16, 3 + 27 * 20)).astype(np.float32))
+    grads = []
+    for fn in (mfv_x, mfv_x_plain):
+        tp, tq = torch.tensor(pts), torch.tensor(q)
+        t = tp if needs == "points" else tq
+        t.requires_grad_(True)
+        x = fn(tp, tq, 64, 0.25, 4, 3)[0]
+        assert x.grad_fn is not None
+        grads.append(torch.autograd.grad((x * co).sum(), t)[0])
+    np.testing.assert_allclose(grads[0].numpy(), grads[1].numpy(), atol=1e-5, rtol=1e-5)
 
 
 def test_build_without_nvcc_raises_and_writes_nothing(monkeypatch, tmp_path):
