@@ -38,9 +38,15 @@ NN-min kernel).
   6. gather6_kernel the patch-only table gather against its plain version
                    at B = 256, N = 256 with off-grid queries (exact).
   7. chamfer_kernel the NN-min kernel against its plain version at B = 1,
-                   N = M = 10,000 and B = 2, N = 1,000, M = 4,099 (within
-                   1e-6 + 1e-5 |d|), and chamfer_distance on the card at
-                   10,000 x 10,000 against the plain path (within 1e-5).
+                   N = M = 10,000, B = 2, N = 1,000, M = 4,099, N = 1,
+                   M = 1, M below one float4 group, N and M one past a tile
+                   and a chunk, B = 3 at N = 10,000, coordinates x100, and
+                   points duplicated (d = 0 exactly) (within 1e-6 +
+                   1e-5 |d|; over 5 calls torch.profiler sees
+                   nn_min_kernel and no other kernel, at most once a call;
+                   two calls equal bit for bit), and chamfer_distance on the
+                   card at 10,000 x 10,000 against the plain path (within
+                   1e-5).
   8. serving       per committed net: three requests of B = 256 synthetic
                    pairs through load_frozen_distance (launch counters
                    reset before and read after), outputs finite and in
@@ -103,7 +109,15 @@ NN-min kernel).
                    frozen_grad: per call 2 per-query gathers and 1 adjoint
                    launch (plus 2 encodes and one replay at 256); d/dpcA
                    against the table path's by the per-point criterion.
- 20. times         CUDA-event medians of 20 runs after warm-up: each kernel
+ 20. route_limits  configs past the fused kernels' limits, served from the
+                   first np = 64 request (counters reset before, read
+                   after): the committed decoder at embedding_size=1000
+                   (past the mfv kernel's 992 Gaussians) in f32 and bf16
+                   "auto" (2 table-gather launches) and bf16 "full" (1 fused
+                   forward), and a random bf16 "full" net with hidden widths
+                   40 (2 table-gather launches); each against the plain
+                   path (1e-4; bf16 2e-3). A ValueError fails the phase.
+ 21. times         CUDA-event medians of 20 runs after warm-up: each kernel
                    with its bound, its plain version and a PyTorch library
                    call computing the same function where there is one
                    (rows 2 and 3 on the first request's pcB, the queries
@@ -119,7 +133,10 @@ NN-min kernel).
                    (torch.profiler) and % of bound on both times, as rows 1
                    (also with its bf16 output and at M = N = 128, checked
                    against its plain version there), 10, 6 and 8 have
-                   theirs; row 3
+                   theirs, row 8 also with the issue-slot floor of its
+                   per-dimension form at the card's top SM clock and at
+                   B = 2, N = 1,000, M = 4,099 and B = 256, N = M = 64;
+                   row 3
                    at N = 256 on the np = 256 frozen loss's inputs (the
                    patch part of row 6's gradient) with its bound,
                    index_add_, the ordered plain sum (bit for bit) and
@@ -176,8 +193,18 @@ B_TRAIN, TRAIN_STEPS, SURFACE_POINTS = 16, 30, 10000
 NP_LARGE = 256           # the JAX bench's second forward size (bench.py:133-138)
 EVAL_POINTS = 10000      # eval_pair's clouds, dense enough for the NN-min kernel
 FAR = 4.5                # far outside the grid: Q underflows to 0 there
-# NN-min kernel vs plain: nvcc contracts the per-dimension sum to FMA.
+# NN-min kernel vs plain: the kernel sums the per-dimension squares with
+# FMAs, so the last bits may differ.
 TOL_NN_ABS, TOL_NN_REL = 1e-6, 1e-5
+# The NN-min kernel's checks: (B, N, M, coordinate scale, points of a
+# duplicated in p): eval_pair's clouds, N = 1, M = 1, M below one float4
+# group of p, N and M one past a tile of a and a chunk of p, B = 3 at
+# N = 10,000, coordinates x100, and d = 0 exactly.
+NN_PROFILED_CALLS = 5
+NN_SHAPES = ((1, EVAL_POINTS, EVAL_POINTS, 1, False), (2, 1000, 4099, 1, False),
+             (1, 1, 777, 1, False), (2, 500, 1, 1, False), (2, 3000, 3, 1, False),
+             (2, 1025, 1025, 1, False), (3, EVAL_POINTS, 2000, 1, False),
+             (1, 4000, 3000, 100.0, False), (2, 2000, 2500, 1, True))
 # chamfer and EMD on the card against the plain path: both sides sum in
 # float32 (tests/test_torch_chamfer_emd.py's tolerance against JAX).
 TOL_CHAMFER = TOL_EMD = 1e-5
@@ -186,6 +213,10 @@ TOL_CHAMFER = TOL_EMD = 1e-5
 # exp, division and sum, and the 20 pools (d_pi 4, d_mu 12, d_sigma 18).
 ENCODE_OPS_PER_PAIR = 50
 NN_OPS_PER_PAIR = 9      # 3 subtractions, 3 products, 2 additions, 1 minimum
+# Its issue slots: 3 FADD, 1 FMUL, 2 FFMA and 1 FMNMX a pair, a warp
+# instruction covering 32 pairs, one a clock on each of an SM's 4
+# schedulers.
+NN_INSTRUCTIONS_PER_PAIR = 7
 TIMED_RUNS = 20
 # H100 SXM peaks (NVIDIA's data sheet, dense, at the 700 W limit): device
 # memory rate, float32 outside the tensor cores, and bf16 on the tensor
@@ -294,6 +325,53 @@ def device_ms(fn, match, calls=5):
              if any(m in e.key for m in matches))
     check(us > 0, f"torch.profiler saw no device time of {match}")
     return us / calls / 1e3
+
+
+def cuda_kernel_names(fn, calls):
+    """Names of the CUDA kernels that `calls` calls of fn launch, as
+    torch.profiler records them (memsets and copies are not kernels; the
+    profiler may drop a record of a short run)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.name.startswith(("Memset", "Memcpy"))]
+
+
+def sass_loop_counts(lib_path, kernel):
+    """The instruction counts of the innermost loop of `kernel` that holds
+    the most FMNMX, in the built library's SASS (cuobjdump): {opcode: n}."""
+    import collections
+    import re
+
+    from dpdist_tpu_torch.kernels import build
+
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
+    body = sass[sass.index(kernel):]
+    body = body[:body.find("Function :")] if "Function :" in body else body
+    code = [(int(m.group(1), 16), m.group(2), m.group(0)) for m in
+            re.finditer(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)[^;]*;",
+                        body)]
+    loops = []   # (first, last) address of each backward branch's loop
+    for addr, op, text in code:
+        target = re.search(r"0x([0-9a-f]+)", text)
+        if op.startswith("BRA") and target and int(target.group(1), 16) < addr:
+            loops.append((int(target.group(1), 16), addr))
+    best = collections.Counter()
+    for lo, hi in loops:
+        if any(lo <= a < hi for a2, a in loops if (a2, a) != (lo, hi)):
+            continue   # holds another loop
+        loop = collections.Counter(op.split(".")[0] for a, op, _ in code if lo <= a <= hi)
+        if loop["FMNMX"] > best["FMNMX"]:
+            best = loop
+    return dict(best)
 
 
 def bound(bytes_moved, flops, peak=F32_FLOP_PER_S):
@@ -427,6 +505,7 @@ def main() -> int:
         from dpdist_tpu_torch.data.golden import golden_clouds, load_golden
         from dpdist_tpu_torch.data.synthetic import synthetic_surface
         from dpdist_tpu_torch.kernels import build
+        from dpdist_tpu_torch.kernels import chamfer as chamfer_kernels
         from dpdist_tpu_torch.kernels.chamfer import nn_min_sqdist, nn_min_sqdist_plain
         from dpdist_tpu_torch.kernels.fused_forward import (
             fused_forward,
@@ -449,7 +528,8 @@ def main() -> int:
         )
         from dpdist_tpu_torch.kernels.threedmfv import split_plan, threedmfv_kernel
         from dpdist_tpu_torch.losses import make_frozen_dpdist_loss
-        from dpdist_tpu_torch.models import apply_dpdist
+        from dpdist_tpu_torch.models import apply_dpdist, init_dpdist
+        from dpdist_tpu_torch.models.dpdist import route as route_of
         from dpdist_tpu_torch.nn import mlp_apply
         from dpdist_tpu_torch.ops import (
             chamfer_distance,
@@ -460,7 +540,7 @@ def main() -> int:
             threedmfv_plain,
             voxel_assign,
         )
-        from dpdist_tpu_torch.serving import load_frozen_distance
+        from dpdist_tpu_torch.serving import FrozenDistance, load_frozen_distance
         from dpdist_tpu_torch.train import load_dpdist_checkpoint, params_from_jax
         from dpdist_tpu_torch.train.logging import RunLogger
         from dpdist_tpu_torch.train.trainer import DPDistTrainer
@@ -482,6 +562,10 @@ def main() -> int:
         build.library()
         print(f"built {lib_path.relative_to(ROOT)} in {time.perf_counter() - t0:.2f} s "
               f"(nvcc: {build.build_seconds} s; None = found built)", flush=True)
+
+    def nn_plan(B, N, M):
+        """The NN-min kernel's launch plan for these sizes on this card."""
+        return chamfer_kernels.plan_nn_min(B, N, M, *chamfer_kernels.sm_occupancy(dev.index))
 
     rng = np.random.default_rng(0)
     with Phase("kernel"):
@@ -593,19 +677,40 @@ def main() -> int:
 
     with Phase("chamfer_kernel"):
         err_nn = 0.0
-        for B, N, M in ((1, EVAL_POINTS, EVAL_POINTS), (2, 1000, 4099)):
-            a_, p_ = (torch.as_tensor(rng.uniform(-1.0, 1.0, (B, n, 3)).astype(np.float32),
-                                      device=dev) for n in (N, M))
+        # The first two shapes draw from the run's generator, the others from
+        # their own, so that the later phases' inputs do not depend on this list.
+        r_nn = np.random.default_rng(8)
+        for i, (B, N, M, scale, dup) in enumerate(NN_SHAPES):
+            gen = rng if i < 2 else r_nn
+            a_, p_ = (gen.uniform(-1.0, 1.0, (B, n, 3)).astype(np.float32) * np.float32(scale)
+                      for n in (N, M))
+            if dup:
+                p_[:, :min(N, M):2] = a_[:, :min(N, M):2]
+            a_, p_ = (torch.as_tensor(t, device=dev) for t in (a_, p_))
             with torch.no_grad():
                 d = nn_min_sqdist(a_, p_)
                 torch.cuda.synchronize()
                 d_ref = nn_min_sqdist_plain(a_, p_)
+                again = torch.equal(nn_min_sqdist(a_, p_), d)
+                names = cuda_kernel_names(lambda: nn_min_sqdist(a_, p_), NN_PROFILED_CALLS)
             err = float((d - d_ref).abs().max())
             err_nn = max(err_nn, err)
             bad = int(((d - d_ref).abs() > TOL_NN_ABS + TOL_NN_REL * d_ref.abs()).sum())
-            print(f"nn_min_sqdist vs plain at B={B}, N={N}, M={M}: max |d| = {err:.3e}, "
-                  f"entries outside {TOL_NN_ABS} + {TOL_NN_REL}|d|: {bad}", flush=True)
+            zeros = bool((d[:, :min(N, M):2] == 0).all()) if dup else None
+            print(f"nn_min_sqdist vs plain at B={B}, N={N}, M={M}, x{scale}"
+                  f"{', duplicated points' if dup else ''}: max |d| = {err:.3e}, entries "
+                  f"outside {TOL_NN_ABS} + {TOL_NN_REL}|d|: {bad}; run to run equal: {again}; "
+                  f"CUDA kernels of {NN_PROFILED_CALLS} calls: {sorted(set(names))} x "
+                  f"{len(names)}" + (f"; d = 0 where duplicated: {zeros}" if dup else ""),
+                  flush=True)
             check(bad == 0, f"nn_min_sqdist at B={B}, N={N}, M={M} disagrees on {bad} entries")
+            check(again, f"nn_min_sqdist at B={B}, N={N}, M={M} differs from run to run")
+            # nn_min_kernel and nothing else, at most once a call; at least
+            # once shows in dist, which the memset fills with NaN bits.
+            check(1 <= len(names) <= NN_PROFILED_CALLS
+                  and all("nn_min_kernel" in n for n in names),
+                  f"nn_min_sqdist at B={B}, N={N}, M={M}: CUDA kernels {names}")
+            check(zeros is not False, "nn_min_sqdist: a duplicated point is not at distance 0")
         a10, b10 = (torch.as_tensor(rng.uniform(-1.0, 1.0, (1, EVAL_POINTS, 3)).astype(np.float32),
                                     device=dev) for _ in range(2))
         with torch.no_grad():
@@ -1069,6 +1174,49 @@ def main() -> int:
                     expected(threedmfv=2 * REQUESTS, gather_patches_fused=2 * REQUESTS,
                              table_gather_bwd=REQUESTS), REQUESTS, ("table",), mode="on")
 
+    with Phase("route_limits"):
+        # Configs past the fused kernels' limits, which the route sends
+        # elsewhere: the committed decoder at embedding_size=1000 (the mfv
+        # kernel takes at most 992 Gaussians; the decoder's input is
+        # 3 + k^3 * 20 wide whatever the grid), f32 and bf16 "auto" and bf16
+        # "full", and a bf16 "full" net with hidden widths 40 (the fused
+        # forward takes multiples of 16). Each serves the first np = 64
+        # request through the route's kernels and matches the plain path.
+        a, b = requests[0]
+        cfg40 = DPDistConfig(mlp=(40, 40, 40))
+        params40 = init_dpdist(cfg40, generator=torch.Generator().manual_seed(40), device=dev)
+
+        def at_1000(over):
+            return load_frozen_distance(str(ROOT / NETS[0]), device=dev, embedding_size=1000,
+                                        **over)
+
+        def net_40(over):
+            return FrozenDistance(cfg40.replace(**over), params40).eval()
+
+        bf16_full = {"dtype": "bfloat16", "fused_gather": "full"}
+        for what, make, over, want, tol in (
+                ("embedding_size=1000, f32", at_1000, {}, expected(table_gather_x=2), TOL_DIST),
+                ("embedding_size=1000, bf16 auto", at_1000, {"dtype": "bfloat16"},
+                 expected(table_gather_x=2), TOL_BF16),
+                ("embedding_size=1000, bf16 full", at_1000, bf16_full,
+                 expected(fused_forward=1), TOL_BF16),
+                ("mlp=(40, 40, 40), bf16 full", net_40, bf16_full, expected(table_gather_x=2),
+                 TOL_BF16)):
+            model, plain = make(over), make({**over, "fused_gather": "off"})
+            start_count()
+            with torch.no_grad():
+                d = model(a, b)
+            launched = read_count()
+            with torch.no_grad():
+                err = float((d - plain(a, b)).abs().max())
+            print(f"{what}: route {route_of(model.cfg, 'cuda', NP, NP)}, kernel launches "
+                  f"{ {k: v for k, v in launched.items() if v} }; vs plain path max |d| = "
+                  f"{err:.3e} (tol {tol})", flush=True)
+            check(launched == want, f"{what}: unexpected launches")
+            check(d.shape == (B_SERVE,) and bool(torch.isfinite(d).all()), f"{what}: output")
+            check(err <= tol, f"{what}: kernel path vs plain path {err}")
+        del model, plain, params40
+
     with Phase("times"):
         records = []
         B, N, V, E = B_SERVE, NP, G, K ** 3 * C
@@ -1303,16 +1451,47 @@ def main() -> int:
             # Both clouds in, the minima out.
             b_ms, b_by = bound(4 * (NE * 3 + eB.shape[1] * 3 + NE),
                                NN_OPS_PER_PAIR * NE * eB.shape[1])
-            # Both of its CUDA kernels: the partial minima and the minimum over splits.
-            dev_ms = device_ms(lambda: nn_min_sqdist(eA, eB),
-                               ("nn_min_partial_kernel", "min_over_splits_kernel"))
+            dev_ms = device_ms(lambda: nn_min_sqdist(eA, eB), "nn_min_kernel")
+            # The issue slots the per-dimension form needs, at the card's
+            # top SM clock (a lower clock under load would lower the floor).
+            sm_hz = 1e6 * float(subprocess.run(
+                ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                capture_output=True, text=True, timeout=60, check=True).stdout.split()[0])
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+            def issue_floor_ms(pairs):
+                return pairs * NN_INSTRUCTIONS_PER_PAIR / 32 / (4 * sms) / sm_hz * 1e3
+
+            floor_ms = issue_floor_ms(NE * eB.shape[1])
+            loop = sass_loop_counts(lib_path, "nn_min_kernel")
+            print(f"nn_min_kernel's inner loop in SASS: {loop}; "
+                  f"{sum(loop.values()) / loop['FMNMX']:.2f} instructions a pair", flush=True)
             records.append({"name": "nn_min_sqdist", "route": "cuda",
                             "source": "dpdist_tpu_torch/csrc/chamfer.cu",
                             "replaces": "dpdist_tpu/kernels/chamfer_pallas.py:74",
                             "launches": launches["nn_min_sqdist"], "max_abs_err": err_nn,
                             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                            "library_ms": lib_ms, "device_ms": dev_ms})
+                            "library_ms": lib_ms, "device_ms": dev_ms,
+                            "issue_floor_ms": floor_ms})
+            print(f"nn_min_sqdist at B=1, N=M={NE}: {dev_ms:.4f} ms on the device, one launch "
+                  f"({nn_plan(1, NE, eB.shape[1])}); the issue-slot floor of the per-dimension "
+                  f"form ({NN_INSTRUCTIONS_PER_PAIR} instructions a pair, {sms} SMs at "
+                  f"{sm_hz / 1e6:.0f} MHz) {floor_ms:.4f} ms = {floor_ms / dev_ms:.1%} of it; "
+                  f"the two-kernel design before it read 0.0452 / 0.0448 ms (PERF.md); "
+                  f"cdist {lib_ms:.4f} ms; on {card}", flush=True)
             del lib_nn, d_nn
+            # The NN-min at the other shapes of its checks: eval and device times.
+            for B_, N_, M_ in ((2, 1000, 4099), (256, 64, 64)):
+                a_, p_ = (torch.as_tensor(np.random.default_rng(N_).uniform(
+                    -1.0, 1.0, (B_, n, 3)).astype(np.float32), device=dev) for n in (N_, M_))
+                ms_ = cuda_median_ms(lambda: nn_min_sqdist(a_, p_))
+                dev_ = device_ms(lambda: nn_min_sqdist(a_, p_), "nn_min_kernel")
+                next(r for r in records if r["name"] == "nn_min_sqdist")[f"B{B_}_N{N_}_M{M_}"] = {
+                    "ms": ms_, "device_ms": dev_, "issue_floor_ms": issue_floor_ms(B_ * N_ * M_)}
+                print(f"nn_min_sqdist at B={B_}, N={N_}, M={M_}: {ms_:.4f} ms, {dev_:.4f} ms on "
+                      f"the device ({nn_plan(B_, N_, M_)}); issue-slot floor "
+                      f"{issue_floor_ms(B_ * N_ * M_):.4f} ms; on {card}", flush=True)
+            del a_, p_
 
             # Row 9 on the first np = 64 request as the "full" route builds
             # it (2B = 512 clouds, all queries inside the grid).

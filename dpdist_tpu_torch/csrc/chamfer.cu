@@ -5,27 +5,38 @@
 // (reached through nn_min_sqdist_pallas and chamfer_distance_pallas,
 // `pl.pallas_call` at :74). Same math as that kernel and as the native
 // pn_min_distances (dpdist_tpu/native/src/pointcloud_native.cpp:67-106):
-// exact per-dimension squared differences (nvcc contracts them to FMA, so
-// the last bits may differ from a plain PyTorch version), then a running
-// minimum. The TPU kernel revisits a row-minimum block across a sequential
-// grid axis over tiles of p; blocks on Hopper run in no order, so:
+// exact per-dimension squared differences, summed as
+// fma(dz, dz, fma(dy, dy, dx * dx)) with explicit intrinsics (so the
+// rounding does not depend on how nvcc contracts), then a running minimum.
 //
-//   1. nn_min_partial_kernel: each thread owns kPts points of a and keeps
-//      their running minima in registers while tiles of p, laid out as
-//      x, y and z arrays (SoA), stream through shared memory; every thread
-//      of a warp reads the same p point, a broadcast. The grid is
-//      (point blocks, splits of M, B): a cloud of eval_pair's size (B = 1,
-//      N = 10,000) has only 10 point blocks, so M is split until the grid
-//      holds about two blocks per SM, and each split writes its partial
-//      minima;
-//   2. min_over_splits_kernel: the minimum over the splits (skipped when
-//      there is one split, which then writes dist directly).
+// What bounds it on an H100: issue slots. A pair costs 7 instructions
+// (3 FADD, 1 FMUL, 2 FFMA, 1 FMNMX) and no two pairs share one, so a pair
+// takes 7 / 32 of a warp-instruction slot; an SM issues 4 a clock. The
+// matmul identity |a|^2 + |p|^2 - 2 a.p would take 4, but it cancels
+// badly at large coordinates, and the TPU kernel keeps exact differences
+// too. The points themselves are a few hundred KB.
 //
-// What bounds it on an H100: operations, about 9 float32 operations per
-// (a, p) pair (3 subtractions, 3 products, 2 additions, 1 minimum); at
-// N = M = 10,000 that is 0.9 G operations per direction, against 0.3 MB of
-// points read. A minimum does not depend on order, so the result is the
-// same from run to run.
+// The design, one launch per call:
+//   - Work units: (cloud b, a tile of kTileN points of a, a chunk of
+//     `chunk` points of p). The host (kernels/chamfer.py:plan_nn_min)
+//     chooses the chunk so that the units spread evenly over exactly the
+//     blocks the card holds at once; a block walks units
+//     blockIdx.x, blockIdx.x + gridDim.x, ... (no counter to reset).
+//   - Each thread keeps kPts points of a and their minima in registers; a
+//     warp owns 32 * kPts consecutive points, and a warp whose points all
+//     lie past N skips the unit's loop.
+//   - A unit's chunk of p is one contiguous span of (M, 3) rows. Its
+//     16-byte-aligned body arrives in shared memory by one bulk copy
+//     (cp.async.bulk, completion on an mbarrier), double-buffered so that
+//     the next unit's copy runs during this unit's loop; the at most 3
+//     points before and after the body are read from device memory. In
+//     the body every thread of a warp reads the same 4 points as three
+//     float4 broadcasts: 0.75 shared loads per point of p.
+//   - Units merge their minima into dist with atomicMin on the unsigned
+//     bits (for floats >= +0 that order is the floats' order); the caller
+//     fills dist with 0xFF bytes first. A minimum does not depend on the
+//     order of its terms and each pair's value does not depend on its
+//     unit, so the result is the same from run to run.
 //
 // Plain C interface for ctypes; no PyTorch headers. Built with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC
@@ -33,107 +44,172 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
+
+#include "row_groups.cuh"
 
 namespace {
 
-constexpr int kPts = 4;        // points of a per thread
-constexpr int kTileM = 1024;   // points of p per shared-memory tile
+using dpdist::bulk_load;
+using dpdist::fence_proxy_async;
+using dpdist::mbar_expect;
+using dpdist::mbar_init;
+using dpdist::mbar_wait;
 
-__global__ void nn_min_partial_kernel(const float* __restrict__ a,  // (B, N, 3)
-                                      const float* __restrict__ p,  // (B, M, 3)
-                                      float* __restrict__ out,      // (B, splits, N)
-                                      int N, int M, int m_per_split) {
-  __shared__ float px_s[kTileM], py_s[kTileM], pz_s[kTileM];
-  const int b = blockIdx.z;
-  const int split = blockIdx.y;
-  const int splits = gridDim.y;
-  const int base = blockIdx.x * blockDim.x * kPts + threadIdx.x;
+constexpr int kThreads = 128;
+constexpr int kPts = 8;                     // points of a per thread
+constexpr int kTileN = kThreads * kPts;     // points of a per unit
+constexpr int kMaxChunk = 1024;             // points of p per unit, at most
+constexpr int kBufFloats = kMaxChunk * 3;   // one span buffer (12 KB)
 
-  float ax[kPts], ay[kPts], az[kPts], best[kPts];
+struct Points {
+  float x[kPts], y[kPts], z[kPts], best[kPts];
+
+  // One point of p against the thread's points: 7 instructions a pair.
+  __device__ __forceinline__ void take(float px, float py, float pz) {
 #pragma unroll
-  for (int i = 0; i < kPts; ++i) {
-    const int n = base + i * blockDim.x;
-    const float* q = a + (static_cast<size_t>(b) * N + min(n, N - 1)) * 3;
-    ax[i] = q[0];
-    ay[i] = q[1];
-    az[i] = q[2];
-    best[i] = INFINITY;
-  }
-
-  const int m_begin = split * m_per_split;
-  const int m_end = min(M, m_begin + m_per_split);
-  const float* pb = p + static_cast<size_t>(b) * M * 3;
-  for (int t0 = m_begin; t0 < m_end; t0 += kTileM) {
-    const int T = min(kTileM, m_end - t0);
-    __syncthreads();  // the previous tile is consumed
-    for (int j = threadIdx.x; j < T; j += blockDim.x) {
-      const float* q = pb + static_cast<size_t>(t0 + j) * 3;
-      px_s[j] = q[0];
-      py_s[j] = q[1];
-      pz_s[j] = q[2];
-    }
-    __syncthreads();
-    for (int j = 0; j < T; ++j) {
-      const float x = px_s[j], y = py_s[j], z = pz_s[j];
-#pragma unroll
-      for (int i = 0; i < kPts; ++i) {
-        const float dx = ax[i] - x, dy = ay[i] - y, dz = az[i] - z;
-        best[i] = fminf(best[i], dx * dx + dy * dy + dz * dz);
-      }
+    for (int i = 0; i < kPts; ++i) {
+      const float dx = __fsub_rn(x[i], px), dy = __fsub_rn(y[i], py), dz = __fsub_rn(z[i], pz);
+      best[i] = fminf(best[i], __fmaf_rn(dz, dz, __fmaf_rn(dy, dy, __fmul_rn(dx, dx))));
     }
   }
+};
 
-  float* ob = out + (static_cast<size_t>(b) * splits + split) * N;
-#pragma unroll
-  for (int i = 0; i < kPts; ++i) {
-    const int n = base + i * blockDim.x;
-    if (n < N) ob[n] = best[i];
-  }
+// Unit u's span of p in flat point indices [g0, g1) (b * M + m), and its
+// body [ga, gb): the points whose rows start on 16-byte boundaries of
+// device memory, a multiple of 4 points. `phase` is p's offset from a
+// 16-byte boundary in floats; row gi starts on a boundary where
+// 3 gi + phase = 0 mod 4, that is gi = phase mod 4.
+struct Span {
+  int64_t g0, g1, ga, gb;
+};
+
+__device__ __forceinline__ Span span_of(int u, int M, int splits, int tiles, int chunk,
+                                        int phase) {
+  const int s = u % splits;
+  const int64_t b = u / splits / tiles;
+  Span sp;
+  sp.g0 = b * M + static_cast<int64_t>(s) * chunk;
+  sp.g1 = b * M + min(M, (s + 1) * chunk);
+  sp.ga = sp.g0 + ((phase - static_cast<int>(sp.g0 & 3)) & 3);
+  if (sp.ga >= sp.g1) sp.ga = sp.g1;
+  sp.gb = sp.ga + ((sp.g1 - sp.ga) & ~static_cast<int64_t>(3));
+  return sp;
 }
 
-__global__ void min_over_splits_kernel(const float* __restrict__ partial,  // (B, splits, N)
-                                       float* __restrict__ dist,           // (B, N)
-                                       int B, int N, int splits) {
-  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= static_cast<size_t>(B) * N) return;
-  const size_t b = i / N, n = i % N;
-  const float* pp = partial + b * splits * N + n;
-  float m = pp[0];
-  for (int s = 1; s < splits; ++s) m = fminf(m, pp[static_cast<size_t>(s) * N]);
-  dist[i] = m;
+__global__ void __launch_bounds__(kThreads) nn_min_kernel(
+    const float* __restrict__ a,   // (B, N, 3)
+    const float* __restrict__ p,   // (B, M, 3)
+    unsigned* __restrict__ dist,   // (B, N) float bits, filled with 0xFF bytes
+    int N, int M, int tiles, int splits, int chunk, int units) {
+  __shared__ __align__(128) float span_s[2][kBufFloats];
+  __shared__ __align__(8) uint64_t bars[2];
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int phase = static_cast<int>((reinterpret_cast<uintptr_t>(p) >> 2) & 3);
+
+  auto stage = [&](int u, int slot) {   // one thread
+    const Span sp = span_of(u, M, splits, tiles, chunk, phase);
+    const uint32_t bytes = static_cast<uint32_t>(sp.gb - sp.ga) * 12u;
+    fence_proxy_async();
+    mbar_expect(&bars[slot], bytes);
+    if (bytes) bulk_load(span_s[slot], p + 3 * sp.ga, bytes, &bars[slot]);
+  };
+
+  if (tid == 0) {
+    mbar_init(&bars[0]);
+    mbar_init(&bars[1]);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) stage(blockIdx.x, 0);
+
+  int it = 0;   // units this block has taken
+  for (int u = blockIdx.x; u < units; u += gridDim.x, ++it) {
+    const int slot = it & 1;
+    // The other buffer's last reader, the previous unit, is done (the
+    // barrier at the end of its loop).
+    if (tid == 0 && u + static_cast<int>(gridDim.x) < units) stage(u + gridDim.x, slot ^ 1);
+
+    const Span sp = span_of(u, M, splits, tiles, chunk, phase);
+    const int64_t b = u / splits / tiles;
+    const int n0 = (u / splits % tiles) * kTileN + warp * 32 * kPts;   // this warp's first point
+    const bool active = n0 < N;
+    Points pt;
+    if (active) {
+      const float* ab = a + b * N * 3;
+#pragma unroll
+      for (int i = 0; i < kPts; ++i) {
+        const float* q = ab + static_cast<int64_t>(min(n0 + i * 32 + lane, N - 1)) * 3;
+        pt.x[i] = __ldg(q);
+        pt.y[i] = __ldg(q + 1);
+        pt.z[i] = __ldg(q + 2);
+        pt.best[i] = INFINITY;
+      }
+    }
+    mbar_wait(&bars[slot], (it >> 1) & 1);
+    if (active) {
+      for (int64_t g = sp.g0; g < sp.ga; ++g)
+        pt.take(__ldg(p + 3 * g), __ldg(p + 3 * g + 1), __ldg(p + 3 * g + 2));
+      const float4* body = reinterpret_cast<const float4*>(span_s[slot]);
+      const int groups = static_cast<int>(sp.gb - sp.ga) / 4;
+#pragma unroll 2
+      for (int j = 0; j < groups; ++j) {
+        const float4 r0 = body[3 * j], r1 = body[3 * j + 1], r2 = body[3 * j + 2];
+        pt.take(r0.x, r0.y, r0.z);
+        pt.take(r0.w, r1.x, r1.y);
+        pt.take(r1.z, r1.w, r2.x);
+        pt.take(r2.y, r2.z, r2.w);
+      }
+      for (int64_t g = sp.gb; g < sp.g1; ++g)
+        pt.take(__ldg(p + 3 * g), __ldg(p + 3 * g + 1), __ldg(p + 3 * g + 2));
+      unsigned* db = dist + b * N;
+#pragma unroll
+      for (int i = 0; i < kPts; ++i) {
+        const int n = n0 + i * 32 + lane;
+        if (n < N) atomicMin(db + n, __float_as_uint(pt.best[i]));
+      }
+    }
+    __syncthreads();   // this unit's buffer is no longer read
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// Points of a that one block of `threads` threads covers.
-int dpdist_nn_min_points_per_block(int threads) { return threads * kPts; }
+// Points of a per unit, and the most points of p a unit takes.
+int dpdist_nn_min_tile_points() { return kTileN; }
+int dpdist_nn_min_max_chunk() { return kMaxChunk; }
 
-// Launches on `stream`; returns cudaGetLastError() after the launches (0 on
-// success) or cudaErrorInvalidValue for sizes the kernels do not take.
-// `partial` holds B * splits * N floats when splits > 1 (unused otherwise).
-// Split s covers points [s * ceil(M / splits), ...) of p; a split left
-// empty writes +inf, which never wins the minimum.
-int dpdist_nn_min_sqdist(const float* a, const float* p, float* dist, float* partial, int B,
-                         int N, int M, int splits, int threads, int device, void* stream) {
-  if (B < 1 || B > 65535 || N < 1 || M < 1 || splits < 1 || splits > 65535 || threads < 32 ||
-      threads > 1024 || threads % 32 != 0)
+// Blocks of the kernel an SM holds at once, or minus a CUDA error.
+int dpdist_nn_min_blocks_per_sm(int device) {
+  cudaError_t err = cudaSetDevice(device);
+  int n = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, nn_min_kernel, kThreads, 0);
+  return err == cudaSuccess ? n : -static_cast<int>(err);
+}
+
+// Fills dist with 0xFF bytes and launches the kernel on `stream` over
+// `grid` blocks; returns cudaGetLastError() after the launch (0 on
+// success) or cudaErrorInvalidValue for a plan the kernel does not take.
+// The plan: `tiles` = ceil(N / kTileN) tiles of a per cloud, M cut into
+// `splits` chunks of `chunk` points (a multiple of 4, at most kMaxChunk;
+// the last chunk may be shorter), B * tiles * splits units.
+int dpdist_nn_min_sqdist(const float* a, const float* p, float* dist, int B, int N, int M,
+                         int tiles, int splits, int chunk, int grid, int device, void* stream) {
+  const int64_t units = static_cast<int64_t>(B) * tiles * splits;
+  if (B < 1 || N < 1 || M < 1 || tiles != (N + kTileN - 1) / kTileN || chunk < 4 ||
+      chunk % 4 != 0 || chunk > kMaxChunk || splits != (M + chunk - 1) / chunk || grid < 1 ||
+      grid > units || units >= (int64_t{1} << 31) || reinterpret_cast<uintptr_t>(p) % 4 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int m_per_split = (M + splits - 1) / splits;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int per_block = threads * kPts;
-  const dim3 grid((N + per_block - 1) / per_block, splits, B);
-  nn_min_partial_kernel<<<grid, threads, 0, s>>>(a, p, splits > 1 ? partial : dist, N, M,
-                                                 m_per_split);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  const long long total = static_cast<long long>(B) * N;
-  const int reduce_threads = 256;
-  min_over_splits_kernel<<<static_cast<unsigned>((total + reduce_threads - 1) / reduce_threads),
-                           reduce_threads, 0, s>>>(partial, dist, B, N, splits);
+  err = cudaMemsetAsync(dist, 0xFF, static_cast<size_t>(B) * N * sizeof(float), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  nn_min_kernel<<<grid, kThreads, 0, s>>>(a, p, reinterpret_cast<unsigned*>(dist), N, M, tiles,
+                                          splits, chunk, static_cast<int>(units));
   return static_cast<int>(cudaGetLastError());
 }
 

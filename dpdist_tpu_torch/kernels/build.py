@@ -151,9 +151,12 @@ def library() -> ctypes.CDLL:
         lib.dpdist_table_gather_bwd.argtypes = [vp, vp, i64, i64, vp, ci, ci, ci, ci, ci, ci,
                                                 vp]
         lib.dpdist_table_gather_bwd.restype = ci
-        lib.dpdist_nn_min_points_per_block.argtypes = [ci]
-        lib.dpdist_nn_min_points_per_block.restype = ci
-        lib.dpdist_nn_min_sqdist.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
+        for fn in (lib.dpdist_nn_min_tile_points, lib.dpdist_nn_min_max_chunk):
+            fn.argtypes = []
+            fn.restype = ci
+        lib.dpdist_nn_min_blocks_per_sm.argtypes = [ci]
+        lib.dpdist_nn_min_blocks_per_sm.restype = ci
+        lib.dpdist_nn_min_sqdist.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, vp]
         lib.dpdist_nn_min_sqdist.restype = ci
         lib.dpdist_error_string.argtypes = [ci]
         lib.dpdist_error_string.restype = ctypes.c_char_p

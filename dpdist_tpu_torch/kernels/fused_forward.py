@@ -40,17 +40,62 @@ import dataclasses
 
 import torch
 
+from dpdist_tpu_torch.kernels.build import MAX_SMEM
+from dpdist_tpu_torch.kernels.table_gather import window_fits
 from dpdist_tpu_torch.ops.voxel import extract_patches, gather_patches
 
 # The kernel's limits (csrc/fused_forward.cu): hidden widths are multiples
-# of 16 up to 1024 and there are at most 8 hidden layers. The pack pads the
+# of 16 up to 1024, there are at most 8 hidden layers, and grids up to
+# MAX_GRID (a cell index fits its int16 neighbour table). The pack pads the
 # first layer's K and every hidden width to a multiple of K_ALIGN, the
 # kernel's K step.
-MAX_WIDTH, MAX_HIDDEN, WIDTH_ALIGN, K_ALIGN = 1024, 8, 16, 64
+MAX_WIDTH, MAX_HIDDEN, WIDTH_ALIGN, K_ALIGN, MAX_GRID = 1024, 8, 16, 64, 32
+# The layer kernels' shared memory (csrc/fused_forward.cu:Smem): a ring of
+# B (256 x 64) and A (128 x 64) bf16 tiles, 3 stages in the gathering
+# first layer, 4 in the others; the first adds a tile's neighbour table,
+# row descriptions and window offsets.
+_B_STAGE, _A_STAGE, _ROWS = 256 * 64 * 2, 128 * 64 * 2, 128
 
 
 def _pad(n: int) -> int:
     return -(-n // K_ALIGN) * K_ALIGN
+
+
+def fused_forward_smem(k: int) -> int:
+    """Shared memory bytes of the larger layer kernel for a k^3 window,
+    without staged volumes (the C entry dpdist_fused_forward_smem)."""
+    def ceil16(n):
+        return -(-n // 16) * 16
+
+    def ceil1k(n):
+        return -(-n // 1024) * 1024
+
+    k3 = k ** 3
+    first = (3 * (_B_STAGE + _A_STAGE) + ceil16(_ROWS * k3 * 2) + _ROWS * 16
+             + ceil16(k3 * 8))
+    first = ceil1k(first) + 2 * 3 * 8 + 1024
+    other = ceil1k(4 * (_B_STAGE + _A_STAGE)) + 2 * 4 * 8 + 1024
+    return max(first, other)
+
+
+def decoder_unfit(hidden_widths) -> str | None:
+    """Why the kernel does not take a decoder of these hidden layer widths
+    (its linear head aside), or None where it does."""
+    if not 1 <= len(hidden_widths) <= MAX_HIDDEN:
+        return (f"the fused forward takes 1 to {MAX_HIDDEN} hidden layers and a linear head, "
+                f"got {len(hidden_widths)} hidden layers")
+    for width in hidden_widths:
+        if width % WIDTH_ALIGN or width > MAX_WIDTH:
+            return (f"hidden widths must be multiples of {WIDTH_ALIGN} up to {MAX_WIDTH}, "
+                    f"got {width}")
+    return None
+
+
+def fused_forward_fits(grid_size: int, k: int, hidden_widths) -> bool:
+    """Whether the kernel serves a decoder of these hidden widths on a
+    grid_size^3 grid with a k^3 window."""
+    return (decoder_unfit(hidden_widths) is None and grid_size <= MAX_GRID
+            and window_fits(grid_size, k) and fused_forward_smem(k) <= MAX_SMEM)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,14 +128,9 @@ def _bf16_values(t):
 def pack_decoder(layers) -> PackedDecoder:
     """Round the decoder layers to bfloat16 in the kernel's layout (see
     PackedDecoder), on the layers' device."""
-    if len(layers) < 2 or len(layers) - 1 > MAX_HIDDEN:
-        raise ValueError(f"the fused forward takes 1 to {MAX_HIDDEN} hidden layers and a "
-                         f"linear head, got {len(layers)} layers")
-    for lp in layers[:-1]:
-        width = lp["w"].shape[1]
-        if width % WIDTH_ALIGN or width > MAX_WIDTH:
-            raise ValueError(f"hidden widths must be multiples of {WIDTH_ALIGN} up to "
-                             f"{MAX_WIDTH}, got {width}")
+    unfit = decoder_unfit([lp["w"].shape[1] for lp in layers[:-1]])
+    if unfit:
+        raise ValueError(unfit)
     w1 = layers[0]["w"].detach()
     in_dim = w1.shape[0]
     dev = w1.device
@@ -173,10 +213,10 @@ def fused_forward(fv, vox, delta, packed: PackedDecoder, grid_size: int, k: int)
     B, V, C = fv.shape
     N = vox.shape[1]
     k1 = packed.w[0].shape[1]
-    smem = lib.dpdist_fused_forward_smem(k)
-    if smem > build.MAX_SMEM:
+    smem = fused_forward_smem(k)
+    if smem > MAX_SMEM:
         raise ValueError(f"the fused forward needs {smem} B of shared memory, more than the "
-                         f"{build.MAX_SMEM} B a block has")
+                         f"{MAX_SMEM} B a block has")
     n_hidden = len(packed.w)
     widths = (ctypes.c_int * n_hidden)(*(w.shape[0] for w in packed.w))
     out = packed.b_out.shape[0]

@@ -32,7 +32,8 @@ from __future__ import annotations
 
 import torch
 
-from dpdist_tpu_torch.kernels.table_gather import table_gather_bwd
+from dpdist_tpu_torch.kernels.build import MAX_SMEM
+from dpdist_tpu_torch.kernels.table_gather import gather_smem, table_gather_bwd
 from dpdist_tpu_torch.ops.voxel import extract_patches, gather_patches
 
 
@@ -72,15 +73,14 @@ def _gather_fused_impl(fv, vox, mask, grid_size, k):
 
     from dpdist_tpu_torch.kernels import build
 
-    lib = build.library()
     B, V, C = fv.shape
     N = vox.shape[1]
-    smem = lib.dpdist_table_gather_smem(grid_size, k, C)
-    if smem > build.MAX_SMEM:
+    smem = gather_smem(grid_size, k, C)
+    if smem > MAX_SMEM:
         raise ValueError(f"a ({V}, {C}) volume needs {smem} B of shared memory, more than "
-                         f"the {build.MAX_SMEM} B a block has")
+                         f"the {MAX_SMEM} B a block has")
     out = torch.empty((B, N, k ** 3 * C), dtype=torch.float32, device=dev)
-    err = lib.dpdist_gather_patches_fused(
+    err = build.library().dpdist_gather_patches_fused(
         fv.data_ptr(), vox.data_ptr(), mask.data_ptr(), out.data_ptr(), B, N, grid_size, k, C,
         dev.index, torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch(err, "gather_patches_fused")

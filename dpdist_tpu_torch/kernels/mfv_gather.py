@@ -36,7 +36,11 @@ import math
 
 import torch
 
-from dpdist_tpu_torch.kernels.table_gather import check_forward_only, table_gather_bwd
+from dpdist_tpu_torch.kernels.table_gather import (
+    check_forward_only,
+    table_gather_bwd,
+    window_fits,
+)
 from dpdist_tpu_torch.ops.threedmfv import threedmfv_grid, threedmfv_plain
 from dpdist_tpu_torch.ops.voxel import (
     extract_patches,
@@ -46,6 +50,17 @@ from dpdist_tpu_torch.ops.voxel import (
 )
 
 C = 20                      # FV channels of the full-FV 3-D encode
+# The kernel's limit (csrc/mfv_gather.cu, the C entry
+# dpdist_mfv_gather_x_max_gaussians): one encode thread per Gaussian and at
+# least one warp of row threads in a block of 1,024. Every cube up to that
+# (9^3 = 729) fits the kernel's shared memory in its layout without
+# row-group buffers (157 KB at 729).
+MAX_GAUSSIANS = 1024 - 32
+
+
+def mfv_x_fits(grid_size: int, k: int) -> bool:
+    """Whether the kernel takes a grid_size^3 grid and a k^3 window."""
+    return grid_size ** 3 <= MAX_GAUSSIANS and window_fits(grid_size, k)
 
 
 def mfv_x_plain(points, queries, n_gaussians: int, sigma: float,
@@ -105,9 +120,8 @@ def _mfv_x_impl(points, queries, n_gaussians, sigma, grid_size, k, dtype):
     B, M, _ = points.shape
     N = queries.shape[1]
     G = n_gaussians
-    most = lib.dpdist_mfv_gather_x_max_gaussians()
-    if G > most:
-        raise ValueError(f"the kernel takes at most {most} Gaussians, got {G}")
+    if G > MAX_GAUSSIANS:
+        raise ValueError(f"the kernel takes at most {MAX_GAUSSIANS} Gaussians, got {G}")
     mu, centers = _grid_tables(G, dev)
     x = torch.empty((B, N, 3 + k ** 3 * C), dtype=dtype, device=dev)
     vox = torch.empty((B, N), dtype=torch.int32, device=dev)

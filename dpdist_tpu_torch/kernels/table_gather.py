@@ -57,6 +57,7 @@ import functools
 
 import torch
 
+from dpdist_tpu_torch.kernels.build import MAX_SMEM
 from dpdist_tpu_torch.ops.voxel import (
     extract_patches,
     gather_patches,
@@ -67,6 +68,28 @@ from dpdist_tpu_torch.ops.voxel import (
 
 X_ROWS_PER_BLOCK = 32       # queries per block of the patch-only gather
 X_THREADS = 256
+
+
+def window_fits(grid_size: int, k: int) -> bool:
+    """Whether the kernels take a k^3 window on a grid_size^3 grid: k odd
+    and at most 2 grid_size + 1 (every kernel's window check)."""
+    return k % 2 == 1 and 1 <= k <= 2 * grid_size + 1
+
+
+def gather_smem(grid_size: int, k: int, C: int) -> int:
+    """Shared memory bytes of the gathers of rows 2, 3, 6 and 10: the
+    (G, C) volume and the window's two offset tables (the C entry
+    dpdist_table_gather_smem)."""
+    return 4 * (grid_size ** 3 * C + 2 * k ** 3)
+
+
+def table_gather_fits(grid_size: int, k: int, C: int) -> bool:
+    """Whether the gather kernels (rows 2, 3 and 6 here, row 10 in
+    kernels/gather_fused.py) take this volume and window. For C = 20 the
+    persistent gathers' smallest layout (the volume and a run's row
+    descriptions, csrc/row_groups.cuh:plan_rows) fits wherever
+    gather_smem does."""
+    return window_fits(grid_size, k) and gather_smem(grid_size, k, C) <= MAX_SMEM
 
 
 def table_gather_x_plain(fv, queries, grid_size: int, k: int):
@@ -132,12 +155,10 @@ def _check_window(grid_size, k, C, device):
     if k < 1 or k % 2 == 0:
         raise ValueError(f"k must be odd and positive, got {k}")
     if device.type == "cuda":
-        from dpdist_tpu_torch.kernels import build
-
-        smem = build.library().dpdist_table_gather_smem(grid_size, k, C)
-        if smem > build.MAX_SMEM:
+        smem = gather_smem(grid_size, k, C)
+        if smem > MAX_SMEM:
             raise ValueError(f"a ({grid_size}^3, {C}) volume needs {smem} B of shared "
-                             f"memory, more than the {build.MAX_SMEM} B a block has")
+                             f"memory, more than the {MAX_SMEM} B a block has")
     elif device.type != "cpu":
         raise ValueError(f"the table gather runs on cpu or cuda tensors, got {device}")
 

@@ -29,6 +29,7 @@ import math
 
 import torch
 
+from dpdist_tpu_torch.kernels.build import MAX_SMEM
 from dpdist_tpu_torch.ops.threedmfv import threedmfv_grid, threedmfv_plain
 
 
@@ -45,6 +46,23 @@ def _threads(G: int) -> int:
 # per SM in all, no chunk below MIN_CHUNK_POINTS points, chunks a multiple
 # of the kernel's TILE_POINTS-point logit tile (csrc/fv_encode.cuh).
 BLOCKS_PER_SM, MIN_CHUNK_POINTS, TILE_POINTS = 2, 32, 32
+# The kernel's limits (csrc/threedmfv.cu): one thread per Gaussian in a
+# block of at most 1,024, and the encode's shared memory.
+MAX_GAUSSIANS = 1024
+
+
+def encode_smem(n_gaussians: int, threads: int) -> int:
+    """Shared memory bytes of the encode (the C entry dpdist_threedmfv_smem,
+    csrc/fv_encode.cuh:encode_smem_floats): a logit tile per Gaussian, the
+    tile's sums, two point tiles, and a warp reduction's scratch."""
+    return 4 * (TILE_POINTS * n_gaussians + TILE_POINTS + 6 * TILE_POINTS
+                + threads // 32 * 20 + 20)
+
+
+def threedmfv_fits(n_gaussians: int) -> bool:
+    """Whether the kernel takes an encode of n_gaussians Gaussians."""
+    return (n_gaussians <= MAX_GAUSSIANS
+            and encode_smem(n_gaussians, _threads(n_gaussians)) <= MAX_SMEM)
 
 
 @functools.lru_cache(maxsize=8)
@@ -80,8 +98,9 @@ def _check(points, n_gaussians):
     if not points.is_contiguous():
         raise ValueError("points must be contiguous")
     g = round(n_gaussians ** (1.0 / 3.0))
-    if g ** 3 != n_gaussians or n_gaussians > 1024:
-        raise ValueError(f"n_gaussians must be a cube of at most 1024, got {n_gaussians}")
+    if g ** 3 != n_gaussians or n_gaussians > MAX_GAUSSIANS:
+        raise ValueError(f"n_gaussians must be a cube of at most {MAX_GAUSSIANS}, "
+                         f"got {n_gaussians}")
     if points.device.type not in ("cpu", "cuda"):
         raise ValueError(f"the encode runs on cpu or cuda tensors, got {points.device}")
 
@@ -97,10 +116,10 @@ def _threedmfv_impl(points, n_gaussians, sigma):
     B, N, _ = points.shape
     G = n_gaussians
     threads = _threads(G)
-    smem = lib.dpdist_threedmfv_smem(G, threads)
-    if smem > build.MAX_SMEM:
+    smem = encode_smem(G, threads)
+    if smem > MAX_SMEM:
         raise ValueError(f"G={G} needs {smem} B of shared memory, more than the "
-                         f"{build.MAX_SMEM} B a block has")
+                         f"{MAX_SMEM} B a block has")
     sms = _sm_count(dev.index)
     S, chunk = split_plan(B, N, sms)
     out = torch.empty((B, G, 20), dtype=torch.float32, device=dev)

@@ -46,6 +46,13 @@ dpdist_tpu/ops/threedmfv.py:111-113):
           in float32, "table", as the reference resolves it;
   "auto"  "mfv" on CUDA tensors, "off" on the CPU. Computations that are
           differentiated resolve "auto" with `resolve_for_grad` instead.
+`route` also holds each kernel to its limits (grid, window, decoder widths,
+shared memory; the kernel modules' *_fits functions), from shapes before
+any launch: "mfv" and "full" give way to "table" where their fused kernel
+does not take the config (at embedding_size=1000, say, or a hidden width
+that is not a multiple of 16), and an encode or a gather kernel that does
+not take it gives way to the plain op for that step. The reference has no
+such limits, and the fallbacks compute the same function.
 Configs this port does not cover yet raise NotImplementedError.
 """
 
@@ -57,10 +64,11 @@ import torch
 
 from dpdist_tpu_torch import resolve_device
 from dpdist_tpu_torch.configs import DPDistConfig
-from dpdist_tpu_torch.kernels.fused_forward import fused_forward, pack_decoder
+from dpdist_tpu_torch.kernels.fused_forward import fused_forward, fused_forward_fits, pack_decoder
 from dpdist_tpu_torch.kernels.gather_fused import gather_patches_fused
-from dpdist_tpu_torch.kernels.mfv_gather import mfv_x
-from dpdist_tpu_torch.kernels.table_gather import table_gather, table_gather_x
+from dpdist_tpu_torch.kernels.mfv_gather import mfv_x, mfv_x_fits
+from dpdist_tpu_torch.kernels.table_gather import table_gather, table_gather_fits, table_gather_x
+from dpdist_tpu_torch.kernels.threedmfv import threedmfv_fits
 from dpdist_tpu_torch.nn.layers import mlp_apply, mlp_init
 from dpdist_tpu_torch.ops.threedmfv import KERNEL_MIN_POINTS, threedmfv
 from dpdist_tpu_torch.ops.voxel import extract_patches, gather_patches, voxel_assign
@@ -111,6 +119,26 @@ class Route:
     gather: tuple
 
 
+def resolve_mode(cfg: DPDistConfig, device_type: str, train: bool = False) -> str:
+    """The path a forward of `cfg` takes before the cloud sizes count:
+    "auto" is "mfv" on CUDA and "off" on the CPU; "full" is "table" in
+    float32, in training (train=True) and for a decoder or grid the fused
+    kernel does not take; "mfv" is "table" for a grid or window the fused
+    kernel does not take. The others stay."""
+    mode = cfg.fused_gather
+    if mode == "auto":
+        mode = "mfv" if device_type == "cuda" else "off"
+    g, k = cfg.grid_size, cfg.k
+    if mode == "full" and (cfg.dtype != "bfloat16" or train
+                           or not fused_forward_fits(g, k, cfg.mlp)):
+        # The fused serving kernel is bf16 and eval only
+        # (dpdist_tpu/models/dpdist.py:293-297, :375).
+        mode = "table"
+    elif mode == "mfv" and not mfv_x_fits(g, k):
+        mode = "table"
+    return mode
+
+
 def route(cfg: DPDistConfig, device_type: str, n_a: int, n_b: int, grad: bool = False,
           train: bool = False) -> Route:
     """The kernels apply_dpdist runs for clouds of n_a and n_b points on a
@@ -124,33 +152,36 @@ def route(cfg: DPDistConfig, device_type: str, n_a: int, n_b: int, grad: bool = 
     branch for both directions; there, and under "on" and "full", each
     cloud's encode takes the kernel at >= 128 points, and under "table"
     each direction's gather takes table_gather_x at <= 128 queries, else
-    table_gather."""
+    table_gather.
+
+    The kernels' limits (each kernel module's *_fits, from shapes alone):
+    the fused kernels give way to "table" (`resolve_mode`), and an encode or
+    a gather kernel that does not take the config gives way to the plain op
+    for that step ("plain"), which computes the same function. The same
+    routes on either device, apart from "auto"."""
     check_ported(cfg)
     if grad:
         cfg = resolve_for_grad(cfg, device_type)
-    mode = cfg.fused_gather
-    if mode == "auto":
-        mode = "mfv" if device_type == "cuda" else "off"
-    elif mode == "full" and (cfg.dtype != "bfloat16" or train):
-        # The fused serving kernel is bf16 and eval only
-        # (dpdist_tpu/models/dpdist.py:293-297, :375).
-        mode = "table"
+    mode = resolve_mode(cfg, device_type, train)
     if mode == "mfv" and max(n_a, n_b) <= MAX_TILE_POINTS:
         return Route("mfv", ("mfv_gather_x",) * 2, ("mfv_gather_x",) * 2)
     if mode == "off":
         return Route("off", ("plain",) * 2, ("plain",) * 2)
-    encode = tuple("threedmfv" if n >= KERNEL_MIN_POINTS else "plain" for n in (n_a, n_b))
+    encode_fits = threedmfv_fits(cfg.embedding_size)
+    encode = tuple("threedmfv" if n >= KERNEL_MIN_POINTS and encode_fits else "plain"
+                   for n in (n_a, n_b))
     if mode == "full":
         if n_a != n_b:
             raise ValueError(f'fused_gather="full" serves both directions in one call over '
                              f"the 2B stack, which needs clouds of one size; got {n_a} and "
                              f"{n_b} points")
         return Route("full", encode, ("fused_forward",) * 2)
+    gather_fits = table_gather_fits(cfg.grid_size, cfg.k, cfg.fv_channels)
     if mode == "on":
-        return Route("on", encode, ("gather_patches_fused",) * 2)
+        return Route("on", encode, ("gather_patches_fused" if gather_fits else "plain",) * 2)
     # AB queries B's points, BA queries A's.
-    gather = tuple("table_gather_x" if n <= MAX_TILE_POINTS else "table_gather"
-                   for n in (n_b, n_a))
+    gather = tuple(("table_gather_x" if n <= MAX_TILE_POINTS else "table_gather")
+                   if gather_fits else "plain" for n in (n_b, n_a))
     return Route("table", encode, gather)
 
 

@@ -26,7 +26,12 @@ from torch import nn
 from dpdist_tpu_torch import resolve_device
 from dpdist_tpu_torch.configs import DPDistConfig
 from dpdist_tpu_torch.kernels.fused_forward import pack_decoder
-from dpdist_tpu_torch.models.dpdist import check_ported, dpdist_distance, resolve_for_grad
+from dpdist_tpu_torch.models.dpdist import (
+    check_ported,
+    dpdist_distance,
+    resolve_for_grad,
+    resolve_mode,
+)
 from dpdist_tpu_torch.train.checkpoint import load_dpdist_checkpoint, params_from_jax
 
 
@@ -34,9 +39,10 @@ class FrozenDistance(nn.Module):
     """The learned DPDist distance with frozen decoder weights.
 
     Weights keep the JAX (in, out) layout: layer i computes x @ w_i + b_i.
-    A bfloat16 fused_gather="full" config also holds the decoder packed once
-    for the fused kernel (kernels.fused_forward.pack_decoder), on the
-    parameters' device.
+    A config whose forward takes "full" (bfloat16, and a decoder and grid
+    the fused kernel takes: models.dpdist.resolve_mode) also holds the
+    decoder packed once for the fused kernel
+    (kernels.fused_forward.pack_decoder), on the parameters' device.
     """
 
     def __init__(self, cfg: DPDistConfig, params: dict):
@@ -48,8 +54,9 @@ class FrozenDistance(nn.Module):
         self.b = nn.ParameterList(
             nn.Parameter(lp["b"], requires_grad=False) for lp in params["decoder"]["layers"])
         self.packed = None
-        if cfg.dtype == "bfloat16" and cfg.fused_gather == "full":
-            self.packed = pack_decoder(params["decoder"]["layers"])
+        layers = params["decoder"]["layers"]
+        if resolve_mode(cfg, layers[0]["w"].device.type) == "full":
+            self.packed = pack_decoder(layers)
 
     def params(self) -> dict:
         p = {"decoder": {"layers": [{"w": w, "b": b} for w, b in zip(self.w, self.b)]}}

@@ -36,8 +36,8 @@ TOL_X = 2e-5
 # the largest entry at B = 256, N = 64 (7.63e-6 of 28.6) and at N = 200
 # (1.14e-5 of 42.6).
 REL_BWD = 1e-6
-# NN-min kernel vs plain: nvcc contracts the per-dimension sum to FMA, so
-# the last bits may differ; within TOL_NN_ABS + TOL_NN_REL * |d|.
+# NN-min kernel vs plain: the kernel sums the per-dimension squares with
+# FMAs, so the last bits may differ; within TOL_NN_ABS + TOL_NN_REL * |d|.
 TOL_NN_ABS, TOL_NN_REL = 1e-6, 1e-5
 # Fused forward kernel vs plain, on pre-activation outputs: both sum exact
 # bf16 products in float32, in other orders (the tensor cores' float32
@@ -333,18 +333,56 @@ def test_table_gather_kernel_matches_plain(cuda, B, N, g, k, C):
     assert torch.equal(out, table_gather_plain(fv, vox, g, k))
 
 
+def _cuda_kernels(fn, calls):
+    """Names of the CUDA kernels that `calls` calls of fn launch, as
+    torch.profiler records them (memsets and copies are not kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.name.startswith(("Memset", "Memcpy"))]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,N,M", [(1, 10000, 10000), (2, 1000, 4099), (3, 37, 5), (256, 64, 64)])
-def test_nn_min_sqdist_kernel_matches_plain(cuda, B, N, M):
+@pytest.mark.parametrize("B,N,M,scale,dup", [
+    (1, 10000, 10000, 1, False),   # eval_pair's clouds
+    (2, 1000, 4099, 1, False),
+    (3, 37, 5, 1, False),
+    (256, 64, 64, 1, False),
+    (1, 1, 777, 1, False),         # N = 1
+    (2, 500, 1, 1, False),         # M = 1
+    (2, 3000, 3, 1, False),        # M below one float4 group of p
+    (2, 1025, 1025, 1, False),     # N and M one past a tile of a and a chunk of p
+    (3, 10000, 2000, 1, False),    # B = 3, N = 10,000
+    (1, 4000, 3000, 100.0, False),  # coordinates x100
+    (2, 2000, 2500, 1, True),      # points of a duplicated in p: d = 0 exactly
+])
+def test_nn_min_sqdist_kernel_matches_plain(cuda, B, N, M, scale, dup):
+    """Within TOL_NN of the plain version, one CUDA kernel per call (the
+    fill of dist is a memset), the same bits from run to run. The profiler
+    may drop a record of a short run, so it shows that a call launches
+    nn_min_kernel and nothing else, at most once; that it launches it at
+    least once shows in dist, which the memset fills with NaN bits."""
     r = np.random.default_rng(N + M)
-    a, p = (torch.as_tensor(r.uniform(-1, 1, (B, n, 3)).astype(np.float32), device=cuda)
-            for n in (N, M))
+    a, p = (r.uniform(-1, 1, (B, n, 3)).astype(np.float32) * np.float32(scale) for n in (N, M))
+    if dup:
+        p[:, :min(N, M):2] = a[:, :min(N, M):2]
+    a, p = (torch.as_tensor(t, device=cuda) for t in (a, p))
     before = nn_min_sqdist.launches
     d = nn_min_sqdist(a, p)
     torch.cuda.synchronize()
     assert nn_min_sqdist.launches == before + 1
     ref = nn_min_sqdist_plain(a, p)
     assert bool(((d - ref).abs() <= TOL_NN_ABS + TOL_NN_REL * ref.abs()).all())
+    if dup:
+        assert bool((d[:, :min(N, M):2] == 0).all())
+    names = _cuda_kernels(lambda: nn_min_sqdist(a, p), calls=5)
+    assert 1 <= len(names) <= 5 and all("nn_min_kernel" in n for n in names), names
+    assert torch.equal(nn_min_sqdist(a, p), d)
 
 
 @pytest.mark.gpu
@@ -552,3 +590,129 @@ def test_served_bf16_launch_counts(cuda, mode, np_, want):
     assert float(d.min()) >= 0.0 and float(d.max()) <= 2.0
     with pytest.raises(NotImplementedError, match="bf16 gradient"):
         model(pcA.clone().requires_grad_(), pcB)
+
+
+# ---------------------------------------------------------------------------
+# The kernels' limits as the route reads them (models.dpdist.route)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+def test_limit_constants_equal_the_c_entries(cuda):
+    """The Python limits the route reads without loading the library equal
+    the C entries they mirror, over a sweep of grids, windows and widths."""
+    from dpdist_tpu_torch.kernels import build, chamfer
+    from dpdist_tpu_torch.kernels import fused_forward as ff
+    from dpdist_tpu_torch.kernels import mfv_gather, table_gather, threedmfv
+
+    lib = build.library()
+    assert mfv_gather.MAX_GAUSSIANS == lib.dpdist_mfv_gather_x_max_gaussians()
+    assert chamfer.TILE_N == lib.dpdist_nn_min_tile_points()
+    assert chamfer.MAX_CHUNK == lib.dpdist_nn_min_max_chunk()
+    for g in range(2, 13):
+        G = g ** 3
+        if G <= threedmfv.MAX_GAUSSIANS:
+            for threads in {threedmfv._threads(G), 256, 512, 1024}:
+                if threads >= G:
+                    want = lib.dpdist_threedmfv_smem(G, threads)
+                    assert threedmfv.encode_smem(G, threads) == want
+        for k in (1, 3, 5):
+            for C in (20, 7):
+                assert table_gather.gather_smem(g, k, C) == lib.dpdist_table_gather_smem(g, k, C)
+    for k in (1, 3, 5, 7):
+        assert ff.fused_forward_smem(k) == lib.dpdist_fused_forward_smem(k)
+
+
+@pytest.mark.gpu
+def test_fused_forward_c_entry_refuses_what_the_limits_refuse(cuda):
+    """The grid, depth and width limits of fused_forward_fits are the C
+    entry's: one past each, the launch is refused (a RuntimeError from the
+    wrapper); at the grid limit it runs."""
+    import dataclasses
+
+    from dpdist_tpu_torch.kernels.fused_forward import (
+        MAX_GRID,
+        MAX_HIDDEN,
+        MAX_WIDTH,
+        PackedDecoder,
+    )
+    from dpdist_tpu_torch.ops.voxel import voxel_assign
+
+    r = np.random.default_rng(30)
+    k = 3
+    packed = pack_decoder(_decoder_layers(r, 3 + k ** 3 * 20, (64, 64, 3), cuda))
+    q = torch.as_tensor(r.uniform(-0.9, 0.9, (1, 8, 3)).astype(np.float32), device=cuda)
+
+    def run(g, pk):
+        vox, _, delta = voxel_assign(q, g)
+        fv = torch.zeros((1, g ** 3, 20), dtype=torch.bfloat16, device=cuda)
+        with torch.no_grad():
+            y = fused_forward(fv, vox, delta, pk, g, k)
+        torch.cuda.synchronize()
+        return y
+
+    assert bool(torch.isfinite(run(MAX_GRID, packed)).all())
+    with pytest.raises(RuntimeError, match="launch failed"):
+        run(MAX_GRID + 1, packed)
+    deep = dataclasses.replace(packed, w=packed.w + (packed.w[1],) * MAX_HIDDEN,
+                               b=packed.b + (packed.b[1],) * MAX_HIDDEN)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        run(4, deep)
+    wide = MAX_WIDTH + 64
+    wide_pack = PackedDecoder(
+        w=(torch.zeros((wide, packed.w[0].shape[1]), dtype=torch.bfloat16, device=cuda),),
+        b=(torch.zeros(wide, device=cuda),), w_out=torch.zeros((3, wide), device=cuda),
+        b_out=torch.zeros(3, device=cuda), in_dim=packed.in_dim)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        run(4, wide_pack)
+
+
+_SERVED_WRAPPERS = ("mfv_x", "threedmfv", "table_gather_x", "table_gather", "fused_forward",
+                    "gather_patches_fused")
+
+
+def _served_launches():
+    return {"mfv_x": mfv_x.launches, "threedmfv": threedmfv_kernel.launches,
+            "table_gather_x": table_gather_x.launches, "table_gather": table_gather.launches,
+            "fused_forward": fused_forward.launches,
+            "gather_patches_fused": gather_patches_fused.launches}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("net,over,want,tol", [
+    ("results/ckpt_best", {}, {"table_gather_x": 2}, 1e-4),
+    ("results/ckpt_best", {"dtype": "bfloat16"}, {"table_gather_x": 2}, 2e-3),
+    ("results/ckpt_best", {"dtype": "bfloat16", "fused_gather": "full"}, {"fused_forward": 1},
+     2e-3),
+    ("results/dpdist_multi_r4_ckpt_best", {}, {"table_gather_x": 2}, 1e-4),
+    (None, {"dtype": "bfloat16", "fused_gather": "full"}, {"table_gather_x": 2}, 2e-3),
+])
+def test_served_past_the_fused_kernels_limits(cuda, net, over, want, tol):
+    """The committed decoder at embedding_size=1000 (past the mfv kernel's
+    992 Gaussians) and a random bf16 "full" net with hidden widths 40 (not
+    a multiple of 16) serve through the route's kernels, np = 64, and
+    match the plain path (fused_gather="off")."""
+    from dpdist_tpu_torch.configs import DPDistConfig
+    from dpdist_tpu_torch.models import init_dpdist
+    from dpdist_tpu_torch.serving import FrozenDistance, load_frozen_distance
+
+    if net is None:
+        cfg = DPDistConfig(mlp=(40, 40, 40))
+        params = init_dpdist(cfg, generator=torch.Generator().manual_seed(40), device=cuda)
+        model = FrozenDistance(cfg.replace(**over), params).eval()
+        plain = FrozenDistance(cfg.replace(**{**over, "fused_gather": "off"}), params).eval()
+    else:
+        over = {"embedding_size": 1000, **over}
+        model = load_frozen_distance(net, device=cuda, **over)
+        plain = load_frozen_distance(net, device=cuda, **{**over, "fused_gather": "off"})
+    r = np.random.default_rng(1000)
+    pcA, pcB = (torch.as_tensor(r.uniform(-0.9, 0.9, (16, 64, 3)).astype(np.float32),
+                                device=cuda) for _ in range(2))
+    before = _served_launches()
+    with torch.no_grad():
+        d = model(pcA, pcB)
+        torch.cuda.synchronize()
+        got = {k: v - before[k] for k, v in _served_launches().items()}
+        ref = plain(pcA, pcB)
+    assert got == {k: want.get(k, 0) for k in _SERVED_WRAPPERS}
+    assert d.shape == (16,) and bool(torch.isfinite(d).all())
+    assert float((d - ref).abs().max()) <= tol

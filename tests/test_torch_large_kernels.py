@@ -20,10 +20,12 @@ from dpdist_tpu.kernels.threedmfv_pallas import threedmfv_pallas as jax_threedmf
 from dpdist_tpu.ops.voxel import voxel_assign as jax_voxel_assign
 
 from dpdist_tpu_torch.kernels.chamfer import (
+    MAX_CHUNK,
+    TILE_N,
     chamfer_distance_kernel,
     nn_min_sqdist,
     nn_min_sqdist_plain,
-    splits_for,
+    plan_nn_min,
 )
 from dpdist_tpu_torch.kernels.table_gather import (
     table_gather,
@@ -344,11 +346,63 @@ def test_nn_min_sqdist_has_no_backward():
     assert nn_min_sqdist(a.detach(), p).shape == (1, 4)
 
 
-@pytest.mark.parametrize("B,N,M,want", [
-    (1, 10000, 10000, 27),   # eval_pair: 10 point blocks x 27 splits on 132 SMs
-    (2, 1000, 4099, 17),     # capped by 256 points of p per split
-    (256, 256, 256, 1),      # enough blocks without splitting
-    (1, 10, 5, 1),
+def _units(plan, B, N, M):
+    """Each unit's (b, n0, n1, m0, m1) as csrc/chamfer.cu decodes unit u:
+    chunk u % splits, tile (u / splits) % tiles, cloud u / splits / tiles."""
+    for u in range(plan.units):
+        s, t, b = u % plan.splits, u // plan.splits % plan.tiles, u // plan.splits // plan.tiles
+        yield b, t * TILE_N, min(N, (t + 1) * TILE_N), s * plan.chunk, min(M, (s + 1) * plan.chunk)
+
+
+@pytest.mark.parametrize("B,N,M", [
+    (1, 10000, 10000),   # eval_pair's clouds
+    (2, 1000, 4099),
+    (256, 64, 64),
+    (3, 37, 5),
+    (1, 1, 1),
+    (1, 1, 777),
+    (2, 500, 1),
+    (2, 1025, 1025),
+    (3, 10000, 2000),
+    (1, 50000, 10000),   # a ground-truth generator's size
 ])
-def test_nn_min_splits(B, N, M, want):
-    assert splits_for(B, N, M, sm_count=132, points_per_block=1024) == want
+def test_plan_nn_min_tiles_every_pair_once(B, N, M):
+    """For a few cards (SM count, blocks per SM: H100 SXM at two
+    occupancies, H100 PCIe, an L4-sized card): the units cover every
+    (b, n, m) exactly once; the chunk suits the kernel; the grid is at most
+    the blocks the card holds at once; and with units walked by blocks
+    i, i + grid, ..., no block's pair count exceeds the mean by more than
+    one whole unit."""
+    for sms, per_sm in ((132, 8), (132, 3), (114, 6), (58, 6)):
+        plan = plan_nn_min(B, N, M, sms, per_sm)
+        assert plan.chunk % 4 == 0 and 4 <= plan.chunk <= MAX_CHUNK
+        assert plan.tiles == -(-N // TILE_N) and plan.splits == -(-M // plan.chunk)
+        assert plan.units == B * plan.tiles * plan.splits
+        assert 1 <= plan.grid <= min(plan.units, sms * per_sm)
+        units = list(_units(plan, B, N, M))
+        cover = np.zeros((B, N, M), np.int32) if B * N * M <= 2 ** 24 else None
+        seen = set()
+        for b, n0, n1, m0, m1 in units:
+            assert 0 <= b < B and 0 <= n0 < n1 <= N and 0 <= m0 < m1 <= M
+            seen.add((b, n0, m0))
+            if cover is not None:
+                cover[b, n0:n1, m0:m1] += 1
+        assert len(seen) == len(units)
+        # Per cloud, the tiles cut [0, N) and the chunks [0, M) without gaps.
+        assert sum(n1 - n0 for b, n0, n1, m0, m1 in units if b == 0 and m0 == 0) == N
+        assert sum(m1 - m0 for b, n0, n1, m0, m1 in units if b == 0 and n0 == 0) == M
+        if cover is not None:
+            assert (cover == 1).all()
+        pairs = [(n1 - n0) * (m1 - m0) for _, n0, n1, m0, m1 in units]
+        per_block = [sum(pairs[i::plan.grid]) for i in range(plan.grid)]
+        unit = min(TILE_N, N) * min(plan.chunk, M)
+        assert max(per_block) <= B * N * M / plan.grid + unit
+
+
+def test_plan_nn_min_at_eval_pair_balances_the_sms():
+    """eval_pair's clouds on an H100-sized card (132 SMs, 8 blocks each):
+    every SM gets units, and none carries a third of a unit more than the
+    mean."""
+    plan = plan_nn_min(1, 10000, 10000, 132, 8)
+    assert plan.units >= 132 and plan.grid == plan.units <= 132 * 8
+    assert -(-plan.units // 132) - plan.units / 132 <= 1 / 3

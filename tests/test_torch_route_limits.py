@@ -1,0 +1,171 @@
+"""The model's routing (models.dpdist.route) against the kernels' limits:
+a config the reference serves never reaches a kernel that does not take it.
+The fused kernels give way to "table", an encode or a gather kernel to the
+plain op for that step; the routes of configs that fit stay as they were
+(tests/test_torch_large_clouds.py, test_torch_fused_forward.py,
+test_torch_gather_fused.py). The committed nets' decoder served at 1,000
+Gaussians is held against dpdist_tpu on the CPU.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dpdist_tpu.cli.train_aue import load_dpdist_checkpoint as jax_load
+from dpdist_tpu.models import dpdist_distance as jax_distance
+
+import dpdist_tpu_torch.serving as serving
+from dpdist_tpu_torch.configs import DPDistConfig
+from dpdist_tpu_torch.kernels.fused_forward import (
+    MAX_GRID,
+    decoder_unfit,
+    fused_forward_fits,
+    pack_decoder,
+)
+from dpdist_tpu_torch.kernels.mfv_gather import MAX_GAUSSIANS, mfv_x_fits
+from dpdist_tpu_torch.kernels.table_gather import table_gather_fits
+from dpdist_tpu_torch.kernels.threedmfv import threedmfv_fits, threedmfv_kernel
+from dpdist_tpu_torch.models import init_dpdist
+from dpdist_tpu_torch.models.dpdist import Route, resolve_mode, route
+from dpdist_tpu_torch.serving import load_frozen_distance
+from dpdist_tpu_torch.train.checkpoint import params_to_numpy, save_checkpoint
+
+NETS = ("results/ckpt_best", "results/dpdist_multi_r4_ckpt_best")
+TOL = 1e-4   # port vs dpdist_tpu on the CPU (tests/test_torch_dpdist.py's)
+P2 = ("plain",) * 2
+X2 = ("table_gather_x",) * 2
+
+
+def test_the_committed_config_fits_every_kernel():
+    cfg = DPDistConfig()
+    g, k = cfg.grid_size, cfg.k
+    assert mfv_x_fits(g, k) and threedmfv_fits(cfg.embedding_size)
+    assert table_gather_fits(g, k, cfg.fv_channels)
+    assert fused_forward_fits(g, k, cfg.mlp)
+
+
+@pytest.mark.parametrize("fused_gather,dtype,grad", [
+    ("auto", "float32", False),
+    ("auto", "float32", True),
+    ("auto", "bfloat16", False),
+    ("mfv", "float32", False),
+    ("mfv", "float32", True),
+    ("mfv", "bfloat16", False),
+])
+def test_route_at_1000_gaussians_is_not_mfv(fused_gather, dtype, grad):
+    """G = 1,000 exceeds the fused mfv kernel's 992: the table path, with
+    the plain encode below 128 points and table_gather_x."""
+    cfg = DPDistConfig(embedding_size=1000, fused_gather=fused_gather, dtype=dtype)
+    assert cfg.embedding_size > MAX_GAUSSIANS
+    assert route(cfg, "cuda", 64, 64, grad=grad) == Route("table", P2, X2)
+
+
+@pytest.mark.parametrize("over", [
+    {"mlp": (40, 40, 40)},                 # not a multiple of 16
+    {"mlp": (1040, 1040, 1040)},           # wider than 1,024
+    {"mlp": (64,) * 9},                    # more than 8 hidden layers
+    {"k": 7},                              # the window's tables overflow shared memory
+    {"embedding_size": (MAX_GRID + 1) ** 3, "k": 3},   # a grid past the int16 table
+])
+def test_route_full_gives_way_to_table(over):
+    cfg = DPDistConfig(fused_gather="full", dtype="bfloat16", **over)
+    assert not fused_forward_fits(cfg.grid_size, cfg.k, cfg.mlp)
+    assert resolve_mode(cfg, "cuda") == "table"
+    for device in ("cuda", "cpu"):
+        r = route(cfg, device, 64, 64)
+        assert r.mode == "table" and "fused_forward" not in r.gather
+    # Clouds of two sizes are no error off the "full" path.
+    assert route(cfg, "cuda", 64, 100).mode == "table"
+
+
+def test_decoder_unfit_names_the_limit():
+    assert decoder_unfit((1024, 1024, 1024)) is None
+    assert "multiples of 16" in decoder_unfit((40, 40, 40))
+    assert "up to 1024" in decoder_unfit((1040,))
+    assert "1 to 8 hidden layers" in decoder_unfit((64,) * 9)
+    assert "1 to 8 hidden layers" in decoder_unfit(())
+
+
+@pytest.mark.parametrize("embedding_size,n,fused_gather,want", [
+    # g = 11: the encode kernel takes at most 1,024 Gaussians.
+    (1331, 300, "auto", Route("table", P2, ("table_gather",) * 2)),
+    (1331, 64, "auto", Route("table", P2, X2)),
+    # g = 15: the volume no longer fits a block's shared memory.
+    (3375, 300, "auto", Route("table", P2, P2)),
+    (3375, 64, "table", Route("table", P2, P2)),
+    (3375, 300, "on", Route("on", P2, P2)),
+    (3375, 64, "full", Route("full", P2, ("fused_forward",) * 2)),
+])
+def test_route_takes_the_plain_op_where_a_kernel_does_not_fit(embedding_size, n, fused_gather,
+                                                              want):
+    dtype = "bfloat16" if fused_gather == "full" else "float32"
+    cfg = DPDistConfig(embedding_size=embedding_size, fused_gather=fused_gather, dtype=dtype)
+    assert route(cfg, "cuda", n, n) == want
+    assert route(cfg, "cpu", n, n) == want or fused_gather == "auto"
+
+
+def test_wrappers_called_directly_still_raise():
+    """The route's limits do not loosen the wrappers: beyond them they raise
+    as before, on the CPU where their checks run there."""
+    with pytest.raises(ValueError, match="multiples of 16"):
+        pack_decoder([{"w": torch.zeros(2503, 40), "b": torch.zeros(40)},
+                      {"w": torch.zeros(40, 3), "b": torch.zeros(3)}])
+    with pytest.raises(ValueError, match="at most 1024"):
+        threedmfv_kernel(torch.zeros(1, 4, 3), 1331)
+
+
+def _clouds(seed, B=3, n=64):
+    r = np.random.default_rng(seed)
+    return (r.uniform(-0.9, 0.9, (B, n, 3)).astype(np.float32),
+            r.uniform(-1.1, 1.1, (B, n, 3)).astype(np.float32))
+
+
+@pytest.fixture(scope="module", params=NETS)
+def net(request):
+    return request.param, jax_load(request.param)
+
+
+@pytest.mark.parametrize("fused_gather", ["auto", "mfv", "on"])
+def test_committed_decoder_at_1000_gaussians_matches_jax(net, fused_gather):
+    """The committed nets' decoder takes 3 + k^3 * 20 inputs whatever the
+    grid, so it serves at embedding_size=1000 too. On the CPU, "auto" runs
+    the plain composition and "mfv" the route the card takes at this size
+    (the table path, whose wrappers run their plain versions here); both
+    against JAX's dpdist_distance."""
+    path, (cfg, params, state) = net
+    pcA, pcB = _clouds(1000)
+    want = jax_distance(params, state, cfg.replace(embedding_size=1000), jnp.asarray(pcA),
+                        jnp.asarray(pcB), per_example=True)
+    model = load_frozen_distance(path, device="cpu", embedding_size=1000,
+                                 fused_gather=fused_gather)
+    assert route(model.cfg, "cuda", 64, 64).mode == ("on" if fused_gather == "on" else "table")
+    with torch.no_grad():
+        got = model(torch.as_tensor(pcA), torch.as_tensor(pcB))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL, rtol=0)
+
+
+def test_unfit_full_decoder_loads_and_serves_through_table(tmp_path, monkeypatch):
+    """A bf16 "full" net whose decoder the fused kernel does not take loads
+    without packing and serves what "table" serves; the committed net under
+    "full" still packs."""
+    cfg = DPDistConfig(mlp=(40, 40, 40))
+    params = init_dpdist(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    path = str(tmp_path / "ckpt_40")
+    save_checkpoint(path, {"params": params_to_numpy(params), "state": {"decoder": {}}},
+                    metadata={"model_config": cfg.to_json()})
+
+    def refuse(_layers):
+        raise AssertionError("pack_decoder called for a decoder the route does not serve")
+
+    monkeypatch.setattr(serving, "pack_decoder", refuse)
+    model = load_frozen_distance(path, device="cpu", dtype="bfloat16", fused_gather="full")
+    table = load_frozen_distance(path, device="cpu", dtype="bfloat16", fused_gather="table")
+    assert model.packed is None and "packed" not in model.params()
+    tA, tB = (torch.as_tensor(a) for a in _clouds(40))
+    with torch.no_grad():
+        got, want = model(tA, tB), table(tA, tB)
+    assert torch.equal(got, want) and bool(torch.isfinite(got).all())
+    monkeypatch.undo()
+    full = load_frozen_distance(NETS[0], device="cpu", dtype="bfloat16", fused_gather="full")
+    assert full.packed is not None
