@@ -9,13 +9,16 @@ kernel at 64 points; streaming 3DmFV encode and patch-only gather at 256),
 served in bfloat16 (the fused gather + decoder kernel, fused_gather="full";
 the composed bf16 path, "auto") and through the per-query gather
 (fused_gather="on"), the frozen loss with its source gradient (table-gather
-kernels and the adjoint; "on"), DPDist training (table-gather kernel), and
-eval_pair on two 10,000-point clouds (encode, patch-only gather and the
-NN-min kernel).
+kernels and the adjoint; "on"; in bfloat16 with the bf16 adjoint), DPDist
+training (table-gather kernel; in float32 and bfloat16), eval_pair on two
+10,000-point clouds (encode, patch-only gather and the NN-min kernel), and
+the training CLIs: gen_data's ground truth on the card (the NN-min kernel)
+and train_dpdist on it.
 
   1. device        the card's name and power limit; fails without CUDA.
   2. build         compiles dpdist_tpu_torch/csrc (one nvcc per source,
-                   all started together, and one link).
+                   all started together, and one link) and, beside it, the
+                   native host library (g++, dpdist_tpu_torch/native).
   3. kernel        the fused 3DmFV + patch-gather kernel against its plain
                    PyTorch version at 2B = 512 clouds, M = N = 64, with
                    off-grid queries and points on cell edges (x within
@@ -109,6 +112,11 @@ NN-min kernel).
                    frozen_grad: per call 2 per-query gathers and 1 adjoint
                    launch (plus 2 encodes and one replay at 256); d/dpcA
                    against the table path's by the per-point criterion.
+ 17b. bf16_adjoint_kernel the adjoint on a bf16 grad at B = 256, N = 64
+                   (strided) and N = 256 (contiguous), off-grid and
+                   cell-edge queries: a bf16 dfv equal bit for bit to the
+                   ordered plain sum rounded, the same from run to run, and
+                   within one bf16 ulp of float64 sums.
  20. route_limits  configs past the fused kernels' limits, served from the
                    first np = 64 request (counters reset before, read
                    after): the committed decoder at embedding_size=1000
@@ -117,6 +125,34 @@ NN-min kernel).
                    forward), and a random bf16 "full" net with hidden widths
                    40 (2 table-gather launches); each against the plain
                    path (1e-4; bf16 2e-3). A ValueError fails the phase.
+ 20b. frozen_grad_bf16 per committed net in bfloat16 at np = 64 and 256:
+                   the frozen loss and d/dpcA on the golden pairs against
+                   the golden bf16_grad values (JAX bf16), three
+                   source-gradient calls of B = 256 (counters: np = 64 2
+                   table-gather and 1 bf16 adjoint launch a call; np = 256
+                   2 encodes, 2 patch-only gathers, 1 bf16 adjoint and one
+                   replay), against the port's plain bf16 path (loss within
+                   2e-3; d/dpcA within 1e-2 of its largest entry on 95 % of
+                   the points, 5e-2 on all, cosine >= 0.999); "mfv" and
+                   "on" once each at np = 64; "full" refused.
+ 20c. train_bf16   30 bf16 trainer steps at B = 16 (float32 master weights;
+                   one table-gather launch a step); the loss falls; one step
+                   against the plain bf16 path; a torch.profiler trace of a
+                   step (train/profiling.trace) with its top kernels.
+ 20d. gtgen_kernel the NN-min kernel as the ground-truth generator runs it
+                   (50,000 candidates x a 10,000-point surface, then a sqrt)
+                   against the native host library, and one model generated
+                   on the card against the CPU (row counts, the share of
+                   equal rows, every card row's distance vs the native one,
+                   every card row inside the selection rule by its native
+                   distance, and the first point where the two sets part
+                   a threshold flip).
+ 20e. train_cli    gen_data --device cuda (6 models at full size; NN-min
+                   launches only), train_dpdist for 2 epochs in float32 and
+                   in bfloat16 (counters: 1 table-gather launch a step, 1
+                   fused mfv launch an eval), --resume, and the checkpoint
+                   served by load_frozen_distance; the native library built
+                   on this host.
  21. times         CUDA-event medians of 20 runs after warm-up: each kernel
                    with its bound, its plain version and a PyTorch library
                    call computing the same function where there is one
@@ -145,7 +181,11 @@ NN-min kernel).
                    step at B = 256, np = 64, and the forward and the
                    source-gradient step at np = 256; the bf16 forwards
                    ("full", "auto") and the "on" forward at np = 64 and
-                   256; eval_pair at 10,000 points, end to end and per key.
+                   256; eval_pair at 10,000 points, end to end and per key;
+                   the adjoint's bf16 variant (bound, index_add_ in bf16)
+                   at N = 64 and 256; the NN-min kernel at the generator's
+                   50,000 x 10,000; the bf16 source-gradient step at np = 64
+                   and 256 and the bf16 train step at B = 16 and 256.
 
 Every phase prints a start and an end line. A wall-clock guard ends the
 run with a non-zero exit naming the phase. The last lines are the
@@ -239,6 +279,19 @@ TOL_FF = 2e-2
 # bf16-vs-f32 tolerance (tests/test_dpdist_model.py:37-56).
 TOL_BF16, TOL_BF16_VS_F32 = 2e-3, 0.03
 OFF_GRID_SHARE = 0.05    # queries pushed off the grid in the kernel checks
+# The bf16 gradient paths: the frozen loss against the golden bf16_grad
+# values (JAX bf16 on the CPU) and against the port's plain bf16 path on the
+# card, by the criterion of tests/test_torch_bf16_grad.py: the loss within
+# TOL_BF16_LOSS; d/dpcA within REL_BF16 of its largest entry on all but
+# OUTLIERS_BF16 of the points, within REL_BF16_FEW on every point, and a
+# cosine of at least MIN_COS_BF16.
+TOL_BF16_LOSS, REL_BF16, OUTLIERS_BF16, REL_BF16_FEW, MIN_COS_BF16 = 2e-3, 1e-2, 0.05, 5e-2, 0.999
+# The ground-truth generator's size (data/gtgen.py): one round of 50,000
+# candidates against a 10,000-point surface, and the files of train_cli's
+# dataset at full size (n_surface 10,000, 10^4 near and far points).
+GT_CANDIDATES, GT_SURFACE, GT_NEG = 50000, 10000, 10 ** 4
+GT_EPS, GT_MIN_EPS = 0.05, 0.001     # gtgen.generate_gt_for_points' defaults
+GT_TRAIN, GT_TEST, CLI_BATCH = 4, 2, 2
 
 _phase = "start"
 
@@ -307,24 +360,36 @@ def cuda_median_ms(fn, runs=TIMED_RUNS, warmup=3):
     return statistics.median(times)
 
 
-def device_ms(fn, match, calls=5):
-    """Mean device time (ms) per call of fn of the CUDA kernels whose name
-    holds `match` (or one of the names in a tuple), over `calls` calls under
-    torch.profiler."""
+def device_ms(fn, match, calls=5, sessions=6):
+    """Mean device time (ms) of one launch of the CUDA kernel whose name
+    holds `match` (or one of the names in a tuple), which fn launches once a
+    call, under torch.profiler. The mean runs over the records the profiler
+    kept, which may be fewer than the calls: it drops records of short
+    profiled runs (mostly the first; now and then all of them). Sessions of
+    `calls` calls repeat, up to `sessions`, until `calls` records are kept."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     matches = (match,) if isinstance(match, str) else match
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if any(m in e.key for m in matches))
-    check(us > 0, f"torch.profiler saw no device time of {match}")
-    return us / calls / 1e3
+    us = n = 0
+    for session in range(1, sessions + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        kept = [e for e in prof.key_averages() if any(m in e.key for m in matches)]
+        us += sum(e.self_device_time_total for e in kept)
+        n += sum(e.count for e in kept)
+        if n >= calls:
+            break
+    check(us > 0 and n >= 1, f"torch.profiler kept no launch of {match} in {session} "
+          f"sessions of {calls} calls")
+    if session > 1 or n < calls:
+        print(f"torch.profiler kept {n} records of {match} in {session} session(s) of "
+              f"{calls} calls", flush=True)
+    return us / n / 1e3
 
 
 def cuda_kernel_names(fn, calls):
@@ -454,9 +519,22 @@ def make_train_batch(rng, torch, dev):
     return np.concatenate([on_surface, near, far], axis=1), labels
 
 
-def reset_counters(*wrappers):
-    for w in wrappers:
-        w.launches = 0
+def reset_counters(counts):
+    """Zero each (wrapper, attribute) launch count."""
+    for wrapper, attr in counts:
+        setattr(wrapper, attr, 0)
+
+
+def close_bf16_grads(got, want, what):
+    """The bf16 criterion (see REL_BF16); returns (worst point, share above
+    REL_BF16, cosine)."""
+    err = (got - want).abs().amax(dim=-1).flatten() / float(want.abs().max())
+    cos = float((got * want).sum() / (got.norm() * want.norm()))
+    worst, share = float(err.max()), float((err > REL_BF16).float().mean())
+    check(worst <= REL_BF16_FEW and share <= OUTLIERS_BF16 and cos >= MIN_COS_BF16,
+          f"{what}: worst point {worst:.3e}, share above {REL_BF16}: {share:.3f}, "
+          f"cosine {cos:.6f}")
+    return worst, share, cos
 
 
 def neighbour_rows(torch, vox, n_cells):
@@ -501,7 +579,10 @@ def main() -> int:
 
         import dpdist_tpu_torch  # noqa: F401  (sets TF32 off)
         from dpdist_tpu_torch.cli import eval_pair
+        from dpdist_tpu_torch.cli import gen_data as gen_data_cli
+        from dpdist_tpu_torch.cli import train_dpdist as train_dpdist_cli
         from dpdist_tpu_torch.configs import DPDistConfig, TrainConfig
+        from dpdist_tpu_torch.data import gtgen
         from dpdist_tpu_torch.data.golden import golden_clouds, load_golden
         from dpdist_tpu_torch.data.synthetic import synthetic_surface
         from dpdist_tpu_torch.kernels import build
@@ -530,6 +611,7 @@ def main() -> int:
         from dpdist_tpu_torch.losses import make_frozen_dpdist_loss
         from dpdist_tpu_torch.models import apply_dpdist, init_dpdist
         from dpdist_tpu_torch.models.dpdist import route as route_of
+        from dpdist_tpu_torch.native import lib as native_lib
         from dpdist_tpu_torch.nn import mlp_apply
         from dpdist_tpu_torch.ops import (
             chamfer_distance,
@@ -557,11 +639,29 @@ def main() -> int:
         check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmul is on")
 
     with Phase("build"):
+        # The native host library (g++, for this host's CPU) builds beside nvcc.
         t0 = time.perf_counter()
+        native_done = {}
+
+        def build_native():
+            try:
+                native_done["path"] = native_lib.build()
+            except Exception as e:   # reported below, after nvcc
+                native_done["error"] = e
+            native_done["s"] = time.perf_counter() - t0
+
+        native_thread = threading.Thread(target=build_native)
+        native_thread.start()
         lib_path = build.build()
         build.library()
+        native_thread.join()
         print(f"built {lib_path.relative_to(ROOT)} in {time.perf_counter() - t0:.2f} s "
               f"(nvcc: {build.build_seconds} s; None = found built)", flush=True)
+        check("path" in native_done, f"native host library: {native_done.get('error')}")
+        native_path = native_done["path"]
+        check(native_lib.available(), "the native host library does not load")
+        print(f"native host library {native_path.relative_to(ROOT)} built in "
+              f"{native_done['s']:.2f} s (g++ {' '.join(native_lib.GXX_FLAGS)})", flush=True)
 
     def nn_plan(B, N, M):
         """The NN-min kernel's launch plan for these sizes on this card."""
@@ -723,20 +823,24 @@ def main() -> int:
                 check(abs(got - want) <= TOL_CHAMFER, "chamfer_distance: kernel vs plain path")
         del a_, p_, d, d_ref, a10, b10
 
-    counters = {"mfv_gather_x": mfv_x, "table_gather_x": table_gather_x,
-                "table_gather_bwd": table_gather_bwd, "threedmfv": threedmfv_kernel,
-                "table_gather": table_gather, "nn_min_sqdist": nn_min_sqdist,
-                "fused_forward": fused_forward, "gather_patches_fused": gather_patches_fused}
+    # name -> (wrapper, attribute of its launch count); row 3 counts its
+    # bfloat16 kernel apart from its float32 one.
+    counters = {name: (w, "launches") for name, w in (
+        ("mfv_gather_x", mfv_x), ("table_gather_x", table_gather_x),
+        ("table_gather_bwd", table_gather_bwd), ("threedmfv", threedmfv_kernel),
+        ("table_gather", table_gather), ("nn_min_sqdist", nn_min_sqdist),
+        ("fused_forward", fused_forward), ("gather_patches_fused", gather_patches_fused))}
+    counters["table_gather_bwd_bf16"] = (table_gather_bwd, "launches_bf16")
     launches = dict.fromkeys(counters, 0)
 
     def start_count():
-        reset_counters(*counters.values())
+        reset_counters(counters.values())
         threedmfv_kernel.replays = 0
 
     def read_count():
         """The launches since start_count, added to the run's main-path totals."""
         torch.cuda.synchronize()
-        launched = {k: w.launches for k, w in counters.items()}
+        launched = {k: getattr(w, attr) for k, (w, attr) in counters.items()}
         for k in launches:
             launches[k] += launched[k]
         return launched
@@ -1089,6 +1193,51 @@ def main() -> int:
             check(got.dtype == bf and int(off) == 0, f"{name_}: bf16 output off by > 1 ulp")
         del pairs
 
+    def edge_queries(r, B, N):
+        """Queries partly off the grid, 15 % of their coordinates on cell
+        edges (-1 and +1 included)."""
+        edges = (-1.0 + (2.0 / GRID) * np.arange(GRID + 1)).astype(np.float32)
+        qq = r.uniform(-1.2, 1.2, (B, N, 3)).astype(np.float32)
+        on_edge = r.random(qq.shape) < 0.15
+        qq[on_edge] = r.choice(edges, on_edge.sum())
+        return torch.as_tensor(qq, device=dev)
+
+    with Phase("bf16_adjoint_kernel"):
+        # Row 3 on a bf16 grad at the bf16 frozen loss's shapes: the strided
+        # patch part of a bf16 x's gradient at N = 64 (rows 2 and 1), a
+        # contiguous one at N = 256 (row 6).
+        bf = torch.bfloat16
+        r3 = np.random.default_rng(31)
+        err_bwd16 = 0.0
+        for n_q, strided in ((NP, True), (NP_LARGE, False)):
+            vox16 = voxel_assign(edge_queries(r3, B_SERVE, n_q), GRID)[0]
+            g16 = torch.as_tensor(r3.normal(size=(B_SERVE, n_q, 3 + K ** 3 * C)).astype(np.float32),
+                                  device=dev).to(bf)
+            g16 = g16[..., 3:] if strided else g16[..., 3:].contiguous()
+            dfv16 = table_gather_bwd(vox16, g16, GRID, K)
+            again16 = table_gather_bwd(vox16, g16, GRID, K)
+            torch.cuda.synchronize()
+            ordered16 = table_gather_bwd_ordered(vox16, g16, GRID, K)
+            exact = table_gather_bwd_plain(vox16, g16.double(), GRID, K)
+            rounded = exact.to(bf)
+            # One bf16 ulp of each exact value: a float32 sum rounded once.
+            ulp = torch.ldexp(torch.ones_like(exact), torch.frexp(rounded.double())[1] - 8)
+            off = int(((dfv16.double() - exact).abs() > ulp).sum())
+            err = float((dfv16.double() - exact).abs().max())
+            err_bwd16 = max(err_bwd16, float((dfv16.float() - table_gather_bwd_plain(
+                vox16, g16, GRID, K).float()).abs().max()))
+            print(f"table_gather_bwd bf16 at B={B_SERVE}, N={n_q} ({'strided' if strided else 'contiguous'} "
+                  f"grad, {int((vox16 == 0).sum())} queries in cell 0): equal to the ordered plain sum "
+                  f"{bool(torch.equal(dfv16, ordered16))}, run to run {bool(torch.equal(dfv16, again16))}; "
+                  f"vs float64 sums max |d| = {err:.3e}, entries beyond one bf16 ulp {off}; "
+                  f"equal to the float64 sums rounded: {float((dfv16 == rounded).float().mean()):.4f}",
+                  flush=True)
+            check(dfv16.dtype == bf and torch.equal(dfv16, ordered16),
+                  f"table_gather_bwd bf16 at N={n_q} differs from the ordered plain sum")
+            check(torch.equal(dfv16, again16), f"table_gather_bwd bf16 at N={n_q}: run to run")
+            check(off == 0, f"table_gather_bwd bf16 at N={n_q}: {off} entries beyond one ulp")
+        del dfv16, again16, ordered16, exact, rounded, g16
+
     def serve_bf16(reqs, n_key, clouds, want):
         """Per committed net, "full" and "auto" in bf16: the requests,
         counted; the golden pairs against the JAX bf16 and float32 values;
@@ -1216,6 +1365,258 @@ def main() -> int:
             check(d.shape == (B_SERVE,) and bool(torch.isfinite(d).all()), f"{what}: output")
             check(err <= tol, f"{what}: kernel path vs plain path {err}")
         del model, plain, params40
+
+    def frozen_grad_bf16(reqs, n_key, clouds, want, replays):
+        """Per committed net in bf16: the frozen loss and d/dpcA on the
+        golden pairs against JAX's bf16 values; source-gradient calls on the
+        requests, counted, against the port's plain bf16 path; at np = 64
+        "mfv" and "on" once each; "full" refused; the parameters unchanged
+        and without .grad."""
+        gold = golden["bf16_grad"][n_key]
+        rows = gold["grad_pairs"]
+        for net in NETS:
+            cfg, np_params = load_dpdist_checkpoint(str(ROOT / net))
+            cfg = cfg.replace(dtype="bfloat16")
+            params = params_from_jax(np_params, dev)
+            leaves = [t.requires_grad_(True) for lp in params["decoder"]["layers"]
+                      for t in lp.values()]
+            before = [t.detach().clone() for t in leaves]
+            loss_fn = make_frozen_dpdist_loss(params, cfg,
+                                              out_of_grid_penalty=gold["out_of_grid_penalty"])
+            value, g = src_grad(loss_fn, *clouds)
+            err_value = abs(float(value) - gold[net]["value"])
+            worst, share, cos = close_bf16_grads(
+                g[rows], torch.as_tensor(gold[net]["grad_pcA"], device=dev),
+                f"{net}: golden bf16 d/dpcA")
+            print(f"{net} bf16: golden frozen loss at {n_key} |d| = {err_value:.3e} (tol "
+                  f"{TOL_BF16_LOSS}); d/dpcA worst point {worst:.3e} of max, share above "
+                  f"{REL_BF16} {share:.3f}, cosine {cos:.6f}", flush=True)
+            check(err_value <= TOL_BF16_LOSS, f"{net}: golden bf16 frozen loss off by {err_value}")
+            start_count()
+            outs = [src_grad(loss_fn, a, b) for a, b in reqs]
+            launched = read_count()
+            print(f"{net} bf16: {REQUESTS} source-gradient calls of {B_SERVE} pairs at {n_key}, "
+                  f"kernel launches {launched}, encode replays {threedmfv_kernel.replays}",
+                  flush=True)
+            check(launched == want, f"{net} bf16: unexpected launches")
+            check(threedmfv_kernel.replays == replays, f"{net} bf16: unexpected encode replays")
+            plain = make_frozen_dpdist_loss(params, cfg.replace(fused_gather="off"))
+            for (v, g), (a, b) in zip(outs, reqs):
+                check(bool(torch.isfinite(g).all()), "bf16: non-finite gradient")
+                v_ref, g_ref = src_grad(plain, a, b)
+                d = abs(float(v - v_ref))
+                worst, share, cos = close_bf16_grads(g, g_ref, f"{net}: bf16 table vs off path")
+                check(d <= TOL_BF16_LOSS, f"{net}: bf16 loss, table vs off path: {d}")
+            print(f"{net} bf16 table path vs off path: loss |d| = {d:.3e}, d/dpcA worst point "
+                  f"{worst:.3e} of max, share above {REL_BF16} {share:.3f}, cosine {cos:.6f} "
+                  f"(last request)", flush=True)
+            a, b = reqs[0]
+            v_ref, g_ref = src_grad(plain, a, b)
+            for mode in (("mfv", "on") if n_key == "np64" else ()):
+                other = make_frozen_dpdist_loss(params, cfg.replace(fused_gather=mode))
+                v, g = src_grad(other, a, b)
+                worst, share, cos = close_bf16_grads(g, g_ref, f"{net}: bf16 {mode} vs off path")
+                d = abs(float(v - v_ref))
+                check(d <= TOL_BF16_LOSS, f"{net}: bf16 loss, {mode} vs off path: {d}")
+                print(f"{net} bf16 {mode} path vs off path: loss |d| = {d:.3e}, d/dpcA worst "
+                      f"point {worst:.3e} of max, cosine {cos:.6f}", flush=True)
+            full = make_frozen_dpdist_loss(params, cfg.replace(fused_gather="full"))
+            try:
+                src_grad(full, a, b)
+                refused = False
+            except NotImplementedError as e:
+                refused = "refuses" in str(e)
+            check(refused, f"{net}: bf16 full under autograd was not refused")
+            check(all(t.grad is None for t in leaves), f"{net}: a parameter received .grad")
+            check(all(torch.equal(t, b_) for t, b_ in zip(leaves, before)),
+                  f"{net}: a parameter changed")
+
+    with Phase("frozen_grad_bf16"):
+        frozen_grad_bf16(requests, "np64", (gA, gB),
+                         expected(table_gather_x=2 * REQUESTS, table_gather_bwd_bf16=REQUESTS), 0)
+        frozen_grad_bf16(requests_large, "np256", (gA_large, gB_large),
+                         expected(threedmfv=2 * REQUESTS, table_gather=2 * REQUESTS,
+                                  table_gather_bwd_bf16=REQUESTS), REQUESTS)
+
+    with Phase("train_bf16"), tempfile.TemporaryDirectory() as tmp:
+        mcfg16 = DPDistConfig(dtype="bfloat16")
+        trainer16 = DPDistTrainer(mcfg16, tcfg, run_dir=os.path.join(tmp, "run"), device=dev,
+                                  logger=RunLogger(os.path.join(tmp, "run"), echo=False))
+        start_count()
+        losses16 = [trainer16.train_step(data, labels)["loss"] for _ in range(TRAIN_STEPS)]
+        launched = read_count()
+        losses16 = torch.stack(losses16).cpu().numpy()
+        print(f"train bf16: {TRAIN_STEPS} steps at B={B_TRAIN}, kernel launches {launched}; loss "
+              f"{losses16[0]:.5f} -> {losses16[-1]:.5f} (first 5 mean {losses16[:5].mean():.5f}, "
+              f"last 5 mean {losses16[-5:].mean():.5f})", flush=True)
+        check(launched == expected(table_gather_x=TRAIN_STEPS), "train bf16: unexpected launches")
+        check(bool(np.isfinite(losses16).all()), "train bf16: non-finite loss")
+        check(losses16[-5:].mean() < losses16[:5].mean(), "train bf16: the loss did not fall")
+        check(all(t.dtype == torch.float32 for lp in trainer16.params["decoder"]["layers"]
+                  for t in lp.values()), "train bf16: the master weights are not float32")
+        # One step on the kernel path against the plain bf16 path, same params.
+        batch16 = trainer16.make_batch(data, labels)
+        plain16 = DPDistTrainer(mcfg16.replace(fused_gather="off"), tcfg,
+                                run_dir=os.path.join(tmp, "off"), device=dev,
+                                logger=RunLogger(os.path.join(tmp, "off"), echo=False))
+        plain16._set_params(trainer16.params)
+        (l_k, g_k), (l_p, g_p) = (t.loss_and_grads(*batch16) for t in (trainer16, plain16))
+        err_g = max(float((a - b).abs().max()) / float(b.abs().max()) for a, b in zip(g_k, g_p))
+        print(f"train bf16 step, kernel path vs plain path: loss |d| = {float(l_k - l_p):.3e}, "
+              f"grads worst {err_g:.3e} of max", flush=True)
+        check(abs(float(l_k - l_p)) <= TOL_BF16_LOSS and err_g <= 2e-2,
+              "train bf16 step: kernel path and plain path disagree")
+        # The first profile of a whole train step (train/profiling.py).
+        from dpdist_tpu_torch.train.profiling import trace
+
+        with trace(os.path.join(tmp, "trace")) as prof:
+            trainer16.train_step(data, labels)
+        top = sorted((e for e in prof.key_averages() if e.self_device_time_total > 0),
+                     key=lambda e: -e.self_device_time_total)[:6]
+        check(os.path.isfile(os.path.join(tmp, "trace", "trace.json")), "trace.json missing")
+        print("train bf16 step, torch.profiler device time by kernel: " + "; ".join(
+            f"{e.key[:48]} {e.self_device_time_total:.1f} us" for e in top) + f"; on {card}",
+              flush=True)
+        del trainer16, plain16, batch16
+
+    with Phase("gtgen_kernel"):
+        # Row 8 as the ground-truth generator calls it: one round of
+        # candidates against a dense surface, then a square root; against
+        # the native host library.
+        rg = np.random.default_rng(41)
+        gt_surface = (synthetic_surface("chair", seed=41, n_points=GT_SURFACE) * 0.8).astype(np.float32)
+        gt_cand = np.ascontiguousarray(gtgen.uniform_sampling(rg, GT_CANDIDATES), np.float32)
+        d_card = gtgen.min_distances(gt_cand, gt_surface, device=dev)
+        t0 = time.perf_counter()
+        d_native = native_lib.min_distances_native(gt_cand, gt_surface)
+        native_s = time.perf_counter() - t0
+        # Row 8's tolerance on the squares, taken through the square root.
+        gt_bound = (TOL_NN_ABS + TOL_NN_REL * d_native ** 2) / np.maximum(d_card + d_native, 1e-3)
+        gt_bad = int((np.abs(d_card - d_native) > gt_bound + 1e-7).sum())
+        print(f"gtgen min_distances on the card ({GT_CANDIDATES} x {GT_SURFACE}) vs the native "
+              f"library: max |d| = {float(np.abs(d_card - d_native).max()):.3e}, outside row 8's "
+              f"tolerance {gt_bad}, bit-equal share {float(np.mean(d_card == d_native)):.4f}; "
+              f"native {native_s * 1e3:.1f} ms on {os.cpu_count()} host cores", flush=True)
+        check(gt_bad == 0, f"gtgen min_distances: {gt_bad} distances outside tolerance")
+        # One model generated on the card and on the CPU from one seed.
+        dense = synthetic_surface("box", seed=42, n_points=GT_SURFACE)
+        t0 = time.perf_counter()
+        s_c, near_c, far_c = gtgen.generate_gt_for_points(
+            dense, num_neg_points=GT_NEG, rng=np.random.default_rng(43), device=dev)
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        s_h, near_h, far_h = gtgen.generate_gt_for_points(
+            dense, num_neg_points=GT_NEG, rng=np.random.default_rng(43), device="cpu")
+        host_s = time.perf_counter() - t0
+        same = {k_: float(np.mean(np.all(x == y, axis=1))) for k_, x, y in
+                (("near", near_c, near_h), ("far", far_c, far_h))}
+        check(np.array_equal(s_c, s_h) and near_c.shape == near_h.shape == (GT_NEG, 4)
+              and far_c.shape == far_h.shape == (GT_NEG, 4), "gtgen: row counts differ")
+        # Every row's distance on the card against the native distance of its point.
+        redo = native_lib.min_distances_native(np.concatenate([near_c, far_c])[:, :3], s_c)
+        d_rows = np.concatenate([near_c, far_c])[:, 3]
+        tol_rows = (TOL_NN_ABS + TOL_NN_REL * redo ** 2) / np.maximum(d_rows + redo, 1e-3) + 1e-7
+        row_bad = int((np.abs(d_rows - redo) > tol_rows).sum())
+        # Each card row obeys the selection rule by its native distance, up
+        # to row 8's tolerance: near rows min_eps < d < 2 eps, far rows
+        # d > 2 eps, the far set's last 10 % cube points outside the unit sphere.
+        n_out = GT_NEG // 10
+        dn_near, dn_far = redo[:GT_NEG], redo[GT_NEG:GT_NEG + GT_NEG - n_out]
+        t_near, t_far = tol_rows[:GT_NEG], tol_rows[GT_NEG:GT_NEG + GT_NEG - n_out]
+        rule_bad = int(((dn_near <= GT_MIN_EPS - t_near) | (dn_near >= 2 * GT_EPS + t_near)).sum()
+                       + (dn_far <= 2 * GT_EPS - t_far).sum()
+                       + (np.linalg.norm(far_c[-n_out:, :3], axis=1) <= 1).sum())
+
+        def first_difference(card_rows, host_rows):
+            """The first row whose point differs between the card's set and
+            the host's, and whether a threshold flip explains it: one of the
+            two points has its card and native distances on either side of
+            a threshold, so the two runs judged it differently (a row drawn
+            in another order would not be one). (None, True) if all agree."""
+            diff = np.flatnonzero(np.any(card_rows[:, :3] != host_rows[:, :3], axis=1))
+            if not len(diff):
+                return None, True
+            i0 = int(diff[0])
+            pts = np.stack([card_rows[i0, :3], host_rows[i0, :3]])
+            dc = gtgen.min_distances(pts, s_c, device=dev)
+            dn = native_lib.min_distances_native(pts, s_c)
+            return i0, any(bool(np.any((dc - t) * (dn - t) <= 0)) for t in (GT_MIN_EPS, 2 * GT_EPS))
+
+        near_i0, near_flip = first_difference(near_c, near_h)
+        far_i0, far_flip = first_difference(far_c[:-n_out], far_h[:-n_out])
+        print(f"gtgen model on the card vs the CPU: rows near {len(near_c)} / {len(near_h)}, far "
+              f"{len(far_c)} / {len(far_h)}; share of equal rows near {same['near']:.4f}, far "
+              f"{same['far']:.4f}; first differing point near {near_i0} (threshold flip "
+              f"{near_flip}), far {far_i0} (threshold flip {far_flip}); card rows whose distance "
+              f"is off the native one: {row_bad}, outside the selection rule: {rule_bad}; "
+              f"{card_s:.2f} s on the card, {host_s:.2f} s on the host", flush=True)
+        check(row_bad == 0, f"gtgen: {row_bad} rows with a wrong distance")
+        check(rule_bad == 0, f"gtgen: {rule_bad} rows outside the selection rule")
+        check(near_flip and far_flip, "gtgen: the card's rows part from the host's at a point "
+              "that no threshold flip explains")
+
+    with Phase("train_cli"), tempfile.TemporaryDirectory() as tmp:
+        # gen_data on the card, then train_dpdist for 2 epochs in float32 and
+        # in bfloat16, then --resume, then the checkpoint served.
+        check(native_lib.available() and native_path.is_file(),
+              "the native host library is not built on this host")
+        root = os.path.join(tmp, "data")
+        gen_args = ["--out", root, "--families", "chair", "box", "--n_train", str(GT_TRAIN // 2),
+                    "--n_test", str(GT_TEST // 2), "--n_surface", str(GT_SURFACE),
+                    "--num_neg_points", str(GT_NEG), "--device", "cuda"]
+        start_count()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            gen_data_cli.main(gen_args)
+        gen_s = time.perf_counter() - t0
+        launched = read_count()
+        n_models = GT_TRAIN + GT_TEST
+        print(f"gen_data --device cuda: {n_models} models at n_surface {GT_SURFACE}, "
+              f"{GT_NEG} near and far points, in {gen_s:.2f} s; kernel launches "
+              f"{ {k_: v for k_, v in launched.items() if v} }", flush=True)
+        check(launched["nn_min_sqdist"] >= 2 * n_models
+              and sum(launched.values()) == launched["nn_min_sqdist"], "gen_data: launches")
+        steps = GT_TRAIN // CLI_BATCH
+        for dtype in ("float32", "bfloat16"):
+            log_dir = os.path.join(tmp, dtype)
+            args = ["--data_root", root, "--category", "all", "--log_dir", log_dir,
+                    "--batch_size", str(CLI_BATCH), "--eval_every", "1", "--dtype", dtype,
+                    "--device", "cuda"]
+            start_count()
+            with contextlib.redirect_stdout(io.StringIO()):
+                t0 = time.perf_counter()
+                cli_trainer = train_dpdist_cli.main(args + ["--max_epoch", "2"])
+                torch.cuda.synchronize()
+                train_s = time.perf_counter() - t0
+            launched = read_count()
+            metrics = [json.loads(line) for line in open(os.path.join(log_dir, "metrics.jsonl"))]
+            train_losses = [m["train_loss"] for m in metrics if "train_loss" in m]
+            eval_losses = [m["eval_loss"] for m in metrics if "eval_loss" in m]
+            print(f"train_dpdist {dtype}: 2 epochs of {steps} steps at B={CLI_BATCH} in "
+                  f"{train_s:.2f} s, train loss {train_losses}, eval loss {eval_losses}; kernel "
+                  f"launches { {k_: v for k_, v in launched.items() if v} }", flush=True)
+            check(cli_trainer.global_step == 2 * steps and len(train_losses) == 2
+                  and bool(np.isfinite(train_losses + eval_losses).all()),
+                  f"train_dpdist {dtype}: steps or losses")
+            check(launched == expected(table_gather_x=2 * steps, mfv_gather_x=2),
+                  f"train_dpdist {dtype}: unexpected launches")
+            with contextlib.redirect_stdout(io.StringIO()):
+                resumed = train_dpdist_cli.main(args + ["--resume", "--max_epoch", "1"])
+            check(resumed.global_step == 3 * steps, f"train_dpdist {dtype} --resume: step "
+                  f"{resumed.global_step}")
+            from dpdist_tpu_torch.train import latest_checkpoint
+
+            ckpt = latest_checkpoint(log_dir)
+            served = load_frozen_distance(ckpt, device=dev)
+            with torch.no_grad():
+                d = served(*requests[0])
+            print(f"train_dpdist {dtype} --resume: step {resumed.global_step}; {os.path.basename(ckpt)}"
+                  f" served by load_frozen_distance ({served.cfg.dtype}): distances "
+                  f"{float(d.min()):.4f}..{float(d.max()):.4f}", flush=True)
+            check(served.cfg.dtype == dtype and d.shape == (B_SERVE,)
+                  and bool(torch.isfinite(d).all()) and float(d.min()) >= 0.0
+                  and float(d.max()) <= 2.0, f"train_dpdist {dtype}: the checkpoint's distances")
+        del cli_trainer, resumed, served
 
     with Phase("times"):
         records = []
@@ -1351,6 +1752,39 @@ def main() -> int:
                             "covers": ["dpdist_tpu/kernels/table_gather_pallas.py:379",
                                        "dpdist_tpu/kernels/table_gather_pallas.py:425"]})
 
+            # Row 3's bf16 variant on the same queries and the same grad in
+            # bf16, strided as a bf16 x's gradient hands it.
+            grad_patch16 = grad_rows.to(bf)[..., 3:]
+            src_rows16 = grad_patch16.reshape(-1, C).contiguous()
+            sink16 = torch.zeros(B * (V + 1), C, dtype=bf, device=dev)
+            dfv16 = table_gather_bwd(vox, grad_patch16, GRID, K)
+            check(torch.equal(dfv16, table_gather_bwd_ordered(vox, grad_patch16, GRID, K)),
+                  "table_gather_bwd bf16 differs from the ordered plain sum on the timed inputs")
+            lib16 = sink16.zero_().index_add_(0, rows_idx, src_rows16).view(B, V + 1, C)[:, :V]
+            err_lib16 = float((lib16.float() - dfv16.float()).abs().max())
+            ms16 = cuda_median_ms(lambda: table_gather_bwd(vox, grad_patch16, GRID, K))
+            plain16_ms = cuda_median_ms(lambda: table_gather_bwd_plain(vox, grad_patch16, GRID, K))
+            # index_add_ in bf16 (one library call; it sums in bf16 where the
+            # kernel sums in float32, up to err_lib16 apart).
+            lib16_ms = cuda_median_ms(lambda: sink16.zero_().index_add_(0, rows_idx, src_rows16))
+            # The bf16 grad entries of in-grid windows and vox in, the bf16
+            # dfv out; one float32 add per such entry.
+            b16, b16_by = bound(2 * adds + 4 * B * N + 2 * B * V * C, adds)
+            dev16 = device_ms(lambda: table_gather_bwd(vox, grad_patch16, GRID, K),
+                              "table_gather_bwd_kernel<__nv_bfloat16")
+            records.append({"name": "table_gather_bwd_bf16", "route": "cuda",
+                            "source": "dpdist_tpu_torch/csrc/table_gather.cu",
+                            "replaces": "dpdist_tpu/kernels/table_gather_pallas.py:237",
+                            "launches": launches["table_gather_bwd_bf16"],
+                            "max_abs_err": err_bwd16, "ms": ms16, "plain_ms": plain16_ms,
+                            "bound_ms": b16, "bound_by": b16_by, "library_ms": lib16_ms,
+                            "device_ms": dev16, "library_max_abs_diff": err_lib16})
+            print(f"table_gather_bwd bf16 at B={B}, N={N}: {ms16:.4f} ms, {dev16:.4f} ms on the "
+                  f"device; bound {b16:.4f} ms = {b16 / ms16:.1%} / {b16 / dev16:.1%} of bound; "
+                  f"index_add_ (bf16) {lib16_ms:.4f} ms, max |d| {err_lib16:.3e} from the kernel; "
+                  f"on {card}", flush=True)
+            del sink16, src_rows16, lib16, dfv16
+
             # Rows 7 and 6 on the np = 256 path's inputs: pcA of the first
             # large request is encoded, and pcB queries that surface.
             aL, bL = requests_large[0]
@@ -1435,7 +1869,20 @@ def main() -> int:
                   f"{errL:.3e} from float64 sums (tol {tolL:.3e}), equal to the ordered plain "
                   f"sum; on {card}",
                   flush=True)
-            del fv_pad6, reached6, rows6, gradL, srcL, sinkL, dfvL
+            del fv_pad6, reached6, rows6, srcL, sinkL, dfvL
+
+            # Row 3 bf16 at N = 256 (row 6's contiguous bf16 grad).
+            gradL16 = gradL.to(bf)
+            msL16 = cuda_median_ms(lambda: table_gather_bwd(voxL, gradL16, GRID, K))
+            devL16 = device_ms(lambda: table_gather_bwd(voxL, gradL16, GRID, K),
+                               "table_gather_bwd_kernel<__nv_bfloat16")
+            bnd_L16, _ = bound(2 * addsL + 4 * B * NL + 2 * B * V * C, addsL)
+            next(r for r in records if r["name"] == "table_gather_bwd_bf16")[f"n{NL}"] = {
+                "ms": msL16, "device_ms": devL16, "bound_ms": bnd_L16}
+            print(f"table_gather_bwd bf16 at B={B}, N={NL}: {msL16:.4f} ms, {devL16:.4f} ms on "
+                  f"the device; bound {bnd_L16:.4f} ms = {bnd_L16 / msL16:.1%} / "
+                  f"{bnd_L16 / devL16:.1%} of bound; on {card}", flush=True)
+            del gradL16, gradL
 
             # Row 8 on eval_pair's clouds, one direction.
             NE = eA.shape[1]
@@ -1480,6 +1927,22 @@ def main() -> int:
                   f"the two-kernel design before it read 0.0452 / 0.0448 ms (PERF.md); "
                   f"cdist {lib_ms:.4f} ms; on {card}", flush=True)
             del lib_nn, d_nn
+            # Row 8 as the ground-truth generator runs it: 50,000 candidates
+            # against a 10,000-point surface.
+            ga, gp = (torch.as_tensor(x_[None], device=dev) for x_ in (gt_cand, gt_surface))
+            ms_gt = cuda_median_ms(lambda: nn_min_sqdist(ga, gp))
+            dev_gt = device_ms(lambda: nn_min_sqdist(ga, gp), "nn_min_kernel")
+            b_gt, _ = bound(4 * (GT_CANDIDATES * 3 + GT_SURFACE * 3 + GT_CANDIDATES),
+                            NN_OPS_PER_PAIR * GT_CANDIDATES * GT_SURFACE)
+            next(r for r in records if r["name"] == "nn_min_sqdist")["gtgen_N50000_M10000"] = {
+                "ms": ms_gt, "device_ms": dev_gt, "bound_ms": b_gt,
+                "issue_floor_ms": issue_floor_ms(GT_CANDIDATES * GT_SURFACE),
+                "native_host_ms": native_s * 1e3}
+            print(f"nn_min_sqdist at N={GT_CANDIDATES}, M={GT_SURFACE} (gtgen): {ms_gt:.4f} ms, "
+                  f"{dev_gt:.4f} ms on the device ({nn_plan(1, GT_CANDIDATES, GT_SURFACE)}); bound "
+                  f"{b_gt:.4f} ms; issue-slot floor {issue_floor_ms(GT_CANDIDATES * GT_SURFACE):.4f}"
+                  f" ms; the native host library {native_s * 1e3:.1f} ms; on {card}", flush=True)
+            del ga, gp
             # The NN-min at the other shapes of its checks: eval and device times.
             for B_, N_, M_ in ((2, 1000, 4099), (256, 64, 64)):
                 a_, p_ = (torch.as_tensor(np.random.default_rng(N_).uniform(
@@ -1656,10 +2119,33 @@ def main() -> int:
         print(f"train step (table path, Adam) at B={B_SERVE} pairs: {step_ms:.4f} ms, "
               f"{B_SERVE / step_ms * 1e3:.1f} pairs/s; on {card}", flush=True)
 
+        # The bf16 train step (f32 master weights, bf16 decoder), at B = 16
+        # (the train phases' batch) and at B = 256.
+        with tempfile.TemporaryDirectory() as tmp16:
+            t16 = DPDistTrainer(DPDistConfig(dtype="bfloat16"), tcfg, run_dir=tmp16, device=dev,
+                                logger=RunLogger(tmp16, echo=False))
+            for batch_ in (t16.make_batch(data, labels)[:3], (a, b, labels_t)):
+                def step16():
+                    _, grads16 = t16.loss_and_grads(*batch_)
+                    t16.opt_state = t16.optimizer.step(t16.params, grads16, t16.opt_state)
+
+                ms_ = cuda_median_ms(step16)
+                n_ = batch_[0].shape[0]
+                print(f"train step bf16 (table path, Adam) at B={n_} pairs: {ms_:.4f} ms, "
+                      f"{n_ / ms_ * 1e3:.1f} pairs/s; on {card}", flush=True)
+            del t16
+
         with torch.no_grad():
             fwd_ms = cuda_median_ms(lambda: fwd_model_large(aL, bL))
         print(f"forward (encode + patch-only gather path) at B={B_SERVE} pairs, np={NL}: "
               f"{fwd_ms:.4f} ms, {B_SERVE / fwd_ms * 1e3:.1f} pairs/s; on {card}", flush=True)
+        for reqs in (requests, requests_large):
+            a_, b_ = reqs[0]
+            loss16 = make_frozen_dpdist_loss(params, cfg.replace(dtype="bfloat16"))
+            step_ms = cuda_median_ms(lambda: src_grad(loss16, a_, b_))
+            print(f"frozen source-gradient step bf16 (table path, row 3 bf16) at B={B_SERVE} "
+                  f"pairs, np={a_.shape[1]}: {step_ms:.4f} ms, {B_SERVE / step_ms * 1e3:.1f} "
+                  f"pairs/s; on {card}", flush=True)
         loss_fn = make_frozen_dpdist_loss(params, cfg)
         step_ms = cuda_median_ms(lambda: src_grad(loss_fn, aL, bL))
         print(f"frozen source-gradient step at B={B_SERVE} pairs, np={NL}: {step_ms:.4f} ms, "

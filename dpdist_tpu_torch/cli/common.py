@@ -1,0 +1,101 @@
+"""Shared CLI flags (port of dpdist_tpu/cli/common.py): the same flags and
+defaults, plus --device, which takes the place of the reference's
+DPDIST_PLATFORM hook (dpdist_tpu/cli/__init__.py, a JAX platform switch).
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from dpdist_tpu_torch.configs import DPDistConfig, TrainConfig
+
+
+def add_device_arg(p: argparse.ArgumentParser):
+    p.add_argument("--device", default="cuda",
+                   help="torch device the entry point runs on (cuda, or cpu for the plain "
+                        "PyTorch path); without a card, cuda raises")
+
+
+def add_dpdist_model_args(p: argparse.ArgumentParser):
+    """Flags mirroring train_multi_gpu_pc_compare_dist.py:41-69."""
+    p.add_argument("--num_point", type=int, default=64)
+    p.add_argument("--embedding_size", type=int, default=8 ** 3)
+    p.add_argument("--sigma3dmfv", type=float, default=2.0,
+                   help="sigma = this * 0.0625 (reference :103)")
+    p.add_argument("--K", type=int, default=5)
+    p.add_argument("--encoder", default="3dmfv", choices=["3dmfv", "pointnet"])
+    p.add_argument("--full_fv", default="full", choices=["full", "small"])
+    p.add_argument("--implicit_net_type", type=int, default=1, choices=[1, 3])
+    p.add_argument("--BN", type=int, default=0)
+    p.add_argument("--mlp", type=int, nargs="+", default=[1024, 1024, 1024])
+    p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
+                   help="decoder and patch compute dtype (bfloat16 halves the decoder "
+                        "input's bytes; the 3DmFV math stays float32)")
+
+
+def dpdist_config_from_args(a) -> DPDistConfig:
+    return DPDistConfig(
+        num_point=a.num_point,
+        embedding_size=a.embedding_size,
+        sigma=a.sigma3dmfv * 0.0625,
+        full_fv=(a.full_fv == "full"),
+        k=a.K,
+        mlp=tuple(a.mlp),
+        conv_version=a.implicit_net_type,
+        encoder=a.encoder,
+        use_bn=bool(a.BN),
+        dtype=a.dtype,
+    )
+
+
+def add_train_args(p: argparse.ArgumentParser):
+    p.add_argument("--batch_size", type=int, default=16)
+    p.add_argument("--learning_rate", type=float, default=1e-4)
+    p.add_argument("--decay_step", type=int, default=300 * 512)
+    p.add_argument("--decay_rate", type=float, default=0.5)
+    p.add_argument("--optimizer", default="adam", choices=["adam", "momentum"])
+    p.add_argument("--momentum", type=float, default=0.9)
+    p.add_argument("--weight_decay", type=float, default=0.0)
+    p.add_argument("--grad_clip", type=float, default=0.0,
+                   help="global-norm gradient clipping (0 = off)")
+    p.add_argument("--max_epoch", type=int, default=201)
+    p.add_argument("--add_noise", type=float, default=0.0)
+    p.add_argument("--encoder_occlusion", type=float, default=0.0,
+                   help="occlusion fraction applied to the ENCODER's conditioning cloud "
+                        "(labels stay vs the true surface); trains an occlusion-robust "
+                        "distance")
+    p.add_argument("--encoder_occlusion_prob", type=float, default=0.0,
+                   help="per-item probability of encoder occlusion")
+    p.add_argument("--no_augment", action="store_true")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--data_parallel", type=int, default=0,
+                   help="devices on the data axis: 0 or 1, one device (data-parallel "
+                        "training is not ported yet)")
+
+
+def train_config_from_args(a) -> TrainConfig:
+    return TrainConfig(
+        batch_size=a.batch_size,
+        learning_rate=a.learning_rate,
+        decay_step=a.decay_step,
+        decay_rate=a.decay_rate,
+        optimizer=a.optimizer,
+        momentum=a.momentum,
+        weight_decay=a.weight_decay,
+        grad_clip=getattr(a, "grad_clip", 0.0),
+        max_epoch=a.max_epoch,
+        add_noise=a.add_noise,
+        encoder_occlusion=getattr(a, "encoder_occlusion", 0.0),
+        encoder_occlusion_prob=getattr(a, "encoder_occlusion_prob", 0.0),
+        augment=not a.no_augment,
+        seed=a.seed,
+    )
+
+
+def check_data_parallel(a) -> None:
+    """The port trains on one device: --data_parallel other than 0 or 1
+    raises (ROADMAP.md §1 item 9, parallelism)."""
+    if a.data_parallel not in (0, 1):
+        raise NotImplementedError(
+            f"--data_parallel {a.data_parallel}: data-parallel training is not ported yet "
+            "(ROADMAP.md §1 item 9, parallelism); use 0 or 1")

@@ -98,8 +98,8 @@ class TrainConfig(_JsonMixin):
     loss_type: str = "l1_dist"
     augment: bool = True
     add_noise: float = 0.0        # stddev of Gaussian noise on the encoder's copy of pcA
-    encoder_occlusion: float = 0.0        # fraction of points removed (not ported yet)
-    encoder_occlusion_prob: float = 0.0   # per-item probability (not ported yet)
+    encoder_occlusion: float = 0.0        # fraction of points removed from the encoder's pcA
+    encoder_occlusion_prob: float = 0.0   # per-item probability of encoder occlusion
     seed: int = 0
     log_every: int = 10
     checkpoint_every_epochs: int = 10

@@ -85,6 +85,12 @@
 //   reads (about 150 MB at B = 256, N = 64: 0.048 ms at 3.35 TB/s). Up to
 //   64 KB of runs are in flight per block, three blocks per SM, against
 //   the one dependent load per add of a shared-memory scatter.
+// The adjoint takes a float32 or a bfloat16 grad and writes dfv in the same
+// type, as the reference's table_gather_bwd(dtype=) does
+// (table_gather_pallas.py:159-256): the bfloat16 variant reads the bf16 grad
+// (half the bytes), sums each slot in float32 registers in query order as
+// the float32 one does, and rounds each dfv value once to nearest even. One
+// kernel, templated on the two types.
 //
 // Plain C interface for ctypes; no PyTorch headers. Built with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC
@@ -145,6 +151,9 @@ constexpr int kBwdMaxThreads = 256;  // 256 * 5 = 1,280 = a slab's slots at g = 
 constexpr int kBwdStages = 4;        // stages of the ring of grad runs
 constexpr int kBwdMaxPerStage = 8;   // queries' runs per stage
 
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+
 // Block (b, slab): dfv[b, slab * g^2 + cell, c] for the slab's g^2 cells.
 // Slot s = cell * C + c; a thread owns slots tid + j * blockDim.x. For a
 // query in voxel (vx, vy, vz) whose window meets the slab at di = slab -
@@ -153,28 +162,30 @@ constexpr int kBwdMaxPerStage = 8;   // queries' runs per stage
 // k/2, dl = nz - vz + k/2 when both lie in [0, k). The listed queries' runs
 // stream through a ring of kBwdStages stages of `per_stage` runs in shared
 // memory, each run brought by one bulk copy of its 16-byte-aligned span
-// (`slot_floats` floats a run: k^2 * C and up to 3 before it, rounded up),
-// a stage complete on its mbarrier; one barrier per stage frees it for the
-// stage kBwdStages on.
+// (`slot` elements of TG a run: k^2 * C and up to 16 bytes before it,
+// rounded up to 16 bytes), a stage complete on its mbarrier; one barrier
+// per stage frees it for the stage kBwdStages on. TG is the grad's type
+// and TO dfv's (float or __nv_bfloat16); the sums are float32.
+template <typename TG, typename TO>
 __global__ void __launch_bounds__(kBwdMaxThreads)
     table_gather_bwd_kernel(const int* __restrict__ vox,     // (B, N)
-                            const float* __restrict__ grad,  // (B, N, k^3*C), strided
+                            const TG* __restrict__ grad,     // (B, N, k^3*C), strided
                             int64_t stride_b, int stride_n,
-                            float* __restrict__ dfv,         // (B, G, C)
-                            int N, int g, int k, int C, int per_stage, int slot_floats) {
+                            TO* __restrict__ dfv,            // (B, G, C)
+                            int N, int g, int k, int C, int per_stage, int slot) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int T = blockDim.x;
-  float* ring = reinterpret_cast<float*>(smem);   // kBwdStages * per_stage * slot_floats
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kBwdStages * per_stage * slot_floats);
+  TG* ring = reinterpret_cast<TG*>(smem);   // kBwdStages * per_stage * slot
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kBwdStages * per_stage * slot);
   int* run_s = reinterpret_cast<int*>(full + kBwdStages);   // T: a listed query's run, from gb
   int* yz_s = run_s + T;                                    // T: vy | vz << 8 | lead << 16
   int* warp_s = yz_s + T;                                   // T / 32: hits per warp
   const int tid = threadIdx.x, lane = tid % kWarp, warp = tid / kWarp;
   const int b = blockIdx.x, slab = blockIdx.y;
   const int gg = g * g, G = gg * g, kh = k / 2, run = k * k * C, slots = gg * C;
-  const float* gb = grad + b * stride_b;
+  const TG* gb = grad + b * stride_b;
   const int* vb = vox + static_cast<size_t>(b) * N;
-  float* db = dfv + (static_cast<size_t>(b) * G + static_cast<size_t>(slab) * gg) * C;
+  TO* db = dfv + (static_cast<size_t>(b) * G + static_cast<size_t>(slab) * gg) * C;
 
   if (tid == 0) {
     for (int s = 0; s < kBwdStages; ++s) mbar_init(&full[s]);
@@ -185,7 +196,7 @@ __global__ void __launch_bounds__(kBwdMaxThreads)
   auto span = [&](int i, uintptr_t& a0) {
     const uintptr_t a = reinterpret_cast<uintptr_t>(gb + run_s[i]);
     a0 = a & ~uintptr_t{15};
-    return static_cast<uint32_t>(((a + 4 * run + 15) & ~uintptr_t{15}) - a0);
+    return static_cast<uint32_t>(((a + sizeof(TG) * run + 15) & ~uintptr_t{15}) - a0);
   };
   auto fill = [&](int first, int last, int stage) {
     uintptr_t a0;
@@ -194,7 +205,7 @@ __global__ void __launch_bounds__(kBwdMaxThreads)
     mbar_expect(&full[stage], bytes);
     for (int i = first; i < last; ++i) {
       const uint32_t len = span(i, a0);
-      bulk_load(ring + (stage * per_stage + i - first) * slot_floats,
+      bulk_load(ring + (stage * per_stage + i - first) * slot,
                 reinterpret_cast<const void*>(a0), len, &full[stage]);
     }
   };
@@ -226,7 +237,8 @@ __global__ void __launch_bounds__(kBwdMaxThreads)
           const int vy = (v / g) % g, vz = v % g;
           hit = true;
           run_n = n * stride_n + di * run;
-          const int lead = static_cast<int>(reinterpret_cast<uintptr_t>(gb + run_n) & 15) / 4;
+          const int lead = static_cast<int>((reinterpret_cast<uintptr_t>(gb + run_n) & 15) /
+                                            sizeof(TG));
           yz = vy | (vz << 8) | (lead << 16);
         }
       }
@@ -260,7 +272,7 @@ __global__ void __launch_bounds__(kBwdMaxThreads)
         for (int i = first; i < last; ++i) {
           const int qyz = yz_s[i];
           const int vy = qyz & 0xff, vz = (qyz >> 8) & 0xff;
-          const float* r = ring + (stage * per_stage + i - first) * slot_floats;
+          const TG* r = ring + (stage * per_stage + i - first) * slot;
           const int base = (qyz >> 16) - (vy * k + vz) * C;
           // Adding 0.0f to a sum that started at +0.0f changes no bit, so a
           // slot outside the query's window keeps the ordered sum's value.
@@ -268,7 +280,7 @@ __global__ void __launch_bounds__(kBwdMaxThreads)
           for (int j = 0; j < kBwdSlots; ++j) {
             const bool in = static_cast<unsigned>(ty[j] - vy) < static_cast<unsigned>(k) &&
                             static_cast<unsigned>(tz[j] - vz) < static_cast<unsigned>(k);
-            acc[j] += in ? r[base + off[j]] : 0.f;
+            acc[j] += in ? to_float(r[base + off[j]]) : 0.f;
           }
         }
         __syncthreads();   // the stage is read
@@ -282,7 +294,7 @@ __global__ void __launch_bounds__(kBwdMaxThreads)
 #pragma unroll
     for (int j = 0; j < kBwdSlots; ++j) {
       const int s = pass + tid + j * T;
-      if (s < slots) db[s] = acc[j];
+      if (s < slots) dpdist::store_out(db + s, acc[j]);
     }
   }
 }
@@ -303,7 +315,8 @@ size_t dpdist_table_gather_smem(int g, int k, int C) {
 
 // All three launch on `stream` and return cudaGetLastError() after the launch (0
 // on success) or cudaErrorInvalidValue for sizes the kernels do not take. The
-// two forward kernels write float32, or bfloat16 where out_bf16 is set.
+// two forward kernels write float32, or bfloat16 where out_bf16 is set; the
+// adjoint reads a bfloat16 grad and writes a bfloat16 dfv where bf16 is set.
 int dpdist_table_gather_x(const float* fv, const float* queries, const float* centers, void* x,
                           int* vox, int B, int N, int g, int k, int C, int out_bf16, int device,
                           void* stream) {
@@ -368,10 +381,11 @@ int dpdist_table_gather(const float* fv, const int* vox, void* out, int B, int N
   return static_cast<int>(cudaGetLastError());
 }
 
-int dpdist_table_gather_bwd(const int* vox, const float* grad, int64_t stride_b, int64_t stride_n,
-                            float* dfv, int B, int N, int g, int k, int C, int device,
+int dpdist_table_gather_bwd(const int* vox, const void* grad, int64_t stride_b, int64_t stride_n,
+                            void* dfv, int B, int N, int g, int k, int C, int bf16, int device,
                             void* stream) {
   // A cloud's grad rows are addressed with 32-bit offsets; digits fit a byte.
+  // Strides count elements of the grad's type.
   if (B < 1 || N < 1 || bad_window(g, k, C) || g > 255 || stride_n < 0 ||
       (N - 1) * stride_n + static_cast<int64_t>(k) * k * k * C > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -383,19 +397,33 @@ int dpdist_table_gather_bwd(const int* vox, const float* grad, int64_t stride_b,
   const int slots = g * g * C;
   const int per_thread = (slots + kBwdSlots - 1) / kBwdSlots;
   const int threads = std::min(kBwdMaxThreads, (per_thread + kWarp - 1) / kWarp * kWarp);
-  // A run's 16-byte-aligned span: k^2 * C floats and up to 3 before them.
-  const int slot_floats = (k * k * C + 3 + 3) / 4 * 4;
+  // A run's 16-byte-aligned span: k^2 * C elements and up to one 16-byte
+  // group's worth before them.
+  const int bytes = bf16 ? 2 : 4, per16 = 16 / bytes;
+  const int slot = (k * k * C + 2 * (per16 - 1)) / per16 * per16;
   const size_t fixed = kBwdStages * sizeof(uint64_t) + (2 * threads + threads / kWarp) * sizeof(int);
-  const size_t stage_run = static_cast<size_t>(kBwdStages) * slot_floats * sizeof(float);
+  const size_t stage_run = static_cast<size_t>(kBwdStages) * slot * bytes;
   const int per_stage =
       static_cast<int>(std::min<size_t>(kBwdMaxPerStage, (max_smem - fixed) / stage_run));
   if (per_stage < 1) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = per_stage * stage_run + fixed;
-  err = set_smem(table_gather_bwd_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  table_gather_bwd_kernel<<<dim3(B, g), threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      vox, grad, stride_b, static_cast<int>(stride_n), dfv, N, g, k, C, per_stage, slot_floats);
-  return static_cast<int>(cudaGetLastError());
+  const dim3 grid(B, g);
+  const auto s = static_cast<cudaStream_t>(stream);
+  auto launch = [&](auto kernel, auto* in, auto* out) {
+    const cudaError_t e = set_smem(kernel, smem);
+    if (e != cudaSuccess) return e;
+    kernel<<<grid, threads, smem, s>>>(vox, in, stride_b, static_cast<int>(stride_n), out, N, g,
+                                       k, C, per_stage, slot);
+    return cudaGetLastError();
+  };
+  using bf = __nv_bfloat16;
+  if (bf16)
+    err = launch(table_gather_bwd_kernel<bf, bf>, static_cast<const bf*>(grad),
+                 static_cast<bf*>(dfv));
+  else
+    err = launch(table_gather_bwd_kernel<float, float>, static_cast<const float*>(grad),
+                 static_cast<float*>(dfv));
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

@@ -5,7 +5,8 @@ The file assets/golden_distance.json lists each pair as two
 per committed net, the per-pair distance the JAX package computes and its
 frozen loss; its "np256" section holds the same at 256 points, and the
 pairs' chamfer and EMD; its "bf16" section holds the distances served in
-bfloat16 ("full" and "auto") at 64 and 256 points.
+bfloat16 ("full" and "auto") at 64 and 256 points, and its "bf16_grad"
+section the frozen loss in bfloat16 and its gradient at 64 and 256 points.
 """
 
 from __future__ import annotations

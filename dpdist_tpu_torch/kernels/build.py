@@ -149,7 +149,7 @@ def library() -> ctypes.CDLL:
         lib.dpdist_fused_forward.restype = ci
         i64 = ctypes.c_int64
         lib.dpdist_table_gather_bwd.argtypes = [vp, vp, i64, i64, vp, ci, ci, ci, ci, ci, ci,
-                                                vp]
+                                                ci, vp]
         lib.dpdist_table_gather_bwd.restype = ci
         for fn in (lib.dpdist_nn_min_tile_points, lib.dpdist_nn_min_max_chunk):
             fn.argtypes = []

@@ -21,6 +21,13 @@ masked out is built as zeros without reading the volume.
         vox) * mask (gather_pallas.py:94-116), called only where fv needs a
         gradient. Where no gradient is recorded (grad mode off, or fv
         needs none) the autograd Function is skipped.
+    patches = gather_patches_fused(fv, vox, mask, grid_size, k, torch.bfloat16)
+        the same on the volume rounded to bfloat16, as the reference's bf16
+        "on" path hands its kernel fv.astype(bfloat16) (its output stays
+        float32, dpdist_tpu/models/dpdist.py:421-437). The backward is the
+        VJP of that cast too: the masked gradient rounded to bfloat16 (the
+        reference's VJP runs its oracle on the bf16 volume), the bf16
+        adjoint, and dfv back in float32.
 
 On CPU tensors it runs `gather_patches_fused_plain`, which is also the
 kernel's oracle on the card. On CUDA tensors it launches the kernel or
@@ -33,7 +40,7 @@ from __future__ import annotations
 import torch
 
 from dpdist_tpu_torch.kernels.build import MAX_SMEM
-from dpdist_tpu_torch.kernels.table_gather import gather_smem, table_gather_bwd
+from dpdist_tpu_torch.kernels.table_gather import check_dtype, dfv_of, gather_smem, needs_grad
 from dpdist_tpu_torch.ops.voxel import extract_patches, gather_patches
 
 
@@ -90,27 +97,38 @@ def _gather_fused_impl(fv, vox, mask, grid_size, k):
 
 class _GatherFused(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, fv, vox, mask, grid_size, k):
+    def forward(ctx, fv, vox, mask, grid_size, k, dtype):
         ctx.save_for_backward(vox, mask)
         ctx.window = (grid_size, k)
-        return _gather_fused_impl(fv, vox, mask, grid_size, k)
+        ctx.dtype = dtype
+        return _gather_fused_impl(_volume(fv, dtype), vox, mask, grid_size, k)
 
     @staticmethod
     def backward(ctx, grad):
         if not ctx.needs_input_grad[0]:
-            return None, None, None, None, None
+            return None, None, None, None, None, None
         vox, mask = ctx.saved_tensors
-        return table_gather_bwd(vox, grad * mask[..., None], *ctx.window), None, None, None, None
+        dfv = dfv_of(vox, (grad * mask[..., None]).to(ctx.dtype), *ctx.window)
+        return dfv, None, None, None, None, None
 
 
-def gather_patches_fused(fv, vox, mask, grid_size: int, k: int):
+def _volume(fv, dtype):
+    """The volume the gather reads: fv, or fv's values rounded to dtype."""
+    return fv if dtype == torch.float32 else fv.to(dtype).to(torch.float32)
+
+
+def gather_patches_fused(fv, vox, mask, grid_size: int, k: int,
+                         dtype: torch.dtype = torch.float32):
     """(B, V, C) float32 volume, (B, N) int32 voxel ids in [0, grid_size^3)
-    and (B, N) float32 mask -> (B, N, k^3*C) float32 patches; see the
-    module docstring. vox and mask carry no gradient."""
+    and (B, N) float32 mask -> (B, N, k^3*C) float32 patches of the volume
+    taken in `dtype`; see the module docstring. vox and mask carry no
+    gradient."""
     _check(fv, vox, mask, grid_size, k)
-    if torch.is_grad_enabled() and fv.requires_grad:
-        return _GatherFused.apply(fv, vox, mask.detach(), grid_size, k)
-    return _gather_fused_impl(fv, vox, mask.detach(), grid_size, k)   # no graph to record
+    check_dtype(dtype)
+    if needs_grad(fv):
+        return _GatherFused.apply(fv, vox, mask.detach(), grid_size, k, dtype)
+    return _gather_fused_impl(_volume(fv, dtype), vox, mask.detach(), grid_size,
+                              k)   # no graph to record
 
 
 gather_patches_fused.launches = 0

@@ -17,16 +17,16 @@ a CUDA tensor it launches the kernel or raises; it never falls back.
 `mfv_x.launches` counts kernel launches, and nothing else.
 
 With dtype=torch.bfloat16 x is written in bfloat16, each value the float32
-one rounded once, as the reference's `dtype=` (the bf16 serving path);
-that output is forward only, and asking for it on inputs that need a
-gradient raises.
+one rounded once, as the reference's `dtype=` (the bf16 paths).
 
-Gradients follow the reference's VJP: dq = grad[..., :3]; for the
-points, dfv = table_gather_bwd(vox, grad[..., 3:]) (the row-3 kernel on
-the card) and then autograd through the plain threedmfv of the points,
-whose forward is replayed there, since the kernel keeps the FV volume on
-chip and saves none. Where no gradient is recorded (grad mode off, or
-neither input needs one) the autograd Function is skipped.
+Gradients follow the reference's VJP (mfv_gather_pallas.py:_mfv_x_bwd):
+dq = grad[..., :3] in float32; for the points, dfv =
+table_gather_bwd(vox, grad[..., 3:]) (the row-3 kernel on the card, in
+bfloat16 for a bf16 x, its values returned to float32 exactly) and then
+autograd through the plain threedmfv of the points, whose forward is
+replayed there, since the kernel keeps the FV volume on chip and saves
+none. Where no gradient is recorded (grad mode off, or neither input needs
+one) the autograd Function is skipped.
 """
 
 from __future__ import annotations
@@ -36,11 +36,7 @@ import math
 
 import torch
 
-from dpdist_tpu_torch.kernels.table_gather import (
-    check_forward_only,
-    table_gather_bwd,
-    window_fits,
-)
+from dpdist_tpu_torch.kernels.table_gather import check_dtype, dfv_of, needs_grad, window_fits
 from dpdist_tpu_torch.ops.threedmfv import threedmfv_grid, threedmfv_plain
 from dpdist_tpu_torch.ops.voxel import (
     extract_patches,
@@ -139,8 +135,8 @@ def _mfv_x_impl(points, queries, n_gaussians, sigma, grid_size, k, dtype):
 
 class _MfvX(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, points, queries, n_gaussians, sigma, grid_size, k):
-        x, vox = _mfv_x_impl(points, queries, n_gaussians, sigma, grid_size, k, torch.float32)
+    def forward(ctx, points, queries, n_gaussians, sigma, grid_size, k, dtype):
+        x, vox = _mfv_x_impl(points, queries, n_gaussians, sigma, grid_size, k, dtype)
         ctx.save_for_backward(points, vox)
         ctx.args = (n_gaussians, sigma, grid_size, k)
         ctx.mark_non_differentiable(vox)
@@ -152,14 +148,14 @@ class _MfvX(torch.autograd.Function):
         n_gaussians, sigma, grid_size, k = ctx.args
         dpoints = dq = None
         if ctx.needs_input_grad[0]:
-            dfv = table_gather_bwd(vox, grad_x[..., 3:], grid_size, k)
+            dfv = dfv_of(vox, grad_x[..., 3:], grid_size, k)
             with torch.enable_grad():
                 p = points.detach().requires_grad_(True)
                 fv = threedmfv_plain(p, n_gaussians, sigma)
                 (dpoints,) = torch.autograd.grad(fv, p, dfv)
         if ctx.needs_input_grad[1]:
-            dq = grad_x[..., :3]
-        return dpoints, dq, None, None, None, None
+            dq = grad_x[..., :3].float()
+        return dpoints, dq, None, None, None, None, None
 
 
 def mfv_x(points, queries, n_gaussians: int, sigma: float, grid_size: int,
@@ -168,14 +164,13 @@ def mfv_x(points, queries, n_gaussians: int, sigma: float, grid_size: int,
 
     x = [delta, patch] (B, N, 3 + k^3*20) in `dtype` (float32 or
     bfloat16), the decoder input, and vox (B, N) int32, each query's flat
-    cell (0 outside the grid). Differentiable in points and queries in
-    float32 (see the module docstring).
+    cell (0 outside the grid). Differentiable in points and queries (see
+    the module docstring).
     """
     _check(points, queries, n_gaussians, grid_size, k)
-    if (dtype == torch.float32 and torch.is_grad_enabled()
-            and (points.requires_grad or queries.requires_grad)):
-        return _MfvX.apply(points, queries, n_gaussians, sigma, grid_size, k)
-    check_forward_only(dtype, points, queries)   # no graph to record past here
+    check_dtype(dtype)
+    if needs_grad(points, queries):
+        return _MfvX.apply(points, queries, n_gaussians, sigma, grid_size, k, dtype)
     return _mfv_x_impl(points, queries, n_gaussians, sigma, grid_size, k, dtype)
 
 

@@ -19,6 +19,8 @@ what bounds each on an H100 and how its design meets that:
   atomics, no barrier per query. Each slot is summed from 0 in query
   order, so the kernel equals `table_gather_bwd_ordered` (one index_add_
   per query, in query order) bit for bit and is the same from run to run.
+  It takes a float32 or a bfloat16 grad (one kernel, templated on the
+  types): in bfloat16 it sums in float32 and rounds each dfv value once.
 
     x, vox = table_gather_x(fv, queries, grid_size, k)
         (B, V, C) volume + (B, N, 3) queries -> x = [delta, patch]
@@ -34,20 +36,25 @@ what bounds each on an H100 and how its design meets that:
         grad), called only where fv needs a gradient.
     dfv = table_gather_bwd(vox, grad, grid_size, k)
         (B, N) voxel ids + (B, N, k^3*C) grad -> (B, V, C), the adjoint of
-        the patch gather in fv.
+        the patch gather in fv, in the grad's dtype: float32, or bfloat16
+        summed in float32 and rounded once, as the reference's
+        table_gather_bwd(dtype=bfloat16) (table_gather_pallas.py:159-256).
 
 `table_gather_x` and `table_gather` take dtype=torch.bfloat16 for the
-bf16 serving paths: x or the patch rows are then written in bfloat16, each
-value the float32 one rounded once, as the reference's .astype(dtype).
-That output is forward only; asking for it on inputs that need a gradient
-raises.
+bf16 paths: x or the patch rows are then written in bfloat16, each value
+the float32 one rounded once, as the reference gathers from its volume
+cast to bfloat16 (dpdist_tpu/models/dpdist.py:421-437). Their backward
+then gets a bf16 gradient: dq = grad[..., :3] in float32, and dfv from the
+bf16 adjoint, whose values return to float32 exactly, as the VJP of the
+reference's cast of the float32 volume to bfloat16 does.
 
 On CPU tensors all three run their plain versions (`table_gather_x_plain`,
 `table_gather_plain`, `table_gather_bwd_plain`), which are also the
 kernels' oracles on the card, with `table_gather_bwd_ordered` for the
 adjoint's order of sums. On CUDA tensors they launch the kernel or
 raise; they never fall back. `table_gather_x.launches`,
-`table_gather.launches` and `table_gather_bwd.launches` count kernel
+`table_gather.launches`, `table_gather_bwd.launches` (its float32 kernel)
+and `table_gather_bwd.launches_bf16` (its bfloat16 kernel) count kernel
 launches, and nothing else.
 """
 
@@ -108,7 +115,10 @@ def table_gather_plain(fv, vox, grid_size: int, k: int):
 def table_gather_bwd_plain(vox, grad, grid_size: int, k: int):
     """Plain PyTorch version: the gradient in fv of
     gather_patches(extract_patches(fv)), by autograd (the port's copy of
-    the reference's table_gather_bwd_xla_oracle)."""
+    the reference's table_gather_bwd_xla_oracle). A bfloat16 grad is
+    summed in float32 and the result rounded once to bfloat16."""
+    if grad.dtype == torch.bfloat16:
+        return table_gather_bwd_plain(vox, grad.float(), grid_size, k).to(torch.bfloat16)
     B, N, E = grad.shape
     with torch.enable_grad():
         fv = torch.zeros((B, grid_size ** 3, E // k ** 3), dtype=grad.dtype,
@@ -121,7 +131,10 @@ def table_gather_bwd_ordered(vox, grad, grid_size: int, k: int):
     """The adjoint as an ordered plain sum: from zeros, one index_add_ per
     query, in query order. Within one query every dfv slot takes at most
     one term, so the sums run in table_gather_bwd's kernel's order and the
-    two agree bit for bit. A vox outside [0, grid_size^3) adds nothing."""
+    two agree bit for bit. A vox outside [0, grid_size^3) adds nothing. A
+    bfloat16 grad is summed in float32 and the result rounded once."""
+    if grad.dtype == torch.bfloat16:
+        return table_gather_bwd_ordered(vox, grad.float(), grid_size, k).to(torch.bfloat16)
     B, N, E = grad.shape
     V, K3 = grid_size ** 3, k ** 3
     C = E // K3
@@ -136,14 +149,21 @@ def table_gather_bwd_ordered(vox, grad, grid_size: int, k: int):
     return out.view(B, V + 1, C)[:, :V].contiguous()
 
 
-def check_forward_only(dtype, *inputs):
-    """Raise for a bfloat16 output asked for on inputs that need a
-    gradient: the bf16 backward is not ported."""
+def check_dtype(dtype):
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"the output dtype must be float32 or bfloat16, got {dtype}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
-        raise NotImplementedError("not ported yet: the bf16 gradient paths (a bfloat16 "
-                                  "gather output has no backward)")
+
+
+def needs_grad(*inputs) -> bool:
+    """Whether autograd records a graph through inputs: grad mode is on
+    and one of them needs a gradient."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in inputs)
+
+
+def dfv_of(vox, grad, grid_size: int, k: int):
+    """The volume's gradient from a gather output's gradient: the adjoint
+    in grad's dtype, returned in float32 (exact for a bfloat16 dfv)."""
+    return table_gather_bwd(vox, grad, grid_size, k).float()
 
 
 @functools.lru_cache(maxsize=8)
@@ -207,8 +227,8 @@ def _table_gather_x_impl(fv, queries, grid_size, k, dtype=torch.float32):
 
 class _TableGatherX(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, fv, queries, grid_size, k):
-        x, vox = _table_gather_x_impl(fv, queries, grid_size, k)
+    def forward(ctx, fv, queries, grid_size, k, dtype):
+        x, vox = _table_gather_x_impl(fv, queries, grid_size, k, dtype)
         ctx.save_for_backward(vox)
         ctx.window = (grid_size, k)
         ctx.mark_non_differentiable(vox)
@@ -219,22 +239,20 @@ class _TableGatherX(torch.autograd.Function):
         (vox,) = ctx.saved_tensors
         dfv = dq = None
         if ctx.needs_input_grad[0]:
-            dfv = table_gather_bwd(vox, grad_x[..., 3:], *ctx.window)
+            dfv = dfv_of(vox, grad_x[..., 3:], *ctx.window)
         if ctx.needs_input_grad[1]:
-            dq = grad_x[..., :3]
-        return dfv, dq, None, None
+            dq = grad_x[..., :3].float()
+        return dfv, dq, None, None, None
 
 
 def table_gather_x(fv, queries, grid_size: int, k: int, dtype: torch.dtype = torch.float32):
     """(B, V, C) volume + (B, N, 3) queries -> (x, vox), x in `dtype`; see
     the module docstring."""
     _check_x(fv, queries, grid_size, k)
-    if dtype == torch.float32:
-        if torch.is_grad_enabled() and (fv.requires_grad or queries.requires_grad):
-            return _TableGatherX.apply(fv, queries, grid_size, k)
-        return _table_gather_x_impl(fv, queries, grid_size, k)   # no graph to record
-    check_forward_only(dtype, fv, queries)
-    return _table_gather_x_impl(fv, queries, grid_size, k, dtype)
+    check_dtype(dtype)
+    if needs_grad(fv, queries):
+        return _TableGatherX.apply(fv, queries, grid_size, k, dtype)
+    return _table_gather_x_impl(fv, queries, grid_size, k, dtype)   # no graph to record
 
 
 table_gather_x.launches = 0
@@ -266,16 +284,16 @@ def _table_gather_impl(fv, vox, grid_size, k, dtype=torch.float32):
 
 class _TableGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, fv, vox, grid_size, k):
+    def forward(ctx, fv, vox, grid_size, k, dtype):
         ctx.save_for_backward(vox)
         ctx.window = (grid_size, k)
-        return _table_gather_impl(fv, vox, grid_size, k)
+        return _table_gather_impl(fv, vox, grid_size, k, dtype)
 
     @staticmethod
     def backward(ctx, grad):
         (vox,) = ctx.saved_tensors
-        dfv = table_gather_bwd(vox, grad, *ctx.window) if ctx.needs_input_grad[0] else None
-        return dfv, None, None, None
+        dfv = dfv_of(vox, grad, *ctx.window) if ctx.needs_input_grad[0] else None
+        return dfv, None, None, None, None
 
 
 def table_gather(fv, vox, grid_size: int, k: int, dtype: torch.dtype = torch.float32):
@@ -293,25 +311,28 @@ def table_gather(fv, vox, grid_size: int, k: int, dtype: torch.dtype = torch.flo
     if fv.device != vox.device:
         raise ValueError(f"device mismatch: {fv.device} vs {vox.device}")
     _check_window(grid_size, k, fv.shape[2], fv.device)
-    if dtype == torch.float32:
-        return _TableGather.apply(fv, vox, grid_size, k)
-    check_forward_only(dtype, fv)
-    return _table_gather_impl(fv, vox, grid_size, k, dtype)
+    check_dtype(dtype)
+    if needs_grad(fv):
+        return _TableGather.apply(fv, vox, grid_size, k, dtype)
+    return _table_gather_impl(fv, vox, grid_size, k, dtype)   # no graph to record
 
 
 table_gather.launches = 0
 
 
 def table_gather_bwd(vox, grad, grid_size: int, k: int):
-    """(B, N) int32 voxel ids + (B, N, k^3*C) grad -> (B, V, C) dfv.
+    """(B, N) int32 voxel ids + (B, N, k^3*C) grad -> (B, V, C) dfv in
+    grad's dtype (float32 or bfloat16).
 
-    `grad` may be a strided view (the patch part of x's gradient) as long
-    as its last axis is contiguous. vox should lie in [0, grid_size^3): on
-    the card a vox outside adds nothing; the plain version raises.
+    `grad` may be a strided view (the patch part of x's gradient); on the
+    card a view whose last axis is not contiguous is copied first. vox
+    should lie in [0, grid_size^3): on the card a vox outside adds
+    nothing; the plain version raises. `launches` counts the float32
+    kernel's launches and `launches_bf16` the bfloat16 one's.
     """
     _check_vox(vox)
-    if not isinstance(grad, torch.Tensor) or grad.dtype != torch.float32:
-        raise TypeError("grad must be a float32 tensor")
+    if not isinstance(grad, torch.Tensor) or grad.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError("grad must be a float32 or bfloat16 tensor")
     if grad.dim() != 3 or grad.shape[:2] != vox.shape or grad.shape[2] % k ** 3:
         raise ValueError(f"grad must be (B, N, k^3*C) for vox {tuple(vox.shape)}, "
                          f"got {tuple(grad.shape)}")
@@ -329,13 +350,18 @@ def table_gather_bwd(vox, grad, grid_size: int, k: int):
         grad = grad.contiguous()
     vox = vox.contiguous()
     B, N = vox.shape
-    dfv = torch.empty((B, grid_size ** 3, C), dtype=torch.float32, device=dev)
+    bf16 = grad.dtype == torch.bfloat16
+    dfv = torch.empty((B, grid_size ** 3, C), dtype=grad.dtype, device=dev)
     err = build.library().dpdist_table_gather_bwd(
         vox.data_ptr(), grad.data_ptr(), grad.stride(0), grad.stride(1), dfv.data_ptr(),
-        B, N, grid_size, k, C, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+        B, N, grid_size, k, C, int(bf16), dev.index, torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch(err, "table_gather_bwd")
-    table_gather_bwd.launches += 1
+    if bf16:
+        table_gather_bwd.launches_bf16 += 1
+    else:
+        table_gather_bwd.launches += 1
     return dfv
 
 
 table_gather_bwd.launches = 0
+table_gather_bwd.launches_bf16 = 0

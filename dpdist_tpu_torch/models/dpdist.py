@@ -11,11 +11,17 @@ conv_version 1, BN off, float32 or bfloat16):
   3. The MLP decoder, relu6(x)/3 on the output, and outside-grid query
      points zeroed by the membership mask.
 pred_AB scores the points of B against the surface encoded from A. With
-dtype="bfloat16" the decoder input is rounded to bfloat16 (the gather
-kernels write it so), the decoder runs in bfloat16 with float32
-accumulation, and its output returns to float32 before the activation
-(dpdist_tpu/models/dpdist.py:448-484). bfloat16 is forward only: a bf16
-config under autograd raises NotImplementedError.
+dtype="bfloat16" the volume is taken in bfloat16 before the gather and the
+decoder input is bfloat16 (the gather kernels write it so), the decoder
+runs in bfloat16 with float32 accumulation, and its output returns to
+float32 before the activation (dpdist_tpu/models/dpdist.py:421-484). Its
+gradients pass the same rounding points backwards, as the VJPs of the
+reference's casts do: the bf16 adjoint of the gather (summed in float32,
+rounded once) gives dfv in bfloat16, returned to the float32 volume
+exactly; the bf16 decoder's gradients return through the casts to the
+float32 parameters (cuBLAS bf16 products, summed in float32).
+fused_gather="full" has no gradient outside training: under autograd it
+raises, as the reference's jax.grad through its fused kernel does.
 
 `cfg.fused_gather` picks how steps 1-2 run, and `route` says which
 kernels that takes for given cloud sizes, along the reference's dispatch
@@ -39,11 +45,12 @@ dpdist_tpu/ops/threedmfv.py:111-113):
           per-query gather with the mask (kernels/gather_fused.py) + a
           concat of delta; its backward is the adjoint kernel on the masked
           gradient;
-  "full"  in bfloat16, outside training and autograd: per cloud the encode
-          as "table", then the fused gather + whole-decoder kernel
+  "full"  in bfloat16, outside training: per cloud the encode as
+          "table", then the fused gather + whole-decoder kernel
           (kernels/fused_forward.py) once over the 2B stack (volumes
-          [A; B], queries [B; A]), for clouds of one size; otherwise, and
-          in float32, "table", as the reference resolves it;
+          [A; B], queries [B; A]), for clouds of one size, forward only
+          (under autograd it raises); in training and in float32 "table",
+          as the reference resolves it;
   "auto"  "mfv" on CUDA tensors, "off" on the CPU. Computations that are
           differentiated resolve "auto" with `resolve_for_grad` instead.
 `route` also holds each kernel to its limits (grid, window, decoder widths,
@@ -78,7 +85,10 @@ from dpdist_tpu_torch.ops.voxel import extract_patches, gather_patches, voxel_as
 # (dpdist_tpu/models/dpdist.py:400, :258).
 MAX_TILE_POINTS = 128
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-BF16_GRAD = "not ported yet: the bf16 gradient paths (frozen loss and training in bfloat16)"
+FULL_GRAD = ('fused_gather="full" in bfloat16 has no bf16 gradient outside training: the '
+             "reference refuses one (jax.grad through its fused gather + decoder kernel, "
+             "which defines no VJP, fails in Pallas' autodiff); differentiate with "
+             '"table" or "auto", or pass train=True, which runs "table"')
 
 
 def check_ported(cfg: DPDistConfig) -> None:
@@ -144,7 +154,8 @@ def route(cfg: DPDistConfig, device_type: str, n_a: int, n_b: int, grad: bool = 
     """The kernels apply_dpdist runs for clouds of n_a and n_b points on a
     `device_type` device; grad=True for a computation that will be
     differentiated (it resolves "auto" as `resolve_for_grad` does, and
-    raises for bfloat16), train=True for a training forward.
+    raises for bf16 "full" outside training, which has no gradient),
+    train=True for a training forward.
 
     The reference's conditions: "full" only in bfloat16 outside training
     and autograd, for clouds of one size (its 2B concatenation), else
@@ -161,6 +172,7 @@ def route(cfg: DPDistConfig, device_type: str, n_a: int, n_b: int, grad: bool = 
     routes on either device, apart from "auto"."""
     check_ported(cfg)
     if grad:
+        _check_full_grad(cfg, train)
         cfg = resolve_for_grad(cfg, device_type)
     mode = resolve_mode(cfg, device_type, train)
     if mode == "mfv" and max(n_a, n_b) <= MAX_TILE_POINTS:
@@ -188,32 +200,37 @@ def route(cfg: DPDistConfig, device_type: str, n_a: int, n_b: int, grad: bool = 
 def resolve_for_grad(cfg: DPDistConfig, device) -> DPDistConfig:
     """Resolve fused_gather="auto" for a computation that will be
     differentiated (training, the frozen loss): "table" on CUDA, as the
-    reference resolves it on its accelerator; unchanged on the CPU, where
-    "auto" already takes the plain composition. Explicit settings stay.
-    A bfloat16 config raises NotImplementedError: the bf16 gradient paths
-    are not ported.
+    reference resolves it on its accelerator, in float32 and in bfloat16;
+    unchanged on the CPU, where "auto" already takes the plain composition.
+    Explicit settings stay.
 
     Why "table" and not "mfv" there: the mfv kernel serves both directions
     in one opaque call, so a loss that reads one direction still pays for
     two, and its backward must replay the 3DmFV encode, which the kernel
     never saves (dpdist_tpu/models/dpdist.py:315-326).
     """
-    if cfg.dtype != "float32":
-        raise NotImplementedError(BF16_GRAD)
     if cfg.fused_gather != "auto" or torch.device(device).type != "cuda":
         return cfg
     return dataclasses.replace(cfg, fused_gather="table")
 
 
-def _check_no_bf16_grad(cfg: DPDistConfig, params, *inputs) -> None:
-    """Raise NotImplementedError for a bfloat16 config under autograd (an
-    input or a parameter that needs a gradient)."""
+def _check_full_grad(cfg: DPDistConfig, train: bool) -> None:
+    """Raise NotImplementedError for bf16 "full" outside training, which
+    the reference resolves to its fused kernel whatever the widths
+    (dpdist_tpu/models/dpdist.py:293-297), and which has no gradient."""
+    if cfg.fused_gather == "full" and cfg.dtype == "bfloat16" and not train:
+        raise NotImplementedError(FULL_GRAD)
+
+
+def _check_grad(cfg: DPDistConfig, params, train: bool, *inputs) -> None:
+    """check_ported, and under autograd (an input or a parameter that
+    needs a gradient) _check_full_grad."""
     check_ported(cfg)
-    if cfg.dtype == "float32" or not torch.is_grad_enabled():
+    if not torch.is_grad_enabled():
         return
     leaves = [t for lp in params["decoder"]["layers"] for t in lp.values()]
     if any(t is not None and t.requires_grad for t in list(inputs) + leaves):
-        raise NotImplementedError(BF16_GRAD)
+        _check_full_grad(cfg, train)
 
 
 def init_dpdist(cfg: DPDistConfig, generator=None, device="cuda") -> dict:
@@ -235,14 +252,24 @@ def init_dpdist(cfg: DPDistConfig, generator=None, device="cuda") -> dict:
     return {"decoder": {"layers": layers}}
 
 
+def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """jnp.clip's function and gradient: min(max(x, lo), hi), whose
+    gradient at x == lo or x == hi is half the incoming one, as JAX splits
+    a tie of max or min (torch.clamp passes all of it). A bfloat16 decoder
+    output lands exactly on 0 often enough for this to show. The bounds
+    are filled on x's device (new_tensor would copy them from the host and
+    wait for the stream)."""
+    return torch.minimum(torch.maximum(x, x.new_full((), lo)), x.new_full((), hi))
+
+
 def _output_activation(x: torch.Tensor, output_act: str) -> torch.Tensor:
     if output_act == "tanh":
         return torch.tanh(x)
     if output_act == "relu":
         # relu6(x)/3 -> range [0, 2]
-        return torch.clamp(x, 0.0, 6.0) / 3.0
+        return _clip(x, 0.0, 6.0) / 3.0
     # (-1, 1) centered variant
-    return torch.clamp(x + 3.0, 0.0, 6.0) / 3.0 - 1.0
+    return _clip(x + 3.0, 0.0, 6.0) / 3.0 - 1.0
 
 
 def _head(params, cfg: DPDistConfig, x, mask):
@@ -272,8 +299,11 @@ def _decoder_input(cfg: DPDistConfig, encode: str, gather: str, points_enc, quer
                    delta):
     """x = [delta, patch] of `queries` against the surface of `points_enc`,
     by the kernels `route` names (vox, mask and delta: voxel_assign(queries)).
-    The gather kernels write x in bfloat16 for a bf16 config; the other
-    gathers leave the rounding to the decoder."""
+    For a bf16 config every gather takes the volume in bfloat16, as the
+    reference casts fv before its gather: the table-gather kernels and the
+    plain composition write x in bfloat16, the per-query gather writes the
+    rounded values in float32 (as the reference's kernel does) and leaves
+    x's rounding to the decoder."""
     dtype = DTYPES[cfg.dtype]
     args = (cfg.embedding_size, cfg.sigma, cfg.grid_size, cfg.k)
     if gather == "mfv_gather_x":
@@ -285,9 +315,10 @@ def _decoder_input(cfg: DPDistConfig, encode: str, gather: str, points_enc, quer
         patches = table_gather(fv, vox, cfg.grid_size, cfg.k, dtype=dtype)
         delta = delta.to(dtype)
     elif gather == "gather_patches_fused":
-        patches = gather_patches_fused(fv, vox, mask, cfg.grid_size, cfg.k)
+        patches = gather_patches_fused(fv, vox, mask, cfg.grid_size, cfg.k, dtype=dtype)
     else:
-        patches = gather_patches(extract_patches(fv, cfg.grid_size, cfg.k), vox)
+        patches = gather_patches(extract_patches(fv.to(dtype), cfg.grid_size, cfg.k), vox)
+        delta = delta.to(dtype)
     return torch.cat([delta, patches], dim=-1)
 
 
@@ -303,16 +334,16 @@ def _direction(params, cfg, encode, gather, points_enc, queries):
     return _head(params, cfg, x, mask)
 
 
-def apply_direction(params, cfg: DPDistConfig, points_enc, queries):
+def apply_direction(params, cfg: DPDistConfig, points_enc, queries, *, train: bool = False):
     """One direction: the (B, N, output_channels) prediction for the points
     of `queries` against the surface encoded from `points_enc`, masked
     outside the grid, by the kernels `route` names for it. apply_dpdist is
     two of these (or one mfv call); a loss that reads one direction calls
     this alone, since eager PyTorch does not drop an unused direction the
-    way XLA does."""
+    way XLA does. `train` as in apply_dpdist."""
     points_enc, queries = _prep(points_enc), _prep(queries)
-    _check_no_bf16_grad(cfg, params, points_enc, queries)
-    r = route(cfg, queries.device.type, points_enc.shape[1], queries.shape[1])
+    _check_grad(cfg, params, train, points_enc, queries)
+    r = route(cfg, queries.device.type, points_enc.shape[1], queries.shape[1], train=train)
     return _direction(params, cfg, r.encode[0], r.gather[0], points_enc, queries)
 
 
@@ -324,10 +355,11 @@ def apply_dpdist(params, cfg: DPDistConfig, pcA, pcB, *, noise=None, train: bool
     copy of pcA only; the queries stay exact (the reference's pcA_noise).
     `train=True` keeps a bf16 fused_gather="full" config off the eval-only
     fused kernel (it runs "table"); with BN off, the only decoder this port
-    has, it changes nothing else.
+    has, it changes nothing else. Under autograd, bf16 "full" with
+    train=False raises (the reference refuses its gradient).
     """
     pcA, pcB = _prep(pcA), _prep(pcB)
-    _check_no_bf16_grad(cfg, params, pcA, pcB, noise)
+    _check_grad(cfg, params, train, pcA, pcB, noise)
     pcA_enc = pcA if noise is None else _prep(pcA + noise)
     r = route(cfg, pcA.device.type, pcA.shape[1], pcB.shape[1], train=train)
     if r.mode == "full":

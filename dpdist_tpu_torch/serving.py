@@ -13,9 +13,10 @@ per-pair learned distance `dpdist_distance(per_example=True)`. It is in
 eval mode and every parameter has requires_grad=False. It is
 differentiable in its input clouds: when an input requires a gradient,
 fused_gather resolves for a gradient context (models.resolve_for_grad:
-the table-gather kernels on the card), and the parameters' .grad stays
-None. A bfloat16 config is forward only: under autograd it raises
-NotImplementedError rather than run another path.
+the table-gather kernels on the card, in float32 and in bfloat16), and
+the parameters' .grad stays None. fused_gather="full" is forward only:
+under autograd it raises NotImplementedError, as the reference refuses a
+gradient through its fused kernel, rather than run another path.
 """
 
 from __future__ import annotations

@@ -13,11 +13,21 @@ reference's iterator protocol; assemble_dpdist_batch turns a batch into
 The train step is the l1 loss on pred_AB against the labels, its gradient
 in the decoder parameters, and one optimizer update (make_optimizer: Adam
 with the staircase LR and its floor by default). It runs the AB direction
-alone (models.apply_direction): the loss reads nothing else, and eager
-PyTorch would not drop the other direction the way XLA does. It resolves
-fused_gather for a gradient context (the table-gather kernel on the card);
-the encoder has no parameters, so the step never needs the adjoint kernel.
+alone (models.apply_direction, train=True): the loss reads nothing else,
+and eager PyTorch would not drop the other direction the way XLA does. It
+resolves fused_gather for a gradient context (the table-gather kernel on
+the card); the encoder has no parameters, so the step never needs the
+adjoint kernel. With dtype="bfloat16" the master parameters stay float32
+and the decoder runs in bfloat16 (the reference's bf16 train step,
+bench.py:173-190): the gather writes a bf16 decoder input, forward only,
+and the gradients return to float32 through the decoder's casts.
 Evaluation keeps the configured dispatch, forward only.
+
+Encoder occlusion (train_cfg.encoder_occlusion and _prob) corrupts the
+encoder's copy of pcA only, through the noise channel, with the
+reference's draws in its order (dpdist_tpu/train/trainer.py:83-106): one
+uniform per item, then data.registration.add_occlusions_np on the
+selected items, then the gaussian noise of add_noise.
 """
 
 from __future__ import annotations
@@ -31,6 +41,7 @@ import torch
 from dpdist_tpu_torch import resolve_device
 from dpdist_tpu_torch.configs import DPDistConfig, TrainConfig
 from dpdist_tpu_torch.data.batching import assemble_dpdist_batch
+from dpdist_tpu_torch.data.registration import add_occlusions_np
 from dpdist_tpu_torch.losses.standard import l1_sample_loss
 from dpdist_tpu_torch.models.dpdist import (
     apply_direction,
@@ -59,9 +70,6 @@ class DPDistTrainer:
         """Decoder parameters start from init_dpdist with a generator
         seeded with train_cfg.seed; restore() loads a checkpoint over them."""
         check_ported(model_cfg)
-        if train_cfg.encoder_occlusion > 0 and train_cfg.encoder_occlusion_prob > 0:
-            raise NotImplementedError("encoder occlusion needs the registration data "
-                                      "layer, which is not ported yet")
         self.device = resolve_device(device)
         self.mcfg = model_cfg
         self.tcfg = train_cfg
@@ -87,12 +95,22 @@ class DPDistTrainer:
 
     def make_batch(self, batch_data, batch_labels):
         """(pcA, pcB, labels, noise) on the device from one dataset batch;
-        noise is None unless train_cfg.add_noise > 0."""
+        noise is None unless train_cfg asks for encoder occlusion or
+        add_noise > 0."""
         pcA, pcB, labels = assemble_dpdist_batch(batch_data, batch_labels)
         noise = None
-        if self.tcfg.add_noise > 0:
-            noise = (self._np_rng.standard_normal(pcA.shape)
-                     * self.tcfg.add_noise).astype(np.float32)
+        tc = self.tcfg
+        if tc.encoder_occlusion > 0 and tc.encoder_occlusion_prob > 0:
+            sel = self._np_rng.uniform(size=pcA.shape[0]) < tc.encoder_occlusion_prob
+            occluded = pcA.copy()
+            if sel.any():
+                occluded[sel] = add_occlusions_np(pcA[sel], tc.encoder_occlusion, self._np_rng)
+            noise = occluded - pcA   # zeros where nothing was selected
+        if tc.add_noise > 0:
+            gauss = (self._np_rng.standard_normal(pcA.shape) * tc.add_noise).astype(np.float32)
+            noise = gauss if noise is None else noise + gauss
+        if noise is not None:
+            noise = noise.astype(np.float32)
         return tuple(None if a is None else torch.as_tensor(a, device=self.device)
                      for a in (pcA, pcB, labels, noise))
 
@@ -102,7 +120,7 @@ class DPDistTrainer:
         leaves = [t for _, t in tree_flatten_with_paths(self.params)]
         with torch.enable_grad():
             pcA_enc = pcA if noise is None else pcA + noise
-            pred_AB = apply_direction(self.params, self._grad_cfg, pcA_enc, pcB)
+            pred_AB = apply_direction(self.params, self._grad_cfg, pcA_enc, pcB, train=True)
             loss = l1_sample_loss(pred_AB, labels)
             grads = torch.autograd.grad(loss, leaves)
         return loss.detach(), grads

@@ -30,7 +30,7 @@ from dpdist_tpu_torch.data.golden import GOLDEN_PATH, golden_clouds, load_golden
 from dpdist_tpu_torch.kernels.mfv_gather import mfv_x
 from dpdist_tpu_torch.kernels.table_gather import table_gather_bwd, table_gather_x
 from dpdist_tpu_torch.losses import make_frozen_dpdist_loss
-from dpdist_tpu_torch.models import apply_dpdist, dpdist_distance
+from dpdist_tpu_torch.models import apply_dpdist, dpdist_distance, init_dpdist
 from dpdist_tpu_torch.ops import chamfer_distance, sinkhorn_emd
 from dpdist_tpu_torch.serving import load_frozen_distance
 from dpdist_tpu_torch.train import load_dpdist_checkpoint, params_from_jax
@@ -63,6 +63,14 @@ TOL_CHAMFER = TOL_EMD = 1e-5
 # the JAX package's bounds of each other (2e-3) and of float32 (0.03).
 BF16, BF16_MODES, BF16_SIZES = "bf16", ("full", "auto"), (64, NP_LARGE)
 TOL_FULL_VS_COMPOSED, TOL_BF16_VS_F32 = 2e-3, 0.03
+# The golden file's bf16_grad section: per size, the frozen loss of both
+# nets in bfloat16 (JAX's XLA composition on the CPU) and its gradient in
+# pcA for GRAD_PAIRS. The port meets them by the bf16 criterion of
+# tests/test_torch_bf16_grad.py: the loss within 2e-3; d/dpcA within 1e-2
+# of its largest entry on all but 5 % of the points, within 5e-2 on every
+# point, and a cosine of at least 0.999.
+BF16_GRAD = "bf16_grad"
+TOL_BF16_LOSS, REL_BF16, OUTLIERS_BF16, REL_BF16_FEW, MIN_COS_BF16 = 2e-3, 1e-2, 0.05, 5e-2, 0.999
 
 GOLDEN_PAIRS = [
     {"a": ["chair", 0], "b": ["chair", 1], "scale": 0.8},
@@ -171,8 +179,9 @@ def _golden_section(pcA, pcB):
 def compute_golden():
     """The golden file's content, computed with the JAX package: the
     section of _golden_section at 64 points, under LARGE the same at
-    NP_LARGE points plus each pair's chamfer and EMD, and under BF16 the
-    bf16 distances of both nets at both sizes."""
+    NP_LARGE points plus each pair's chamfer and EMD, under BF16 the bf16
+    distances of both nets at both sizes, and under BF16_GRAD their bf16
+    frozen loss and its gradient at both sizes."""
     golden = {"num_point": 64, "pairs": GOLDEN_PAIRS}
     golden.update(_golden_section(*golden_clouds(golden)))
     pcA, pcB = golden_clouds(golden, NP_LARGE)
@@ -191,6 +200,19 @@ def compute_golden():
                 d = jax_distance(params, state, cfg.replace(dtype="bfloat16", fused_gather=mode),
                                  pcA, pcB, per_example=True)
                 golden[BF16][mode][f"np{n}"][path] = [float(v) for v in np.asarray(d)]
+    golden[BF16_GRAD] = {}
+    for n in BF16_SIZES:
+        pcA, pcB = (jnp.asarray(a) for a in golden_clouds(golden, n))
+        section = {"out_of_grid_penalty": 1.0, "grad_pairs": list(GRAD_PAIRS)}
+        for path in NETS:
+            cfg, params, state = jax_load(path)
+            value, grad = jax_frozen_value_and_grad(
+                params, state, cfg.replace(dtype="bfloat16", fused_gather="off"), pcA, pcB, 1.0)
+            section[path] = {
+                "value": float(value),
+                "grad_pcA": [[[float("%.8g" % c) for c in p] for p in np.asarray(grad)[i]]
+                             for i in GRAD_PAIRS]}
+        golden[BF16_GRAD][f"np{n}"] = section
     return golden
 
 
@@ -251,6 +273,35 @@ def test_golden_bf16_holds(fresh_golden):
                 vals[mode] = want
             np.testing.assert_allclose(vals["full"], vals["auto"], atol=TOL_FULL_VS_COMPOSED,
                                        rtol=0)
+
+
+def test_golden_bf16_grad_holds(fresh_golden):
+    """The stored bf16 frozen-loss values and pcA gradients are what
+    dpdist_tpu computes now, at 64 and 256 points, and the port's CPU path
+    meets them by the bf16 criterion."""
+    golden = load_golden()
+    for n in BF16_SIZES:
+        stored, fresh = golden[BF16_GRAD][f"np{n}"], fresh_golden[BF16_GRAD][f"np{n}"]
+        assert stored["grad_pairs"] == list(GRAD_PAIRS)
+        pcA, pcB = (torch.as_tensor(a) for a in golden_clouds(golden, n))
+        for path in NETS:
+            want = stored[path]
+            assert abs(want["value"] - fresh[path]["value"]) <= 1e-6
+            np.testing.assert_allclose(want["grad_pcA"], fresh[path]["grad_pcA"], rtol=1e-6,
+                                       atol=0)
+            cfg, params = load_dpdist_checkpoint(path)
+            loss_fn = make_frozen_dpdist_loss(params_from_jax(params, "cpu"),
+                                              cfg.replace(dtype="bfloat16"),
+                                              out_of_grid_penalty=stored["out_of_grid_penalty"])
+            a = pcA.clone().requires_grad_(True)
+            value = loss_fn(a, pcB)
+            (grad,) = torch.autograd.grad(value, a)
+            assert abs(float(value.detach()) - want["value"]) <= TOL_BF16_LOSS
+            got, ref = grad.numpy()[list(GRAD_PAIRS)], np.asarray(want["grad_pcA"])
+            err = np.abs(got - ref).max(axis=-1) / np.abs(ref).max()
+            cos = float((got * ref).sum() / (np.linalg.norm(got) * np.linalg.norm(ref)))
+            assert err.max() <= REL_BF16_FEW and np.mean(err > REL_BF16) <= OUTLIERS_BF16
+            assert cos >= MIN_COS_BF16
 
 
 def _close_rel(got, want):
@@ -324,15 +375,25 @@ def test_entry_points_default_to_cuda():
         load_frozen_distance(NETS[0])
     with pytest.raises(RuntimeError, match="cuda"):
         params_from_jax(load_dpdist_checkpoint(NETS[0])[1])
+    from dpdist_tpu_torch.data import gtgen
+
+    q, d = np.zeros((4, 3), np.float32), np.ones((5, 3), np.float32)
+    with pytest.raises(RuntimeError, match="cuda"):
+        gtgen.min_distances(q, d)
+    with pytest.raises(RuntimeError, match="cuda"):
+        gtgen.generate_gt_for_points(d, num_neg_points=4)
+    with pytest.raises(RuntimeError, match="cuda"):
+        gtgen.generate_synthetic_dataset("unused", n_train=1, n_test=0, n_surface=8,
+                                         num_neg_points=4)
 
 
 @pytest.mark.parametrize("change", [
     {"encoder": "pointnet"},
     {"conv_version": 3},
     {"use_bn": True},
-    {"dtype": "bfloat16"},                           # bf16 is forward only
+    {"dtype": "bfloat16"},                           # bf16 gradients: ported
     {"fused_gather": "full", "dtype": "bfloat16"},   # the fused serving kernel has no VJP
-    {"fused_gather": "on", "dtype": "bfloat16"},
+    {"fused_gather": "on", "dtype": "bfloat16"},     # bf16 gradients: ported
     {"dims": 2, "embedding_size": 64},
     {"k": 0},
     {"full_fv": False},
@@ -340,13 +401,22 @@ def test_entry_points_default_to_cuda():
 ])
 def test_unported_configs_raise(change):
     """Configs the port does not cover raise NotImplementedError under
-    autograd (pcA needs a gradient): those not ported at all, and the
-    bfloat16 configs, whose gradient paths are not ported (their forward
-    is; tests/test_torch_fused_forward.py)."""
+    autograd (pcA needs a gradient), and so does bf16 fused_gather="full",
+    whose gradient the reference refuses. The bf16 configs that the
+    reference differentiates ("auto" and "on") compute the gradient since
+    the bf16 gradient paths were ported (their parity with JAX:
+    tests/test_torch_bf16_grad.py)."""
     cfg = DPDistConfig().replace(**change)
     pcA, pcB = (torch.as_tensor(a) for a in _inputs(B=1, N=8))
     params = {"decoder": {"layers": []}}
-    with pytest.raises(NotImplementedError, match="not ported"):
+    if change in ({"dtype": "bfloat16"}, {"fused_gather": "on", "dtype": "bfloat16"}):
+        params = init_dpdist(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+        a = pcA.requires_grad_(True)
+        (grad,) = torch.autograd.grad(dpdist_distance(params, cfg, a, pcB), a)
+        assert grad.shape == a.shape and bool(torch.isfinite(grad).all())
+        return
+    match = "refuses" if change.get("fused_gather") == "full" else "not ported"
+    with pytest.raises(NotImplementedError, match=match):
         apply_dpdist(params, cfg, pcA.requires_grad_(True), pcB)
 
 

@@ -1,12 +1,14 @@
 """bfloat16 serving: the fused gather + decoder (kernels/fused_forward.py,
 the plain version of csrc/fused_forward.cu) and the bf16 model paths
 against dpdist_tpu, the bf16 outputs of the gather wrappers, the routing
-of fused_gather="full", and the bf16 gradient paths, which raise.
+of fused_gather="full", and the bf16 gradient paths (held against JAX;
+"full" raises under autograd, as JAX refuses its gradient).
 
 JAX runs its fused_forward Pallas kernel in interpret mode on the CPU, as
 its own tests do; its composed bf16 path is the XLA composition there.
 """
 
+import functools
 import importlib
 
 import jax
@@ -16,6 +18,7 @@ import pytest
 import torch
 
 from dpdist_tpu.configs import DPDistConfig as JaxConfig
+from dpdist_tpu.losses import make_frozen_dpdist_loss as jax_frozen_loss
 from dpdist_tpu.kernels.fused_forward_pallas import fused_forward as jax_fused_forward
 from dpdist_tpu.models import apply_dpdist as jax_apply
 from dpdist_tpu.models import init_dpdist as jax_init
@@ -58,6 +61,17 @@ TOL_BF16 = 1e-4
 # JAX package's own bounds (tests/test_kernels.py:146-166,
 # tests/test_dpdist_model.py:37-56).
 TOL_FULL_VS_COMPOSED, TOL_BF16_VS_F32 = 2e-3, 0.03
+# The bf16 gradient paths against JAX's bf16 frozen loss: the criterion of
+# tests/test_torch_bf16_grad.py (the loss; d/dpcA per point relative to the
+# largest |g|, and its cosine).
+TOL_BF16_LOSS, REL_GRAD, OUTLIERS, REL_GRAD_FEW, MIN_COS = 2e-3, 1e-2, 0.05, 5e-2, 0.999
+
+
+def close_grads(got, want):
+    err = np.abs(got - want).max(axis=-1) / np.abs(want).max()
+    cos = float((got * want).sum() / (np.linalg.norm(got) * np.linalg.norm(want)))
+    assert err.max() <= REL_GRAD_FEW and np.mean(err > REL_GRAD) <= OUTLIERS, err.max()
+    assert cos >= MIN_COS, cos
 
 
 @pytest.fixture(scope="module")
@@ -250,36 +264,61 @@ def test_route_full_needs_clouds_of_one_size():
         route(DPDistConfig(fused_gather="full", dtype="bfloat16"), "cuda", 64, 100)
 
 
+@functools.partial(jax.jit, static_argnums=(2,))
+def jax_bf16_loss_and_grad(params, state, cfg, pcA, pcB):
+    """JAX's frozen loss and its gradient in pcA, jitted once per config."""
+    return jax.value_and_grad(jax_frozen_loss(params, state, cfg))(pcA, pcB)
+
+
 @pytest.mark.parametrize("mode", ["auto", "mfv", "table", "on", "full", "off"])
 def test_bf16_gradient_paths_raise(small_net, mode, tmp_path):
-    """A bf16 config under autograd raises NotImplementedError, whichever
-    way the gradient is asked for: an input or a parameter that needs one,
-    the frozen loss, resolve_for_grad, route(grad=True), FrozenDistance on
-    inputs that need a gradient, and the trainer."""
-    _, _, _, tparams = small_net
+    """bf16 configs under autograd, whichever way the gradient is asked
+    for: an input or a parameter that needs one, the frozen loss,
+    resolve_for_grad, route(grad=True) and the trainer. Five modes compute
+    the gradient, the frozen loss and d/dpcA held against JAX's bf16
+    frozen loss (its XLA composition on the CPU) by the criterion of
+    tests/test_torch_bf16_grad.py. "full" raises NotImplementedError
+    outside training, as JAX refuses a gradient through its fused kernel;
+    the trainer (train=True) runs it as "table". (Until the bf16 gradient
+    paths were ported, every mode raised.)"""
+    jcfg, params, state, tparams = small_net
     cfg = DPDistConfig(**SMALL, dtype="bfloat16", fused_gather=mode)
     pcA, pcB = (torch.as_tensor(a) for a in _clouds(6))
     a = pcA.clone().requires_grad_(True)
-    match = "bf16 gradient"
-    with pytest.raises(NotImplementedError, match=match):
-        apply_dpdist(tparams, cfg, a, pcB)
-    with pytest.raises(NotImplementedError, match=match):
-        apply_direction(tparams, cfg, pcB, a)
-    with pytest.raises(NotImplementedError, match=match):
-        make_frozen_dpdist_loss(tparams, cfg)(a, pcB)
-    with pytest.raises(NotImplementedError, match=match):
-        resolve_for_grad(cfg, "cuda")
-    with pytest.raises(NotImplementedError, match=match):
-        route(cfg, "cuda", 16, 16, grad=True)
     grad_params = {"decoder": {"layers": [{k: t.clone().requires_grad_(True) for k, t in
                                            lp.items()} for lp in tparams["decoder"]["layers"]]}}
-    with pytest.raises(NotImplementedError, match=match):
-        apply_dpdist(grad_params, cfg, pcA, pcB)
-    with pytest.raises(NotImplementedError, match=match):
-        DPDistTrainer(cfg, TrainConfig(batch_size=2), run_dir=str(tmp_path), device="cpu")
-    with torch.no_grad():   # no autograd: the forward runs
-        out = apply_dpdist(grad_params, cfg, a, pcB)
-    assert all(bool(torch.isfinite(t).all()) for t in out)
+    DPDistTrainer(cfg, TrainConfig(batch_size=2), run_dir=str(tmp_path), device="cpu")
+    assert resolve_for_grad(cfg, "cuda").fused_gather == ("table" if mode == "auto" else mode)
+    if mode == "full":
+        match = "refuses"
+        with pytest.raises(NotImplementedError, match=match):
+            apply_dpdist(tparams, cfg, a, pcB)
+        with pytest.raises(NotImplementedError, match=match):
+            apply_direction(tparams, cfg, pcB, a)
+        with pytest.raises(NotImplementedError, match=match):
+            make_frozen_dpdist_loss(tparams, cfg)(a, pcB)
+        with pytest.raises(NotImplementedError, match=match):
+            route(cfg, "cuda", 16, 16, grad=True)
+        with pytest.raises(NotImplementedError, match=match):
+            apply_dpdist(grad_params, cfg, pcA, pcB)
+        with torch.no_grad():   # no autograd: the forward runs
+            out = apply_dpdist(grad_params, cfg, a, pcB)
+        assert all(bool(torch.isfinite(t).all()) for t in out)
+        return
+    assert route(cfg, "cuda", 16, 16, grad=True).mode in ("table", "on", "mfv", "off")
+    want, jgrad = jax_bf16_loss_and_grad(params, state,
+                                         jcfg.replace(dtype="bfloat16", fused_gather="off"),
+                                         jnp.asarray(pcA.numpy()), jnp.asarray(pcB.numpy()))
+    value = make_frozen_dpdist_loss(tparams, cfg)(a, pcB)
+    (grad,) = torch.autograd.grad(value, a)
+    assert abs(float(value.detach()) - float(want)) <= TOL_BF16_LOSS
+    close_grads(grad.numpy(), np.asarray(jgrad))
+    (g_dir,) = torch.autograd.grad(apply_direction(tparams, cfg, pcB, a).sum(), a)
+    pred_AB, pred_BA = apply_dpdist(grad_params, cfg, pcA, pcB)
+    leaves = [t for lp in grad_params["decoder"]["layers"] for t in lp.values()]
+    g_params = torch.autograd.grad((pred_AB + pred_BA).sum(), leaves)
+    assert all(bool(torch.isfinite(t).all()) for t in (g_dir,) + g_params)
+    assert all(t.dtype == torch.float32 for t in g_params)
 
 
 def test_frozen_distance_full_bf16():
@@ -343,7 +382,10 @@ def test_pack_decoder_rejects_widths_the_kernel_does_not_take(widths):
 
 def test_gather_wrappers_bf16_outputs_on_cpu():
     """Rows 1, 2 and 6 with dtype=bfloat16 on CPU tensors: the plain
-    versions rounded once, no launch, and no bf16 backward."""
+    versions rounded once, no launch, and a backward (the bf16 adjoint's
+    dfv returned to float32, then the encode's replay for row 1) equal to
+    autograd through the plain composition with the same rounding points.
+    (Until the bf16 gradient paths were ported, the backward raised.)"""
     r = np.random.default_rng(9)
     pts = torch.as_tensor(r.uniform(-0.9, 0.9, (2, 16, 3)).astype(np.float32))
     q = torch.as_tensor(r.uniform(-1.2, 1.2, (2, 16, 3)).astype(np.float32))
@@ -355,13 +397,34 @@ def test_gather_wrappers_bf16_outputs_on_cpu():
     assert x.dtype == BF16 and torch.equal(x, table_gather_x_plain(fv, q, 4, 3)[0].to(BF16))
     out = table_gather(fv, vox, 4, 3, dtype=BF16)
     assert out.dtype == BF16 and torch.equal(out, table_gather_plain(fv, vox, 4, 3).to(BF16))
+    co = torch.as_tensor(r.normal(size=(2, 16, 3 + 27 * 20)).astype(np.float32)).to(BF16)
+
+    def grads(fn, *inputs):
+        leaves = [t.clone().requires_grad_(True) for t in inputs]
+        y = fn(*leaves).float()
+        return torch.autograd.grad((y * co[..., -y.shape[-1]:].float()).sum(), leaves)
+
+    def plain_x(f, qq):   # the same rounding points: x rounded to bf16, dfv too
+        return table_gather_x_plain(f.to(BF16).float(), qq, 4, 3)[0].to(BF16)
+
+    def plain_rows(f):
+        return table_gather_plain(f.to(BF16).float(), vox, 4, 3).to(BF16)
+
+    for got, want in ((grads(lambda f, qq: table_gather_x(f, qq, 4, 3, dtype=BF16)[0], fv, q),
+                       grads(plain_x, fv, q)),
+                      (grads(lambda f: table_gather(f, vox, 4, 3, dtype=BF16), fv),
+                       grads(plain_rows, fv))):
+        for g_, w_ in zip(got, want):
+            assert g_.dtype == torch.float32
+            np.testing.assert_allclose(g_.numpy(), w_.numpy(), rtol=0,
+                                       atol=1e-2 * float(w_.abs().max()))
+    dp, dq = grads(lambda p_, qq: mfv_x(p_, qq, 64, 0.25, 4, 3, dtype=BF16)[0], pts, q)
+    dp_ref, dq_ref = grads(lambda p_, qq: mfv_x_plain(p_, qq, 64, 0.25, 4, 3)[0].to(BF16),
+                           pts, q)
+    assert torch.equal(dq, dq_ref)
+    np.testing.assert_allclose(dp.numpy(), dp_ref.numpy(), rtol=0,
+                               atol=1e-2 * float(dp_ref.abs().max()))
     assert (mfv_x.launches, table_gather_x.launches, table_gather.launches) == counts
-    with pytest.raises(NotImplementedError, match="bf16 gradient"):
-        mfv_x(pts.clone().requires_grad_(True), q, 64, 0.25, 4, 3, dtype=BF16)
-    with pytest.raises(NotImplementedError, match="bf16 gradient"):
-        table_gather_x(fv.clone().requires_grad_(True), q, 4, 3, dtype=BF16)
-    with pytest.raises(NotImplementedError, match="bf16 gradient"):
-        table_gather(fv.clone().requires_grad_(True), vox, 4, 3, dtype=BF16)
     with pytest.raises(TypeError):
         table_gather(fv, vox, 4, 3, dtype=torch.float16)
 

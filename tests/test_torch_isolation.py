@@ -31,9 +31,14 @@ def test_scan_covers_the_port():
                    "models/dpdist.py", "ops/chamfer.py", "ops/emd.py",
                    "losses/dpdist_loss.py", "losses/standard.py", "nn/schedules.py",
                    "train/optim.py", "train/trainer.py", "train/logging.py",
-                   "data/batching.py", "data/prefetch.py", "cli/eval_pair.py"):
+                   "data/batching.py", "data/prefetch.py", "cli/eval_pair.py",
+                   "data/augment.py", "data/io.py", "data/gtgen.py", "data/modelnet.py",
+                   "data/registration.py", "native/lib.py", "native/__init__.py",
+                   "train/profiling.py", "cli/common.py", "cli/gen_data.py",
+                   "cli/train_dpdist.py"):
         assert "dpdist_tpu_torch/" + module in names
     assert "chip_smoke.py" in names
+    assert (ROOT / "dpdist_tpu_torch" / "native" / "src" / "pointcloud_native.cpp").is_file()
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())

@@ -24,6 +24,7 @@ from dpdist_tpu_torch.kernels.table_gather import (
     table_gather_x_plain,
 )
 from dpdist_tpu_torch.kernels.threedmfv import threedmfv_kernel
+from dpdist_tpu_torch.ops import voxel_assign
 from dpdist_tpu_torch.ops.threedmfv import threedmfv_plain
 
 # Kernel vs plain version: both form squared distances per dimension and
@@ -210,6 +211,85 @@ def test_table_gather_bwd_kernel_vox_outside_the_grid_and_off_grid_rows(cuda):
     assert bool((dfv0[:, kh + 1:] == 0).all() and (dfv0[:, :, kh + 1:] == 0).all()
                 and (dfv0[:, :, :, kh + 1:] == 0).all())
     assert bool((dfv0[:, :kh + 1, :kh + 1, :kh + 1] != 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("strided", [True, False])
+@pytest.mark.parametrize("B,N,g,k", [
+    (256, 64, 8, 5),    # the bf16 frozen loss at np = 64
+    (256, 256, 8, 5),   # and at np = 256
+    (2, 16, 4, 3),
+    (3, 13, 8, 5),
+    (1, 1, 8, 5),
+])
+def test_table_gather_bwd_bf16_kernel_matches_ordered_sum(cuda, B, N, g, k, strided):
+    """Row 3 on a bf16 grad (the strided patch part of a bf16 x's gradient,
+    or a contiguous one): a bf16 dfv equal bit for bit to the ordered plain
+    sum of the float32 upcast rounded once, the same from run to run, and
+    counted as a bf16 launch."""
+    q = torch.as_tensor(_edge_inputs(B, 1, N, g, seed=30)[1], device=cuda)
+    _, vox = table_gather_x_plain(torch.zeros(B, g ** 3, 20, device=cuda), q, g, k)
+    gx = torch.as_tensor(np.random.default_rng(31).normal(
+        size=(B, N, 3 + k ** 3 * 20)).astype(np.float32), device=cuda).to(torch.bfloat16)
+    grad = gx[..., 3:] if strided else gx[..., 3:].contiguous()
+    before = (table_gather_bwd.launches, table_gather_bwd.launches_bf16)
+    dfv = table_gather_bwd(vox, grad, g, k)
+    dfv2 = table_gather_bwd(vox, grad, g, k)
+    torch.cuda.synchronize()
+    assert (table_gather_bwd.launches, table_gather_bwd.launches_bf16) == (before[0],
+                                                                           before[1] + 2)
+    assert dfv.dtype == torch.bfloat16 and torch.equal(dfv, dfv2)
+    assert torch.equal(dfv, table_gather_bwd_ordered(vox, grad, g, k))
+    assert torch.equal(dfv, table_gather_bwd_ordered(vox, grad.float(), g, k).to(torch.bfloat16))
+
+
+def _bf16_grads(fn, inputs, co):
+    leaves = [t.clone().requires_grad_(True) for t in inputs]
+    y = fn(*leaves)
+    return y, torch.autograd.grad((y.float() * co[..., -y.shape[-1]:]).sum(), leaves)
+
+
+@pytest.mark.gpu
+def test_bf16_functions_match_the_plain_composition(cuda):
+    """The bf16 autograd Functions of rows 1, 2, 6 and 10 on the card
+    against autograd through the plain composition with the same rounding
+    points (the volume taken in bf16, x rounded to bf16): outputs equal,
+    dq equal, dfv and d points within 1e-2 of their largest entry (the
+    adjoint's float32 sums run in another order before the one rounding);
+    each backward launches the bf16 adjoint once."""
+    bf = torch.bfloat16
+    B, M, N, g, k = 64, 64, 64, 8, 5
+    pts, q = (torch.as_tensor(a, device=cuda) for a in _edge_inputs(B, M, N, g, seed=32))
+    fv = torch.as_tensor(np.random.default_rng(33).normal(size=(B, g ** 3, 20)).astype(np.float32),
+                         device=cuda)
+    co = torch.as_tensor(np.random.default_rng(34).normal(
+        size=(B, N, 3 + k ** 3 * 20)).astype(np.float32), device=cuda).to(bf).float()
+    vox, mask, _ = voxel_assign(q, g)
+    cases = (
+        ("row 1", lambda p_, q_: mfv_x(p_, q_, 512, 0.125, g, k, dtype=bf)[0],
+         lambda p_, q_: mfv_x_plain(p_, q_, 512, 0.125, g, k)[0].to(bf), (pts, q)),
+        ("row 2", lambda f, q_: table_gather_x(f, q_, g, k, dtype=bf)[0],
+         lambda f, q_: table_gather_x_plain(f.to(bf).float(), q_, g, k)[0].to(bf), (fv, q)),
+        ("row 6", lambda f: table_gather(f, vox, g, k, dtype=bf),
+         lambda f: table_gather_plain(f.to(bf).float(), vox, g, k).to(bf), (fv,)),
+        ("row 10", lambda f: gather_patches_fused(f, vox, mask, g, k, dtype=bf),
+         lambda f: gather_patches_fused_plain(f.to(bf).float(), vox, mask, g, k), (fv,)),
+    )
+    for name, fn, plain, inputs in cases:
+        before = table_gather_bwd.launches_bf16
+        y, got = _bf16_grads(fn, inputs, co)
+        torch.cuda.synchronize()
+        assert table_gather_bwd.launches_bf16 == before + 1, name
+        y_ref, want = _bf16_grads(plain, inputs, co)
+        assert y.dtype == y_ref.dtype, name
+        if name == "row 1":   # the encode sums in another order (TOL_X): a rounding may flip
+            assert torch.allclose(y.float(), y_ref.float(), atol=TOL_X, rtol=2 ** -7), name
+        else:
+            assert torch.equal(y, y_ref), name
+        for g_, w_ in zip(got, want):
+            assert g_.dtype == torch.float32, name
+            err = float((g_ - w_).abs().max())
+            assert err <= 1e-2 * float(w_.abs().max()), (name, err)
 
 
 @pytest.mark.gpu
@@ -568,8 +648,9 @@ def test_bf16_outputs_are_the_float32_kernels_rounded(cuda):
 ])
 def test_served_bf16_launch_counts(cuda, mode, np_, want):
     """bf16 serving from a committed net: the kernels each path launches
-    per request, finite distances in [0, 2], and a bf16 input gradient
-    refused."""
+    per request, finite distances in [0, 2]; a bf16 input gradient refused
+    under "full" (the reference refuses it) and computed under "auto"
+    (the table path with row 3's bf16 adjoint)."""
     from dpdist_tpu_torch.serving import load_frozen_distance
 
     wrappers = {"fused_forward": fused_forward, "threedmfv": threedmfv_kernel, "mfv_x": mfv_x,
@@ -588,8 +669,15 @@ def test_served_bf16_launch_counts(cuda, mode, np_, want):
     assert got == {k: want.get(k, 0) for k in wrappers}
     assert d.shape == (8,) and bool(torch.isfinite(d).all())
     assert float(d.min()) >= 0.0 and float(d.max()) <= 2.0
-    with pytest.raises(NotImplementedError, match="bf16 gradient"):
-        model(pcA.clone().requires_grad_(), pcB)
+    a = pcA.clone().requires_grad_()
+    if mode == "full":
+        with pytest.raises(NotImplementedError, match="bf16 gradient"):
+            model(a, pcB)
+        return
+    before = table_gather_bwd.launches_bf16
+    (grad,) = torch.autograd.grad(model(a, pcB).sum(), a)
+    torch.cuda.synchronize()
+    assert table_gather_bwd.launches_bf16 == before + 1 and bool(torch.isfinite(grad).all())
 
 
 # ---------------------------------------------------------------------------
@@ -716,3 +804,25 @@ def test_served_past_the_fused_kernels_limits(cuda, net, over, want, tol):
     assert got == {k: want.get(k, 0) for k in _SERVED_WRAPPERS}
     assert d.shape == (16,) and bool(torch.isfinite(d).all())
     assert float((d - ref).abs().max()) <= tol
+
+
+@pytest.mark.gpu
+def test_gtgen_min_distances_on_cuda_match_the_native_library(cuda):
+    """The ground-truth generator's distances on the card (row 8, then a
+    square root) against the native host library, at the generator's size
+    (50,000 candidates against a 10,000-point surface): within row 8's
+    tolerance, taken through the square root."""
+    from dpdist_tpu_torch.data import gtgen
+    from dpdist_tpu_torch.data.synthetic import synthetic_surface
+    from dpdist_tpu_torch.native import min_distances_native
+
+    surface = (synthetic_surface("chair", seed=3, n_points=10000) * 0.8).astype(np.float32)
+    cand = gtgen.uniform_sampling(np.random.default_rng(4), gtgen.CANDIDATES)
+    before = nn_min_sqdist.launches
+    got = gtgen.min_distances(cand, surface, device=cuda)
+    assert nn_min_sqdist.launches == before + 1
+    want = min_distances_native(cand, surface)
+    assert want is not None and got.dtype == np.float32 and got.shape == want.shape
+    # |d - d'| <= (TOL_NN_ABS + TOL_NN_REL d^2) / (d + d') on the squares.
+    bound = (TOL_NN_ABS + TOL_NN_REL * want ** 2) / np.maximum(got + want, 1e-3) + 1e-7
+    assert np.all(np.abs(got - want) <= bound)
