@@ -13,7 +13,11 @@ kernels and the adjoint; "on"; in bfloat16 with the bf16 adjoint), DPDist
 training (table-gather kernel; in float32 and bfloat16), eval_pair on two
 10,000-point clouds (encode, patch-only gather and the NN-min kernel), and
 the training CLIs: gen_data's ground truth on the card (the NN-min kernel)
-and train_dpdist on it.
+and train_dpdist on it; and registration: the production PCRNet policy
+evaluated on the committed 5,070 poses with the period0 stop (no kernel),
+and PCRNet trained on the frozen DPDist loss (table-gather kernel and
+adjoint), by the trainer and by the train_pcrnet and eval_registration
+CLIs.
 
   1. device        the card's name and power limit; fails without CUDA.
   2. build         compiles dpdist_tpu_torch/csrc (one nvcc per source,
@@ -153,6 +157,35 @@ and train_dpdist on it.
                    fused mfv launch an eval), --resume, and the checkpoint
                    served by load_frozen_distance; the native library built
                    on this host.
+ 20f. registration_eval the production policy
+                   (results/policy_mf_tsn1200clip_dpdist_final) on all 5,070
+                   committed poses, 50 iterations, the period0 stop (threshold
+                   1e-3, period 2), the production protocol's data (5
+                   families, 125 templates, sparse split, seed 777, batches
+                   of 64): every accuracy bucket, plain and symmetry-aware,
+                   overall and per family, and converged_frac within 1 point
+                   of the golden JAX report (golden_registration.json); the
+                   first 256 cases per case at 8 iterations against JAX's
+                   (rotation within 0.05 deg and translation within 1e-5 on
+                   99 % of them, every case within 2 deg and 1e-3), and at 50
+                   printed; no kernel launched (counters); cases/s at batches
+                   of 64 and of 1,014; the buckets printed beside the archived
+                   TPU run's (of the recipe's best checkpoint), as
+                   information.
+ 20g. train_pcrnet the production recipe (B = 16, full BPTT over 8 loops,
+                   grad_clip 1.0, noise, the dpdist loss on the second
+                   committed net): the first step resumed from the policy
+                   against the golden JAX loss (within 1e-4 relative; the
+                   gradient norm printed); 30 steps from scratch on one batch,
+                   each launching exactly 2 table-gather and 1 adjoint
+                   (counters reset before and read after each step), the loss
+                   falling; one step's loss and gradients against the plain
+                   path (fused_gather="off"; 1e-5 relative, 1e-4 of each
+                   leaf's largest entry); the step's time; the
+                   train_pcrnet CLI for 1 epoch of 4 batches resumed from the
+                   policy (8 table-gather and 4 adjoint launches), then
+                   eval_registration on its checkpoint (256 cases, 8
+                   iterations, no launch).
  21. times         CUDA-event medians of 20 runs after warm-up: each kernel
                    with its bound, its plain version and a PyTorch library
                    call computing the same function where there is one
@@ -185,7 +218,9 @@ and train_dpdist on it.
                    the adjoint's bf16 variant (bound, index_add_ in bf16)
                    at N = 64 and 256; the NN-min kernel at the generator's
                    50,000 x 10,000; the bf16 source-gradient step at np = 64
-                   and 256 and the bf16 train step at B = 16 and 256.
+                   and 256 and the bf16 train step at B = 16 and 256; last,
+                   rows 2 and 3's share of the production PCRNet train step's
+                   device time over 5 steps (torch.profiler).
 
 Every phase prints a start and an end line. A wall-clock guard ends the
 run with a non-zero exit naming the phase. The last lines are the
@@ -292,6 +327,33 @@ TOL_BF16_LOSS, REL_BF16, OUTLIERS_BF16, REL_BF16_FEW, MIN_COS_BF16 = 2e-3, 1e-2,
 GT_CANDIDATES, GT_SURFACE, GT_NEG = 50000, 10000, 10 ** 4
 GT_EPS, GT_MIN_EPS = 0.05, 0.001     # gtgen.generate_gt_for_points' defaults
 GT_TRAIN, GT_TEST, CLI_BATCH = 4, 2, 2
+# Registration: the production policy under the production protocol
+# (scripts/chain_r5e.sh's MF arguments, the period0 stop, the evaluator's
+# batches of 64), held against the JAX package's golden values.
+POLICY = "results/policy_mf_tsn1200clip_dpdist_final"
+REG_GOLDEN = "dpdist_tpu_torch/assets/golden_registration.json"
+REG_FAMILIES = ("chair", "sphere", "box", "cylinder", "torus")
+REG_MF = dict(n_templates=125, families=REG_FAMILIES, sparse=1, s_rand_points=1.0,
+              centroid_sub=False, seed=777)
+REG_STOP = dict(stop_threshold=1e-3, stop_period=2, stop_select="period0")
+REG_CASES, REG_ITERATIONS, REG_BATCH, REG_PER_CASE = 5070, 50, 64, 256
+# Every accuracy bucket, overall and per family, within 1 point of JAX's.
+# On the CPU the port and JAX part on 16 of the 5,070 cases' buckets at 50
+# iterations with the stop (0.3 points; scripts/torch_registration_spread.py).
+TOL_BUCKET = 0.01
+# The first 256 cases at 8 iterations, per case: rotation within TOL_ROT
+# and translation within TOL_TRANS on all but OUTLIERS of them, every case
+# within TOL_ROT_FEW / TOL_TRANS_FEW (tests/test_torch_registration.py; on
+# the CPU over all 5,070 cases the worst case parted by 1.10 deg and 1.3e-4,
+# 4 cases by more than 0.1 deg).
+TOL_ROT, TOL_TRANS, OUTLIERS, TOL_ROT_FEW, TOL_TRANS_FEW = 0.05, 1e-5, 0.01, 2.0, 1e-3
+# The production recipe's train step (scripts/chain_r5e.sh's MF1200 with
+# --loss_type dpdist): B = 16, full BPTT over 8 loops, grad_clip 1.0,
+# noise_prob 1.0, dataset seed 0; the first step resumed from the policy
+# against the golden JAX loss within TOL_PCR_LOSS (relative).
+REG_RECIPE = dict(n_templates=125, families=REG_FAMILIES, sparse=1, s_rand_points=1.0,
+                  centroid_sub=False, seed=0, max_rotate_deg=45.0)
+PCR_BATCH, PCR_STEPS, TOL_PCR_LOSS, PROFILED_STEPS = 16, 30, 1e-4, 5
 
 _phase = "start"
 
@@ -579,12 +641,17 @@ def main() -> int:
 
         import dpdist_tpu_torch  # noqa: F401  (sets TF32 off)
         from dpdist_tpu_torch.cli import eval_pair
+        from dpdist_tpu_torch.cli import eval_registration as eval_registration_cli
         from dpdist_tpu_torch.cli import gen_data as gen_data_cli
         from dpdist_tpu_torch.cli import train_dpdist as train_dpdist_cli
+        from dpdist_tpu_torch.cli import train_pcrnet as train_pcrnet_cli
+        from dpdist_tpu_torch.cli.common import load_pcrnet_checkpoint
         from dpdist_tpu_torch.configs import DPDistConfig, TrainConfig
         from dpdist_tpu_torch.data import gtgen
         from dpdist_tpu_torch.data.golden import golden_clouds, load_golden
+        from dpdist_tpu_torch.data.registration import RegistrationDataset, default_eval_poses
         from dpdist_tpu_torch.data.synthetic import synthetic_surface
+        from dpdist_tpu_torch.eval import registration
         from dpdist_tpu_torch.kernels import build
         from dpdist_tpu_torch.kernels import chamfer as chamfer_kernels
         from dpdist_tpu_torch.kernels.chamfer import nn_min_sqdist, nn_min_sqdist_plain
@@ -611,6 +678,7 @@ def main() -> int:
         from dpdist_tpu_torch.losses import make_frozen_dpdist_loss
         from dpdist_tpu_torch.models import apply_dpdist, init_dpdist
         from dpdist_tpu_torch.models.dpdist import route as route_of
+        from dpdist_tpu_torch.models.pcrnet import params_to_device
         from dpdist_tpu_torch.native import lib as native_lib
         from dpdist_tpu_torch.nn import mlp_apply
         from dpdist_tpu_torch.ops import (
@@ -625,6 +693,7 @@ def main() -> int:
         from dpdist_tpu_torch.serving import FrozenDistance, load_frozen_distance
         from dpdist_tpu_torch.train import load_dpdist_checkpoint, params_from_jax
         from dpdist_tpu_torch.train.logging import RunLogger
+        from dpdist_tpu_torch.train.pcrnet_trainer import PCRNetTrainer
         from dpdist_tpu_torch.train.trainer import DPDistTrainer
 
         dev = torch.device("cuda", 0)
@@ -1618,6 +1687,194 @@ def main() -> int:
                   and float(d.max()) <= 2.0, f"train_dpdist {dtype}: the checkpoint's distances")
         del cli_trainer, resumed, served
 
+    reg_golden = json.loads((ROOT / REG_GOLDEN).read_text())
+    pcfg, policy_np = load_pcrnet_checkpoint(str(ROOT / POLICY))
+
+    def production_cases():
+        return RegistrationDataset(pose_file=default_eval_poses(), num_point=pcfg.num_point,
+                                   **REG_MF)
+
+    def buckets(r):
+        """A report's accuracy buckets, plain and symmetry-aware, flat."""
+        out = {k: v for k, v in r.items() if k.startswith(("acc_", "sym_acc_"))}
+        out.update(r.get("sym_acc", {}))
+        return out
+
+    with Phase("registration_eval"):
+        # The production policy on all 5,070 poses, 50 iterations, the period0
+        # stop. It launches no kernel: dense layers and 4x4 pose algebra.
+        start_count()
+        t0 = time.perf_counter()
+        report = registration.evaluate_registration(
+            policy_np, pcfg, production_cases(), num_cases=REG_CASES, iterations=REG_ITERATIONS,
+            batch_size=REG_BATCH, device=dev, **REG_STOP)
+        reg_s = time.perf_counter() - t0
+        launched = read_count()
+        check(sum(launched.values()) == 0, f"registration_eval launched kernels: {launched}")
+        gold, archived = reg_golden["report"], reg_golden["archived"]["tpu_buckets"]
+        worst = 0.0
+        for scope in ("all",) + REG_FAMILIES:
+            got = buckets(report if scope == "all" else report["per_family"][scope])
+            want = buckets(gold if scope == "all" else gold["per_family"][scope])
+            check(set(got) == set(want), f"registration_eval {scope}: bucket keys differ")
+            d = max(abs(got[k] - want[k]) for k in want)
+            worst = max(worst, d)
+            print(f"registration_eval {scope}: acc@(2.5, 0.05) {got['acc_rot2.5_trans0.05']:.4f} "
+                  f"(JAX {want['acc_rot2.5_trans0.05']:.4f}; archived TPU run of the best "
+                  f"checkpoint {archived[scope]['acc_rot2.5_trans0.05']:.4f}), acc@(5, 0.05) "
+                  f"{got['acc_rot5.0_trans0.05']:.4f} (JAX {want['acc_rot5.0_trans0.05']:.4f}), "
+                  f"worst bucket |d| {d:.4f}", flush=True)
+        d_conv = abs(report["converged_frac"] - gold["converged_frac"])
+        reg_cps = 1.0 / report["time_per_case_s"]
+        print(f"registration_eval: {REG_CASES} cases x {REG_ITERATIONS} iterations, period0 stop, "
+              f"batches of {REG_BATCH}: rot err mean {report['rot_err_mean_deg']:.3f} deg (JAX "
+              f"{gold['rot_err_mean_deg']:.3f}), converged {report['converged_frac']:.4f} (JAX "
+              f"{gold['converged_frac']:.4f}); worst bucket |d| {worst:.4f} (tol {TOL_BUCKET}); "
+              f"{reg_s:.2f} s end to end (host clock, data included), {reg_cps:.1f} cases/s "
+              f"(batches after the first); kernel launches 0; on {card}", flush=True)
+        check(worst <= TOL_BUCKET and d_conv <= TOL_BUCKET,
+              f"registration_eval: buckets off the golden JAX report by {worst}, "
+              f"converged_frac by {d_conv}")
+        wide = registration.evaluate_registration(
+            policy_np, pcfg, production_cases(), num_cases=REG_CASES, iterations=REG_ITERATIONS,
+            batch_size=REG_CASES // 5, device=dev, **REG_STOP)
+        print(f"registration_eval at batches of {REG_CASES // 5}: "
+              f"{1.0 / wide['time_per_case_s']:.1f} cases/s (batches after the first); the "
+              f"dataset's draws depend on the batch, so these cases are not the protocol's; "
+              f"on {card}", flush=True)
+
+        # The first 256 cases per case, at 8 and 50 iterations.
+        policy = params_to_device(policy_np, dev)
+        ds = production_cases()
+        per_case = {8: ([], []), 50: ([], [])}
+        for _ in range(REG_PER_CASE // REG_BATCH):
+            cases = [torch.as_tensor(a, device=dev) for a in ds.sample_batch(REG_BATCH)]
+            for its, (rot, trans) in per_case.items():
+                _, te, re, *_ = registration._eval_program(policy, pcfg, *cases, its,
+                                                           **REG_STOP)
+                rot.append(re[-1].cpu().numpy())
+                trans.append(te[-1].cpu().numpy())
+        for its, (rot, trans) in per_case.items():
+            g = reg_golden["per_case"][str(its)]
+            d_rot = np.abs(np.concatenate(rot) - np.asarray(g["rot"]))
+            d_trans = np.abs(np.concatenate(trans) - np.asarray(g["trans"]))
+            outside = float(np.mean((d_rot > TOL_ROT) | (d_trans > TOL_TRANS)))
+            print(f"registration_eval per case, first {REG_PER_CASE} at {its} iterations vs JAX: "
+                  f"worst rot {d_rot.max():.4f} deg, trans {d_trans.max():.3e}; outside "
+                  f"({TOL_ROT} deg, {TOL_TRANS}) {outside:.4f}; parted by > 1 deg "
+                  f"{int((d_rot > 1.0).sum())}", flush=True)
+            if its == 8:
+                check(outside <= OUTLIERS and d_rot.max() <= TOL_ROT_FEW
+                      and d_trans.max() <= TOL_TRANS_FEW,
+                      "registration_eval: per-case errors at 8 iterations off JAX's")
+        del policy, wide
+
+    with Phase("train_pcrnet"), tempfile.TemporaryDirectory() as tmp:
+        # The production recipe on the frozen DPDist loss (the second
+        # committed net): every step launches row 2 twice (both directions'
+        # forward) and row 3 once (the source's adjoint), full BPTT included:
+        # the 8 iterations go through one loss call.
+        dpdist_net = load_dpdist_checkpoint(str(ROOT / NETS[1]))
+        ptcfg = TrainConfig(batch_size=PCR_BATCH, grad_clip=1.0)
+        recipe = RegistrationDataset(num_point=pcfg.num_point, **REG_RECIPE)
+        tmpl, src, pose6 = recipe.sample_batch(PCR_BATCH, random_points_prob=1.0, noise_prob=1.0)
+        per_step = expected(table_gather_x=2, table_gather_bwd=1)
+
+        def pcr_trainer(name, mode=None):
+            cfg_, params_ = dpdist_net
+            d = os.path.join(tmp, name)
+            return PCRNetTrainer(pcfg, ptcfg, loss_type="dpdist", train_single=True,
+                                 dpdist=(cfg_.replace(fused_gather=mode) if mode else cfg_,
+                                         params_),
+                                 run_dir=d, device=dev, logger=RunLogger(d, echo=False))
+
+        resumed = pcr_trainer("resumed")
+        resumed.restore(str(ROOT / POLICY))
+        start_count()
+        m = resumed.train_step(tmpl, src, pose6)
+        launched = read_count()
+        gs = reg_golden["train_step"]["resumed"]
+        err = abs(float(m["loss"]) - gs["loss"]) / gs["loss"]
+        err_gn = abs(float(m["grad_norm"]) - gs["grad_norm"]) / gs["grad_norm"]
+        print(f"train_pcrnet: first step resumed from {POLICY}, B={PCR_BATCH}: loss "
+              f"{float(m['loss']):.6f} (JAX {gs['loss']:.6f}, rel |d| {err:.2e}, tol "
+              f"{TOL_PCR_LOSS}), grad norm {float(m['grad_norm']):.5f} (JAX "
+              f"{gs['grad_norm']:.5f}, rel |d| {err_gn:.2e}); kernel launches {launched}",
+              flush=True)
+        check(launched == per_step, "train_pcrnet: unexpected launches")
+        check(err <= TOL_PCR_LOSS, "train_pcrnet: the resumed step's loss is off the golden one")
+
+        scratch = pcr_trainer("scratch")
+        losses = []
+        for _ in range(PCR_STEPS):
+            start_count()
+            losses.append(scratch.train_step(tmpl, src, pose6)["loss"])
+            check(read_count() == per_step, "train_pcrnet: unexpected launches in a step")
+        losses = torch.stack(losses).cpu().numpy()
+        print(f"train_pcrnet: {PCR_STEPS} steps from scratch on one batch, each 2 row-2 and 1 "
+              f"row-3 launches; loss {losses[0]:.5f} -> {losses[-1]:.5f} (first 5 mean "
+              f"{losses[:5].mean():.5f}, last 5 mean {losses[-5:].mean():.5f})", flush=True)
+        check(bool(np.isfinite(losses).all()), "train_pcrnet: non-finite loss")
+        check(losses[-5:].mean() < losses[:5].mean(), "train_pcrnet: the loss did not fall")
+
+        # One step's loss and gradients on the kernel path and the plain path.
+        plain = pcr_trainer("plain", "off")
+        plain.params = params_to_device(scratch.params, dev, requires_grad=True)
+        batch_t = [torch.as_tensor(a, device=dev) for a in (tmpl, src)]
+        (l_k, g_k), (l_p, g_p) = (t.loss_and_grads(*batch_t) for t in (scratch, plain))
+        err_loss = abs(float(l_k - l_p)) / abs(float(l_p))
+        err_g = max(float((a - b).abs().max()) / float(b.abs().max()) for a, b in zip(g_k, g_p))
+        print(f"train_pcrnet step, kernel path vs plain path: loss rel |d| {err_loss:.2e}, "
+              f"grads worst {err_g:.2e} of a leaf's largest entry", flush=True)
+        check(err_loss <= 1e-5 and err_g <= 1e-4,
+              "train_pcrnet step: kernel path and plain path disagree")
+        del plain, g_k, g_p
+
+        pcr_step_ms = cuda_median_ms(lambda: resumed.train_step(tmpl, src, pose6))
+        print(f"train_pcrnet step (B={PCR_BATCH}, 8 loops, full BPTT): {pcr_step_ms:.3f} ms "
+              f"(CUDA-event median of {TIMED_RUNS}); on {card}", flush=True)
+
+        # The CLI for 1 epoch of 4 batches, resumed from the policy, then
+        # eval_registration on its checkpoint.
+        log_dir = os.path.join(tmp, "cli")
+        args = ["--loss_type", "dpdist", "--dpdist_ckpt", str(ROOT / NETS[1]),
+                "--num_point", "64", "--max_loops", "8", "--out_features", "1024",
+                "--families", *REG_FAMILIES, "--n_templates", "125", "--max_rotate_deg", "45",
+                "--sparse", "1", "--s_rand_points", "1.0", "--centroid_sub", "0",
+                "--batch_size", str(PCR_BATCH), "--batches_per_epoch", "4",
+                "--data_parallel", "1", "--train_single", "--grad_clip", "1.0",
+                "--select_family", "chair", "--eval_cases", "160", "--noise_prob", "1.0",
+                "--seed", "0", "--max_epoch", "1", "--log_dir", log_dir,
+                "--resume", str(ROOT / POLICY), "--device", "cuda"]
+        start_count()
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli_pcr = train_pcrnet_cli.main(args)
+        launched = read_count()
+        policy_step = json.loads((ROOT / (POLICY + ".json")).read_text())["step"]
+        print(f"train_pcrnet CLI: 1 epoch of 4 batches resumed at step {policy_step}, now "
+              f"{cli_pcr.global_step}; kernel launches "
+              f"{ {k_: v for k_, v in launched.items() if v} }", flush=True)
+        check(cli_pcr.global_step == policy_step + 4, "train_pcrnet CLI: steps")
+        check(launched == expected(table_gather_x=8, table_gather_bwd=4),
+              "train_pcrnet CLI: unexpected launches")
+        eval_args = ["--ckpt", os.path.join(log_dir, "pcrnet_ckpt_final"), "--iterations", "8",
+                     "--num_cases", str(REG_PER_CASE), "--families", *REG_FAMILIES,
+                     "--n_templates", "125", "--sparse", "1", "--s_rand_points", "1.0",
+                     "--centroid_sub", "0", "--seed", "777", "--pose_file", "default",
+                     "--stop_threshold", "1e-3", "--stop_period", "2", "--stop_select",
+                     "period0", "--report_dir", os.path.join(tmp, "eval"), "--device", "cuda"]
+        start_count()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rep = eval_registration_cli.main(eval_args)
+        launched = read_count()
+        print(f"eval_registration CLI on its checkpoint: {rep['num_cases']} cases x 8 "
+              f"iterations, acc@(2.5, 0.05) {rep['acc_rot2.5_trans0.05']:.4f}, chair "
+              f"{rep['per_family']['chair']['acc_rot2.5_trans0.05']:.4f}; kernel launches "
+              f"{sum(launched.values())}", flush=True)
+        check(rep["num_cases"] == REG_PER_CASE and np.isfinite(rep["rot_err_mean_deg"])
+              and sum(launched.values()) == 0, "eval_registration CLI")
+        del scratch, cli_pcr
+
     with Phase("times"):
         records = []
         B, N, V, E = B_SERVE, NP, G, K ** 3 * C
@@ -2173,6 +2430,40 @@ def main() -> int:
               f"clock, median of 3, checkpoint load and file parse included); per key "
               + ", ".join(f"{k} {v:.4f} ms" for k, v in key_ms.items()) + f"; on {card}",
               flush=True)
+
+        # Rows 2 and 3's share of a PCRNet train step's device time (the
+        # production recipe, resumed), over the kernel records torch.profiler
+        # keeps of PROFILED_STEPS steps. Last, so that no short profiled run
+        # above follows this long trace (after it sat in train_pcrnet, the
+        # profiler kept no record of row 10 in six sessions). Sessions repeat
+        # until both rows show.
+        from torch.profiler import ProfilerActivity, profile
+
+        for session in range(1, 5):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(PROFILED_STEPS):
+                    resumed.train_step(tmpl, src, pose6)
+                torch.cuda.synchronize()
+            events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+            share = {row: [e for e in events if name in e.key]
+                     for row, name in (("row 2", "table_gather_x_kernel"),
+                                       ("row 3", "table_gather_bwd_kernel"))}
+            if all(share.values()):
+                break
+        check(all(share.values()), "train_pcrnet: the profile shows no launch of row 2 or 3")
+        total_us = sum(e.self_device_time_total for e in events)
+        kept = sum(e.count for e in events)
+        top = sorted(events, key=lambda e: -e.self_device_time_total)[:5]
+        print(f"train_pcrnet step under torch.profiler, {PROFILED_STEPS} steps (session "
+              f"{session}, {kept} device records kept): device time {total_us / PROFILED_STEPS:.1f}"
+              f" us a step, " + ", ".join(
+                  f"{row} {sum(e.self_device_time_total for e in v):.1f} us in "
+                  f"{sum(e.count for e in v)} launches "
+                  f"({sum(e.self_device_time_total for e in v) / total_us:.2%})"
+                  for row, v in share.items())
+              + "; top: " + "; ".join(f"{e.key[:40]} {e.self_device_time_total:.1f} us"
+                                      for e in top) + f"; on {card}", flush=True)
+        del resumed
 
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": records}), flush=True)

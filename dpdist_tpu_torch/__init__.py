@@ -7,23 +7,31 @@ of its reference. This package imports neither `jax` nor `dpdist_tpu`.
 Slices covered so far: the frozen DPDist distance served from the
 committed checkpoints (float32, and bfloat16 through the fused
 gather + decoder kernel or the composed bf16 path), its gradient in the
-input clouds (the frozen loss, float32 or bfloat16), and DPDist training
-on one device (float32 or bfloat16) from the command line.
+input clouds (the frozen loss, float32 or bfloat16), DPDist training on
+one device (float32 or bfloat16) from the command line, and registration:
+the iterative PCRNet policy (pointnet encoders), its evaluator with the
+convergence stops, and PCRNet training on the frozen DPDist loss, chamfer
+or EMD.
 
-  configs/    DPDistConfig, TrainConfig (same fields, defaults and JSON form)
-  train/      checkpoints (read and write), optimizer, run logger, trainer,
-              profiling hooks
+  configs/    DPDistConfig, PCRNetConfig, TrainConfig (same fields, defaults
+              and JSON form)
+  train/      checkpoints (read and write), optimizer, run logger, the DPDist
+              and PCRNet trainers, profiling hooks
+  geometry/   rotations, SE(3) transforms, symmetry-aware errors
+  eval/       the registration evaluator and its plots
   ops/        3DmFV encode and voxel ops, plain PyTorch
   kernels/    kernel wrappers: plain version, launch counter, ctypes binding
   csrc/       the hand-written CUDA kernels (sm_90a)
   nn/         dense / MLP decoder, initialisers, LR and BN schedules
-  models/     DPDist init, forward and distance
+  models/     DPDist init, forward and distance; the PCRNet policy
   losses/     the frozen DPDist loss, the l1 training loss
   data/       synthetic surfaces, the surface-pair dataset, ground-truth
               generation, augmentations, file formats, batch assembly,
-              prefetching (numpy; gtgen's distances on the card)
+              prefetching, registration templates and poses (numpy; gtgen's
+              distances on the card)
   native/     the native host library (C++, built with g++ at first use)
-  cli/        eval_pair, gen_data, train_dpdist
+  cli/        eval_pair, gen_data, train_dpdist, train_pcrnet,
+              eval_registration, eval_matrix, make_templates
   serving.py  load_frozen_distance: the served nn.Module
 
 Entry points run on the card (`device="cuda"`) unless the caller asks for

@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import argparse
 
-from dpdist_tpu_torch.configs import DPDistConfig, TrainConfig
+from dpdist_tpu_torch.configs import DPDistConfig, PCRNetConfig, TrainConfig
 
 
 def add_device_arg(p: argparse.ArgumentParser):
@@ -99,3 +99,36 @@ def check_data_parallel(a) -> None:
         raise NotImplementedError(
             f"--data_parallel {a.data_parallel}: data-parallel training is not ported yet "
             "(ROADMAP.md §1 item 9, parallelism); use 0 or 1")
+
+
+def load_pcrnet_checkpoint(path: str):
+    """(cfg, params) of a PCRNetTrainer checkpoint of either package; params
+    hold numpy arrays in the JAX package's tree (the pointnet policies have
+    no state)."""
+    import json
+
+    import torch
+
+    from dpdist_tpu_torch.models.pcrnet import init_pcrnet
+    from dpdist_tpu_torch.train.checkpoint import restore_params_maybe_state
+
+    with open(path + ".json") as f:
+        meta = json.load(f)["metadata"]
+    cfg = PCRNetConfig.from_json(meta["pcrnet_config"])
+    template = init_pcrnet(cfg, torch.Generator().manual_seed(0), "cpu")
+    params, _, _ = restore_params_maybe_state(path, template, {})
+    return cfg, params
+
+
+def resolve_eval_cases(pose_file, num_cases):
+    """(pose_file, num_cases) of the registration evaluators: pose_file
+    "default" is the committed 5,070-pose set; num_cases defaults to every
+    pose of the file, else 512."""
+    from dpdist_tpu_torch.data.io import read_pose_csv
+    from dpdist_tpu_torch.data.registration import default_eval_poses
+
+    if pose_file == "default":
+        pose_file = default_eval_poses()
+    if num_cases is None:
+        num_cases = len(read_pose_csv(pose_file)) if pose_file is not None else 512
+    return pose_file, num_cases

@@ -1,3 +1,3 @@
-from dpdist_tpu_torch.configs.config import DPDistConfig, TrainConfig
+from dpdist_tpu_torch.configs.config import DPDistConfig, PCRNetConfig, TrainConfig
 
-__all__ = ["DPDistConfig", "TrainConfig"]
+__all__ = ["DPDistConfig", "PCRNetConfig", "TrainConfig"]

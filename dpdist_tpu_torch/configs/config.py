@@ -1,9 +1,10 @@
-"""DPDist model and training configuration (port of DPDistConfig and
+"""Model and training configuration (port of DPDistConfig, PCRNetConfig and
 TrainConfig from dpdist_tpu/configs/config.py).
 
 Same field names, defaults and JSON form as the reference dataclasses, so
-the `model_config` string stored in a checkpoint's metadata parses into
-either package, and either package writes one the other reads.
+the `model_config` (DPDist) or `pcrnet_config` (PCRNet) string stored in a
+checkpoint's metadata parses into either package, and either package
+writes one the other reads.
 """
 
 from __future__ import annotations
@@ -76,6 +77,22 @@ class DPDistConfig(_JsonMixin):
         if self.k == 0:
             return self.fv_channels * self.embedding_size
         return self.fv_channels * self.k ** self.dims
+
+
+@dataclass(frozen=True)
+class PCRNetConfig(_JsonMixin):
+    """Iterative PCRNet (reference pcrnet-registration/models/ipcr_model.py)."""
+
+    num_point: int = 1024
+    encoder: str = "pointnet"     # "pointnet" | "pointnet_avg" | "3dmfv" (not ported yet)
+    out_features: int = 1024
+    max_loops: int = 8            # refinement loops during training
+    eval_iterations: int = 50     # fixed eval refinement iterations
+    lim_rot: float = 0.0          # >0: tanh-limited axis-angle head (degrees)
+    head_widths: Tuple[int, ...] = (1024, 512, 256)
+    dropout_keep: float = 0.7
+    sigma3dmfv: float = 0.25      # 3dmfv encoder variant: sigma=0.0625*4
+    mfv_grid: int = 8
 
 
 @dataclass(frozen=True)

@@ -1,0 +1,69 @@
+"""The registration evaluator's plots (port of save_iteration_curves and
+save_error_histograms, dpdist_tpu/eval/viz.py; its AUE snapshots and other
+views come with ROADMAP.md §1 item 7).
+
+Per-iteration registration error curves and error histograms
+(results_itrPCRNet_no_stop.py:433-462). Both are no-ops returning None
+when matplotlib is unavailable and always use the Agg backend (headless).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+
+def _plt():
+    try:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        return plt
+    except Exception:
+        return None
+
+
+def save_iteration_curves(path: str, rot_err: Sequence[float],
+                          trans_err: Sequence[float],
+                          conv_err: Optional[Sequence[float]] = None
+                          ) -> Optional[str]:
+    """Per-iteration registration error curves (plot_iter_graph parity)."""
+    plt = _plt()
+    if plt is None:
+        return None
+    fig, axes = plt.subplots(1, 3 if conv_err is not None else 2,
+                             figsize=(12, 3.5))
+    axes[0].plot(rot_err)
+    axes[0].set_title("rotation error (deg)")
+    axes[1].plot(trans_err)
+    axes[1].set_title("translation error")
+    if conv_err is not None:
+        axes[2].semilogy(conv_err)
+        axes[2].set_title("convergence measure")
+    for ax in axes:
+        ax.set_xlabel("iteration")
+        ax.grid(True, alpha=0.3)
+    fig.tight_layout()
+    fig.savefig(path, dpi=80)
+    plt.close(fig)
+    return path
+
+
+def save_error_histograms(path: str, rot_err_deg, trans_err) -> Optional[str]:
+    """Rotation/translation error histograms (helper.log_test_results
+    parity, helper.py:771-923)."""
+    plt = _plt()
+    if plt is None:
+        return None
+    fig, axes = plt.subplots(1, 2, figsize=(9, 3.5))
+    axes[0].hist(rot_err_deg, bins=36)
+    axes[0].set_xlabel("rotation error (deg)")
+    axes[1].hist(trans_err, bins=36)
+    axes[1].set_xlabel("translation error")
+    for ax in axes:
+        ax.grid(True, alpha=0.3)
+    fig.tight_layout()
+    fig.savefig(path, dpi=80)
+    plt.close(fig)
+    return path

@@ -5,6 +5,7 @@ from dpdist_tpu_torch.models.dpdist import (
     init_dpdist,
     resolve_for_grad,
 )
+from dpdist_tpu_torch.models.pcrnet import apply_pcrnet, init_pcrnet, pcrnet_refine
 
 __all__ = ["apply_direction", "apply_dpdist", "dpdist_distance", "init_dpdist",
-           "resolve_for_grad"]
+           "resolve_for_grad", "apply_pcrnet", "init_pcrnet", "pcrnet_refine"]

@@ -1,5 +1,6 @@
-"""Dense layers of the DPDist decoder (port of xavier_uniform, dense_init,
-dense_apply, mlp_init and mlp_apply with BN off, dpdist_tpu/nn/layers.py).
+"""Dense layers of the DPDist decoder and the PCRNet policy (port of
+xavier_uniform, dense_init, dense_apply, dropout, mlp_init and mlp_apply with
+BN off, dpdist_tpu/nn/layers.py).
 
 Parameters keep the JAX package's layout: a dense layer is {"w": (in, out),
 "b": (out,)} and computes `x @ w + b`. The decoder runs in float32 with
@@ -36,6 +37,17 @@ def dense_init(in_dim: int, out_dim: int, *, conv_fan: Tuple[int, int] | None = 
     fan_in, fan_out = conv_fan if conv_fan is not None else (in_dim, out_dim)
     return {"w": xavier_uniform((in_dim, out_dim), fan_in, fan_out, generator),
             "b": torch.zeros(out_dim, dtype=torch.float32)}
+
+
+def dropout(generator, x: torch.Tensor, keep_prob: float, *, train: bool) -> torch.Tensor:
+    """Inverted dropout: keep each entry with probability keep_prob and
+    scale it by 1 / keep_prob (tf_util.dropout). The mask comes from an
+    explicit torch.Generator on x's device; its bits differ from JAX's for
+    the same seed."""
+    if not train or keep_prob >= 1.0:
+        return x
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    return torch.where(mask, x / keep_prob, torch.zeros_like(x))
 
 
 def mlp_init(in_dim: int, widths: Sequence[int], *, conv_fan_first=None,

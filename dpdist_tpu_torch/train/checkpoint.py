@@ -154,6 +154,32 @@ def load_checkpoint(path: str) -> Tuple[Any, Any, dict]:
     return _listify(tree), meta.get("step"), meta.get("metadata", {})
 
 
+def _paths(tree) -> List[str]:
+    return [p for p, _ in tree_flatten_with_paths(tree)]
+
+
+def restore_params_maybe_state(path: str, params_template: Any, state_template: Any):
+    """Restore a {"params", "state"} checkpoint, falling back to the
+    params-only format of the reference's first round, as the reference's
+    restore_params_maybe_state does.
+
+    The saved key paths must equal the templates' ({"params": ...,
+    "state": ...} first, then {"params": ...}); else ValueError. Returns
+    (params, state or None, step), with numpy leaves in the checkpoint's
+    structure. A state without leaves (the pointnet PCRNet's {}) restores
+    as the template's."""
+    tree, step, _ = load_checkpoint(path)
+    with open(path + ".json") as f:
+        saved = json.load(f)["paths"]
+    if saved == _paths({"params": params_template, "state": state_template}):
+        state = tree.get("state", state_template)
+        return tree["params"], state_template if not _paths(state) else state, step
+    if saved == _paths({"params": params_template}):
+        return tree["params"], None, step
+    raise ValueError("checkpoint structure mismatch:\n saved: %s...\n template: %s..."
+                     % (saved[:5], _paths({"params": params_template})[:5]))
+
+
 def load_dpdist_checkpoint(path: str) -> Tuple[DPDistConfig, dict]:
     """(cfg, params) of a DPDistTrainer checkpoint; params hold numpy arrays
     in the JAX package's structure ({"decoder": {"layers": [{"w", "b"}]}})."""

@@ -9,6 +9,7 @@ dpdist_tpu_torch/assets/golden_distance.json from the JAX package:
 
 import functools
 import json
+import os
 import sys
 
 import numpy as np
@@ -385,6 +386,29 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="cuda"):
         gtgen.generate_synthetic_dataset("unused", n_train=1, n_test=0, n_surface=8,
                                          num_neg_points=4)
+    # Registration: the policy, its trainer, the evaluator and the four CLIs.
+    from dpdist_tpu_torch.cli import eval_matrix, eval_registration, make_templates, train_pcrnet
+    from dpdist_tpu_torch.configs import PCRNetConfig, TrainConfig
+    from dpdist_tpu_torch.eval.registration import evaluate_registration
+    from dpdist_tpu_torch.models.pcrnet import init_pcrnet
+    from dpdist_tpu_torch.train.pcrnet_trainer import PCRNetTrainer
+
+    pcfg = PCRNetConfig(num_point=16, out_features=16, head_widths=(16,))
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_pcrnet(pcfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        PCRNetTrainer(pcfg, TrainConfig(), run_dir="unused")
+    with pytest.raises(RuntimeError, match="cuda"):
+        evaluate_registration(init_pcrnet(pcfg, device="cpu"), pcfg, dataset=None)
+    for cli, args in ((train_pcrnet, ["--loss_type", "chamfer", "--log_dir", "unused"]),
+                      (eval_registration, ["--ckpt", "results/policy_mf_tsn1200clip_dpdist_final",
+                                           "--report_dir", "unused"]),
+                      (eval_matrix, ["--ckpts", "results/policy_mf_tsn1200clip_dpdist_final",
+                                     "--out_dir", "unused"]),
+                      (make_templates, ["--out_dir", "unused"])):
+        with pytest.raises(RuntimeError, match="cuda"):
+            cli.main(args)
+    assert not os.path.exists("unused")
 
 
 @pytest.mark.parametrize("change", [

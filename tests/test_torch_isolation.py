@@ -35,7 +35,12 @@ def test_scan_covers_the_port():
                    "data/augment.py", "data/io.py", "data/gtgen.py", "data/modelnet.py",
                    "data/registration.py", "native/lib.py", "native/__init__.py",
                    "train/profiling.py", "cli/common.py", "cli/gen_data.py",
-                   "cli/train_dpdist.py"):
+                   "cli/train_dpdist.py", "geometry/__init__.py", "geometry/rotations.py",
+                   "geometry/se3.py", "geometry/symmetry.py", "configs/config.py",
+                   "nn/layers.py", "models/pcrnet.py", "train/checkpoint.py",
+                   "eval/__init__.py", "eval/registration.py", "eval/viz.py",
+                   "train/pcrnet_trainer.py", "cli/train_pcrnet.py", "cli/eval_registration.py",
+                   "cli/eval_matrix.py", "cli/make_templates.py"):
         assert "dpdist_tpu_torch/" + module in names
     assert "chip_smoke.py" in names
     assert (ROOT / "dpdist_tpu_torch" / "native" / "src" / "pointcloud_native.cpp").is_file()

@@ -6,6 +6,8 @@ nothing of JAX, so they also run on a machine without it:
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_kernels_gpu.py
 """
 
+import tempfile
+
 import numpy as np
 import pytest
 import torch
@@ -826,3 +828,83 @@ def test_gtgen_min_distances_on_cuda_match_the_native_library(cuda):
     # |d - d'| <= (TOL_NN_ABS + TOL_NN_REL d^2) / (d + d') on the squares.
     bound = (TOL_NN_ABS + TOL_NN_REL * want ** 2) / np.maximum(got + want, 1e-3) + 1e-7
     assert np.all(np.abs(got - want) <= bound)
+
+
+# ---------------------------------------------------------------------------
+# Registration: PCRNet training on the frozen DPDist loss, the evaluator
+# ---------------------------------------------------------------------------
+
+def _pcrnet_batch(B=4, N=64):
+    from dpdist_tpu_torch.data.registration import RegistrationDataset
+
+    ds = RegistrationDataset(num_point=N, n_templates=5, sparse=1, s_rand_points=1.0,
+                             centroid_sub=False, seed=0,
+                             families=("chair", "sphere", "box", "cylinder", "torus"))
+    return ds.sample_batch(B, random_points_prob=1.0, noise_prob=1.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("train_single", [False, True], ids=["last", "bptt"])
+def test_pcrnet_train_step_launches_rows_2_and_3(cuda, train_single):
+    """One PCRNet step on the frozen DPDist loss (committed multi-family net)
+    launches row 2 twice and row 3 once, in either mode: full BPTT puts the
+    max_loops iterations through one loss call; the evaluator launches no
+    kernel."""
+    from dpdist_tpu_torch.configs import PCRNetConfig, TrainConfig
+    from dpdist_tpu_torch.data.registration import RegistrationDataset
+    from dpdist_tpu_torch.eval.registration import evaluate_registration
+    from dpdist_tpu_torch.train.checkpoint import load_dpdist_checkpoint
+    from dpdist_tpu_torch.train.logging import RunLogger
+    from dpdist_tpu_torch.train.pcrnet_trainer import PCRNetTrainer
+
+    wrappers = {"table_gather_x": table_gather_x, "table_gather_bwd": table_gather_bwd,
+                "mfv_x": mfv_x, "threedmfv": threedmfv_kernel, "table_gather": table_gather}
+    pcfg = PCRNetConfig(num_point=64, out_features=64, head_widths=(64, 32), max_loops=4)
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = PCRNetTrainer(pcfg, TrainConfig(batch_size=4, grad_clip=1.0),
+                                loss_type="dpdist",
+                                dpdist=load_dpdist_checkpoint("results/dpdist_multi_r4_ckpt_best"),
+                                train_single=train_single, run_dir=tmp,
+                                logger=RunLogger(tmp, echo=False))
+        assert trainer.device.type == "cuda"
+        batch = _pcrnet_batch()
+        before = {k: w.launches for k, w in wrappers.items()}
+        m = trainer.train_step(*batch)
+        torch.cuda.synchronize()
+        got = {k: w.launches - before[k] for k, w in wrappers.items()}
+        assert got == {"table_gather_x": 2, "table_gather_bwd": 1, "mfv_x": 0, "threedmfv": 0,
+                       "table_gather": 0}
+        assert bool(torch.isfinite(m["loss"])) and bool(torch.isfinite(m["grad_norm"]))
+
+        before = {k: w.launches for k, w in wrappers.items()}
+        rep = evaluate_registration(trainer.params, pcfg, RegistrationDataset(num_point=64),
+                                    num_cases=8, iterations=4, stop_threshold=1e-3,
+                                    stop_period=2, stop_select="period0")
+        torch.cuda.synchronize()
+        assert {k: w.launches - before[k] for k, w in wrappers.items()} == dict.fromkeys(
+            wrappers, 0)
+        assert np.isfinite(rep["rot_err_mean_deg"])
+
+
+@pytest.mark.gpu
+def test_registration_entry_points_default_to_cuda(cuda):
+    """Without a device argument the registration entry points run on the
+    card: the policy's parameters, the trainer and the evaluator."""
+    from dpdist_tpu_torch.configs import PCRNetConfig, TrainConfig
+    from dpdist_tpu_torch.models.pcrnet import init_pcrnet, pcrnet_refine
+    from dpdist_tpu_torch.train.logging import RunLogger
+    from dpdist_tpu_torch.train.pcrnet_trainer import PCRNetTrainer
+
+    pcfg = PCRNetConfig(num_point=32, out_features=32, head_widths=(32, 16), max_loops=2)
+    params = init_pcrnet(pcfg, torch.Generator().manual_seed(0))
+    assert all(t.is_cuda for lp in params["encoder"] for t in lp.values())
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = PCRNetTrainer(pcfg, TrainConfig(batch_size=2), run_dir=tmp,
+                                logger=RunLogger(tmp, echo=False))
+        assert trainer.params["out"]["w"].is_cuda
+        tmpl, src, _ = _pcrnet_batch(B=2, N=32)
+        m = trainer.train_step(tmpl, src)
+        assert m["loss"].is_cuda
+    out, T, poses = pcrnet_refine(params, pcfg, torch.as_tensor(src, device=cuda),
+                                  torch.as_tensor(tmpl, device=cuda), iterations=2)
+    assert out.is_cuda and T.is_cuda and poses.shape == (2, 2, 7)
