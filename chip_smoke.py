@@ -17,7 +17,10 @@ and train_dpdist on it; and registration: the production PCRNet policy
 evaluated on the committed 5,070 poses with the period0 stop (no kernel),
 and PCRNet trained on the frozen DPDist loss (table-gather kernel and
 adjoint), by the trainer and by the train_pcrnet and eval_registration
-CLIs.
+CLIs; and the autoencoder trained on the frozen DPDist loss at full width
+(table-gather kernel and adjoint), by the trainer and the train_aue CLI,
+compare_losses (the fused kernel), the blocked EMD and the 3dmfv PCRNet
+encoder.
 
   1. device        the card's name and power limit; fails without CUDA.
   2. build         compiles dpdist_tpu_torch/csrc (one nvcc per source,
@@ -186,6 +189,31 @@ CLIs.
                    policy (8 table-gather and 4 adjoint launches), then
                    eval_registration on its checkpoint (256 cases, 8
                    iterations, no launch).
+ 20h. aue         the production AUE (3dmfv, 512 Gaussians, np 64, BN; its
+                   402.7 M-weight decoder layer) and the pn AUE at B = 16,
+                   from the seeded weights of the golden file
+                   (dpdist_tpu_torch/assets/golden_aue.json, JAX on the CPU),
+                   rebuilt here and checked by their per-leaf sums: the
+                   reconstruction of 4 golden clouds (1e-4), the monitor and
+                   3 Adam steps per opt_type against JAX's (see
+                   TOL_LATER_STEPS), each "ours" step launching exactly 2
+                   table-gather and 1 adjoint (counters reset before and read
+                   after each step; a chamfer step none); the step's loss and
+                   d/d reconstruction on the kernel path against the plain
+                   path; the step's ms and peak memory.
+ 20i. train_aue_cli gen_data on the card, train_aue for the 3dmfv AUE
+                   ("ours") and the pn AUE (chamfer), 1 epoch each with its
+                   eval (exact launch counts), and --resume.
+ 20j. compare_losses the CLI at its defaults on the canonical net against the
+                   golden JAX report (DPDist 1e-4, chamfer and EMD 1e-5);
+                   160 fused mfv launches, one a scored pair.
+ 20k. emd_blocked  the blocked Sinkhorn EMD against the port's CPU run and,
+                   at eval_pair's 10,000-point clouds, against the dense plan;
+                   timed.
+ 20l. pcrnet_3dmfv the 3dmfv PCRNet encoder's golden step (the frozen DPDist
+                   loss, B = 8): loss, gradient norm, BN state and the eval
+                   refinement after it against JAX's; 2 table-gather and 1
+                   adjoint launch; the step's ms.
  21. times         CUDA-event medians of 20 runs after warm-up: each kernel
                    with its bound, its plain version and a PyTorch library
                    call computing the same function where there is one
@@ -220,7 +248,8 @@ CLIs.
                    50,000 x 10,000; the bf16 source-gradient step at np = 64
                    and 256 and the bf16 train step at B = 16 and 256; last,
                    rows 2 and 3's share of the production PCRNet train step's
-                   device time over 5 steps (torch.profiler).
+                   device time over 5 steps (torch.profiler), then the same
+                   for the production AUE step, with its idle share.
 
 Every phase prints a start and an end line. A wall-clock guard ends the
 run with a non-zero exit naming the phase. The last lines are the
@@ -354,6 +383,33 @@ TOL_ROT, TOL_TRANS, OUTLIERS, TOL_ROT_FEW, TOL_TRANS_FEW = 0.05, 1e-5, 0.01, 2.0
 REG_RECIPE = dict(n_templates=125, families=REG_FAMILIES, sparse=1, s_rand_points=1.0,
                   centroid_sub=False, seed=0, max_rotate_deg=45.0)
 PCR_BATCH, PCR_STEPS, TOL_PCR_LOSS, PROFILED_STEPS = 16, 30, 1e-4, 5
+# The autoencoder (the production AUE of results/aue_eval_r4.json: 3dmfv,
+# 512 Gaussians, np 64, BN; and the pn AUE) held against the golden JAX
+# values (tests/test_torch_aue.py writes them from the port's seeded
+# weights, which the card rebuilds): the weights' per-leaf sums within
+# TOL_FINGERPRINT (else the card drew other weights), reconstructions within
+# TOL_REC, the monitor and the first step's loss within TOL_AUE (relative),
+# the first step's gradient norm within TOL_AUE_GNORM (through the frozen
+# DPDist loss, whose input gradient jumps where a point's cell or pooling
+# argmax switches; chamfer's nearest neighbours switch the same way), and
+# the second and third Adam steps' losses within TOL_LATER_STEPS (a step
+# moves each weight by lr * sign(g); on the CPU the port's own losses moved
+# by up to 1.9e-2 under 1e-6 of input noise, and on the card the pn AUE's
+# third step read 3.0e-2 from JAX's).
+AUE_STEPS, AUE_TIMED_STEPS = 3, 10
+TOL_FINGERPRINT, TOL_REC, TOL_AUE, TOL_LATER_STEPS = 1e-9, 1e-4, 1e-4, 5e-2
+TOL_AUE_GNORM = {"ours": 3e-2, "chamfer": 1e-2}
+# compare_losses against the golden JAX report: DPDist means within
+# TOL_DIST, chamfer and EMD within TOL_CHAMFER / TOL_EMD.
+COMPARE_PAIRS = 8 * 20          # 8 surfaces x 20 magnitudes at the CLI's defaults
+# The blocked EMD: against the port's CPU run (float32 logsumexps in another
+# order) within TOL_EMD_BLOCKED relative, against the dense plan at 10,000
+# points within 3 % + 1e-3 (the JAX package's own bound, tests/test_losses.py).
+TOL_EMD_BLOCKED = 1e-5
+# The 3dmfv PCRNet step against the golden JAX step (tests/test_torch_pcrnet_3dmfv.py's
+# tolerances): loss 1e-4 relative, gradient norm 5e-3, the BN state's block
+# sums 1e-4, the eval refinement's poses after the step 1e-3.
+TOL_PCR3_GNORM, TOL_PCR3_POSES = 5e-3, 1e-3
 
 _phase = "start"
 
@@ -644,11 +700,13 @@ def main() -> int:
         from dpdist_tpu_torch.cli import eval_registration as eval_registration_cli
         from dpdist_tpu_torch.cli import gen_data as gen_data_cli
         from dpdist_tpu_torch.cli import train_dpdist as train_dpdist_cli
+        from dpdist_tpu_torch.cli import compare_losses as compare_losses_cli
+        from dpdist_tpu_torch.cli import train_aue as train_aue_cli
         from dpdist_tpu_torch.cli import train_pcrnet as train_pcrnet_cli
         from dpdist_tpu_torch.cli.common import load_pcrnet_checkpoint
-        from dpdist_tpu_torch.configs import DPDistConfig, TrainConfig
+        from dpdist_tpu_torch.configs import AUEConfig, DPDistConfig, PCRNetConfig, TrainConfig
         from dpdist_tpu_torch.data import gtgen
-        from dpdist_tpu_torch.data.golden import golden_clouds, load_golden
+        from dpdist_tpu_torch.data.golden import AUE_GOLDEN_PATH, aue_batch, golden_clouds, load_golden
         from dpdist_tpu_torch.data.registration import RegistrationDataset, default_eval_poses
         from dpdist_tpu_torch.data.synthetic import synthetic_surface
         from dpdist_tpu_torch.eval import registration
@@ -678,7 +736,8 @@ def main() -> int:
         from dpdist_tpu_torch.losses import make_frozen_dpdist_loss
         from dpdist_tpu_torch.models import apply_dpdist, init_dpdist
         from dpdist_tpu_torch.models.dpdist import route as route_of
-        from dpdist_tpu_torch.models.pcrnet import params_to_device
+        from dpdist_tpu_torch.models.aue import apply_aue
+        from dpdist_tpu_torch.models.pcrnet import params_to_device, pcrnet_refine
         from dpdist_tpu_torch.native import lib as native_lib
         from dpdist_tpu_torch.nn import mlp_apply
         from dpdist_tpu_torch.ops import (
@@ -686,12 +745,15 @@ def main() -> int:
             earth_mover_distance,
             neighbor_ids,
             sinkhorn_emd,
+            sinkhorn_emd_blocked,
             threedmfv,
             threedmfv_plain,
             voxel_assign,
         )
         from dpdist_tpu_torch.serving import FrozenDistance, load_frozen_distance
         from dpdist_tpu_torch.train import load_dpdist_checkpoint, params_from_jax
+        from dpdist_tpu_torch.train.aue_trainer import AUETrainer, split_same_surface
+        from dpdist_tpu_torch.train.checkpoint import tree_flatten_with_paths
         from dpdist_tpu_torch.train.logging import RunLogger
         from dpdist_tpu_torch.train.pcrnet_trainer import PCRNetTrainer
         from dpdist_tpu_torch.train.trainer import DPDistTrainer
@@ -706,6 +768,7 @@ def main() -> int:
         print(f"device: {name}; nvidia-smi: {smi}; torch {torch.__version__}, "
               f"CUDA {torch.version.cuda}", flush=True)
         check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmul is on")
+        check(not torch.backends.cudnn.allow_tf32, "TF32 convolution (cuDNN) is on")
 
     with Phase("build"):
         # The native host library (g++, for this host's CPU) builds beside nvcc.
@@ -1875,6 +1938,244 @@ def main() -> int:
               and sum(launched.values()) == 0, "eval_registration CLI")
         del scratch, cli_pcr
 
+    aue_golden = json.loads(AUE_GOLDEN_PATH.read_text())
+    aue_data = aue_batch(aue_golden["batch"])
+    ax1, ax2 = (torch.as_tensor(a, device=dev) for a in split_same_surface(aue_data))
+    aue_net = load_dpdist_checkpoint(str(ROOT / aue_golden["dpdist_net"]))
+    aue_tcfg = TrainConfig(batch_size=aue_golden["batch"]["batch_size"],
+                           learning_rate=aue_golden["learning_rate"], seed=aue_golden["seed"])
+    aue_per_step = {"ours": expected(table_gather_x=2, table_gather_bwd=1), "chamfer": expected()}
+    aue_prof = None
+
+    def aue_trainer(encoder, opt_type, d):
+        return AUETrainer(AUEConfig(encoder=encoder), aue_tcfg, *aue_net, opt_type=opt_type,
+                          run_dir=d, device=dev, logger=RunLogger(d, echo=False))
+
+    with Phase("aue"), tempfile.TemporaryDirectory() as tmp:
+        # The AUE trained on the frozen DPDist loss (and on chamfer) at full
+        # width, B = 16: weights from the seeded init, rebuilt here; each
+        # "ours" step launches row 2 twice and row 3 once.
+        for encoder in ("3dmfv", "pn"):
+            want = aue_golden["aue"][encoder]
+            for opt_type in ("ours", "chamfer"):
+                t0 = time.perf_counter()
+                tr = aue_trainer(encoder, opt_type, os.path.join(tmp, encoder + opt_type))
+                torch.cuda.synchronize()
+                init_s = time.perf_counter() - t0
+                fp = {p: (float(t.detach().double().sum()), float(t.detach().double().square().sum()))
+                      for p, t in tree_flatten_with_paths(tr.params)}
+                err_fp = max(abs(a - b) / max(abs(b), 1e-30) for p, v in fp.items()
+                             for a, b in zip(v, want["fingerprint"][p]))
+                check(err_fp <= TOL_FINGERPRINT, f"aue {encoder}: the seeded weights differ from "
+                      f"the golden file's (per-leaf sums {err_fp:.2e} apart)")
+                if opt_type == "ours":
+                    rec = tr.reconstruct(split_same_surface(aue_data)[0][:len(want["recon"])])
+                    err_rec = float(np.abs(rec - np.asarray(want["recon"])).max())
+                    start_count()
+                    mon = [float(v) for v in tr.monitor(ax1, ax2)]
+                    mon_launched = {k: v for k, v in read_count().items() if v}
+                    err_mon = max(abs(a - b) / b for a, b in zip(mon, want["monitor"]))
+                    print(f"aue {encoder}: {sum(t.numel() for _, t in tree_flatten_with_paths(tr.params))} "
+                          f"params, init {init_s:.2f} s; reconstruction of "
+                          f"{len(want['recon'])} golden clouds max |d| {err_rec:.3e} (tol "
+                          f"{TOL_REC}); monitor (DPDist, chamfer) {mon[0]:.6f}, {mon[1]:.6f}, rel "
+                          f"|d| {err_mon:.2e} from JAX; monitor launches {mon_launched}; on "
+                          f"{card}", flush=True)
+                    check(err_rec <= TOL_REC and err_mon <= TOL_AUE,
+                          f"aue {encoder}: reconstruction or monitor off the golden values")
+                losses, gnorms = [], []
+                for _ in range(AUE_STEPS):
+                    start_count()
+                    m = tr.train_step(aue_data)
+                    launched = read_count()
+                    check(launched == aue_per_step[opt_type],
+                          f"aue {encoder} {opt_type}: step launches {launched}")
+                    losses.append(float(m["loss"]))
+                    gnorms.append(float(m["grad_norm"]))
+                gw = want["train_steps"][opt_type]
+                err_l = [abs(a - b) / b for a, b in zip(losses, gw["loss"])]
+                err_g = abs(gnorms[0] - gw["grad_norm"][0]) / gw["grad_norm"][0]
+                print(f"aue {encoder} {opt_type}: {AUE_STEPS} Adam steps at B="
+                      f"{aue_tcfg.batch_size}, losses {[f'{v:.6f}' for v in losses]} (JAX "
+                      f"{[f'{v:.6f}' for v in gw['loss']]}, rel |d| "
+                      f"{[f'{v:.1e}' for v in err_l]}), grad norms "
+                      f"{[f'{v:.4f}' for v in gnorms]} (JAX {[f'{v:.4f}' for v in gw['grad_norm']]}); "
+                      f"launches a step: row 2 {launched['table_gather_x']}, row 3 "
+                      f"{launched['table_gather_bwd']}", flush=True)
+                check(err_l[0] <= TOL_AUE and max(err_l[1:]) <= TOL_LATER_STEPS
+                      and err_g <= TOL_AUE_GNORM[opt_type],
+                      f"aue {encoder} {opt_type}: the steps are off the golden ones")
+                if (encoder, opt_type) == ("3dmfv", "ours"):
+                    # The step's loss and its gradient in the reconstruction
+                    # on the kernel path and the plain path
+                    # (fused_gather="off"), by the per-point criterion (the
+                    # encode's signed sqrt magnifies the adjoint's summation
+                    # order on a few points).
+                    with torch.no_grad():
+                        rec_ = apply_aue(tr.params, tr.state, tr.acfg, ax1, train=True)[0]
+                    out_kp = []
+                    for mode in (None, "off"):
+                        cfg_ = aue_net[0] if mode is None else aue_net[0].replace(fused_gather=mode)
+                        loss_fn = make_frozen_dpdist_loss(params_from_jax(aue_net[1], dev), cfg_)
+                        r_ = rec_.clone().requires_grad_(True)
+                        l_ = loss_fn(r_, ax2)
+                        out_kp.append((float(l_), torch.autograd.grad(l_, r_)[0]))
+                    (l_k, g_k), (l_p, g_p) = out_kp
+                    err_kp = check_grad_rows(g_k, g_p, "aue step: d loss / d reconstruction")
+                    print(f"aue 3dmfv ours step, kernel path vs plain path: loss rel |d| "
+                          f"{abs(l_k - l_p) / l_p:.2e}, d loss / d reconstruction worst point "
+                          f"{err_kp:.2e} of max", flush=True)
+                    check(abs(l_k - l_p) <= 1e-5 * l_p, "aue step: kernel path and plain path "
+                          "disagree on the loss")
+                    del out_kp, g_k, g_p
+                    torch.cuda.reset_peak_memory_stats()
+                    base = torch.cuda.memory_allocated()
+                    tr.train_step(aue_data)
+                    torch.cuda.synchronize()
+                    peak = torch.cuda.max_memory_allocated()
+                    aue_ms = cuda_median_ms(lambda: tr.train_step(aue_data), runs=AUE_TIMED_STEPS,
+                                            warmup=2)
+                    print(f"aue 3dmfv ours step (B={aue_tcfg.batch_size}, np=64, 402.7 M "
+                          f"decoder weights, Adam): {aue_ms:.3f} ms (CUDA-event median of "
+                          f"{AUE_TIMED_STEPS}), {aue_tcfg.batch_size / aue_ms * 1e3:.1f} clouds/s; "
+                          f"max_memory_allocated {peak / 2 ** 30:.2f} GiB ({base / 2 ** 30:.2f} GiB "
+                          f"held before the step); on {card}", flush=True)
+                    aue_prof = tr
+                else:
+                    del tr
+                torch.cuda.empty_cache()
+
+    with Phase("train_aue_cli"), tempfile.TemporaryDirectory() as tmp:
+        # gen_data on the card (20 small models), then train_aue for the
+        # production AUE ("ours") and the pn AUE (chamfer), 1 epoch of one
+        # B = 16 step each, and --resume. The frozen loss runs row 2 twice in
+        # each monitor (the train epoch's and the eval's) and in the step,
+        # whose backward runs row 3 once.
+        data_dir = os.path.join(tmp, "data")
+        start_count()
+        with contextlib.redirect_stdout(io.StringIO()):
+            gen_data_cli.main(["--out", data_dir, "--families", "chair", "--n_train", "16",
+                               "--n_test", "4", "--n_surface", "1000", "--num_neg_points", "300",
+                               "--device", "cuda"])
+        gen_launched = {k: v for k, v in read_count().items() if v}
+        for encoder, opt_type, want in (("3dmfv", "ours", expected(table_gather_x=6,
+                                                                   table_gather_bwd=1)),
+                                        ("pn", "chamfer", expected(table_gather_x=4))):
+            log_dir = os.path.join(tmp, encoder)
+            base = ["--dpdist_ckpt", str(ROOT / NETS[0]), "--encoder_aue", encoder,
+                    "--opt_type", opt_type, "--data_root", data_dir, "--category", "chair",
+                    "--batch_size", "16", "--data_parallel", "1", "--device", "cuda"]
+            args = base + ["--max_epoch_aue", "1", "--log_dir", log_dir]
+            start_count()
+            with contextlib.redirect_stdout(io.StringIO()):
+                cli_aue = train_aue_cli.main(args)
+            launched = read_count()
+            metrics = [json.loads(l) for l in open(os.path.join(log_dir, "metrics.jsonl"))]
+            ev = [m_ for m_ in metrics if "eval_dpdist" in m_][-1]
+            print(f"train_aue CLI {encoder} {opt_type}: {cli_aue.global_step} step(s), eval "
+                  f"DPDist {ev['eval_dpdist']:.5f}, chamfer {ev['eval_chamfer']:.5f}; kernel "
+                  f"launches { {k: v for k, v in launched.items() if v} }", flush=True)
+            check(cli_aue.global_step == 1 and launched == want
+                  and np.isfinite([ev["eval_dpdist"], ev["eval_chamfer"]]).all(),
+                  f"train_aue CLI {encoder}")
+            del cli_aue
+            if encoder == "3dmfv":
+                with contextlib.redirect_stdout(io.StringIO()):
+                    resumed_aue = train_aue_cli.main(
+                        base + ["--max_epoch_aue", "2", "--start_epoch", "1",
+                                "--resume", os.path.join(log_dir, "aue_ckpt_1"),
+                                "--log_dir", os.path.join(tmp, "resumed")])
+                check(resumed_aue.global_step == 2, "train_aue CLI --resume")
+                del resumed_aue
+            torch.cuda.empty_cache()
+        print(f"gen_data on the card for the AUE data: kernel launches {gen_launched}",
+              flush=True)
+
+    with Phase("compare_losses"), tempfile.TemporaryDirectory() as tmp:
+        # The CLI at its defaults on the canonical net: every pair scored
+        # alone, a pure forward (one fused mfv launch, row 1, per pair).
+        start_count()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            report = compare_losses_cli.main(["--dpdist_ckpt", str(ROOT / NETS[0]), "--out",
+                                              os.path.join(tmp, "r.json"), "--device", "cuda"])
+        cmp_s = time.perf_counter() - t0
+        launched = read_count()
+        want = aue_golden["compare_losses"]["report"]
+        err = {key: max(abs(a - b) for kind in want for a, b in zip(report[kind][key],
+                                                                    want[kind][key]))
+               for key in ("dpdist", "chamfer", "emd")}
+        print(f"compare_losses at its defaults: {len(want)} kinds, {COMPARE_PAIRS} pairs in "
+              f"{cmp_s:.2f} s (host clock); max |d| from the golden JAX report: "
+              + ", ".join(f"{k} {v:.2e}" for k, v in err.items())
+              + f"; kernel launches { {k: v for k, v in launched.items() if v} }; on {card}",
+              flush=True)
+        check(list(report) == list(want) and err["dpdist"] <= TOL_DIST
+              and err["chamfer"] <= TOL_CHAMFER and err["emd"] <= TOL_EMD,
+              "compare_losses: the report is off the golden one")
+        check(launched == expected(mfv_gather_x=COMPARE_PAIRS), "compare_losses: launches")
+
+    with Phase("emd_blocked"):
+        # The blocked Sinkhorn EMD on eval_pair's two 10,000-point clouds
+        # (tiles of 1,024: padded), against the dense plan; and at B = 2,
+        # N = 2,000, M = 1,500 against the port's CPU run.
+        r_emd = np.random.default_rng(5)
+        xs = r_emd.normal(size=(2, 2000, 3)).astype(np.float32)
+        ys = r_emd.normal(size=(2, 1500, 3)).astype(np.float32)
+        got = sinkhorn_emd_blocked(torch.as_tensor(xs, device=dev),
+                                   torch.as_tensor(ys, device=dev), tile=512).cpu()
+        ref = sinkhorn_emd_blocked(torch.as_tensor(xs), torch.as_tensor(ys), tile=512)
+        err_cpu = float(((got - ref).abs() / ref).max())
+        blocked = float(sinkhorn_emd_blocked(eA, eB)[0])
+        dense = float(sinkhorn_emd(eA, eB, 30, 0.5, 0.01)[0])
+        emd_ms = cuda_median_ms(lambda: sinkhorn_emd_blocked(eA, eB), runs=3, warmup=1)
+        dense_ms = cuda_median_ms(lambda: sinkhorn_emd(eA, eB, 30, 0.5, 0.01), runs=3, warmup=1)
+        print(f"sinkhorn_emd_blocked: vs the CPU at B=2, 2000 x 1500, tile 512: rel |d| "
+              f"{err_cpu:.2e} (tol {TOL_EMD_BLOCKED}); at {EVAL_POINTS} x {EVAL_POINTS}: "
+              f"{blocked:.6f} (dense plan {dense:.6f}), {emd_ms:.2f} ms (CUDA-event median of "
+              f"3; dense plan {dense_ms:.2f} ms); on {card}", flush=True)
+        check(err_cpu <= TOL_EMD_BLOCKED, "sinkhorn_emd_blocked: card vs CPU")
+        check(np.isfinite(blocked) and abs(blocked - dense) <= 0.03 * dense + 1e-3,
+              "sinkhorn_emd_blocked: vs the dense plan")
+
+    with Phase("pcrnet_3dmfv"), tempfile.TemporaryDirectory() as tmp:
+        # The 3dmfv PCRNet encoder (six 3D inception blocks, BN state) trained
+        # on the frozen DPDist loss: the golden step from the seeded weights.
+        g3 = aue_golden["pcrnet_3dmfv"]
+        cfg3 = PCRNetConfig.from_json(g3["config"])
+        data3 = {**g3["data"], "families": tuple(g3["data"]["families"])}
+        tmpl3, src3, _ = RegistrationDataset(num_point=cfg3.num_point, **data3).sample_batch(
+            g3["batch_size"])
+        tr3 = PCRNetTrainer(cfg3, TrainConfig(batch_size=g3["batch_size"],
+                                              learning_rate=g3["learning_rate"]),
+                            loss_type=g3["loss_type"], dpdist=load_dpdist_checkpoint(
+                                str(ROOT / aue_golden["dpdist_net"])),
+                            run_dir=tmp, device=dev, logger=RunLogger(tmp, echo=False))
+        start_count()
+        m = tr3.train_step(tmpl3, src3)
+        launched = read_count()
+        sums = [sum(float(t.sum()) for _, t in tree_flatten_with_paths(b))
+                for b in tr3.state["mfv_bn"]]
+        with torch.no_grad():
+            _, _, poses3 = pcrnet_refine(tr3.params, cfg3, torch.as_tensor(src3, device=dev),
+                                         torch.as_tensor(tmpl3, device=dev), iterations=8,
+                                         stop_gradient_iters=False, state=tr3.state)
+        err_l = abs(float(m["loss"]) - g3["loss"]) / g3["loss"]
+        err_g = abs(float(m["grad_norm"]) - g3["grad_norm"]) / g3["grad_norm"]
+        err_s = max(abs(a - b) / abs(b) for a, b in zip(sums, g3["state_block_sums"]))
+        err_p = float(np.abs(poses3.cpu().numpy() - np.asarray(g3["eval_poses"])).max())
+        pcr3_ms = cuda_median_ms(lambda: tr3.train_step(tmpl3, src3), runs=10, warmup=2)
+        print(f"pcrnet 3dmfv step (B={g3['batch_size']}, {cfg3.max_loops} loop): loss "
+              f"{float(m['loss']):.6f} (JAX {g3['loss']:.6f}, rel |d| {err_l:.2e}), grad norm "
+              f"rel |d| {err_g:.2e}, BN state sums rel |d| {err_s:.2e}, eval poses after it max "
+              f"|d| {err_p:.2e}; launches { {k: v for k, v in launched.items() if v} }; "
+              f"{pcr3_ms:.3f} ms a step (CUDA-event median of 10); on {card}", flush=True)
+        check(launched == expected(table_gather_x=2, table_gather_bwd=1),
+              "pcrnet 3dmfv: step launches")
+        check(err_l <= TOL_PCR_LOSS and err_g <= TOL_PCR3_GNORM and err_s <= TOL_PCR_LOSS
+              and err_p <= TOL_PCR3_POSES, "pcrnet 3dmfv: the step is off the golden one")
+        del tr3
+
     with Phase("times"):
         records = []
         B, N, V, E = B_SERVE, NP, G, K ** 3 * C
@@ -2464,6 +2765,38 @@ def main() -> int:
               + "; top: " + "; ".join(f"{e.key[:40]} {e.self_device_time_total:.1f} us"
                                       for e in top) + f"; on {card}", flush=True)
         del resumed
+
+        # The same for the production AUE step ("ours", B = 16): device time
+        # a step, rows 2 and 3's share of it, and the idle share of the
+        # CUDA-event step time (aue_ms, taken in the aue phase).
+        for session in range(1, 5):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(PROFILED_STEPS):
+                    aue_prof.train_step(aue_data)
+                torch.cuda.synchronize()
+            events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+            share = {row: [e for e in events if name in e.key]
+                     for row, name in (("row 2", "table_gather_x_kernel"),
+                                       ("row 3", "table_gather_bwd_kernel"))}
+            if all(share.values()):
+                break
+        check(all(share.values()), "aue: the profile shows no launch of row 2 or 3")
+        total_us = sum(e.self_device_time_total for e in events)
+        # One row-3 launch a step: the steps whose records the profiler kept.
+        kept_steps = sum(e.count for e in share["row 3"])
+        step_dev_ms = total_us / max(kept_steps, 1) / 1e3
+        top = sorted(events, key=lambda e: -e.self_device_time_total)[:5]
+        print(f"aue 3dmfv ours step under torch.profiler, {PROFILED_STEPS} steps (session "
+              f"{session}, {kept_steps} steps' row-3 records kept): device time "
+              f"{step_dev_ms:.3f} ms a step of {aue_ms:.3f} ms (idle share "
+              f"{1 - step_dev_ms / aue_ms:.1%}), " + ", ".join(
+                  f"{row} {sum(e.self_device_time_total for e in v):.1f} us in "
+                  f"{sum(e.count for e in v)} launches "
+                  f"({sum(e.self_device_time_total for e in v) / total_us:.2%})"
+                  for row, v in share.items())
+              + "; top: " + "; ".join(f"{e.key[:40]} {e.self_device_time_total:.1f} us"
+                                      for e in top) + f"; on {card}", flush=True)
+        del aue_prof
 
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": records}), flush=True)

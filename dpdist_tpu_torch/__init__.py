@@ -8,22 +8,24 @@ Slices covered so far: the frozen DPDist distance served from the
 committed checkpoints (float32, and bfloat16 through the fused
 gather + decoder kernel or the composed bf16 path), its gradient in the
 input clouds (the frozen loss, float32 or bfloat16), DPDist training on
-one device (float32 or bfloat16) from the command line, and registration:
-the iterative PCRNet policy (pointnet encoders), its evaluator with the
-convergence stops, and PCRNet training on the frozen DPDist loss, chamfer
-or EMD.
+one device (float32 or bfloat16) from the command line, registration:
+the iterative PCRNet policy (pointnet and 3dmfv encoders), its evaluator
+with the convergence stops, and PCRNet training on the frozen DPDist loss,
+chamfer or EMD; and the point-cloud autoencoder trained on the frozen
+loss or chamfer, with kNN, the blocked EMD and the distance comparison.
 
-  configs/    DPDistConfig, PCRNetConfig, TrainConfig (same fields, defaults
-              and JSON form)
-  train/      checkpoints (read and write), optimizer, run logger, the DPDist
-              and PCRNet trainers, profiling hooks
+  configs/    DPDistConfig, AUEConfig, PCRNetConfig, TrainConfig (same
+              fields, defaults and JSON form)
+  train/      checkpoints (read and write), optimizer, run logger, the DPDist,
+              PCRNet and AUE trainers, profiling hooks
   geometry/   rotations, SE(3) transforms, symmetry-aware errors
-  eval/       the registration evaluator and its plots
-  ops/        3DmFV encode and voxel ops, plain PyTorch
+  eval/       the registration evaluator, the distance comparison, plots
+  ops/        3DmFV encode, voxel ops, chamfer, EMD (dense and blocked), kNN
   kernels/    kernel wrappers: plain version, launch counter, ctypes binding
   csrc/       the hand-written CUDA kernels (sm_90a)
-  nn/         dense / MLP decoder, initialisers, LR and BN schedules
-  models/     DPDist init, forward and distance; the PCRNet policy
+  nn/         dense, conv, pool and BN layers, the MLP, initialisers, LR and
+              BN schedules
+  models/     DPDist init, forward and distance; the PCRNet policy; the AUEs
   losses/     the frozen DPDist loss, the l1 training loss
   data/       synthetic surfaces, the surface-pair dataset, ground-truth
               generation, augmentations, file formats, batch assembly,
@@ -31,7 +33,8 @@ or EMD.
               distances on the card)
   native/     the native host library (C++, built with g++ at first use)
   cli/        eval_pair, gen_data, train_dpdist, train_pcrnet,
-              eval_registration, eval_matrix, make_templates
+              eval_registration, eval_matrix, make_templates, train_aue,
+              compare_losses
   serving.py  load_frozen_distance: the served nn.Module
 
 Entry points run on the card (`device="cuda"`) unless the caller asks for

@@ -101,23 +101,29 @@ def check_data_parallel(a) -> None:
             "(ROADMAP.md §1 item 9, parallelism); use 0 or 1")
 
 
-def load_pcrnet_checkpoint(path: str):
-    """(cfg, params) of a PCRNetTrainer checkpoint of either package; params
-    hold numpy arrays in the JAX package's tree (the pointnet policies have
-    no state)."""
+def load_pcrnet_checkpoint_state(path: str):
+    """(cfg, params, state) of a PCRNetTrainer checkpoint of either package;
+    params and state hold numpy arrays in the JAX package's trees (the
+    pointnet policies' state is {}; a 3dmfv checkpoint without a state
+    gives None, which normalises with batch statistics)."""
     import json
 
     import torch
 
-    from dpdist_tpu_torch.models.pcrnet import init_pcrnet
+    from dpdist_tpu_torch.models.pcrnet import init_pcrnet, init_pcrnet_state
     from dpdist_tpu_torch.train.checkpoint import restore_params_maybe_state
 
     with open(path + ".json") as f:
         meta = json.load(f)["metadata"]
     cfg = PCRNetConfig.from_json(meta["pcrnet_config"])
     template = init_pcrnet(cfg, torch.Generator().manual_seed(0), "cpu")
-    params, _, _ = restore_params_maybe_state(path, template, {})
-    return cfg, params
+    params, state, _ = restore_params_maybe_state(path, template, init_pcrnet_state(cfg, "cpu"))
+    return cfg, params, state
+
+
+def load_pcrnet_checkpoint(path: str):
+    """(cfg, params) of load_pcrnet_checkpoint_state."""
+    return load_pcrnet_checkpoint_state(path)[:2]
 
 
 def resolve_eval_cases(pose_file, num_cases):

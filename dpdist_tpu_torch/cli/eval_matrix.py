@@ -48,7 +48,7 @@ def main(argv=None):
     a = p.parse_args(argv)
 
     from dpdist_tpu_torch import resolve_device
-    from dpdist_tpu_torch.cli.common import load_pcrnet_checkpoint, resolve_eval_cases
+    from dpdist_tpu_torch.cli.common import load_pcrnet_checkpoint_state, resolve_eval_cases
     from dpdist_tpu_torch.data.registration import (
         PerturbedRegistrationDataset,
         RegistrationDataset,
@@ -63,7 +63,7 @@ def main(argv=None):
         name, _, base = spec.partition("=")
         if not base:
             name, base = os.path.basename(spec), spec
-        cfg, params = load_pcrnet_checkpoint(base)
+        cfg, params, state = load_pcrnet_checkpoint_state(base)
         for cond in a.conditions:
             cell_json = os.path.join(a.out_dir, f"{name}_{cond}.json")
             if a.skip_existing and os.path.exists(cell_json):
@@ -86,7 +86,7 @@ def main(argv=None):
                     stop_threshold=a.stop_threshold,
                     stop_period=a.stop_period, stop_select=a.stop_select,
                     report_dir=os.path.join(a.out_dir, f"eval_{name}_{cond}"),
-                    device=a.device)
+                    state=state, device=a.device)
                 with open(cell_json, "w") as f:
                     json.dump(rep, f, indent=2)
                 cached = ""

@@ -67,7 +67,7 @@ def main(argv=None):
     a = p.parse_args(argv)
 
     from dpdist_tpu_torch import resolve_device
-    from dpdist_tpu_torch.cli.common import load_pcrnet_checkpoint, resolve_eval_cases
+    from dpdist_tpu_torch.cli.common import load_pcrnet_checkpoint_state, resolve_eval_cases
     from dpdist_tpu_torch.data.registration import (
         PerturbedRegistrationDataset,
         RegistrationDataset,
@@ -75,7 +75,7 @@ def main(argv=None):
     from dpdist_tpu_torch.eval.registration import evaluate_registration
 
     resolve_device(a.device)   # raise before reading or writing anything
-    pcfg, params = load_pcrnet_checkpoint(a.ckpt)
+    pcfg, params, state = load_pcrnet_checkpoint_state(a.ckpt)
     pose_file, num_cases = resolve_eval_cases(a.pose_file, a.num_cases)
     ds = RegistrationDataset(h5_path=a.templates_h5, families=tuple(a.families),
                              n_templates=a.n_templates, num_point=pcfg.num_point,
@@ -89,7 +89,7 @@ def main(argv=None):
                                    iterations=a.iterations, report_dir=a.report_dir,
                                    stop_threshold=a.stop_threshold,
                                    stop_period=a.stop_period, stop_select=a.stop_select,
-                                   device=a.device)
+                                   state=state, device=a.device)
     print(json.dumps({k: v for k, v in report.items() if not k.startswith("curve_")},
                      indent=2))
     return report

@@ -38,7 +38,8 @@ def main(argv=None):
     p.add_argument("--out_features", type=int, default=1024)
     p.add_argument("--encoder", default="pointnet",
                    choices=["pointnet", "pointnet_avg", "3dmfv"],
-                   help="siamese encoder; 3dmfv is not ported yet and raises")
+                   help="siamese encoder (3dmfv: the 3DmFV volume through six 3D inception "
+                        "blocks with BN)")
     p.add_argument("--families", nargs="+", default=["chair"])
     p.add_argument("--n_templates", type=int, default=16)
     p.add_argument("--max_rotate_deg", type=float, default=45.0)

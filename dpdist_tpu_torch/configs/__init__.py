@@ -1,3 +1,3 @@
-from dpdist_tpu_torch.configs.config import DPDistConfig, PCRNetConfig, TrainConfig
+from dpdist_tpu_torch.configs.config import AUEConfig, DPDistConfig, PCRNetConfig, TrainConfig
 
-__all__ = ["DPDistConfig", "PCRNetConfig", "TrainConfig"]
+__all__ = ["AUEConfig", "DPDistConfig", "PCRNetConfig", "TrainConfig"]

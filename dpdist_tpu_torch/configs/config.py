@@ -1,10 +1,10 @@
-"""Model and training configuration (port of DPDistConfig, PCRNetConfig and
-TrainConfig from dpdist_tpu/configs/config.py).
+"""Model and training configuration (port of DPDistConfig, AUEConfig,
+PCRNetConfig and TrainConfig from dpdist_tpu/configs/config.py).
 
 Same field names, defaults and JSON form as the reference dataclasses, so
-the `model_config` (DPDist) or `pcrnet_config` (PCRNet) string stored in a
-checkpoint's metadata parses into either package, and either package
-writes one the other reads.
+the `model_config` (DPDist), `aue_config` (AUE) or `pcrnet_config` (PCRNet)
+string stored in a checkpoint's metadata parses into either package, and
+either package writes one the other reads.
 """
 
 from __future__ import annotations
@@ -80,11 +80,21 @@ class DPDistConfig(_JsonMixin):
 
 
 @dataclass(frozen=True)
+class AUEConfig(_JsonMixin):
+    """Point-cloud autoencoder (reference models/dpdist_and_aue.py:88-180)."""
+
+    num_point: int = 64
+    encoder: str = "pn"           # "pn" (PointNet AE) | "3dmfv" (inception decoder)
+    n_gaussians: int = 512
+    use_bn: bool = True           # the reference's AUE always uses BN
+
+
+@dataclass(frozen=True)
 class PCRNetConfig(_JsonMixin):
     """Iterative PCRNet (reference pcrnet-registration/models/ipcr_model.py)."""
 
     num_point: int = 1024
-    encoder: str = "pointnet"     # "pointnet" | "pointnet_avg" | "3dmfv" (not ported yet)
+    encoder: str = "pointnet"     # "pointnet" | "pointnet_avg" | "3dmfv"
     out_features: int = 1024
     max_loops: int = 8            # refinement loops during training
     eval_iterations: int = 50     # fixed eval refinement iterations

@@ -13,8 +13,9 @@ maps template -> source, so the predicted pose is the inverse of the
 accumulated transform; rotation error is the geodesic angle in degrees,
 translation error the L2 distance.
 
-No Pallas kernel runs here: the policy is dense layers and 4x4 pose
-algebra, and the "chamfer" stop's nearest neighbours are the plain
+No Pallas kernel runs here: the policy is dense layers (or the 3dmfv
+encoder's convs, with its BN's running statistics from `state`) and 4x4
+pose algebra, and the "chamfer" stop's nearest neighbours are the plain
 pairwise path at registration's cloud sizes.
 """
 
@@ -147,10 +148,12 @@ def accumulate_with_stopping(poses, source, template, *, stop_threshold=None,
 
 @torch.no_grad()
 def _eval_program(params, cfg: PCRNetConfig, template, source, gt_pose6, iterations: int,
-                  stop_threshold=None, stop_period: int = 1, stop_select: str = "last"):
-    """Per-iteration error curves (iterations, B), all on the device."""
+                  stop_threshold=None, stop_period: int = 1, stop_select: str = "last",
+                  state=None):
+    """Per-iteration error curves (iterations, B), all on the device; state
+    carries the 3dmfv encoder's BN running statistics (eval mode)."""
     _, _, poses = pcrnet_refine(params, cfg, source, template, iterations=iterations,
-                                stop_gradient_iters=False)
+                                stop_gradient_iters=False, state=state)
     T_gt = pose6_to_matrix(gt_pose6)
     T_final, T_curve, ce, frozen, conv_iter = accumulate_with_stopping(
         poses, source, template, stop_threshold=stop_threshold, stop_period=stop_period,
@@ -174,11 +177,12 @@ def evaluate_registration(params, cfg: PCRNetConfig, dataset, *, num_cases: int 
                           iterations: Optional[int] = None, batch_size: int = 64,
                           report_dir: Optional[str] = None,
                           stop_threshold: Optional[float] = None, stop_period: int = 1,
-                          stop_select: str = "last", device="cuda"):
+                          stop_select: str = "last", state=None, device="cuda"):
     """Run the fixed-iteration protocol and produce the reference's report.
 
-    params: the policy's tree (tensors, or numpy arrays as a checkpoint
-    holds them). Cases come from dataset.sample_batch in batches of
+    params, state: the policy's trees (tensors, or numpy arrays as a
+    checkpoint holds them); state carries the 3dmfv encoder's BN running
+    statistics (None: batch statistics, as the reference falls back). Cases come from dataset.sample_batch in batches of
     batch_size (the dataset's draws depend on it, so a report is
     comparable only at the same batch size; the reference's default is
     64). The ragged tail batch runs as it is.
@@ -192,6 +196,7 @@ def evaluate_registration(params, cfg: PCRNetConfig, dataset, *, num_cases: int 
     dev = resolve_device(device)
     iterations = iterations or cfg.eval_iterations
     params = params_to_device(params, dev)
+    state = params_to_device(state, dev)
     has_info = _has_info(dataset)
 
     all_te, all_re, all_ce, all_frozen, all_conv_iter, all_Tf, all_gt = ([] for _ in range(7))
@@ -211,8 +216,8 @@ def evaluate_registration(params, cfg: PCRNetConfig, dataset, *, num_cases: int 
         tb = time.perf_counter()
         T_final, te, re, ce, frozen, conv_iter = _eval_program(
             params, cfg, *(torch.as_tensor(np.asarray(a, np.float32), device=dev)
-                                  for a in (template, source, gt)),
-            iterations, stop_threshold, stop_period, stop_select)
+                           for a in (template, source, gt)),
+            iterations, stop_threshold, stop_period, stop_select, state=state)
         te = te.cpu().numpy()   # the synchronous copy closes the batch's time
         batch_times.append((time.perf_counter() - tb, b))
         all_te.append(te)

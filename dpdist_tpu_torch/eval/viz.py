@@ -1,10 +1,12 @@
-"""The registration evaluator's plots (port of save_iteration_curves and
-save_error_histograms, dpdist_tpu/eval/viz.py; its AUE snapshots and other
-views come with ROADMAP.md §1 item 7).
+"""Plots (port of save_cloud_pair, save_iteration_curves and
+save_error_histograms, dpdist_tpu/eval/viz.py; its other views come with
+ROADMAP.md §1 item 7).
 
-Per-iteration registration error curves and error histograms
-(results_itrPCRNet_no_stop.py:433-462). Both are no-ops returning None
-when matplotlib is unavailable and always use the Agg backend (headless).
+The AUE trainer's reconstruction snapshots
+(train_multi_gpu_pc_compare_dist.py:574-590), and the registration
+evaluator's per-iteration error curves and error histograms
+(results_itrPCRNet_no_stop.py:433-462). All are no-ops returning None when
+matplotlib is unavailable and always use the Agg backend (headless).
 """
 
 from __future__ import annotations
@@ -22,6 +24,25 @@ def _plt():
         return plt
     except Exception:
         return None
+
+
+def save_cloud_pair(path: str, cloud_a, cloud_b, *, titles=("rec", "input"),
+                    lim: float = 1.0) -> Optional[str]:
+    """Side-by-side 3D scatter snapshot of two (N, 3) clouds."""
+    plt = _plt()
+    if plt is None:
+        return None
+    fig = plt.figure(figsize=(8, 4))
+    for i, (pc, title) in enumerate(zip((cloud_a, cloud_b), titles)):
+        ax = fig.add_subplot(1, 2, i + 1, projection="3d")
+        ax.scatter(pc[:, 0], pc[:, 1], pc[:, 2], s=2)
+        ax.set_xlim(-lim, lim)
+        ax.set_ylim(-lim, lim)
+        ax.set_zlim(-lim, lim)
+        ax.set_title(title)
+    fig.savefig(path, dpi=80)
+    plt.close(fig)
+    return path
 
 
 def save_iteration_curves(path: str, rot_err: Sequence[float],

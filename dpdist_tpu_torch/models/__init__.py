@@ -1,3 +1,4 @@
+from dpdist_tpu_torch.models.aue import apply_aue, init_aue
 from dpdist_tpu_torch.models.dpdist import (
     apply_direction,
     apply_dpdist,
@@ -5,7 +6,13 @@ from dpdist_tpu_torch.models.dpdist import (
     init_dpdist,
     resolve_for_grad,
 )
-from dpdist_tpu_torch.models.pcrnet import apply_pcrnet, init_pcrnet, pcrnet_refine
+from dpdist_tpu_torch.models.pcrnet import (
+    apply_pcrnet,
+    init_pcrnet,
+    init_pcrnet_state,
+    pcrnet_refine,
+)
 
-__all__ = ["apply_direction", "apply_dpdist", "dpdist_distance", "init_dpdist",
-           "resolve_for_grad", "apply_pcrnet", "init_pcrnet", "pcrnet_refine"]
+__all__ = ["apply_aue", "init_aue", "apply_direction", "apply_dpdist", "dpdist_distance",
+           "init_dpdist", "resolve_for_grad", "apply_pcrnet", "init_pcrnet",
+           "init_pcrnet_state", "pcrnet_refine"]

@@ -5,13 +5,16 @@ Format: <path>.npz holds the flattened leaves as arrays leaf_00000...;
 <path>.json holds their key paths ("params/decoder/layers/0/w", ...), the
 step and the metadata, whose `model_config` is a DPDistConfig JSON string.
 Leaves are flattened in JAX's order (dict keys sorted, list items by
-index), so a checkpoint written here restores through the reference's
-restore_checkpoint against its own template, and the reader rebuilds the
-nested structure from the paths alone, with no template and no JAX.
-Writes publish atomically: a temporary file, then a rename.
+index, None without leaves), so a checkpoint written here restores
+through the reference's restore_checkpoint against its own template.
+load_checkpoint rebuilds the nested structure from the paths alone, with
+no template and no JAX; restore_checkpoint restores into a template's
+structure, as the reference's does, for trees with None entries (the
+AUE's BN-less layers). Writes publish atomically: a temporary file, then
+a rename.
 
-Weights keep the JAX layout: a dense `w` is (in, out), and the port's
-layers compute `x @ w + b` with it as it is.
+Weights keep the JAX layout: a dense `w` is (in, out), a conv's DHWIO or
+HWIO, and the port's layers compute with them as they are.
 """
 
 from __future__ import annotations
@@ -41,7 +44,10 @@ def _listify(node):
 
 def tree_flatten_with_paths(tree, prefix: Tuple[str, ...] = ()) -> List[Tuple[str, Any]]:
     """[(key path, leaf)] in JAX's flattening order: dict keys sorted, list
-    and tuple items by index; an empty dict or list has no leaves."""
+    and tuple items by index; an empty dict or list, and None (the AUE's
+    BN-less layers), have no leaves."""
+    if tree is None:
+        return []
     if isinstance(tree, dict):
         return [item for key in sorted(tree)
                 for item in tree_flatten_with_paths(tree[key], prefix + (str(key),))]
@@ -158,6 +164,42 @@ def _paths(tree) -> List[str]:
     return [p for p, _ in tree_flatten_with_paths(tree)]
 
 
+def tree_unflatten_like(template, leaves):
+    """`template`'s structure with its leaves, in tree_flatten_with_paths
+    order, replaced by `leaves`; None stays None."""
+    it = iter(leaves)
+
+    def build(node):
+        if node is None:
+            return None
+        if isinstance(node, dict):
+            return {k: build(node[k]) for k in sorted(node)}
+        if isinstance(node, (list, tuple)):
+            return [build(v) for v in node]
+        return next(it)
+
+    out = build(template)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the template holds")
+    return out
+
+
+def restore_checkpoint(path: str, template: Any):
+    """Restore into the structure of `template` (a matching tree), as the
+    reference's restore_checkpoint: the saved key paths must equal the
+    template's, else ValueError. Returns (tree with numpy leaves, step,
+    metadata)."""
+    with open(path + ".json") as f:
+        meta = json.load(f)
+    want = _paths(template)
+    if meta["paths"] != want:
+        raise ValueError("checkpoint structure mismatch:\n saved: %s...\n template: %s..."
+                         % (meta["paths"][:5], want[:5]))
+    with np.load(path + ".npz") as data:
+        leaves = [data[f"leaf_{i:05d}"] for i in range(len(want))]
+    return tree_unflatten_like(template, leaves), meta.get("step"), meta.get("metadata", {})
+
+
 def restore_params_maybe_state(path: str, params_template: Any, state_template: Any):
     """Restore a {"params", "state"} checkpoint, falling back to the
     params-only format of the reference's first round, as the reference's
@@ -188,33 +230,52 @@ def load_dpdist_checkpoint(path: str) -> Tuple[DPDistConfig, dict]:
     return cfg, tree["params"]
 
 
-def params_from_jax(params, device="cuda") -> dict:
-    """The port's decoder state from the JAX package's DPDist parameters.
+def params_from_jax(params, device="cuda", *, model: str = "dpdist") -> dict:
+    """The port's tensors from a JAX package tree with numpy (or
+    array-like) leaves, as a checkpoint or `jax.device_get` gives it.
 
-    `params` is the JAX params tree with numpy (or array-like) leaves, as
-    `load_dpdist_checkpoint` returns it or as `jax.device_get` gives it.
-    Dense `w` stays in JAX's (in, out) layout: each layer computes
-    `x @ w + b`, no transpose. Parts this slice does not port raise.
+    model="dpdist": the DPDist decoder, checked against what the port's
+    DPDist covers (parts it does not port raise). Any other model ("aue",
+    "pcrnet"): the tree as it is, params or BN state, leaf by leaf as
+    float32 tensors on `device`, None kept. Dense `w` stays in JAX's
+    (in, out) layout and a conv's `w` in DHWIO / HWIO: the layers compute
+    with them as they are, no transpose.
     """
     dev = resolve_device(device)
+
+    def to_t(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
+
+    if model != "dpdist":
+        def convert(node):
+            if node is None:
+                return None
+            if isinstance(node, dict):
+                return {k: convert(v) for k, v in node.items()}
+            if isinstance(node, (list, tuple)):
+                return [convert(v) for v in node]
+            return to_t(node)
+
+        return convert(params)
     if "pointnet" in params:
         raise NotImplementedError("the pointnet encoder is not ported yet")
     dec = params["decoder"]
     if "layers" not in dec:
         raise NotImplementedError("the conv_version=3 decoder is not ported yet")
     if "bn" in dec:
-        raise NotImplementedError("BatchNorm in the decoder is not ported yet")
-
-    def to_t(a):
-        return torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
-
+        raise NotImplementedError("BatchNorm in the DPDist decoder is not ported yet")
     layers = [{"w": to_t(lp["w"]), "b": to_t(lp["b"])} for lp in dec["layers"]]
     return {"decoder": {"layers": layers}}
 
 
-def params_to_numpy(params) -> dict:
-    """The reverse of params_from_jax: the port's decoder state as the JAX
-    package's params tree with numpy float32 leaves."""
-    layers = [{"w": _to_numpy(lp["w"]), "b": _to_numpy(lp["b"])}
-              for lp in params["decoder"]["layers"]]
-    return {"decoder": {"layers": layers}}
+def params_to_numpy(tree):
+    """The reverse of params_from_jax: any of the port's trees (DPDist or
+    AUE params, BN state) with numpy float32 leaves in the JAX package's
+    structure, None kept."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_to_numpy(v) for v in tree]
+    return _to_numpy(tree).astype(np.float32, copy=False)

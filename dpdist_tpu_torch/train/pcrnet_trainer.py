@@ -28,6 +28,13 @@ the rollout's poses; fp_reg adds that of an fp_steps rollout started from
 the source with its ground-truth pose undone. Their norms follow torch at
 exactly zero (gradient 0, where JAX's is NaN); anywhere else the two agree.
 
+The 3dmfv encoder's BN state rides along as the reference's does: the
+step's refinement runs in training mode with the state, so BN normalises
+with batch statistics and the state's EMA advances on every iteration
+(the step keeps the last); the fp_reg rollout uses the state and drops
+its update; the chamfer monitor and the evaluation run on the running
+statistics. The pointnet encoders' state is {}.
+
 The optimizer, the metrics (loss, and the gradient's global norm before
 clipping) and the checkpoint format ({"params", "state"} with
 pcrnet_config and loss_type in the metadata) are the reference's, so
@@ -48,7 +55,12 @@ from dpdist_tpu_torch.configs import PCRNetConfig, TrainConfig
 from dpdist_tpu_torch.geometry.rotations import normalize_quat
 from dpdist_tpu_torch.geometry.se3 import apply_transform, invert_transform, pose6_to_matrix
 from dpdist_tpu_torch.losses.dpdist_loss import make_frozen_dpdist_loss
-from dpdist_tpu_torch.models.pcrnet import init_pcrnet, params_to_device, pcrnet_refine
+from dpdist_tpu_torch.models.pcrnet import (
+    init_pcrnet,
+    init_pcrnet_state,
+    params_to_device,
+    pcrnet_refine,
+)
 from dpdist_tpu_torch.ops.chamfer import chamfer_distance
 from dpdist_tpu_torch.ops.emd import earth_mover_distance
 from dpdist_tpu_torch.train.checkpoint import (
@@ -105,6 +117,7 @@ class PCRNetTrainer:
         self.params = params_to_device(
             init_pcrnet(pcfg, torch.Generator().manual_seed(tcfg.seed), self.device),
             self.device, requires_grad=True)
+        self.state = init_pcrnet_state(pcfg, self.device)
         self.optimizer = make_optimizer(tcfg, base_lr=tcfg.learning_rate)
         self.opt_state = self.optimizer.init(self.params)
         self.global_step = 0
@@ -127,34 +140,37 @@ class PCRNetTrainer:
             return chamfer_distance(template, src, sqrt=True)
         return earth_mover_distance(template, src)
 
-    def _fp_penalty(self, params, template, source, pose6):
+    def _fp_penalty(self, params, state, template, source, pose6):
         """The actions of an fp_steps rollout from the source with its
         ground-truth pose undone: at the true fixed point any action is
         drift."""
         aligned = apply_transform(source, invert_transform(pose6_to_matrix(pose6)))
         _, _, poses = pcrnet_refine(params, self.pcfg, aligned, template,
-                                    iterations=self.fp_steps, stop_gradient_iters=False)
+                                    iterations=self.fp_steps, stop_gradient_iters=False,
+                                    state=state, train=True)
         return _action_magnitude(poses)
 
-    def loss(self, params, template, source, pose6=None):
-        """The train loss of one batch (tensors on the device)."""
+    def loss(self, params, template, source, pose6=None, state=None):
+        """(the train loss of one batch, the new BN state); tensors on the
+        device, `state` the BN state before the step."""
         cfg = self.pcfg
         if self.train_single:
-            _, _, poses, traj = pcrnet_refine(params, cfg, source, template,
-                                              iterations=cfg.max_loops,
-                                              stop_gradient_iters=False,
-                                              return_trajectory=True)
+            _, _, poses, traj, new_state = pcrnet_refine(
+                params, cfg, source, template, iterations=cfg.max_loops,
+                stop_gradient_iters=False, return_trajectory=True, state=state, train=True,
+                return_state=True)
             # (L, B, N, 3) -> (L * B, N, 3), case l * B + b against template b.
             loss = self._single_loss(traj.flatten(0, 1), template.repeat(cfg.max_loops, 1, 1))
             if self.action_reg:
                 loss = loss + self.action_reg * _action_magnitude(poses[cfg.max_loops // 2:])
         else:
-            src_out, _, _ = pcrnet_refine(params, cfg, source, template,
-                                          iterations=cfg.max_loops, stop_gradient_iters=True)
+            src_out, _, _, new_state = pcrnet_refine(
+                params, cfg, source, template, iterations=cfg.max_loops,
+                stop_gradient_iters=True, state=state, train=True, return_state=True)
             loss = self._single_loss(src_out, template)
         if self.fp_reg:
-            loss = loss + self.fp_reg * self._fp_penalty(params, template, source, pose6)
-        return loss
+            loss = loss + self.fp_reg * self._fp_penalty(params, state, template, source, pose6)
+        return loss, new_state
 
     def _batch(self, *arrays):
         """numpy arrays or tensors as float32 tensors on the device."""
@@ -163,23 +179,27 @@ class PCRNetTrainer:
                      torch.as_tensor(np.asarray(a, np.float32), device=self.device)
                      for a in arrays)
 
-    def loss_and_grads(self, template, source, pose6=None):
-        """The train loss and its gradients in the parameters, in the order
-        of tree_flatten_with_paths(self.params)."""
+    def loss_grads_state(self, template, source, pose6=None):
+        """The train loss, its gradients in the parameters (in the order of
+        tree_flatten_with_paths(self.params)) and the new BN state."""
         if self.fp_reg and pose6 is None:
             raise ValueError("fp_reg training needs the gt pose6 batch")
         leaves = [t for _, t in tree_flatten_with_paths(self.params)]
         with torch.enable_grad():
-            loss = self.loss(self.params, template, source, pose6)
+            loss, new_state = self.loss(self.params, template, source, pose6, self.state)
             grads = torch.autograd.grad(loss, leaves)
-        return loss.detach(), grads
+        return loss.detach(), grads, new_state
+
+    def loss_and_grads(self, template, source, pose6=None):
+        """The train loss and its gradients; the state is left as it is."""
+        return self.loss_grads_state(template, source, pose6)[:2]
 
     def train_step(self, template, source, pose6=None):
         """One optimizer step on a numpy (or tensor) batch; returns {"loss",
         "grad_norm"} as 0-d device tensors, the norm before clipping."""
         template, source, pose6 = self._batch(template, source,
                                               pose6 if self.fp_reg else None)
-        loss, grads = self.loss_and_grads(template, source, pose6)
+        loss, grads, self.state = self.loss_grads_state(template, source, pose6)
         self.opt_state = self.optimizer.step(self.params, grads, self.opt_state)
         self.global_step += 1
         gnorm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
@@ -190,7 +210,7 @@ class PCRNetTrainer:
         """Chamfer of the template and the source refined for max_loops
         iterations, the train loop's comparison metric."""
         src_out, _, _ = pcrnet_refine(self.params, self.pcfg, source, template,
-                                      iterations=self.pcfg.max_loops)
+                                      iterations=self.pcfg.max_loops, state=self.state)
         return chamfer_distance(template, src_out, sqrt=True)
 
     def train_epoch(self, dataset, epoch: int, *, batches_per_epoch: int = 32,
@@ -224,7 +244,8 @@ class PCRNetTrainer:
 
         rep = evaluate_registration(self.params, self.pcfg, dataset, num_cases=num_cases,
                                     iterations=iterations or self.pcfg.eval_iterations,
-                                    report_dir=report_dir, device=self.device)
+                                    report_dir=report_dir, state=self.state,
+                                    device=self.device)
         self.logger.log(f"eval: rot {rep['rot_err_mean_deg']:.2f} deg, trans "
                         f"{rep['trans_err_mean']:.4f}, acc@(5,0.05) "
                         f"{rep['acc_rot5.0_trans0.05']:.3f}")
@@ -280,7 +301,7 @@ class PCRNetTrainer:
 
     def save(self, tag):
         path = os.path.join(self.run_dir, f"pcrnet_ckpt_{tag}")
-        save_checkpoint(path, {"params": self.params, "state": {}},
+        save_checkpoint(path, {"params": self.params, "state": self.state},
                         step=self.global_step,
                         metadata={"pcrnet_config": self.pcfg.to_json(),
                                   "loss_type": self.loss_type})
@@ -288,9 +309,12 @@ class PCRNetTrainer:
         return path
 
     def restore(self, path):
-        """Load a PCRNet checkpoint of either package over the params; the
-        optimizer state is kept, as the reference keeps it."""
-        params, _, step = restore_params_maybe_state(path, self.params, {})
+        """Load a PCRNet checkpoint of either package over the params and
+        the BN state (a checkpoint without a state keeps the current one);
+        the optimizer state is kept, as the reference keeps it."""
+        params, state, step = restore_params_maybe_state(path, self.params, self.state)
         self.params = params_to_device(params, self.device, requires_grad=True)
+        if state is not None:
+            self.state = params_to_device(state, self.device)
         if step:
             self.global_step = step

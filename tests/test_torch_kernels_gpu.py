@@ -908,3 +908,81 @@ def test_registration_entry_points_default_to_cuda(cuda):
     out, T, poses = pcrnet_refine(params, pcfg, torch.as_tensor(src, device=cuda),
                                   torch.as_tensor(tmpl, device=cuda), iterations=2)
     assert out.is_cuda and T.is_cuda and poses.shape == (2, 2, 7)
+
+
+def _aue_data(B=16, N=64):
+    from dpdist_tpu_torch.data.golden import aue_batch
+
+    return aue_batch({"families": ["chair", "box", "sphere", "torus"], "seed0": 900, "scale": 0.8,
+                      "batch_size": B, "num_point": N})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("encoder", ["pn", "3dmfv"])
+def test_aue_ours_step_launches_rows_2_and_3(cuda, encoder):
+    """Each AUETrainer step on the frozen DPDist loss launches the
+    table-gather kernel twice (both directions) and its adjoint once, at
+    full width (the 3dmfv AUE: 512 Gaussians, 402.7 M decoder weights);
+    a chamfer step launches none. The step's loss on the kernel path equals
+    the plain path's (fused_gather="off") within 1e-5 relative, and its
+    gradient in the reconstruction by the per-point criterion."""
+    from dpdist_tpu_torch.configs import AUEConfig, TrainConfig
+    from dpdist_tpu_torch.losses import make_frozen_dpdist_loss
+    from dpdist_tpu_torch.models.aue import apply_aue
+    from dpdist_tpu_torch.train.aue_trainer import AUETrainer, split_same_surface
+    from dpdist_tpu_torch.train.checkpoint import load_dpdist_checkpoint, params_from_jax
+    from dpdist_tpu_torch.train.logging import RunLogger
+
+    dcfg, dparams = load_dpdist_checkpoint("results/ckpt_best")
+    data = _aue_data()
+    wrappers = {"table_gather_x": table_gather_x, "table_gather_bwd": table_gather_bwd,
+                "mfv_x": mfv_x, "threedmfv": threedmfv_kernel}
+    with tempfile.TemporaryDirectory() as tmp:
+        for opt_type, want in (("ours", (2, 1)), ("chamfer", (0, 0))):
+            tr = AUETrainer(AUEConfig(encoder=encoder), TrainConfig(batch_size=16), dcfg,
+                            dparams, opt_type=opt_type, run_dir=tmp, device=cuda,
+                            logger=RunLogger(tmp, echo=False))
+            for _ in range(2):
+                before = {k: w.launches for k, w in wrappers.items()}
+                m = tr.train_step(data)
+                torch.cuda.synchronize()
+                got = {k: w.launches - before[k] for k, w in wrappers.items()}
+                assert got == {"table_gather_x": want[0], "table_gather_bwd": want[1],
+                               "mfv_x": 0, "threedmfv": 0}
+                assert bool(torch.isfinite(m["loss"])) and float(m["grad_norm"]) > 0
+            if opt_type == "ours":
+                x1, x2 = (torch.as_tensor(a, device=cuda) for a in split_same_surface(data))
+                with torch.no_grad():
+                    rec = apply_aue(tr.params, tr.state, tr.acfg, x1, train=True)[0]
+                out = []
+                for mode in ("auto", "off"):
+                    loss_fn = make_frozen_dpdist_loss(params_from_jax(dparams, cuda),
+                                                      dcfg.replace(fused_gather=mode))
+                    r = rec.clone().requires_grad_(True)
+                    loss = loss_fn(r, x2)
+                    out.append((float(loss), torch.autograd.grad(loss, r)[0]))
+                (lk, gk), (lp, gp) = out
+                assert abs(lk - lp) <= 1e-5 * lp
+                # Per point, relative to the largest entry: the encode's
+                # signed sqrt magnifies the adjoint's summation order on a
+                # few points (tests/test_torch_losses_optim.py).
+                err = (gk - gp).abs().amax(-1).flatten() / float(gp.abs().max())
+                assert float(err.max()) <= 5e-2 and float((err > 1e-3).float().mean()) <= 0.05
+            del tr
+            torch.cuda.empty_cache()
+
+
+@pytest.mark.gpu
+def test_aue_entry_points_default_to_cuda(cuda):
+    """Without a device argument the AUE and the blocked EMD run on the card."""
+    from dpdist_tpu_torch.configs import AUEConfig
+    from dpdist_tpu_torch.models.aue import apply_aue, init_aue
+    from dpdist_tpu_torch.ops import sinkhorn_emd_blocked
+
+    params, state = init_aue(AUEConfig(encoder="pn", num_point=16))
+    assert params["decoder"]["layers"][0]["w"].is_cuda and state["decoder"]["bn"][0]["var"].is_cuda
+    x = torch.as_tensor(_aue_data(B=4, N=16)[:, :16], device=cuda)
+    rec, _ = apply_aue(params, state, AUEConfig(encoder="pn", num_point=16), x)
+    assert rec.is_cuda and rec.shape == (4, 16, 3)
+    d = sinkhorn_emd_blocked(x, x.flip(1), tile=8)
+    assert d.is_cuda and bool(torch.isfinite(d).all())

@@ -193,12 +193,23 @@ def test_production_policy_refines_as_jax():
 
 
 def test_3dmfv_encoder_raises():
-    cfg = PCRNetConfig(encoder="3dmfv")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 5"):
-        tpcr.init_pcrnet(cfg, device="cpu")
-    params = tpcr.init_pcrnet(PCRNetConfig(**SMALL), device="cpu")
-    with pytest.raises(NotImplementedError, match="BatchNorm and conv3d"):
-        tpcr.apply_pcrnet(params, cfg, torch.zeros(1, 16, 3), torch.zeros(1, 16, 3))
+    """The 3dmfv encoder is ported (its parity with JAX:
+    tests/test_torch_pcrnet_3dmfv.py); it raises where the reference
+    refuses: a hoisted template encoding in training or without running
+    statistics, where BN couples the two clouds. An unknown encoder raises."""
+    cfg = PCRNetConfig(**{**SMALL, "encoder": "3dmfv", "mfv_grid": 2})
+    params = tpcr.init_pcrnet(cfg, torch.Generator().manual_seed(0), "cpu")
+    state = tpcr.init_pcrnet_state(cfg, "cpu")
+    clouds = torch.zeros(1, 16, 3), torch.zeros(1, 16, 3)
+    tf = tpcr.encode_template(params, cfg, clouds[1], state=state)
+    assert tpcr.template_feats_invariant(cfg, state, train=False)
+    for st, train in ((state, True), (None, False)):
+        assert not tpcr.template_feats_invariant(cfg, st, train)
+        with pytest.raises(ValueError, match="batch-independent"):
+            tpcr.apply_pcrnet(params, cfg, clouds[0], None, template_feats=tf, state=st,
+                              train=train)
+    with pytest.raises(ValueError, match="unknown PCRNet encoder"):
+        tpcr.init_pcrnet(PCRNetConfig(encoder="dgcnn"), device="cpu")
 
 
 def test_init_pcrnet_structure_and_xavier_limits():
