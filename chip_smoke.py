@@ -13,7 +13,10 @@ kernels and the adjoint; "on"; in bfloat16 with the bf16 adjoint), DPDist
 training (table-gather kernel; in float32 and bfloat16), eval_pair on two
 10,000-point clouds (encode, patch-only gather and the NN-min kernel), and
 the training CLIs: gen_data's ground truth on the card (the NN-min kernel)
-and train_dpdist on it; and registration: the production PCRNet policy
+and train_dpdist on it; the rest of the DPDist model family (BN and
+conv_version=3 decoders, the 7-channel encode, the global k=0 embedding,
+the pointnet encoder, 2-D) at full width, and dense evaluation (a 64^3
+distance field); and registration: the production PCRNet policy
 evaluated on the committed 5,070 poses with the period0 stop (no kernel),
 and PCRNet trained on the frozen DPDist loss (table-gather kernel and
 adjoint), by the trainer and by the train_pcrnet and eval_registration
@@ -251,6 +254,35 @@ encoder.
                    device time over 5 steps (torch.profiler), then the same
                    for the production AUE step, with its idle share.
 
+ 22. c7_kernels    rows 2, 3, 6, 10 and 9 on 7-channel volumes (the
+                   full_fv=False encode) at B = 256, N = 64 (row 6 at 256;
+                   row 9 over the 2B stack) against their plain versions:
+                   copies exact, row 3 equal to the ordered plain sum, row 9
+                   within 2e-2.
+ 23. variants      the DPDist model family at full width from the seeded
+                   weights of dpdist_tpu_torch/assets/golden_variants.json
+                   (JAX on the CPU), rebuilt here and checked by their
+                   per-leaf sums: use_bn=True, conv_version=3,
+                   full_fv=False, k=0, the pointnet encoder (k=0, BN) and
+                   dims=2 (16 x 16 Gaussians). Per variant the golden
+                   forward at B = 4 (f32 within 1e-4, bf16 within 2e-3,
+                   "full" for full_fv=False: row 9 at C = 7); forwards at
+                   B = 256 against the plain path, with their launches and
+                   times (rows 1 and 2 under BN and conv_version=3; rows 2,
+                   6, 10 and bf16 9 at C = 7; row 7 for k=0 at np = 256);
+                   the frozen loss's source gradient where a kernel runs
+                   (per-point criterion); 3 DPDistTrainer steps at B = 16
+                   for BN, conv_version=3 and pointnet against the golden
+                   steps (TOL_VARIANT_STEPS), 2 row-2 launches a BN step, 1
+                   a conv_version=3 step, none a pointnet step.
+ 24. dense         distance_field at 64^3 = 262,144 queries on
+                   results/ckpt_best for a 1,024-point surface: the
+                   pretransformed path and the row-6 gather path (one row-7
+                   encode each) within 1e-5 of each other and 1e-4 of the
+                   golden subsample; timed.
+                   These three run after times (see there); their launches
+                   join the kernels' record.
+
 Every phase prints a start and an end line. A wall-clock guard ends the
 run with a non-zero exit naming the phase. The last lines are the
 kernels' JSON record, the nvidia-smi line, and the result line
@@ -342,6 +374,15 @@ TOL_FF = 2e-2
 # two bf16 paths (tests/test_kernels.py:146-166); against float32: its
 # bf16-vs-f32 tolerance (tests/test_dpdist_model.py:37-56).
 TOL_BF16, TOL_BF16_VS_F32 = 2e-3, 0.03
+# The DPDist variants' golden train steps (golden_variants.json, JAX on the
+# CPU, Adam at lr 1e-4, B = 16): the first step's loss within 1e-4 relative
+# and its gradient norm within 1e-3; Adam's first steps move each weight by
+# lr * sign(g), so weights with rounding-sized gradients (biases before a
+# BN) move either way and the later steps part further: their losses within
+# 5e-3 relative, the BN state after them within 1e-2, relative to a leaf's
+# largest entry where that exceeds 1 (tests/test_torch_variants.py::TOL_STEPS
+# says what was measured).
+TOL_VARIANT_STEPS = (1e-4, 5e-3, 1e-3, 1e-2)
 OFF_GRID_SHARE = 0.05    # queries pushed off the grid in the kernel checks
 # The bf16 gradient paths: the frozen loss against the golden bf16_grad
 # values (JAX bf16 on the CPU) and against the port's plain bf16 path on the
@@ -478,13 +519,15 @@ def cuda_median_ms(fn, runs=TIMED_RUNS, warmup=3):
     return statistics.median(times)
 
 
-def device_ms(fn, match, calls=5, sessions=6):
+def device_ms(fn, match, calls=5, sessions=12):
     """Mean device time (ms) of one launch of the CUDA kernel whose name
     holds `match` (or one of the names in a tuple), which fn launches once a
     call, under torch.profiler. The mean runs over the records the profiler
     kept, which may be fewer than the calls: it drops records of short
-    profiled runs (mostly the first; now and then all of them). Sessions of
-    `calls` calls repeat, up to `sessions`, until `calls` records are kept."""
+    profiled runs (mostly the first; now and then all of them, for six
+    sessions running). Sessions repeat, up to
+    `sessions`, until `calls` records are kept; a session that kept none
+    makes the next one twice as long (up to 8 `calls`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -492,9 +535,10 @@ def device_ms(fn, match, calls=5, sessions=6):
     fn()
     torch.cuda.synchronize()
     us = n = 0
+    length = calls
     for session in range(1, sessions + 1):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
+            for _ in range(length):
                 fn()
             torch.cuda.synchronize()
         kept = [e for e in prof.key_averages() if any(m in e.key for m in matches)]
@@ -502,11 +546,13 @@ def device_ms(fn, match, calls=5, sessions=6):
         n += sum(e.count for e in kept)
         if n >= calls:
             break
+        if not kept:
+            length = min(2 * length, 8 * calls)
     check(us > 0 and n >= 1, f"torch.profiler kept no launch of {match} in {session} "
-          f"sessions of {calls} calls")
+          f"sessions of {calls} to {length} calls")
     if session > 1 or n < calls:
         print(f"torch.profiler kept {n} records of {match} in {session} session(s) of "
-              f"{calls} calls", flush=True)
+              f"{calls} to {length} calls", flush=True)
     return us / n / 1e3
 
 
@@ -706,10 +752,20 @@ def main() -> int:
         from dpdist_tpu_torch.cli.common import load_pcrnet_checkpoint
         from dpdist_tpu_torch.configs import AUEConfig, DPDistConfig, PCRNetConfig, TrainConfig
         from dpdist_tpu_torch.data import gtgen
-        from dpdist_tpu_torch.data.golden import AUE_GOLDEN_PATH, aue_batch, golden_clouds, load_golden
+        from dpdist_tpu_torch.data.golden import (
+            AUE_GOLDEN_PATH,
+            VARIANTS_GOLDEN_PATH,
+            aue_batch,
+            dense_field_queries,
+            dpdist_train_batch,
+            golden_clouds,
+            load_golden,
+            variant_clouds,
+        )
         from dpdist_tpu_torch.data.registration import RegistrationDataset, default_eval_poses
         from dpdist_tpu_torch.data.synthetic import synthetic_surface
         from dpdist_tpu_torch.eval import registration
+        from dpdist_tpu_torch.eval.dense import dense_point_to_surface, distance_field
         from dpdist_tpu_torch.kernels import build
         from dpdist_tpu_torch.kernels import chamfer as chamfer_kernels
         from dpdist_tpu_torch.kernels.chamfer import nn_min_sqdist, nn_min_sqdist_plain
@@ -735,6 +791,7 @@ def main() -> int:
         from dpdist_tpu_torch.kernels.threedmfv import split_plan, threedmfv_kernel
         from dpdist_tpu_torch.losses import make_frozen_dpdist_loss
         from dpdist_tpu_torch.models import apply_dpdist, init_dpdist
+        from dpdist_tpu_torch.models.dpdist import forward_dpdist
         from dpdist_tpu_torch.models.dpdist import route as route_of
         from dpdist_tpu_torch.models.aue import apply_aue
         from dpdist_tpu_torch.models.pcrnet import params_to_device, pcrnet_refine
@@ -1045,7 +1102,7 @@ def main() -> int:
         n_points = requests[0][0].shape[1]
         label = mode or "table"
         for net in NETS:
-            cfg, np_params = load_dpdist_checkpoint(str(ROOT / net))
+            cfg, np_params, _ = load_dpdist_checkpoint(str(ROOT / net))
             if mode:
                 cfg = cfg.replace(fused_gather=mode)
             params = params_from_jax(np_params, dev)
@@ -1230,7 +1287,7 @@ def main() -> int:
         vox2, mask2, delta2 = voxel_assign(q2, GRID)
         return fv2, vox2, mask2, delta2
 
-    cfg0, np_params0 = load_dpdist_checkpoint(str(ROOT / NETS[0]))
+    cfg0, np_params0, _ = load_dpdist_checkpoint(str(ROOT / NETS[0]))
     params0 = params_from_jax(np_params0, dev)
     packed0 = pack_decoder(params0["decoder"]["layers"])
 
@@ -1465,7 +1522,7 @@ def main() -> int:
         # request through the route's kernels and matches the plain path.
         a, b = requests[0]
         cfg40 = DPDistConfig(mlp=(40, 40, 40))
-        params40 = init_dpdist(cfg40, generator=torch.Generator().manual_seed(40), device=dev)
+        params40, _ = init_dpdist(cfg40, generator=torch.Generator().manual_seed(40), device=dev)
 
         def at_1000(over):
             return load_frozen_distance(str(ROOT / NETS[0]), device=dev, embedding_size=1000,
@@ -1507,7 +1564,7 @@ def main() -> int:
         gold = golden["bf16_grad"][n_key]
         rows = gold["grad_pairs"]
         for net in NETS:
-            cfg, np_params = load_dpdist_checkpoint(str(ROOT / net))
+            cfg, np_params, _ = load_dpdist_checkpoint(str(ROOT / net))
             cfg = cfg.replace(dtype="bfloat16")
             params = params_from_jax(np_params, dev)
             leaves = [t.requires_grad_(True) for lp in params["decoder"]["layers"]
@@ -1844,7 +1901,7 @@ def main() -> int:
         per_step = expected(table_gather_x=2, table_gather_bwd=1)
 
         def pcr_trainer(name, mode=None):
-            cfg_, params_ = dpdist_net
+            cfg_, params_, _ = dpdist_net
             d = os.path.join(tmp, name)
             return PCRNetTrainer(pcfg, ptcfg, loss_type="dpdist", train_single=True,
                                  dpdist=(cfg_.replace(fused_gather=mode) if mode else cfg_,
@@ -2658,7 +2715,7 @@ def main() -> int:
             fwd_ms = cuda_median_ms(lambda: fwd_model(a, b))
         print(f"forward (mfv kernel path) at B={B_SERVE} pairs: {fwd_ms:.4f} ms, "
               f"{B_SERVE / fwd_ms * 1e3:.1f} pairs/s; on {card}", flush=True)
-        cfg, np_params = load_dpdist_checkpoint(str(ROOT / NETS[-1]))
+        cfg, np_params, _ = load_dpdist_checkpoint(str(ROOT / NETS[-1]))
         params = params_from_jax(np_params, dev)
         for mode in ("table", "mfv"):
             loss_fn = make_frozen_dpdist_loss(params, cfg.replace(fused_gather=mode))
@@ -2798,10 +2855,282 @@ def main() -> int:
                                       for e in top) + f"; on {card}", flush=True)
         del aue_prof
 
+    # ------------------------------------------------------------------
+    # The DPDist model family at full width (seeded weights) and dense
+    # evaluation, against golden_variants.json (JAX on the CPU). They run
+    # after `times`, so that its profiles follow the same phases as before
+    # them (in one call with them before it, torch.profiler kept no record
+    # of row 2 in six sessions; in the next, without them, none of row 1's
+    # bf16 output; device_ms now lengthens a session after an empty one).
+    # Their launches join the kernels' records below.
+    vgold = json.loads(VARIANTS_GOLDEN_PATH.read_text())
+
+    with Phase("c7_kernels"):
+        # Rows 2, 3, 6, 10 and 9 at C = 7 (the 7-channel encode's volumes) on
+        # the main path's shapes, each against its plain version.
+        C7 = 7
+        a7, q7 = make_kernel_inputs(rng, torch, dev, B_SERVE)
+        fv7 = threedmfv_plain(a7, G, SIGMA, full_fv=False).contiguous()
+        check(fv7.shape == (B_SERVE, G, C7), f"7-channel encode shape {tuple(fv7.shape)}")
+        with torch.no_grad():
+            x7, vox7 = table_gather_x(fv7, q7, GRID, K)
+            x7_ref, vox7_ref = table_gather_x_plain(fv7, q7, GRID, K)
+        check(torch.equal(x7, x7_ref) and torch.equal(vox7, vox7_ref), "row 2 at C = 7")
+        g7 = torch.as_tensor(rng.normal(size=(B_SERVE, NP, 3 + K ** 3 * C7)).astype(np.float32),
+                             device=dev)[..., 3:]
+        dfv7 = table_gather_bwd(vox7, g7, GRID, K)
+        check(torch.equal(dfv7, table_gather_bwd_ordered(vox7, g7, GRID, K)),
+              "row 3 at C = 7: not the ordered plain sum")
+        err_bwd7 = float((dfv7 - table_gather_bwd_plain(vox7, g7, GRID, K)).abs().max())
+        check(err_bwd7 <= REL_BWD * float(dfv7.abs().max()), f"row 3 at C = 7: {err_bwd7}")
+        q7_large = make_kernel_inputs(rng, torch, dev, B_SERVE)[1].repeat(1, NP_LARGE // NP, 1)
+        vox7_large = voxel_assign(q7_large, GRID)[0]
+        with torch.no_grad():
+            p6 = table_gather(fv7, vox7_large, GRID, K)
+            check(torch.equal(p6, table_gather_plain(fv7, vox7_large, GRID, K)), "row 6 at C = 7")
+            _, m7, d7 = voxel_assign(q7, GRID)
+            p10 = gather_patches_fused(fv7, vox7, m7, GRID, K)
+            check(torch.equal(p10, gather_patches_fused_plain(fv7, vox7, m7, GRID, K)),
+                  "row 10 at C = 7")
+            small_net = init_dpdist(DPDistConfig(full_fv=False),
+                                    torch.Generator().manual_seed(vgold["seed"]), dev)[0]
+            packed7 = pack_decoder(small_net["decoder"]["layers"])
+            y9 = fused_forward(fv7.to(torch.bfloat16), vox7, d7, packed7, GRID, K)
+            y9_ref = fused_forward_plain(fv7.to(torch.bfloat16), vox7, d7, packed7, GRID, K)
+        err_ff7 = float((y9 - y9_ref).abs().max())
+        check(bool(torch.isfinite(y9).all()) and err_ff7 <= TOL_FF, f"row 9 at C = 7: {err_ff7}")
+        print(f"C = 7 at B = {B_SERVE}: rows 2, 6 and 10 exact; row 3 equal to the ordered plain "
+              f"sum, {err_bwd7:.2e} from autograd's; row 9 (K = {packed7.in_dim} -> "
+              f"{packed7.w[0].shape[1]}) {err_ff7:.2e} from its plain version (tol {TOL_FF})",
+              flush=True)
+        del a7, q7, fv7, x7, x7_ref, g7, dfv7, p6, p10, y9, y9_ref
+
+    def variant_forward(params, state, cfg, a, b, **kw):
+        with torch.no_grad():
+            return forward_dpdist(params, state, cfg, a, b, **kw)[:2]
+
+    def sampled(pred):
+        return pred[:, ::vgold["stride"], 0].cpu().numpy()
+
+    def state_sample(state, n):
+        """Per BN state leaf, n entries evenly spaced, as the golden file
+        samples them."""
+        out = {}
+        for p, t in tree_flatten_with_paths(state):
+            v = t.detach().reshape(-1).cpu().numpy()
+            out[p] = v[np.linspace(0, v.size - 1, n).astype(int)]
+        return out
+
+    # Per variant, the kernel routes of the throughput forwards at B = 256:
+    # (points per cloud, dtype, fused_gather, launches of one forward).
+    VARIANT_FORWARDS = {
+        "bn": [(NP, "float32", "auto", dict(mfv_gather_x=1)),
+               (NP, "float32", "table", dict(table_gather_x=2))],
+        "conv3": [(NP, "float32", "auto", dict(mfv_gather_x=1)),
+                  (NP, "float32", "table", dict(table_gather_x=2))],
+        "small_fv": [(NP, "float32", "auto", dict(table_gather_x=2)),
+                     (NP_LARGE, "float32", "auto", dict(table_gather=2)),
+                     (NP, "float32", "on", dict(gather_patches_fused=2)),
+                     (NP, "bfloat16", "auto", dict(table_gather_x=2)),
+                     (NP, "bfloat16", "full", dict(fused_forward=1))],
+        "k0": [(NP_LARGE, "float32", "auto", dict(threedmfv=2)),
+               (NP, "float32", "auto", {})],
+        "pointnet": [(NP, "float32", "auto", {})],
+        "dims2": [(NP, "float32", "auto", {})],
+    }
+    # The source gradients where a kernel runs: (points, launches, replays).
+    VARIANT_GRADS = {
+        "bn": [(NP, dict(table_gather_x=2, table_gather_bwd=1), 0)],
+        "conv3": [(NP, dict(table_gather_x=2, table_gather_bwd=1), 0)],
+        "small_fv": [(NP, dict(table_gather_x=2, table_gather_bwd=1), 0),
+                     (NP_LARGE, dict(table_gather=2, table_gather_bwd=1), 0)],
+        "k0": [(NP_LARGE, dict(threedmfv=2), 1)],
+    }
+    # Row-2 launches of one DPDist train step: with BN both directions.
+    VARIANT_TRAIN = {"bn": 2, "conv3": 1, "pointnet": 0}
+    variant_ms = {}
+
+    with Phase("variants"), tempfile.TemporaryDirectory() as tmp:
+        clouds64 = {3: requests[0], 2: tuple(x[..., :2].contiguous() for x in requests[0])}
+        clouds256 = {3: requests_large[0]}
+        for variant, want in vgold["variants"].items():
+            t_var = time.perf_counter()
+            cfg = DPDistConfig.from_json(want["config"])
+            params, state = init_dpdist(cfg, torch.Generator().manual_seed(vgold["seed"]), dev)
+            sums = {p: [float(t.double().sum()), float(t.double().square().sum())]
+                    for p, t in tree_flatten_with_paths(params)}
+            check(list(sums) == list(want["fingerprint"]), f"{variant}: weight tree")
+            err_fp = max(abs(a - b) / max(abs(b), 1e-30) for p in sums
+                         for a, b in zip(sums[p], want["fingerprint"][p]))
+            print(f"{variant}: {cfg.to_json().replace(chr(10), '')}", flush=True)
+            print(f"{variant}: {len(sums)} weight leaves, {sum(t.numel() for _, t in tree_flatten_with_paths(params))} "
+                  f"weights, leaf sums " + ", ".join(f"{p} {s[0]:.6f}" for p, s in list(sums.items())[:4])
+                  + f" ...; rel |d| to the golden file's {err_fp:.1e}", flush=True)
+            check(err_fp <= 1e-9, f"{variant}: the seeded weights differ from the golden file's")
+
+            # The golden forwards (B = 4): float32 and bfloat16.
+            gA4, gB4 = (torch.as_tensor(c, device=dev)
+                        for c in variant_clouds(vgold["clouds"], cfg.dims))
+            errs = []
+            for dtype, mode, w, tol in ([("float32", "auto", want, TOL_DIST)]
+                                        + [("bfloat16", m, w, TOL_BF16)
+                                           for m, w in want["bf16"].items()]):
+                pAB, pBA = variant_forward(params, state, cfg.replace(dtype=dtype,
+                                                                      fused_gather=mode), gA4, gB4)
+                err = max(float(np.abs(sampled(p) - np.asarray(w[k])).max())
+                          for p, k in ((pAB, "pred_AB"), (pBA, "pred_BA")))
+                errs.append(f"{dtype} {mode} {err:.2e} (tol {tol})")
+                check(err <= tol, f"{variant}: {dtype} {mode} forward vs golden: {err}")
+            print(f"{variant}: golden forwards at B = {gA4.shape[0]} vs JAX: " + "; ".join(errs),
+                  flush=True)
+
+            # The throughput forwards at B = 256 against the plain path.
+            for n_pts, dtype, mode, launches_want in VARIANT_FORWARDS[variant]:
+                a, b = (clouds64 if n_pts == NP else clouds256)[cfg.dims]
+                run_cfg = cfg.replace(dtype=dtype, fused_gather=mode)
+                start_count()
+                pAB, pBA = variant_forward(params, state, run_cfg, a, b)
+                launched = read_count()
+                rAB, rBA = variant_forward(params, state, run_cfg.replace(fused_gather="off"), a, b)
+                err = max(float((pAB - rAB).abs().max()), float((pBA - rBA).abs().max()))
+                tol = TOL_DIST if dtype == "float32" else TOL_BF16
+                ms = cuda_median_ms(lambda: variant_forward(params, state, run_cfg, a, b),
+                                    runs=5, warmup=1)
+                plain_ms = cuda_median_ms(lambda: variant_forward(
+                    params, state, run_cfg.replace(fused_gather="off"), a, b), runs=5, warmup=1)
+                variant_ms[(variant, n_pts, dtype, mode)] = (ms, plain_ms)
+                print(f"{variant}: forward B = {a.shape[0]}, np = {n_pts}, {dtype} {mode}: kernel "
+                      f"launches { {k: v for k, v in launched.items() if v} }, vs plain path max "
+                      f"|d| {err:.2e} (tol {tol}); {ms:.3f} ms, plain {plain_ms:.3f} ms "
+                      f"({B_SERVE / ms * 1e3:.0f} pairs/s; CUDA-event median of 5); on {card}",
+                      flush=True)
+                check(launched == expected(**launches_want), f"{variant}: forward launches")
+                check(bool(torch.isfinite(pAB).all() and torch.isfinite(pBA).all()),
+                      f"{variant}: non-finite prediction")
+                check(err <= tol, f"{variant}: {dtype} {mode} forward vs plain path: {err}")
+
+            # The frozen loss's source gradient where a kernel runs.
+            for n_pts, launches_want, replays in VARIANT_GRADS.get(variant, []):
+                a, b = (clouds64 if n_pts == NP else clouds256)[cfg.dims]
+                loss_fn = make_frozen_dpdist_loss(params, cfg, state=state)
+                start_count()
+                value, g = src_grad(loss_fn, a, b)
+                launched = read_count()
+                replayed = threedmfv_kernel.replays
+                check(launched == expected(**launches_want), f"{variant}: source-gradient launches")
+                check(replayed == replays, f"{variant}: encode replays")
+                plain = make_frozen_dpdist_loss(params, cfg.replace(fused_gather="off"),
+                                                state=state)
+                v_ref, g_ref = src_grad(plain, a, b)
+                d = abs(float(value - v_ref))
+                worst = check_grad_rows(g, g_ref, f"{variant}: source gradient vs plain path")
+                ms = cuda_median_ms(lambda: src_grad(loss_fn, a, b), runs=3, warmup=1)
+                print(f"{variant}: source gradient B = {a.shape[0]}, np = {n_pts}: launches "
+                      f"{ {k: v for k, v in launched.items() if v} }, replays "
+                      f"{replayed}; vs plain path loss |d| {d:.2e}, d/dpcA worst "
+                      f"point {worst:.2e} of max; {ms:.3f} ms a call", flush=True)
+                check(d <= TOL_DIST, f"{variant}: frozen loss vs plain path: {d}")
+
+            # DPDist training from the seeded weights on the golden batch.
+            if variant in VARIANT_TRAIN:
+                gt = want["train"]
+                tr = DPDistTrainer(cfg, TrainConfig(batch_size=vgold["train"]["batch_size"],
+                                                    augment=False, seed=vgold["seed"]),
+                                   run_dir=os.path.join(tmp, variant), device=dev,
+                                   logger=RunLogger(os.path.join(tmp, variant), echo=False))
+                data, labels = dpdist_train_batch({"seed": gt["batch_seed"],
+                                                   "batch_size": vgold["train"]["batch_size"],
+                                                   "num_point": vgold["train"]["num_point"]})
+                losses, gnorms = [], []
+                for _ in range(len(gt["loss"])):
+                    start_count()
+                    m = tr.train_step(data, labels)
+                    launched = read_count()
+                    check(launched == expected(table_gather_x=VARIANT_TRAIN[variant]),
+                          f"{variant}: train step launches {launched}")
+                    losses.append(float(m["loss"]))
+                    gnorms.append(float(m["grad_norm"]))
+                first, later, gnorm_tol, state_tol = TOL_VARIANT_STEPS
+                err_first = abs(losses[0] - gt["loss"][0]) / gt["loss"][0]
+                err_later = max(abs(a - b) / b for a, b in zip(losses[1:], gt["loss"][1:]))
+                err_gn = abs(gnorms[0] - gt["grad_norm"][0]) / gt["grad_norm"][0]
+                got_state = state_sample(tr.state, len(next(iter(gt["state"].values()), [])))
+                err_state = max([float(np.abs(got_state[p] - np.asarray(w)).max()
+                                       / max(1.0, np.abs(np.asarray(w)).max()))
+                                 for p, w in gt["state"].items()] or [0.0])
+                step_ms = cuda_median_ms(lambda: tr.train_step(data, labels), runs=3, warmup=0)
+                print(f"{variant}: {len(losses)} train steps at B = {vgold['train']['batch_size']}: "
+                      f"losses {', '.join(f'{v:.6f}' for v in losses)} (JAX "
+                      f"{', '.join(f'{v:.6f}' for v in gt['loss'])}); first rel |d| "
+                      f"{err_first:.2e} (tol {first}), later {err_later:.2e} (tol {later}); "
+                      f"first grad norm rel |d| {err_gn:.2e} (tol {gnorm_tol}; later "
+                      f"{', '.join(f'{v:.4f}' for v in gnorms[1:])} vs "
+                      f"{', '.join(f'{v:.4f}' for v in gt['grad_norm'][1:])}); BN state max |d| "
+                      f"{err_state:.2e} (of a leaf's largest entry above 1; tol {state_tol}); "
+                      f"{VARIANT_TRAIN[variant]} row-2 launches "
+                      f"a step; {step_ms:.3f} ms a step", flush=True)
+                check(err_first <= first and err_later <= later and err_gn <= gnorm_tol
+                      and err_state <= state_tol, f"{variant}: train steps off the golden ones")
+                del tr
+            del params, state
+            torch.cuda.empty_cache()
+            print(f"{variant}: {time.perf_counter() - t_var:.1f} s", flush=True)
+
+    with Phase("dense"):
+        # distance_field at 64^3 on a committed net for a 1,024-point surface:
+        # the pretransformed path ("auto" at 262,144 queries) and the gather
+        # path (row 6), each encoding the cloud by row 7.
+        dg = vgold["dense"]
+        dcfg, dnp, dstate_np = load_dpdist_checkpoint(str(ROOT / dg["net"]))
+        dparams, dstate = params_from_jax(dnp, dev), params_from_jax(dstate_np, dev)
+        cloud_np, q_np, d_index = dense_field_queries(dg["spec"])
+        cloud = torch.as_tensor(cloud_np, device=dev)
+        R = dg["spec"]["resolution"]
+        q_all = torch.as_tensor(q_np[None], device=dev)
+        start_count()
+        with torch.no_grad():
+            field = distance_field(dparams, dcfg, cloud, state=dstate, resolution=R,
+                                   extent=dg["spec"]["extent"])
+        launched_on = read_count()
+        start_count()
+        with torch.no_grad():
+            d_off = dense_point_to_surface(dparams, dcfg, cloud, q_all, state=dstate,
+                                           pretransform="off")
+        launched_off = read_count()
+        d_on = field.reshape(1, -1)
+        err_paths = float((d_on - d_off).abs().max())
+        idx = torch.as_tensor(d_index, device=dev)
+        err_gold = max(float(np.abs(d[0, idx].cpu().numpy() - np.asarray(dg["values"])).max())
+                       for d in (d_on, d_off))
+        on_ms = cuda_median_ms(lambda: distance_field(dparams, dcfg, cloud, state=dstate,
+                                                      resolution=R), runs=3, warmup=1)
+        off_ms = cuda_median_ms(lambda: dense_point_to_surface(
+            dparams, dcfg, cloud, q_all, state=dstate, pretransform="off"), runs=3, warmup=1)
+        print(f"dense: {dg['net']}, {R}^3 = {q_all.shape[1]} queries against a "
+              f"{cloud.shape[1]}-point surface: field {float(d_on.min()):.4f}..."
+              f"{float(d_on.max()):.4f}; pretransform on vs off max |d| {err_paths:.2e} (tol "
+              f"1e-5); both vs JAX's golden subsample ({len(d_index)} queries) max |d| "
+              f"{err_gold:.2e} (tol {TOL_DIST}); launches on "
+              f"{ {k: v for k, v in launched_on.items() if v} }, off "
+              f"{ {k: v for k, v in launched_off.items() if v} }; {on_ms:.3f} ms "
+              f"(pretransformed), {off_ms:.3f} ms (gather path), CUDA-event median of 3; "
+              f"on {card}", flush=True)
+        check(bool(torch.isfinite(d_on).all() and torch.isfinite(d_off).all()),
+              "dense: non-finite distance")
+        check(launched_on == expected(threedmfv=1), "dense: pretransformed launches")
+        check(launched_off == expected(threedmfv=1, table_gather=1), "dense: gather launches")
+        check(err_paths <= 1e-5, f"dense: pretransform on vs off {err_paths}")
+        check(err_gold <= TOL_DIST, f"dense: vs golden {err_gold}")
+        del field, d_off, d_on, q_all
+
+    for r in records:
+        r["launches"] = launches[r["name"]]
+
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(smi, flush=True)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     signal.alarm(0)
     return 0

@@ -11,15 +11,19 @@ input clouds (the frozen loss, float32 or bfloat16), DPDist training on
 one device (float32 or bfloat16) from the command line, registration:
 the iterative PCRNet policy (pointnet and 3dmfv encoders), its evaluator
 with the convergence stops, and PCRNet training on the frozen DPDist loss,
-chamfer or EMD; and the point-cloud autoencoder trained on the frozen
-loss or chamfer, with kNN, the blocked EMD and the distance comparison.
+chamfer or EMD; the point-cloud autoencoder trained on the frozen
+loss or chamfer, with kNN, the blocked EMD and the distance comparison;
+and the whole DPDist model family (BN and conv_version=3 decoders, the
+7-channel encode, the global k=0 embedding, the pointnet encoder, 2-D)
+with dense evaluation (distance fields).
 
   configs/    DPDistConfig, AUEConfig, PCRNetConfig, TrainConfig (same
               fields, defaults and JSON form)
   train/      checkpoints (read and write), optimizer, run logger, the DPDist,
               PCRNet and AUE trainers, profiling hooks
   geometry/   rotations, SE(3) transforms, symmetry-aware errors
-  eval/       the registration evaluator, the distance comparison, plots
+  eval/       the registration evaluator, the distance comparison, dense
+              evaluation (distance fields), plots and views
   ops/        3DmFV encode, voxel ops, chamfer, EMD (dense and blocked), kNN
   kernels/    kernel wrappers: plain version, launch counter, ctypes binding
   csrc/       the hand-written CUDA kernels (sm_90a)

@@ -42,8 +42,8 @@ def main(argv=None):
     from dpdist_tpu_torch.train.checkpoint import load_dpdist_checkpoint, params_from_jax
 
     dev = resolve_device(a.device)
-    cfg, params = load_dpdist_checkpoint(a.dpdist_ckpt)
-    params = params_from_jax(params, dev)
+    cfg, params, state = load_dpdist_checkpoint(a.dpdist_ckpt)
+    params, state = params_from_jax(params, dev), params_from_jax(state, dev)
     surfaces = np.stack([
         synthetic_surface(a.families[i % len(a.families)], seed=a.seed + i,
                           n_points=max(4 * a.num_point, 512)) * 0.8
@@ -55,7 +55,7 @@ def main(argv=None):
                 else [0.0, 0.1, 0.25, 0.5] if kind == "occlude"
                 else [0.0, 0.02, 0.05, 0.1, 0.2])
         sweep = perturbation_sweep(params, cfg, surfaces, kind=kind, magnitudes=mags,
-                                   num_point=a.num_point, seed=a.seed, device=dev)
+                                   num_point=a.num_point, seed=a.seed, device=dev, state=state)
         sweep["dpdist_monotonicity"] = monotonicity(sweep["dpdist"])
         report[kind] = sweep
         print(f"== {kind} ==")

@@ -58,11 +58,11 @@ def main(argv=None):
     from dpdist_tpu_torch.train.aue_trainer import AUETrainer
 
     resolve_device(a.device)   # raise before reading or writing anything
-    dcfg, dparams = load_dpdist_checkpoint(a.dpdist_ckpt)
+    dcfg, dparams, dstate = load_dpdist_checkpoint(a.dpdist_ckpt)
     tcfg = train_config_from_args(a).replace(learning_rate=max(a.learning_rate, 1e-3))
     acfg = AUEConfig(num_point=a.num_point, encoder=a.encoder_aue)
-    trainer = AUETrainer(acfg, tcfg, dcfg, dparams, opt_type=a.opt_type, run_dir=a.log_dir,
-                         device=a.device)
+    trainer = AUETrainer(acfg, tcfg, dcfg, dparams, dstate, opt_type=a.opt_type,
+                         run_dir=a.log_dir, device=a.device)
     if a.resume:
         trainer.restore(a.resume)
     ds, test_ds = (SurfacePairDataset(a.data_root, batch_size=tcfg.batch_size,

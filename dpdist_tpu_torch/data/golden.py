@@ -11,6 +11,12 @@ section the frozen loss in bfloat16 and its gradient at 64 and 256 points.
 assets/golden_aue.json holds JAX's outputs for the autoencoders, the 3dmfv
 PCRNet and compare_losses (tests/test_torch_aue.py writes it); its batches
 are dataset batches of seeded synthetic surfaces (aue_batch).
+
+assets/golden_variants.json holds JAX's outputs for the DPDist variants at
+full width from seeded weights (tests/test_torch_variants.py writes it):
+forwards of the first pairs of golden_distance.json (variant_clouds), a
+few train steps on a seeded batch (dpdist_train_batch), and a dense
+distance field's subsample on a committed net (dense_field_queries).
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from dpdist_tpu_torch.data.synthetic import synthetic_surface
 
 GOLDEN_PATH = Path(__file__).resolve().parent.parent / "assets" / "golden_distance.json"
 AUE_GOLDEN_PATH = GOLDEN_PATH.with_name("golden_aue.json")
+VARIANTS_GOLDEN_PATH = GOLDEN_PATH.with_name("golden_variants.json")
 
 
 def load_golden(path=GOLDEN_PATH) -> dict:
@@ -56,3 +63,34 @@ def aue_batch(spec: dict) -> np.ndarray:
     surf = np.stack([synthetic_surface(fams[i % len(fams)], seed=spec["seed0"] + i,
                                        n_points=2 * N) * spec["scale"] for i in range(B)])
     return np.concatenate([surf, np.zeros((B, 4 * N, 3))], axis=1).astype(np.float32)
+
+
+def variant_clouds(spec: dict, dims: int = 3):
+    """(pcA, pcB), each (P, n, dims) float32: the golden-distance pairs of
+    spec ({"pairs", "num_point"}), in 2-D their first two coordinates."""
+    pcA, pcB = golden_clouds(spec)
+    return np.ascontiguousarray(pcA[..., :dims]), np.ascontiguousarray(pcB[..., :dims])
+
+
+def dpdist_train_batch(spec: dict):
+    """A seeded DPDist dataset batch in the reference's layout: (B, 6N, 3)
+    points uniform in [-0.9, 0.9] and (B, 4N) labels uniform in [0, 0.3].
+    spec: {"seed", "batch_size", "num_point"}."""
+    r = np.random.default_rng(spec["seed"])
+    B, N = spec["batch_size"], spec["num_point"]
+    data = r.uniform(-0.9, 0.9, (B, 6 * N, 3)).astype(np.float32)
+    labels = r.uniform(0.0, 0.3, (B, 4 * N)).astype(np.float32)
+    return data, labels
+
+
+def dense_field_queries(spec: dict):
+    """(cloud (1, M, 3), all grid queries (R^3, 3), the subsample's flat
+    indices) of a dense golden spec ({"family", "seed", "n_points",
+    "scale", "resolution", "extent", "stride", "count"}); the queries in
+    distance_field's order (meshgrid "ij", z fastest)."""
+    cloud = synthetic_surface(spec["family"], seed=spec["seed"], n_points=spec["n_points"])
+    R = spec["resolution"]
+    r = np.linspace(-spec["extent"], spec["extent"], R).astype(np.float32)
+    q = np.stack(np.meshgrid(r, r, r, indexing="ij"), -1).reshape(-1, 3)
+    index = np.arange(0, R ** 3, spec["stride"])[:spec["count"]]
+    return (cloud[None] * spec["scale"]).astype(np.float32), q, index

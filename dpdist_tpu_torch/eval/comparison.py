@@ -33,10 +33,11 @@ KINDS = ("resample", "noise", "deform", "translate", "occlude")
 @torch.no_grad()
 def perturbation_sweep(params, cfg: DPDistConfig, surfaces, *, kind: str = "deform",
                        magnitudes: Sequence[float] = (0.0, 0.02, 0.05, 0.1, 0.2),
-                       num_point: int = 64, seed: int = 0, device="cuda") -> Dict:
+                       num_point: int = 64, seed: int = 0, device="cuda", state=None) -> Dict:
     """Score cloud pairs under growing perturbation with all 3 metrics.
 
-    params: the port's DPDist decoder state (params_from_jax) on `device`.
+    params, state: the port's DPDist params and BN state (params_from_jax;
+      state None for a net without BN) on `device`.
     surfaces: (M, P, 3) dense surfaces (P >= 2 * num_point). For each
       magnitude, pcA is one sampling, pcB an independent sampling perturbed
       by `kind`:
@@ -77,7 +78,7 @@ def perturbation_sweep(params, cfg: DPDistConfig, surfaces, *, kind: str = "defo
                 pcB = add_occlusions_np(pcB[None].astype(np.float32), min(m, 0.95), rng)[0]
             a = torch.as_tensor(pcA[None].astype(np.float32), device=device)
             b = torch.as_tensor(pcB[None].astype(np.float32), device=device)
-            scores.append(torch.stack([dpdist_distance(params, cfg, a, b),
+            scores.append(torch.stack([dpdist_distance(params, cfg, a, b, state=state),
                                        chamfer_distance(a, b), earth_mover_distance(a, b)]))
         mean = torch.stack(scores).cpu().numpy().astype(np.float64).mean(0)
         for key, v in zip(("dpdist", "chamfer", "emd"), mean):

@@ -1,17 +1,20 @@
-"""Plots (port of save_cloud_pair, save_iteration_curves and
-save_error_histograms, dpdist_tpu/eval/viz.py; its other views come with
-ROADMAP.md §1 item 7).
+"""Plots and views (port of dpdist_tpu/eval/viz.py).
 
 The AUE trainer's reconstruction snapshots
-(train_multi_gpu_pc_compare_dist.py:574-590), and the registration
+(train_multi_gpu_pc_compare_dist.py:574-590), the registration
 evaluator's per-iteration error curves and error histograms
-(results_itrPCRNet_no_stop.py:433-462). All are no-ops returning None when
-matplotlib is unavailable and always use the Agg backend (headless).
+(results_itrPCRNet_no_stop.py:433-462), a cloud's three axis-aligned
+density views (pc_util.point_cloud_three_views's stand-in, an image array
+that needs no matplotlib) and a loss curve. The save_* functions are no-ops
+returning None when matplotlib is unavailable and always use the Agg
+backend (headless).
 """
 
 from __future__ import annotations
 
 from typing import Optional, Sequence
+
+import numpy as np
 
 
 def _plt():
@@ -84,6 +87,54 @@ def save_error_histograms(path: str, rot_err_deg, trans_err) -> Optional[str]:
     axes[1].set_xlabel("translation error")
     for ax in axes:
         ax.grid(True, alpha=0.3)
+    fig.tight_layout()
+    fig.savefig(path, dpi=80)
+    plt.close(fig)
+    return path
+
+
+def point_cloud_three_views(points, *, img_size: int = 128, radius: float = 1.0):
+    """(img_size, 3 * img_size) float32 image in [0, 1]: the XY, XZ and YZ
+    density projections of an (N, 3) cloud side by side, each view's
+    counts over its largest (points outside [-radius, radius] dropped)."""
+    pts = np.asarray(points.detach().cpu() if hasattr(points, "detach") else points)
+    views = []
+    for axes in ((0, 1), (0, 2), (1, 2)):
+        img = np.zeros((img_size, img_size), np.float32)
+        u = (pts[:, axes[0]] + radius) / (2 * radius) * (img_size - 1)
+        v = (pts[:, axes[1]] + radius) / (2 * radius) * (img_size - 1)
+        ok = (u >= 0) & (u < img_size) & (v >= 0) & (v < img_size)
+        np.add.at(img, (v[ok].astype(int), u[ok].astype(int)), 1.0)
+        m = img.max()
+        views.append(img / m if m > 0 else img)
+    return np.concatenate(views, axis=1)
+
+
+def save_three_views(path: str, points) -> Optional[str]:
+    """point_cloud_three_views as an image file."""
+    plt = _plt()
+    if plt is None:
+        return None
+    img = point_cloud_three_views(points)
+    fig, ax = plt.subplots(figsize=(9, 3))
+    ax.imshow(img, cmap="gray_r", origin="lower")
+    ax.axis("off")
+    fig.savefig(path, dpi=80, bbox_inches="tight")
+    plt.close(fig)
+    return path
+
+
+def save_loss_curve(path: str, losses: Sequence[float], *,
+                    ylabel: str = "loss") -> Optional[str]:
+    """A per-epoch loss curve."""
+    plt = _plt()
+    if plt is None:
+        return None
+    fig, ax = plt.subplots(figsize=(6, 3.5))
+    ax.plot(losses)
+    ax.set_xlabel("epoch")
+    ax.set_ylabel(ylabel)
+    ax.grid(True, alpha=0.3)
     fig.tight_layout()
     fig.savefig(path, dpi=80)
     plt.close(fig)

@@ -1,12 +1,13 @@
 """The frozen DPDist distance as a differentiable loss (port of
 dpdist_tpu/losses/dpdist_loss.py).
 
-    loss_fn = make_frozen_dpdist_loss(params, cfg)
+    loss_fn = make_frozen_dpdist_loss(params, cfg)          # or state=... for BN
     loss = loss_fn(pcA, pcB)          # scalar; gradients reach the clouds
 
 The parameters never receive a gradient: loss_fn detaches them on every
 call, so differentiating a composition that contains them leaves their
-`.grad` untouched.
+`.grad` untouched. The net runs in eval mode: a BN config normalises with
+its state's running statistics, as the reference's frozen net does.
 """
 
 from __future__ import annotations
@@ -25,8 +26,10 @@ def _detached(tree):
     return tree.detach()
 
 
-def make_frozen_dpdist_loss(params, cfg: DPDistConfig, *, out_of_grid_penalty: float = 1.0):
-    """Return loss_fn(pcA, pcB) -> scalar, closed over frozen params.
+def make_frozen_dpdist_loss(params, cfg: DPDistConfig, *, state=None,
+                            out_of_grid_penalty: float = 1.0):
+    """Return loss_fn(pcA, pcB) -> scalar, closed over frozen params and
+    BN state (None for a config without BN).
 
     The distance runs with fused_gather resolved for a gradient context
     (`resolve_for_grad`: the table-gather kernels on the card).
@@ -41,7 +44,8 @@ def make_frozen_dpdist_loss(params, cfg: DPDistConfig, *, out_of_grid_penalty: f
 
     def loss_fn(pcA, pcB):
         gcfg = resolve_for_grad(cfg, pcA.device)
-        d = dpdist_distance(_detached(params), gcfg, pcA, pcB)
+        d = dpdist_distance(_detached(params), gcfg, pcA, pcB,
+                            state=None if state is None else _detached(state))
         if out_of_grid_penalty > 0:
             def barrier(pc):
                 return torch.mean(torch.relu(torch.abs(pc) - 1.0))

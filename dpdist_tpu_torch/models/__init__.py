@@ -3,6 +3,8 @@ from dpdist_tpu_torch.models.dpdist import (
     apply_direction,
     apply_dpdist,
     dpdist_distance,
+    dpdist_embed,
+    forward_dpdist,
     init_dpdist,
     resolve_for_grad,
 )
@@ -14,5 +16,5 @@ from dpdist_tpu_torch.models.pcrnet import (
 )
 
 __all__ = ["apply_aue", "init_aue", "apply_direction", "apply_dpdist", "dpdist_distance",
-           "init_dpdist", "resolve_for_grad", "apply_pcrnet", "init_pcrnet",
+           "dpdist_embed", "forward_dpdist", "init_dpdist", "resolve_for_grad", "apply_pcrnet", "init_pcrnet",
            "init_pcrnet_state", "pcrnet_refine"]

@@ -67,7 +67,14 @@ def dense_init(in_dim: int, out_dim: int, *, conv_fan: Tuple[int, int] | None = 
 
 
 def dense_apply(params, x: torch.Tensor) -> torch.Tensor:
-    return torch.matmul(x, params["w"]) + params["b"]
+    """x @ w + b. Operands of two dtypes meet in the wider one, as jnp.matmul
+    promotes them (a float32 activation after an eval-mode BN of a bf16
+    decoder meets bf16 weights)."""
+    w = params["w"]
+    if w.dtype != x.dtype:
+        dt = torch.promote_types(w.dtype, x.dtype)
+        x, w = x.to(dt), w.to(dt)
+    return torch.matmul(x, w) + params["b"]
 
 
 # ---------------------------------------------------------------------------
@@ -236,10 +243,14 @@ def batchnorm_init(dim: int):
 
 
 def batch_moments(x: torch.Tensor):
-    """Mean and biased variance over every axis but the last."""
+    """Mean and biased variance over every axis but the last, computed in
+    float32 and returned in x's dtype (jnp.mean and jnp.var upcast a bf16
+    input so)."""
     axes = tuple(range(x.dim() - 1))
-    mean = torch.mean(x, dim=axes)
-    return mean, torch.mean(torch.square(x - mean), dim=axes)
+    xf = x.float()
+    mean = torch.mean(xf, dim=axes)
+    var = torch.mean(torch.square(xf - mean), dim=axes)
+    return mean.to(x.dtype), var.to(x.dtype)
 
 
 def batchnorm_apply(params, state, x: torch.Tensor, *, train: bool, momentum=0.9,
@@ -323,9 +334,12 @@ def mlp_apply(params, x: torch.Tensor, dtype: torch.dtype = torch.float32) -> to
 
 def mlp_apply_bn(params, state, x: torch.Tensor, *, train: bool = False, bn_momentum=0.9,
                  final_activation=None):
-    """The BN MLP (float32): dense, BN, then ReLU on every layer but the
-    last, which gets BN and final_activation (None = linear), as
-    tf_util.conv2d orders them. Returns (y, new_state)."""
+    """The BN MLP: dense, BN, then ReLU on every layer but the last, which
+    gets BN and final_activation (None = linear), as tf_util.conv2d orders
+    them. Returns (y, new_state). The layers compute in their params' and
+    x's dtypes as JAX promotes them: a bf16 decoder (params and x cast by
+    the caller) stays bf16 in training; in eval the float32 running
+    statistics lift the activations to float32 after the first BN."""
     layers = params["layers"]
     new_bn = []
     for i, (lp, bp, bs) in enumerate(zip(layers, params["bn"], state["bn"])):

@@ -2,27 +2,34 @@
 dpdist_tpu/ops/threedmfv.py).
 
 `threedmfv(points, G, sigma, impl="auto")` dispatches as the reference
-does (dpdist_tpu/ops/threedmfv.py:111-113): "auto" takes the streaming
+does (dpdist_tpu/ops/threedmfv.py:103-113): "auto" takes the streaming
 encode kernel (kernels/threedmfv.py) for CUDA tensors of at least
-KERNEL_MIN_POINTS points, and the plain encode otherwise; "kernel" and
+KERNEL_MIN_POINTS points when the kernel computes the asked encode (3-D,
+full_fv, normalized), and the plain encode otherwise; "kernel" and
 "plain" force one or the other ("kernel" on a CPU tensor runs the plain
-version, as every wrapper does).
+version, as every wrapper does; "kernel" for an encode the kernel does not
+compute raises, as the reference's impl="pallas").
 
 `threedmfv_plain` is the plain PyTorch encode: the reference's impl="xla"
 math but for how the squared distances are formed.
 
 Gaussian responsibilities are a softmax over -||x - mu_g||^2 / (2 sigma^2)
-for a uniform-weight isotropic GMM on a grid. The squared distance is
-summed from per-dimension differences (x - mu_g) / sigma, as the TPU
-kernels form it; the reference's XLA path uses the matmul identity
+for a uniform-weight isotropic GMM on a grid (2-D or 3-D). The squared
+distance is summed from per-dimension differences (x - mu_g) / sigma, as
+the TPU kernels form it; the reference's XLA path uses the matmul identity
 ||x||^2 + ||mu||^2 - 2 x.mu_g^T instead, which loses accuracy to
 cancellation (see threedmfv). No matmul is involved, so TF32 cannot
 touch it.
 
-Channel layout of the output (B, G, 20):
+Channel layout of the output (B, G, C), full_fv (C = 2 + 6 D, 20 in 3-D):
   [ d_pi_mean, d_pi_max,
-    d_mu_mean(3), d_mu_max(3), d_mu_min(3),
-    d_sig_mean(3), d_sig_max(3), d_sig_min(3) ]
+    d_mu_mean(D), d_mu_max(D), d_mu_min(D),
+    d_sig_mean(D), d_sig_max(D), d_sig_min(D) ]
+and with full_fv=False the mean pools only (C = 1 + 2 D: 7 in 3-D, 5 in
+2-D): [ d_pi_mean, d_mu_mean(D), d_sig_mean(D) ]. flatten=True gives the
+reference's channel-major (B, C*G): each group's channels transposed to
+(C, G) and flattened, the groups in the order above
+(dpdist_tpu/ops/threedmfv.py:121-122, :178-184).
 """
 
 from __future__ import annotations
@@ -31,13 +38,18 @@ import numpy as np
 import torch
 
 
-def threedmfv_grid(n_gaussians: int) -> np.ndarray:
-    """(G, 3) Gaussian centers on the uniform grid, in the reference's flat order.
+def threedmfv_grid(n_gaussians: int, dims: int = 3) -> np.ndarray:
+    """(G, D) Gaussian centers on the uniform grid, in the reference's flat order.
 
     l = linspace(-1, 1, g, endpoint=False) + 1/g on np.meshgrid's default
-    'xy' indexing: flat index v = iy*g^2 + ix*g + iz carries center
-    (l[ix], l[iy], l[iz]).
+    'xy' indexing: in 3-D flat index v = iy*g^2 + ix*g + iz carries center
+    (l[ix], l[iy], l[iz]); in 2-D v = iy*g + ix carries (l[ix], l[iy]).
     """
+    if dims == 2:
+        g = int(np.sqrt(n_gaussians))
+        l = np.linspace(-1, 1, g, False) + 1.0 / g
+        x, y = np.meshgrid(l, l)
+        return np.stack([x.flatten(), y.flatten()], -1).astype(np.float32)
     g = int(np.ceil(n_gaussians ** (1.0 / 3.0)))
     l = np.linspace(-1, 1, g, False) + 1.0 / g
     x, y, z = np.meshgrid(l, l, l)
@@ -59,38 +71,61 @@ def _power_normalize(x: torch.Tensor, alpha: float = 0.5, eps: float = 1e-12) ->
 KERNEL_MIN_POINTS = 128
 
 
+def kernel_computes(dims: int, full_fv: bool = True, normalize: bool = True) -> bool:
+    """Whether the streaming kernel computes this encode: the reference's
+    kernel_ok, D == 3, full_fv and normalize."""
+    return dims == 3 and full_fv and normalize
+
+
+def _flatten(groups):
+    """Channel-major flatten: each (B, G, c) group to (B, c*G), concatenated."""
+    return torch.cat([g.transpose(1, 2).reshape(g.shape[0], -1) for g in groups], dim=1)
+
+
 def threedmfv(points: torch.Tensor, n_gaussians: int = 512, sigma: float = 0.125,
-              impl: str = "auto") -> torch.Tensor:
-    """Normalized full 3DmFV of (B, N, 3) clouds, (B, G, 20) float32, by
-    the kernel or the plain encode (see the module docstring)."""
+              impl: str = "auto", *, flatten: bool = False, normalize: bool = True,
+              full_fv: bool = True) -> torch.Tensor:
+    """The 3DmFV of (B, N, D) clouds, (B, G, C) float32 (or (B, C*G) with
+    flatten), by the kernel or the plain encode (see the module docstring)."""
+    ok = kernel_computes(points.shape[-1], full_fv, normalize)
     if impl == "auto":
-        impl = ("kernel" if points.device.type == "cuda" and points.shape[1] >= KERNEL_MIN_POINTS
-                else "plain")
+        impl = ("kernel" if ok and points.device.type == "cuda"
+                and points.shape[1] >= KERNEL_MIN_POINTS else "plain")
     if impl == "plain":
-        return threedmfv_plain(points, n_gaussians, sigma)
+        return threedmfv_plain(points, n_gaussians, sigma, flatten=flatten, normalize=normalize,
+                               full_fv=full_fv)
     if impl == "kernel":
+        if not ok:
+            raise ValueError("impl='kernel' computes the 3-D full_fv normalized encode only (got "
+                             f"D={points.shape[-1]}, full_fv={full_fv}, normalize={normalize})")
         from dpdist_tpu_torch.kernels.threedmfv import threedmfv_kernel
 
-        return threedmfv_kernel(points.to(torch.float32).contiguous(), n_gaussians, sigma)
+        fv = threedmfv_kernel(points.to(torch.float32).contiguous(), n_gaussians, sigma)
+        return _flatten([fv]) if flatten else fv
     raise ValueError(f"impl must be 'auto', 'kernel' or 'plain', got {impl!r}")
 
 
-def threedmfv_plain(points: torch.Tensor, n_gaussians: int = 512,
-                    sigma: float = 0.125) -> torch.Tensor:
-    """Normalized full 3DmFV (mean, max and min pools) of 3-D point clouds.
+def threedmfv_plain(points: torch.Tensor, n_gaussians: int = 512, sigma: float = 0.125, *,
+                    flatten: bool = False, normalize: bool = True,
+                    full_fv: bool = True) -> torch.Tensor:
+    """The 3DmFV of (B, N, D) clouds, D in {2, 3}, in plain PyTorch.
 
     Args:
-      points: (B, N, 3) point clouds.
-      n_gaussians: G, a perfect cube.
+      points: (B, N, D) point clouds.
+      n_gaussians: G, a perfect square (2-D) or cube (3-D).
       sigma: isotropic Gaussian stddev.
+      flatten: (B, C*G) channel-major instead of (B, G, C).
+      normalize: the power and l2 normalizations.
+      full_fv: mean, max and min pools (C = 2 + 6 D), else the means only
+        (C = 1 + 2 D).
 
     Returns:
-      (B, G, 20) float32 Fisher vectors.
+      (B, G, C) or (B, C*G) float32 Fisher vectors.
     """
     B, N, D = points.shape
-    if D != 3:
-        raise NotImplementedError(f"only 3-D clouds are ported, got D={D}")
-    mu = torch.as_tensor(threedmfv_grid(n_gaussians), device=points.device)
+    if D not in (2, 3):
+        raise ValueError(f"clouds must be 2-D or 3-D, got D={D}")
+    mu = torch.as_tensor(threedmfv_grid(n_gaussians, D), device=points.device)
     G = mu.shape[0]
     w = 1.0 / G
 
@@ -108,14 +143,25 @@ def threedmfv_plain(points: torch.Tensor, n_gaussians: int = 512,
     d_mu_all = Qd * diff                                         # (B, N, G, D)
     d_sig_all = Qd * (diff * diff - 1.0)                         # (B, N, G, D)
 
-    # Pool over the point axis: mean, max and min (amax/amin, as JAX).
-    d_pi = torch.stack([torch.mean(d_pi_all, dim=1), torch.amax(d_pi_all, dim=1)], dim=2)
-    d_mu = torch.cat([torch.mean(d_mu_all, dim=1), torch.amax(d_mu_all, dim=1),
-                      torch.amin(d_mu_all, dim=1)], dim=2) / np.sqrt(w)
-    d_sig = torch.cat([torch.mean(d_sig_all, dim=1), torch.amax(d_sig_all, dim=1),
-                       torch.amin(d_sig_all, dim=1)], dim=2) / np.sqrt(2.0 * w)
+    # Pool over the point axis: mean, and with full_fv max and min
+    # (amax/amin, as JAX).
+    if full_fv:
+        d_pi = torch.stack([torch.mean(d_pi_all, dim=1), torch.amax(d_pi_all, dim=1)], dim=2)
+        d_mu = torch.cat([torch.mean(d_mu_all, dim=1), torch.amax(d_mu_all, dim=1),
+                          torch.amin(d_mu_all, dim=1)], dim=2)
+        d_sig = torch.cat([torch.mean(d_sig_all, dim=1), torch.amax(d_sig_all, dim=1),
+                           torch.amin(d_sig_all, dim=1)], dim=2)
+    else:
+        d_pi = torch.mean(d_pi_all, dim=1)[..., None]
+        d_mu = torch.mean(d_mu_all, dim=1)
+        d_sig = torch.mean(d_sig_all, dim=1)
+    d_mu = d_mu / np.sqrt(w)
+    d_sig = d_sig / np.sqrt(2.0 * w)
 
-    d_pi = _l2_normalize_over_gaussians(_power_normalize(d_pi))
-    d_mu = _l2_normalize_over_gaussians(_power_normalize(d_mu))
-    d_sig = _l2_normalize_over_gaussians(_power_normalize(d_sig))
+    if normalize:
+        d_pi = _l2_normalize_over_gaussians(_power_normalize(d_pi))
+        d_mu = _l2_normalize_over_gaussians(_power_normalize(d_mu))
+        d_sig = _l2_normalize_over_gaussians(_power_normalize(d_sig))
+    if flatten:
+        return _flatten([d_pi, d_mu, d_sig])
     return torch.cat([d_pi, d_mu, d_sig], dim=2)

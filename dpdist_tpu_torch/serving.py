@@ -33,55 +33,68 @@ from dpdist_tpu_torch.models.dpdist import (
     resolve_for_grad,
     resolve_mode,
 )
-from dpdist_tpu_torch.train.checkpoint import load_dpdist_checkpoint, params_from_jax
+from dpdist_tpu_torch.train.checkpoint import (
+    load_dpdist_checkpoint,
+    params_from_jax,
+    tree_flatten_with_paths,
+    tree_unflatten_like,
+)
 
 
 class FrozenDistance(nn.Module):
-    """The learned DPDist distance with frozen decoder weights.
+    """The learned DPDist distance with frozen weights and BN state.
 
-    Weights keep the JAX (in, out) layout: layer i computes x @ w_i + b_i.
-    A config whose forward takes "full" (bfloat16, and a decoder and grid
-    the fused kernel takes: models.dpdist.resolve_mode) also holds the
-    decoder packed once for the fused kernel
-    (kernels.fused_forward.pack_decoder), on the parameters' device.
+    `params` and `state` are init_dpdist's trees (state None for a config
+    without BN); their leaves are the module's parameters, in
+    tree_flatten_with_paths order, and keep the JAX layout (a dense layer
+    computes x @ w + b). A config whose forward takes "full" (bfloat16,
+    the conv_version=1 decoder without BN, and a decoder and grid the fused
+    kernel takes: models.dpdist.resolve_mode) also holds the decoder packed
+    once for the fused kernel (kernels.fused_forward.pack_decoder), on the
+    parameters' device.
     """
 
-    def __init__(self, cfg: DPDistConfig, params: dict):
+    def __init__(self, cfg: DPDistConfig, params: dict, state: dict = None):
         super().__init__()
         check_ported(cfg)
         self.cfg = cfg
-        self.w = nn.ParameterList(
-            nn.Parameter(lp["w"], requires_grad=False) for lp in params["decoder"]["layers"])
-        self.b = nn.ParameterList(
-            nn.Parameter(lp["b"], requires_grad=False) for lp in params["decoder"]["layers"])
+        self._trees = (params, state)
+        self.p = nn.ParameterList(nn.Parameter(t, requires_grad=False)
+                                  for _, t in tree_flatten_with_paths(params))
+        self.s = nn.ParameterList(nn.Parameter(t, requires_grad=False)
+                                  for _, t in tree_flatten_with_paths(state))
         self.packed = None
-        layers = params["decoder"]["layers"]
-        if resolve_mode(cfg, layers[0]["w"].device.type) == "full":
-            self.packed = pack_decoder(layers)
+        if resolve_mode(cfg, self.p[0].device.type) == "full":
+            self.packed = pack_decoder(self.params()["decoder"]["layers"])
 
     def params(self) -> dict:
-        p = {"decoder": {"layers": [{"w": w, "b": b} for w, b in zip(self.w, self.b)]}}
+        p = tree_unflatten_like(self._trees[0], list(self.p))
         if self.packed is not None:
             p["packed"] = self.packed
         return p
+
+    def state(self):
+        return None if self._trees[1] is None else tree_unflatten_like(self._trees[1], list(self.s))
 
     def forward(self, pcA: torch.Tensor, pcB: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         if torch.is_grad_enabled() and (pcA.requires_grad or pcB.requires_grad):
             cfg = resolve_for_grad(cfg, pcA.device)
-        return dpdist_distance(self.params(), cfg, pcA, pcB, per_example=True)
+        return dpdist_distance(self.params(), cfg, pcA, pcB, state=self.state(),
+                               per_example=True)
 
 
 def load_frozen_distance(ckpt_path: str, device="cuda", **cfg_overrides) -> FrozenDistance:
-    """Load `<ckpt_path>.npz/.json` into a FrozenDistance on `device`.
+    """Load `<ckpt_path>.npz/.json` (params and BN state) into a
+    FrozenDistance on `device`.
 
     `cfg_overrides` replace fields of the checkpoint's config (for example
     fused_gather="off" for the plain composition). Raises without a card
     when `device` is CUDA.
     """
     dev = resolve_device(device)
-    cfg, np_params = load_dpdist_checkpoint(ckpt_path)
+    cfg, np_params, np_state = load_dpdist_checkpoint(ckpt_path)
     if cfg_overrides:
         cfg = cfg.replace(**cfg_overrides)
-    model = FrozenDistance(cfg, params_from_jax(np_params, dev))
+    model = FrozenDistance(cfg, params_from_jax(np_params, dev), params_from_jax(np_state, dev))
     return model.eval()

@@ -2,7 +2,7 @@
 AUETrainer, dpdist_tpu/train/aue_trainer.py; data-parallel training comes
 with the port of dpdist_tpu/parallel).
 
-    trainer = AUETrainer(AUEConfig(encoder="3dmfv"), TrainConfig(), dcfg, dparams,
+    trainer = AUETrainer(AUEConfig(encoder="3dmfv"), TrainConfig(), dcfg, dparams, dstate,
                          opt_type="ours")
     trainer.fit(train_dataset, test_dataset, max_epoch=300)
 
@@ -48,7 +48,6 @@ from dpdist_tpu_torch.train.checkpoint import (
     archive_checkpoint,
     archived_meta,
     archived_metric,
-    params_from_jax,
     restore_checkpoint,
     save_checkpoint,
     tree_flatten_with_paths,
@@ -71,10 +70,11 @@ def split_same_surface(batch_data: np.ndarray):
 
 class AUETrainer:
     def __init__(self, aue_cfg: AUEConfig, train_cfg: TrainConfig, dpdist_cfg: DPDistConfig,
-                 dpdist_params, *, opt_type: str = "ours", run_dir: str = "runs/aue",
-                 logger: Optional[RunLogger] = None, device="cuda"):
-        """dpdist_params: the frozen net's params as load_dpdist_checkpoint
-        returns them (numpy leaves) or as the port's tensors. The AUE starts
+                 dpdist_params, dpdist_state=None, *, opt_type: str = "ours",
+                 run_dir: str = "runs/aue", logger: Optional[RunLogger] = None, device="cuda"):
+        """dpdist_params, dpdist_state: the frozen net's params and BN state
+        as load_dpdist_checkpoint returns them (numpy leaves) or as the
+        port's tensors (the state None for a net without BN). The AUE starts
         from init_aue with a generator seeded with train_cfg.seed."""
         if opt_type not in OPT_TYPES:
             raise ValueError(f"opt_type must be one of {OPT_TYPES}, got {opt_type!r}")
@@ -92,9 +92,9 @@ class AUETrainer:
         self.optimizer = make_optimizer(train_cfg, base_lr=train_cfg.learning_rate)
         self.opt_state = self.optimizer.init(self.params)
         self.global_step = 0
-        if not isinstance(dpdist_params["decoder"]["layers"][0]["w"], torch.Tensor):
-            dpdist_params = params_from_jax(dpdist_params, self.device)
-        self._dp_loss = make_frozen_dpdist_loss(dpdist_params, dpdist_cfg)
+        self._dp_loss = make_frozen_dpdist_loss(
+            params_to_device(dpdist_params, self.device), dpdist_cfg,
+            state=None if dpdist_state is None else params_to_device(dpdist_state, self.device))
 
     # ------------------------------------------------------------------
 

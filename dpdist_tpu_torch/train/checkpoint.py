@@ -222,50 +222,43 @@ def restore_params_maybe_state(path: str, params_template: Any, state_template: 
                      % (saved[:5], _paths({"params": params_template})[:5]))
 
 
-def load_dpdist_checkpoint(path: str) -> Tuple[DPDistConfig, dict]:
-    """(cfg, params) of a DPDistTrainer checkpoint; params hold numpy arrays
-    in the JAX package's structure ({"decoder": {"layers": [{"w", "b"}]}})."""
+def load_dpdist_checkpoint(path: str) -> Tuple[DPDistConfig, dict, dict]:
+    """(cfg, params, state) of a DPDistTrainer checkpoint, as the reference's
+    load_dpdist_checkpoint; params and state hold numpy arrays in the JAX
+    package's trees (init_dpdist's structure: the decoder, and the pointnet
+    encoder where the config has it). A model without BN has an empty state,
+    which a checkpoint stores as no leaves: it is rebuilt from the config."""
     tree, _, metadata = load_checkpoint(path)
     cfg = DPDistConfig.from_json(metadata["model_config"])
-    return cfg, tree["params"]
+    state = {"decoder": {}, **({"pointnet": {}} if cfg.encoder == "pointnet" else {})}
+    for key, sub in tree.get("state", {}).items():
+        state[key] = sub
+    return cfg, tree["params"], state
 
 
 def params_from_jax(params, device="cuda", *, model: str = "dpdist") -> dict:
     """The port's tensors from a JAX package tree with numpy (or
-    array-like) leaves, as a checkpoint or `jax.device_get` gives it.
-
-    model="dpdist": the DPDist decoder, checked against what the port's
-    DPDist covers (parts it does not port raise). Any other model ("aue",
-    "pcrnet"): the tree as it is, params or BN state, leaf by leaf as
-    float32 tensors on `device`, None kept. Dense `w` stays in JAX's
-    (in, out) layout and a conv's `w` in DHWIO / HWIO: the layers compute
-    with them as they are, no transpose.
+    array-like) leaves, as a checkpoint or `jax.device_get` gives it:
+    params or BN state of any of the port's models (model="dpdist", "aue",
+    "pcrnet", ...), leaf by leaf as float32 tensors on `device`, None kept.
+    A DPDist tree must hold its decoder. Dense `w` stays in JAX's (in, out)
+    layout and a conv's `w` in DHWIO / HWIO: the layers compute with them
+    as they are, no transpose.
     """
     dev = resolve_device(device)
+    if model == "dpdist" and "decoder" not in params:
+        raise ValueError(f"a DPDist tree holds its decoder, got keys {sorted(params)}")
 
-    def to_t(a):
-        return torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
+    def convert(node):
+        if node is None:
+            return None
+        if isinstance(node, dict):
+            return {k: convert(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [convert(v) for v in node]
+        return torch.from_numpy(np.array(node, dtype=np.float32)).to(dev)
 
-    if model != "dpdist":
-        def convert(node):
-            if node is None:
-                return None
-            if isinstance(node, dict):
-                return {k: convert(v) for k, v in node.items()}
-            if isinstance(node, (list, tuple)):
-                return [convert(v) for v in node]
-            return to_t(node)
-
-        return convert(params)
-    if "pointnet" in params:
-        raise NotImplementedError("the pointnet encoder is not ported yet")
-    dec = params["decoder"]
-    if "layers" not in dec:
-        raise NotImplementedError("the conv_version=3 decoder is not ported yet")
-    if "bn" in dec:
-        raise NotImplementedError("BatchNorm in the DPDist decoder is not ported yet")
-    layers = [{"w": to_t(lp["w"]), "b": to_t(lp["b"])} for lp in dec["layers"]]
-    return {"decoder": {"layers": layers}}
+    return convert(params)
 
 
 def params_to_numpy(tree):

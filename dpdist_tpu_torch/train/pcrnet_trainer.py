@@ -67,7 +67,6 @@ from dpdist_tpu_torch.train.checkpoint import (
     archive_checkpoint,
     archived_meta,
     archived_metric,
-    params_from_jax,
     restore_params_maybe_state,
     save_checkpoint,
     tree_flatten_with_paths,
@@ -99,7 +98,7 @@ class PCRNetTrainer:
         if loss_type not in LOSS_TYPES:
             raise ValueError(f"loss_type must be one of {LOSS_TYPES}, got {loss_type!r}")
         if loss_type == "dpdist" and dpdist is None:
-            raise ValueError("loss_type='dpdist' needs dpdist=(cfg, params)")
+            raise ValueError("loss_type='dpdist' needs dpdist=(cfg, params, state)")
         if action_reg and not train_single:
             raise ValueError("action_reg needs --train_single (it penalizes per-iteration "
                              "poses, which only the full-BPTT trajectory exposes to the loss)")
@@ -124,9 +123,10 @@ class PCRNetTrainer:
         self._dp_loss = None
         if loss_type == "dpdist":
             dcfg, dparams = dpdist[0], dpdist[1]
-            if not isinstance(dparams["decoder"]["layers"][0]["w"], torch.Tensor):
-                dparams = params_from_jax(dparams, self.device)
-            self._dp_loss = make_frozen_dpdist_loss(dparams, dcfg)
+            dstate = dpdist[2] if len(dpdist) > 2 else None
+            self._dp_loss = make_frozen_dpdist_loss(
+                params_to_device(dparams, self.device), dcfg,
+                state=None if dstate is None else params_to_device(dstate, self.device))
         # The chamfer monitor's batch, frozen at the first train batch so the
         # logged curve is comparable across epochs.
         self._probe = None

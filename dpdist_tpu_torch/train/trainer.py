@@ -11,17 +11,22 @@ reference's iterator protocol; assemble_dpdist_batch turns a batch into
 (pcA, pcB, labels_AB).
 
 The train step is the l1 loss on pred_AB against the labels, its gradient
-in the decoder parameters, and one optimizer update (make_optimizer: Adam
-with the staircase LR and its floor by default). It runs the AB direction
-alone (models.apply_direction, train=True): the loss reads nothing else,
-and eager PyTorch would not drop the other direction the way XLA does. It
-resolves fused_gather for a gradient context (the table-gather kernel on
-the card); the encoder has no parameters, so the step never needs the
-adjoint kernel. With dtype="bfloat16" the master parameters stay float32
-and the decoder runs in bfloat16 (the reference's bf16 train step,
+in the parameters (the decoder's, and the pointnet encoder's), and one
+optimizer update (make_optimizer: Adam with the staircase LR and its floor
+by default). Without BN it runs the AB direction alone
+(models.apply_direction, train=True): the loss reads nothing else, and
+eager PyTorch would not drop the other direction the way XLA does. With BN
+it runs both (models.forward_dpdist, train=True), since the decoder's
+batch statistics cover the 2B rows [xAB; xBA], and keeps the new state
+(the EMA of the batch statistics at decay 0.9, the reference's default;
+the pointnet encoder's from its second run, pcB's). It resolves
+fused_gather for a gradient context (the table-gather kernel on the card);
+the 3DmFV encoder has no parameters, so the step never needs the adjoint
+kernel. With dtype="bfloat16" the master parameters stay float32 and the
+decoder runs in bfloat16 (the reference's bf16 train step,
 bench.py:173-190): the gather writes a bf16 decoder input, forward only,
 and the gradients return to float32 through the decoder's casts.
-Evaluation keeps the configured dispatch, forward only.
+Evaluation keeps the configured dispatch, forward only, in eval mode.
 
 Encoder occlusion (train_cfg.encoder_occlusion and _prob) corrupts the
 encoder's copy of pcA only, through the noise channel, with the
@@ -46,9 +51,11 @@ from dpdist_tpu_torch.losses.standard import l1_sample_loss
 from dpdist_tpu_torch.models.dpdist import (
     apply_direction,
     check_ported,
+    forward_dpdist,
     init_dpdist,
     resolve_for_grad,
 )
+from dpdist_tpu_torch.models.pcrnet import params_to_device
 from dpdist_tpu_torch.train.checkpoint import (
     archive_checkpoint,
     archived_metric,
@@ -67,7 +74,7 @@ class DPDistTrainer:
     def __init__(self, model_cfg: DPDistConfig, train_cfg: TrainConfig, *,
                  run_dir: str = "runs/dpdist", logger: Optional[RunLogger] = None,
                  device="cuda"):
-        """Decoder parameters start from init_dpdist with a generator
+        """Parameters and state start from init_dpdist with a generator
         seeded with train_cfg.seed; restore() loads a checkpoint over them."""
         check_ported(model_cfg)
         self.device = resolve_device(device)
@@ -77,8 +84,9 @@ class DPDistTrainer:
         self.logger = logger or RunLogger(
             run_dir, config_json='{"model": %s, "train": %s}' % (model_cfg.to_json(),
                                                                  train_cfg.to_json()))
-        self._set_params(init_dpdist(model_cfg, torch.Generator().manual_seed(train_cfg.seed),
-                                     self.device))
+        params, self.state = init_dpdist(
+            model_cfg, torch.Generator().manual_seed(train_cfg.seed), self.device)
+        self._set_params(params)
         self.optimizer = make_optimizer(train_cfg)
         self.opt_state = self.optimizer.init(self.params)
         self.global_step = 0
@@ -86,10 +94,7 @@ class DPDistTrainer:
         self._grad_cfg = resolve_for_grad(model_cfg, self.device)
 
     def _set_params(self, params):
-        layers = [{key: lp[key].detach().to(self.device, torch.float32).clone()
-                   .requires_grad_(True) for key in ("w", "b")}
-                  for lp in params["decoder"]["layers"]]
-        self.params = {"decoder": {"layers": layers}}
+        self.params = params_to_device(params, self.device, requires_grad=True)
 
     # ------------------------------------------------------------------
 
@@ -116,13 +121,21 @@ class DPDistTrainer:
 
     def loss_and_grads(self, pcA, pcB, labels, noise=None):
         """The train loss and its gradients in the parameters, in the
-        order of tree_flatten_with_paths(self.params)."""
+        order of tree_flatten_with_paths(self.params); with BN the new state
+        replaces self.state."""
         leaves = [t for _, t in tree_flatten_with_paths(self.params)]
         with torch.enable_grad():
-            pcA_enc = pcA if noise is None else pcA + noise
-            pred_AB = apply_direction(self.params, self._grad_cfg, pcA_enc, pcB, train=True)
+            if self.mcfg.use_bn:
+                pred_AB, _, new_state = forward_dpdist(self.params, self.state, self._grad_cfg,
+                                                       pcA, pcB, noise=noise, train=True)
+            else:
+                pcA_enc = pcA if noise is None else pcA + noise
+                pred_AB = apply_direction(self.params, self._grad_cfg, pcA_enc, pcB,
+                                          state=self.state, train=True)
+                new_state = self.state
             loss = l1_sample_loss(pred_AB, labels)
             grads = torch.autograd.grad(loss, leaves)
+        self.state = new_state
         return loss.detach(), grads
 
     def train_step(self, batch_data, batch_labels):
@@ -180,7 +193,7 @@ class DPDistTrainer:
                 continue
             pcA, pcB, labels = (torch.as_tensor(a, device=self.device)
                                 for a in assemble_dpdist_batch(bd, bl))
-            pred_AB = apply_direction(self.params, self.mcfg, pcA, pcB)
+            pred_AB = apply_direction(self.params, self.mcfg, pcA, pcB, state=self.state)
             losses.append(float(l1_sample_loss(pred_AB, labels)))
         mean_loss = float(np.mean(losses)) if losses else float("nan")
         self.logger.log(f"eval mean loss: {mean_loss:f}")
@@ -224,25 +237,30 @@ class DPDistTrainer:
         """Write ckpt_<tag> in the reference's format ({"params", "state"};
         the state of a BN-off model is empty and has no leaves)."""
         path = os.path.join(self.run_dir, f"ckpt_{tag}")
-        save_checkpoint(path, {"params": params_to_numpy(self.params), "state": {"decoder": {}}},
+        save_checkpoint(path, {"params": params_to_numpy(self.params),
+                               "state": params_to_numpy(self.state)},
                         step=self.global_step,
                         metadata={"model_config": self.mcfg.to_json()})
         self.logger.log(f"checkpoint saved: {path}")
         return path
 
     def restore(self, path: Optional[str] = None):
-        """Load ckpt params (default: the newest under run_dir); the
-        optimizer state is kept, as the reference keeps it."""
+        """Load ckpt params and state (default: the newest under run_dir);
+        the optimizer state is kept, as the reference keeps it."""
         path = path or latest_checkpoint(self.run_dir)
         if path is None:
             raise FileNotFoundError(f"no checkpoint under {self.run_dir}")
         tree, step, _ = load_checkpoint(path)
-        want = [p for p, _ in tree_flatten_with_paths({"params": self.params})]
-        got = [p for p, _ in tree_flatten_with_paths({"params": tree.get("params", {})})]
+        tree = {"params": tree.get("params", {}), "state": tree.get("state", {})}
+        want = [p for p, _ in tree_flatten_with_paths({"params": self.params,
+                                                        "state": self.state})]
+        got = [p for p, _ in tree_flatten_with_paths(tree)]
         if got != want:
             raise ValueError("checkpoint structure mismatch:\n saved: %s...\n template: %s..."
                              % (got[:5], want[:5]))
         self._set_params(params_from_jax(tree["params"], self.device))
+        if tree_flatten_with_paths(self.state):
+            self.state = params_from_jax(tree["state"], self.device)
         if step:
             self.global_step = step
         self.logger.log(f"restored checkpoint: {path} (step {step})")

@@ -75,7 +75,7 @@ def frozen(clamp: bool):
 
     for net in NETS:
         cfg, params, state = jax_load(str(ROOT / net))
-        tcfg, tp = load_dpdist_checkpoint(str(ROOT / net))
+        tcfg, tp, _ = load_dpdist_checkpoint(str(ROOT / net))
         tparams = params_from_jax(tp, "cpu")
         loss_fn = make_frozen_dpdist_loss(tparams, tcfg.replace(dtype="bfloat16"),
                                           out_of_grid_penalty=1.0)

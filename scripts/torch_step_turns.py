@@ -83,7 +83,7 @@ def main() -> int:
         (g,) = torch.autograd.grad(loss_fn(a, b), a)
         return g
 
-    cfg, np_params = load_dpdist_checkpoint(f"{args.root}/{NET}")
+    cfg, np_params, _ = load_dpdist_checkpoint(f"{args.root}/{NET}")
     params = params_from_jax(np_params, dev)
     out = {"root": args.root, "card": card, "steps": {}}
     for n in (NP, NL):

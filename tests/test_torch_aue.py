@@ -222,7 +222,7 @@ def _pair(tmp_path, encoder, opt_type, optimizer):
     jtr = JaxTrainer(jcfg, JaxTrainConfig(**tcfg), *jax_load_dpdist(DPDIST_NET),
                      opt_type=opt_type, run_dir=str(tmp_path / "jax"), mesh=make_mesh(data=1),
                      logger=JaxRunLogger(str(tmp_path / "jax"), echo=False))
-    dcfg, dparams = load_dpdist_checkpoint(DPDIST_NET)
+    dcfg, dparams, _ = load_dpdist_checkpoint(DPDIST_NET)
     ttr = AUETrainer(cfg, TrainConfig(**tcfg), dcfg, dparams, opt_type=opt_type,
                      run_dir=str(tmp_path / "port"), device="cpu",
                      logger=RunLogger(str(tmp_path / "port"), echo=False))
@@ -409,7 +409,7 @@ def port_golden_section(golden, encoder, device="cpu"):
     data = golden_batch(golden)
     x1, x2 = (torch.as_tensor(a, device=device) for a in split_same_surface(data))
     out = {"train_steps": {}}
-    dcfg, dparams = load_dpdist_checkpoint(str(ROOT / golden["dpdist_net"]))
+    dcfg, dparams, _ = load_dpdist_checkpoint(str(ROOT / golden["dpdist_net"]))
     for opt_type in ("ours", "chamfer"):
         with tempfile.TemporaryDirectory() as tmp:
             tr = AUETrainer(cfg, TrainConfig(batch_size=GOLDEN_B, learning_rate=GOLDEN_LR,

@@ -112,7 +112,7 @@ def jax_frozen_value_and_grad(params, state, cfg, pcA, pcB):
 @pytest.fixture(scope="module", params=NETS)
 def net(request):
     cfg, params, state = jax_load(request.param)
-    tcfg, tparams_np = load_dpdist_checkpoint(request.param)
+    tcfg, tparams_np, _ = load_dpdist_checkpoint(request.param)
     return (cfg, params, state), (tcfg, params_from_jax(tparams_np, "cpu"))
 
 

@@ -19,6 +19,7 @@ from dpdist_tpu.train.checkpoint import restore_checkpoint as jax_restore
 from dpdist_tpu_torch.cli import gen_data, train_dpdist
 from dpdist_tpu_torch.serving import load_frozen_distance
 from dpdist_tpu_torch.train import latest_checkpoint
+from dpdist_tpu_torch.train.checkpoint import tree_flatten_with_paths
 
 GEN = ["--families", "chair", "box", "--n_train", "2", "--n_test", "1", "--n_surface", "1500",
        "--num_neg_points", "200", "--seed", "1"]
@@ -103,11 +104,41 @@ def test_train_dpdist_trains_resumes_and_serves(data_root, tmp_path, dtype):
                                                                  k=3, mlp=(32, 32, 32)))
     tree, step, _ = jax_restore(last, {"params": jparams, "state": jstate})
     assert step == 4
-    for lp, w in zip(tree["params"]["decoder"]["layers"], model.w):
-        np.testing.assert_array_equal(np.asarray(lp["w"]), w.numpy())
+    for lp, mine in zip(tree["params"]["decoder"]["layers"],
+                        model.params()["decoder"]["layers"]):
+        np.testing.assert_array_equal(np.asarray(lp["w"]), mine["w"].numpy())
 
 
 def test_train_dpdist_rejects_data_parallel(data_root, tmp_path):
     with pytest.raises(NotImplementedError, match="item 9"):
         train_dpdist.main(TRAIN + ["--data_root", str(data_root / "mine"), "--log_dir",
                                    str(tmp_path), "--data_parallel", "2"])
+
+
+@pytest.mark.parametrize("flags", [["--BN", "1"], ["--implicit_net_type", "3"],
+                                   ["--full_fv", "small"], ["--K", "0"],
+                                   ["--encoder", "pointnet", "--K", "0", "--BN", "1"]],
+                         ids=["bn", "conv3", "small_fv", "k0", "pointnet"])
+def test_train_dpdist_variant_flags(data_root, tmp_path, flags):
+    """The reference's ablation flags train end to end: train_dpdist for one
+    epoch, and the checkpoint (with its BN state) restores through JAX's
+    restore_checkpoint and serves in load_frozen_distance."""
+    log_dir = str(tmp_path / "run")
+    trainer = train_dpdist.main(TRAIN + flags + ["--data_root", str(data_root / "mine"),
+                                                 "--log_dir", log_dir, "--max_epoch", "1"])
+    last = latest_checkpoint(log_dir)
+    jcfg = JaxConfig.from_json(trainer.mcfg.to_json())
+    jparams, jstate = jax_init(jax.random.PRNGKey(0), jcfg)
+    tree, _, _ = jax_restore(last, {"params": jparams, "state": jstate})
+    got = tree_flatten_with_paths(jax.device_get(tree["state"]))
+    want = tree_flatten_with_paths(trainer.state)
+    assert [p for p, _ in got] == [p for p, _ in want]
+    assert len(want) == (8 if "--BN" in flags else 0) + (6 if "pointnet" in flags else 0)
+    for (_, g), (_, w) in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(g), w.numpy())
+    model = load_frozen_distance(last, device="cpu")
+    pcA, pcB = (torch.as_tensor(np.random.default_rng(s).uniform(-0.8, 0.8, (2, 16, 3))
+                                .astype(np.float32)) for s in (1, 2))
+    with torch.no_grad():
+        d = model(pcA, pcB)
+    assert d.shape == (2,) and bool(torch.isfinite(d).all())

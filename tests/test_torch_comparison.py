@@ -54,7 +54,7 @@ def test_perturbation_sweep_matches_jax(kind, mags):
     jcfg, jparams, jstate = jax_load(NET)
     want = jax_sweep(jparams, jstate, jcfg, surfaces, kind=kind, magnitudes=mags,
                      num_point=32, seed=4)
-    cfg, params = load_dpdist_checkpoint(NET)
+    cfg, params, _ = load_dpdist_checkpoint(NET)
     got = perturbation_sweep(params_from_jax(params, "cpu"), cfg, surfaces, kind=kind,
                              magnitudes=mags, num_point=32, seed=4, device="cpu")
     _close_sweep(got, want)

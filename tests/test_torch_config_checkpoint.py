@@ -57,7 +57,7 @@ def test_load_checkpoint_leaves_equal_npz(net):
 
 @pytest.mark.parametrize("net", NETS)
 def test_load_dpdist_checkpoint_matches_jax_restore(net):
-    cfg, params = load_dpdist_checkpoint(net)
+    cfg, params, _ = load_dpdist_checkpoint(net)
     jcfg, jparams, _ = jax_load(net)
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
     ours = params["decoder"]["layers"]

@@ -96,7 +96,7 @@ def _inputs(seed=0, B=3, N=64):
 @pytest.fixture(scope="module", params=NETS)
 def net(request):
     cfg, params, state = jax_load(request.param)
-    tcfg, tparams_np = load_dpdist_checkpoint(request.param)
+    tcfg, tparams_np, _ = load_dpdist_checkpoint(request.param)
     return request.param, (cfg, params, state), (tcfg, params_from_jax(tparams_np, "cpu"))
 
 
@@ -290,7 +290,7 @@ def test_golden_bf16_grad_holds(fresh_golden):
             assert abs(want["value"] - fresh[path]["value"]) <= 1e-6
             np.testing.assert_allclose(want["grad_pcA"], fresh[path]["grad_pcA"], rtol=1e-6,
                                        atol=0)
-            cfg, params = load_dpdist_checkpoint(path)
+            cfg, params, _ = load_dpdist_checkpoint(path)
             loss_fn = make_frozen_dpdist_loss(params_from_jax(params, "cpu"),
                                               cfg.replace(dtype="bfloat16"),
                                               out_of_grid_penalty=stored["out_of_grid_penalty"])
@@ -326,7 +326,7 @@ def test_golden_frozen_loss_holds(fresh_golden):
             assert abs(want["value"] - fresh[path]["value"]) <= 1e-6
             np.testing.assert_allclose(want["grad_pcA"], fresh[path]["grad_pcA"], rtol=1e-6,
                                        atol=0)
-            cfg, params = load_dpdist_checkpoint(path)
+            cfg, params, _ = load_dpdist_checkpoint(path)
             loss_fn = make_frozen_dpdist_loss(params_from_jax(params, "cpu"), cfg,
                                               out_of_grid_penalty=stored["out_of_grid_penalty"])
             a = pcA.clone().requires_grad_(True)
@@ -412,7 +412,7 @@ def test_entry_points_default_to_cuda():
 
 
 @pytest.mark.parametrize("change", [
-    {"encoder": "pointnet"},
+    {"encoder": "pointnet", "k": 0},                 # the variants: ported
     {"conv_version": 3},
     {"use_bn": True},
     {"dtype": "bfloat16"},                           # bf16 gradients: ported
@@ -424,32 +424,39 @@ def test_entry_points_default_to_cuda():
     {"dtype": "float16"},
 ])
 def test_unported_configs_raise(change):
-    """Configs the port does not cover raise NotImplementedError under
-    autograd (pcA needs a gradient), and so does bf16 fused_gather="full",
-    whose gradient the reference refuses. The bf16 configs that the
-    reference differentiates ("auto" and "on") compute the gradient since
-    the bf16 gradient paths were ported (their parity with JAX:
-    tests/test_torch_bf16_grad.py)."""
-    cfg = DPDistConfig().replace(**change)
-    pcA, pcB = (torch.as_tensor(a) for a in _inputs(B=1, N=8))
-    params = {"decoder": {"layers": []}}
-    if change in ({"dtype": "bfloat16"}, {"fused_gather": "on", "dtype": "bfloat16"}):
-        params = init_dpdist(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
-        a = pcA.requires_grad_(True)
-        (grad,) = torch.autograd.grad(dpdist_distance(params, cfg, a, pcB), a)
-        assert grad.shape == a.shape and bool(torch.isfinite(grad).all())
+    """Under autograd (pcA needs a gradient) a float16 config raises
+    NotImplementedError, the one dtype the port does not cover, and so does
+    bf16 fused_gather="full", whose gradient the reference refuses. Every
+    other config computes the gradient: the bf16 configs that the reference
+    differentiates ("auto" and "on"; their parity with JAX:
+    tests/test_torch_bf16_grad.py) and the DPDist variants (their parity
+    with JAX: tests/test_torch_variants.py)."""
+    cfg = DPDistConfig(mlp=(16, 16, 16), pointnet_embedding=16).replace(**change)
+    pcA, pcB = (torch.as_tensor(a[..., :cfg.dims].copy()) for a in _inputs(B=1, N=8))
+    if change.get("dtype") == "float16" or change.get("fused_gather") == "full":
+        match = "refuses" if change.get("fused_gather") == "full" else "not ported"
+        params = {"decoder": {"layers": []}}
+        with pytest.raises(NotImplementedError, match=match):
+            apply_dpdist(params, cfg, pcA.requires_grad_(True), pcB)
         return
-    match = "refuses" if change.get("fused_gather") == "full" else "not ported"
-    with pytest.raises(NotImplementedError, match=match):
-        apply_dpdist(params, cfg, pcA.requires_grad_(True), pcB)
+    params, state = init_dpdist(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    a = pcA.requires_grad_(True)
+    (grad,) = torch.autograd.grad(dpdist_distance(params, cfg, a, pcB, state=state), a)
+    assert grad.shape == a.shape and bool(torch.isfinite(grad).all())
 
 
 def test_unported_params_raise():
+    """Every DPDist tree the JAX package builds converts (the BN decoder and
+    the pointnet encoder among them; tests/test_torch_variants.py holds
+    each against JAX); a tree without a decoder is not a DPDist tree."""
     layers = [{"w": np.zeros((3, 2), np.float32), "b": np.zeros(2, np.float32)}]
-    with pytest.raises(NotImplementedError, match="BatchNorm"):
-        params_from_jax({"decoder": {"layers": layers, "bn": [{}]}}, "cpu")
-    with pytest.raises(NotImplementedError, match="pointnet"):
-        params_from_jax({"decoder": {"layers": layers}, "pointnet": {}}, "cpu")
+    bn = [{"scale": np.ones(2, np.float32), "offset": np.zeros(2, np.float32)}]
+    got = params_from_jax({"decoder": {"layers": layers, "bn": bn}, "pointnet": {"layers": layers}},
+                          "cpu")
+    assert torch.equal(got["decoder"]["bn"][0]["scale"], torch.ones(2))
+    assert got["pointnet"]["layers"][0]["w"].shape == (3, 2)
+    with pytest.raises(ValueError, match="decoder"):
+        params_from_jax({"pointnet": {"layers": layers}}, "cpu")
 
 
 if __name__ == "__main__":

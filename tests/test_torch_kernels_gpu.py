@@ -320,7 +320,7 @@ def test_frozen_loss_launch_counts(cuda):
     from dpdist_tpu_torch.models import init_dpdist
 
     cfg = DPDistConfig(num_point=16, embedding_size=64, k=3, mlp=(32, 32, 32))
-    params = init_dpdist(cfg, torch.Generator().manual_seed(0), cuda)
+    params, _ = init_dpdist(cfg, torch.Generator().manual_seed(0), cuda)
     pcA, pcB = (torch.as_tensor(a, device=cuda) for a in _edge_inputs(4, 16, 16, 4, seed=7))
     pcA.requires_grad_(True)
     loss_fn = make_frozen_dpdist_loss(params, cfg)
@@ -787,7 +787,7 @@ def test_served_past_the_fused_kernels_limits(cuda, net, over, want, tol):
 
     if net is None:
         cfg = DPDistConfig(mlp=(40, 40, 40))
-        params = init_dpdist(cfg, generator=torch.Generator().manual_seed(40), device=cuda)
+        params, _ = init_dpdist(cfg, generator=torch.Generator().manual_seed(40), device=cuda)
         model = FrozenDistance(cfg.replace(**over), params).eval()
         plain = FrozenDistance(cfg.replace(**{**over, "fused_gather": "off"}), params).eval()
     else:
@@ -933,7 +933,7 @@ def test_aue_ours_step_launches_rows_2_and_3(cuda, encoder):
     from dpdist_tpu_torch.train.checkpoint import load_dpdist_checkpoint, params_from_jax
     from dpdist_tpu_torch.train.logging import RunLogger
 
-    dcfg, dparams = load_dpdist_checkpoint("results/ckpt_best")
+    dcfg, dparams, _ = load_dpdist_checkpoint("results/ckpt_best")
     data = _aue_data()
     wrappers = {"table_gather_x": table_gather_x, "table_gather_bwd": table_gather_bwd,
                 "mfv_x": mfv_x, "threedmfv": threedmfv_kernel}
@@ -986,3 +986,132 @@ def test_aue_entry_points_default_to_cuda(cuda):
     assert rec.is_cuda and rec.shape == (4, 16, 3)
     d = sinkhorn_emd_blocked(x, x.flip(1), tile=8)
     assert d.is_cuda and bool(torch.isfinite(d).all())
+
+
+# ---------------------------------------------------------------------------
+# The DPDist variants: the kernels at C = 7 and the variants' routes
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("row", ["2", "3", "6", "9", "10"])
+def test_kernels_at_c7_on_the_main_path_shapes(cuda, row):
+    """Rows 2, 3, 6, 9 and 10 on 7-channel volumes (full_fv=False) at the
+    main path's sizes (B = 256, N = 64; row 6 at N = 256; row 9 over the 2B
+    stack), each against its plain version: copies exact, the adjoint equal
+    to the ordered plain sum, row 9 within TOL_FF."""
+    B, g, k, C = 256, 8, 5, 7
+    r = np.random.default_rng(70 + int(row))
+    fv = torch.as_tensor(r.normal(0, 0.3, (B, g ** 3, C)).astype(np.float32), device=cuda)
+    N = 256 if row == "6" else 64
+    q = torch.as_tensor(_edge_inputs(B, 1, N, g, seed=71)[1], device=cuda)
+    vox, mask, delta = voxel_assign(q, g)
+    with torch.no_grad():
+        if row == "2":
+            x, v = table_gather_x(fv, q, g, k)
+            ref, ref_v = table_gather_x_plain(fv, q, g, k)
+            assert torch.equal(x, ref) and torch.equal(v, ref_v)
+        elif row == "3":
+            gx = torch.as_tensor(r.normal(size=(B, N, 3 + k ** 3 * C)).astype(np.float32),
+                                 device=cuda)[..., 3:]
+            dfv = table_gather_bwd(vox, gx, g, k)
+            assert torch.equal(dfv, table_gather_bwd_ordered(vox, gx, g, k))
+            ref = table_gather_bwd_plain(vox, gx, g, k)
+            assert float((dfv - ref).abs().max()) <= REL_BWD * float(ref.abs().max())
+        elif row == "6":
+            assert torch.equal(table_gather(fv, vox, g, k), table_gather_plain(fv, vox, g, k))
+        elif row == "10":
+            assert torch.equal(gather_patches_fused(fv, vox, mask, g, k),
+                               gather_patches_fused_plain(fv, vox, mask, g, k))
+        else:
+            packed = pack_decoder(_decoder_layers(r, 3 + k ** 3 * C, (1024, 1024, 1024, 3), cuda))
+            f16 = torch.cat([fv, fv.flip(0)]).to(torch.bfloat16)
+            v2, d2 = torch.cat([vox, vox]), torch.cat([delta, delta])
+            y = fused_forward(f16, v2, d2, packed, g, k)
+            ref = fused_forward_plain(f16, v2, d2, packed, g, k)
+            assert bool(torch.isfinite(y).all()) and float((y - ref).abs().max()) <= TOL_FF
+
+
+_VARIANTS = {
+    "bn": dict(use_bn=True),
+    "conv3": dict(conv_version=3),
+    "small_fv": dict(full_fv=False),
+    "k0": dict(k=0),
+    "pointnet": dict(encoder="pointnet", k=0, use_bn=True, pointnet_embedding=64),
+    "dims2": dict(dims=2, output_channels=2),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(_VARIANTS))
+def test_variant_routes_match_the_plain_path(cuda, name):
+    """Each variant at a small width on the card: the default forward
+    ("auto"), and "table" where a gather kernel serves the config, against
+    the plain path within 1e-5, each launching the kernels `route` names;
+    a train step launches row 2 twice with BN (both directions), once
+    without, and none where no gather kernel serves the config."""
+    from dpdist_tpu_torch.configs import DPDistConfig, TrainConfig
+    from dpdist_tpu_torch.models.dpdist import forward_dpdist, init_dpdist, route
+    from dpdist_tpu_torch.train.logging import RunLogger
+    from dpdist_tpu_torch.train.trainer import DPDistTrainer
+
+    cfg = DPDistConfig(**{**dict(num_point=16, embedding_size=64, k=3, mlp=(32, 32, 32)),
+                          **_VARIANTS[name]})
+    params, state = init_dpdist(cfg, torch.Generator().manual_seed(0), cuda)
+    r = np.random.default_rng(3)
+    for n in (16, 200):
+        a, b = (torch.as_tensor(r.uniform(-0.95, 0.95, (4, n, cfg.dims)).astype(np.float32),
+                                device=cuda) for _ in range(2))
+        with torch.no_grad():
+            want = forward_dpdist(params, state, cfg.replace(fused_gather="off"), a, b)
+            for mode in ("auto", "table"):
+                c = cfg.replace(fused_gather=mode)
+                rt = route(c, "cuda", n, n)
+                names = [x for x in rt.encode + rt.gather if x != "plain"]
+                wrappers = {"mfv_gather_x": mfv_x, "table_gather_x": table_gather_x,
+                            "table_gather": table_gather, "threedmfv": threedmfv_kernel}
+                before = {x: wrappers[x].launches for x in set(names)}
+                got = forward_dpdist(params, state, c, a, b)
+                torch.cuda.synchronize()
+                for x in set(names):
+                    assert wrappers[x].launches - before[x] == (1 if x == "mfv_gather_x"
+                                                                else names.count(x)), (mode, x)
+                for gp, wp in zip(got[:2], want[:2]):
+                    assert float((gp - wp).abs().max()) <= 1e-5
+    data = np.random.default_rng(4).uniform(-0.9, 0.9, (2, 96, 3)).astype(np.float32)
+    if cfg.dims == 2:
+        data = np.ascontiguousarray(data[..., :2])
+    labels = np.random.default_rng(5).uniform(0, 0.3, (2, 64)).astype(np.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        tr = DPDistTrainer(cfg, TrainConfig(batch_size=2, augment=False), run_dir=tmp,
+                           device=cuda, logger=RunLogger(tmp, echo=False))
+        before = table_gather_x.launches
+        m = tr.train_step(data, labels)
+        torch.cuda.synchronize()
+        gathering = cfg.k > 0 and cfg.dims == 3
+        assert table_gather_x.launches - before == (2 if cfg.use_bn else 1) * gathering
+        assert bool(torch.isfinite(m["loss"]))
+
+
+@pytest.mark.gpu
+def test_dense_on_the_card_launches_rows_7_and_6(cuda):
+    """dense_point_to_surface on a committed net: the cloud's encode by row
+    7 and, without the pretransform, the rows by row 6; both paths against
+    the plain composition within 1e-5."""
+    from dpdist_tpu_torch.eval.dense import dense_point_to_surface
+    from dpdist_tpu_torch.train.checkpoint import load_dpdist_checkpoint, params_from_jax
+
+    cfg, p, s = load_dpdist_checkpoint("results/ckpt_best")
+    params, state = params_from_jax(p, cuda), params_from_jax(s, cuda)
+    r = np.random.default_rng(6)
+    cloud = torch.as_tensor(r.uniform(-0.8, 0.8, (2, 300, 3)).astype(np.float32), device=cuda)
+    q = torch.as_tensor(r.uniform(-1.1, 1.1, (2, 3000, 3)).astype(np.float32), device=cuda)
+    with torch.no_grad():
+        want = dense_point_to_surface(params, cfg.replace(fused_gather="off"), cloud, q,
+                                      state=state, pretransform="off")
+        for pre, row6 in (("on", 0), ("off", 1)):
+            before = (threedmfv_kernel.launches, table_gather.launches)
+            got = dense_point_to_surface(params, cfg, cloud, q, state=state, pretransform=pre)
+            torch.cuda.synchronize()
+            assert threedmfv_kernel.launches - before[0] == 1
+            assert table_gather.launches - before[1] == row6
+            assert float((got - want).abs().max()) <= 1e-5

@@ -67,7 +67,7 @@ def jax_frozen_value_and_grad(params, state, cfg, pcA, pcB, penalty=1.0):
 @pytest.fixture(scope="module", params=NETS)
 def net(request):
     cfg, params, state = jax_load(request.param)
-    tcfg, tparams_np = load_dpdist_checkpoint(request.param)
+    tcfg, tparams_np, _ = load_dpdist_checkpoint(request.param)
     return (cfg, params, state), (tcfg, params_from_jax(tparams_np, "cpu"))
 
 
@@ -137,7 +137,7 @@ def test_init_dpdist_shapes_and_xavier_limits():
     the reference's conv fans on the first layer; zero biases but the
     output's +0.45."""
     cfg = DPDistConfig()
-    params = init_dpdist(cfg, torch.Generator().manual_seed(0), "cpu")
+    params, _ = init_dpdist(cfg, torch.Generator().manual_seed(0), "cpu")
     jparams, jstate = jax_init(jax.random.PRNGKey(0), JaxConfig())
     layers, jlayers = params["decoder"]["layers"], jparams["decoder"]["layers"]
     assert jstate == {"decoder": {}}
@@ -154,7 +154,7 @@ def test_init_dpdist_shapes_and_xavier_limits():
     for lp, jlp in zip(layers, jlayers):
         np.testing.assert_array_equal(lp["b"].numpy(), np.asarray(jlp["b"]))
     assert float(layers[-1]["b"][0]) == pytest.approx(0.45)
-    again = init_dpdist(cfg, torch.Generator().manual_seed(0), "cpu")
+    again, _ = init_dpdist(cfg, torch.Generator().manual_seed(0), "cpu")
     assert torch.equal(again["decoder"]["layers"][1]["w"], layers[1]["w"])
 
 

@@ -150,7 +150,7 @@ def test_unfit_full_decoder_loads_and_serves_through_table(tmp_path, monkeypatch
     without packing and serves what "table" serves; the committed net under
     "full" still packs."""
     cfg = DPDistConfig(mlp=(40, 40, 40))
-    params = init_dpdist(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    params, _ = init_dpdist(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
     path = str(tmp_path / "ckpt_40")
     save_checkpoint(path, {"params": params_to_numpy(params), "state": {"decoder": {}}},
                     metadata={"model_config": cfg.to_json()})

@@ -225,7 +225,8 @@ def test_trainer_defaults_to_cuda_and_rejects_what_is_not_ported(tmp_path):
     with pytest.raises(RuntimeError, match="cuda"):
         DPDistTrainer(DPDistConfig(**SMALL), TrainConfig(), run_dir=str(tmp_path))
     # Encoder occlusion is ported (tests/test_torch_data.py holds it
-    # against JAX); the pointnet encoder is not.
-    with pytest.raises(NotImplementedError, match="pointnet"):
-        DPDistTrainer(DPDistConfig(**SMALL, encoder="pointnet"), TrainConfig(),
+    # against JAX), and so is every DPDist variant
+    # (tests/test_torch_variants.py); a float16 decoder is not.
+    with pytest.raises(NotImplementedError, match="float16"):
+        DPDistTrainer(DPDistConfig(**SMALL, dtype="float16"), TrainConfig(),
                       run_dir=str(tmp_path), device="cpu")
