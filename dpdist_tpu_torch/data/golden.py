@@ -16,7 +16,11 @@ assets/golden_variants.json holds JAX's outputs for the DPDist variants at
 full width from seeded weights (tests/test_torch_variants.py writes it):
 forwards of the first pairs of golden_distance.json (variant_clouds), a
 few train steps on a seeded batch (dpdist_train_batch), and a dense
-distance field's subsample on a committed net (dense_field_queries).
+distance field's subsample on a committed net (dense_field_queries). Its
+forwards run on the seeded weights made informative (informative_weights):
+at init the decoder's first layer is so small against the FV entries that
+every output sits within ~1e-3 of 0.15, below the bf16 bound, so a wrong
+patch would pass unseen.
 """
 
 from __future__ import annotations
@@ -25,8 +29,10 @@ import json
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from dpdist_tpu_torch.data.synthetic import synthetic_surface
+from dpdist_tpu_torch.train.checkpoint import tree_flatten_with_paths
 
 GOLDEN_PATH = Path(__file__).resolve().parent.parent / "assets" / "golden_distance.json"
 AUE_GOLDEN_PATH = GOLDEN_PATH.with_name("golden_aue.json")
@@ -81,6 +87,69 @@ def dpdist_train_batch(spec: dict):
     data = r.uniform(-0.9, 0.9, (B, 6 * N, 3)).astype(np.float32)
     labels = r.uniform(0.0, 0.3, (B, 4 * N)).astype(np.float32)
     return data, labels
+
+
+def informative_weights(params, state, spec: dict):
+    """(params, state) with the decoder's first layer (the MLP's layer 0,
+    or the conv decoder's conv0) scaled by spec["gain"], spec["shift"]
+    added to its output layer's bias (as init adds 0.45), and every BN
+    scale and var redrawn uniform in [0.75, 1.25], every offset and mean
+    normal with sd 0.05, from numpy seeded with spec["seed"] in the trees'
+    order; the rest is kept. Each new leaf is made on the host and copied
+    to its tensor's device, so every device builds the same weights. The
+    gain lifts the input-dependent spread of the outputs from ~1e-3 to a
+    few tenths and the shift centres them (the golden file records both
+    per variant); the BN draws take eval-mode BN away from the identity."""
+    r = np.random.default_rng(spec["seed"])
+
+    def redraw(node, key=None):
+        if isinstance(node, dict):
+            return {k: redraw(v, k) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [redraw(v) for v in node]
+        shape = tuple(node.shape)
+        if key in ("scale", "var"):
+            new = r.uniform(0.75, 1.25, shape)
+        elif key in ("offset", "mean"):
+            new = r.normal(0.0, 0.05, shape)
+        else:
+            return node
+        return torch.as_tensor(new.astype(np.float32), device=node.device)
+
+    params, state = redraw(params), redraw(state)
+    dec = params["decoder"]
+    if "conv0" in dec:
+        first, head = dec["conv0"], dec["out"]
+    else:
+        first, head = dec["layers"][0], dec["layers"][-1]
+    first["w"] = first["w"] * float(spec["gain"])
+    head["b"] = head["b"] + float(spec["shift"])
+    return params, state
+
+
+def state_sample(state, n: int) -> dict:
+    """Per BN state leaf (tensors or arrays), n entries evenly spaced as
+    float64 numpy arrays: how the golden file stores a state."""
+    out = {}
+    for p, t in tree_flatten_with_paths(state):
+        v = t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+        v = v.reshape(-1).astype(np.float64)
+        out[p] = v[np.linspace(0, v.size - 1, n).astype(int)]
+    return out
+
+
+def state_gap(got: dict, want: dict) -> float:
+    """Over the leaves of two state samples, the largest |got - want| over
+    the larger of 1 and the leaf's largest |want| entry (0 without BN)."""
+    return max([float(np.abs(np.asarray(got[p]) - np.asarray(w)).max()
+                      / max(1.0, float(np.abs(np.asarray(w)).max()))) for p, w in want.items()]
+               or [0.0])
+
+
+def output_spread(preds) -> float:
+    """max - min over golden prediction samples (nested lists or arrays)."""
+    a = np.concatenate([np.asarray(p, np.float64).reshape(-1) for p in preds])
+    return float(a.max() - a.min())
 
 
 def dense_field_queries(spec: dict):

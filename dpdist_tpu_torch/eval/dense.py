@@ -11,13 +11,14 @@ against one small embedding.
     f = distance_field(params, cfg, cloud, resolution=64)         # (B, 64, 64, 64)
 
 Two paths, as the reference's:
-  - the decoder on [delta, patch] rows (_decode_queries). For the configs
-    the gather kernels serve (3DmFV, k > 0, 3-D) the cloud's encode takes
-    threedmfv's dispatch (the streaming kernel for a full_fv cloud of
-    >= 128 points on the card) and the rows come from the patch-only
-    gather kernel table_gather (kernels/table_gather.py), as `route` sends
-    more than 128 queries; the other configs take dpdist_embed's table.
-    fused_gather="off" keeps the plain composition on every device.
+  - the decoder on [delta, patch] rows (_decode_queries), each step by the
+    kernel `route` names for the config under fused_gather="table": the
+    cloud's encode by the streaming kernel for a full_fv cloud of >= 128
+    points, and for the configs the gather kernels serve (3DmFV, k > 0,
+    3-D) the rows by the patch-only gather kernel table_gather
+    (kernels/table_gather.py) at more than 128 queries; the other configs
+    take dpdist_embed's table. fused_gather="off" keeps the plain
+    composition on every device.
   - pretransformed (_decode_queries_pretransformed), for conv_version 1
     without BN: the first layer's embedding half folded into the V-row
     patch table, relu([delta, emb] @ W1 + b) = relu(delta @ W1d +
@@ -35,41 +36,31 @@ import numpy as np
 import torch
 
 from dpdist_tpu_torch.configs import DPDistConfig
-from dpdist_tpu_torch.kernels.table_gather import table_gather, table_gather_fits
 from dpdist_tpu_torch.models.dpdist import (
-    DTYPES,
     _activate,
     _decode,
-    _decoder_inputs,
+    _direction_input,
     _output_activation,
     _prep,
     _state,
     check_ported,
     dpdist_embed,
-    gathers,
+    route,
 )
 from dpdist_tpu_torch.nn.layers import dense_apply
-from dpdist_tpu_torch.ops.threedmfv import threedmfv
 from dpdist_tpu_torch.ops.voxel import gather_patches, voxel_assign
 
 MESH = ("a mesh (the reference's 'points' axis) is not ported yet: dense evaluation runs on "
         "one device (ROADMAP.md §1 item 9, parallelism)")
 
 
-def _decode_queries(params, state, cfg: DPDistConfig, cloud, queries):
+def _decode_queries(params, state, cfg: DPDistConfig, cloud, queries, encode: str,
+                    gather: str):
     """One-directional decode: (B, N) distances of `queries` to the surface
-    of `cloud` (channel 0, masked outside the grid for k > 0)."""
-    g, k = cfg.grid_size, cfg.k
-    dtype = DTYPES[cfg.dtype]
-    if (gathers(cfg) and cfg.fused_gather != "off"
-            and table_gather_fits(g, k, cfg.fv_channels)):
-        fv = threedmfv(cloud, cfg.embedding_size, cfg.sigma, full_fv=cfg.full_fv)
-        vox, mask, delta = voxel_assign(queries, g)
-        x = torch.cat([delta.to(dtype), table_gather(fv, vox, g, k, dtype=dtype)], dim=-1)
-    else:
-        encode = "plain" if cfg.fused_gather == "off" else "auto"
-        table, _ = dpdist_embed(params, state, cfg, cloud, encode=encode)
-        x, mask = _decoder_inputs(cfg, queries, table)
+    of `cloud` (channel 0, masked outside the grid for k > 0), the encode
+    and the gather by the kernels `route` names."""
+    x, mask, _ = _direction_input(params, state, cfg, encode, gather, cloud, queries,
+                                  train=False, bn_momentum=None)
     y, _ = _decode(params, state, cfg.replace(dtype="float32"), x.to(torch.float32))
     return _activate(y, cfg, mask)[..., 0]
 
@@ -104,13 +95,15 @@ def dense_point_to_surface(params, cfg: DPDistConfig, cloud, queries, *, state=N
     check_ported(cfg)
     state = _state(cfg, state)
     cloud, queries = _prep(cloud), _prep(queries)
+    # AB: the queries against the surface of the cloud.
+    r = route(cfg if cfg.fused_gather == "off" else cfg.replace(fused_gather="table"),
+              cloud.device.type, cloud.shape[1], queries.shape[1])
     can_pre = cfg.k > 0 and cfg.conv_version != 3 and not cfg.use_bn
     use_pre = can_pre and (pretransform == "on" or (
         pretransform == "auto" and queries.shape[1] >= 4 * cfg.embedding_size))
     if not use_pre:
-        return _decode_queries(params, state, cfg, cloud, queries)
-    encode = "plain" if cfg.fused_gather == "off" else "auto"
-    table, _ = dpdist_embed(params, state, cfg, cloud, encode=encode)
+        return _decode_queries(params, state, cfg, cloud, queries, r.encode[0], r.gather[0])
+    table, _ = dpdist_embed(params, state, cfg, cloud, encode=r.encode[0])
     first = params["decoder"]["layers"][0]
     table_w1 = torch.matmul(table.to(torch.float32), first["w"][cfg.dims:])
     return _decode_queries_pretransformed(params, cfg, queries, table_w1,

@@ -43,7 +43,8 @@ from dpdist_tpu_torch.geometry.se3 import (
     transform_errors,
 )
 from dpdist_tpu_torch.geometry.symmetry import FAMILY_SYMMETRY, symmetry_aware_errors
-from dpdist_tpu_torch.models.pcrnet import params_to_device, pcrnet_refine
+from dpdist_tpu_torch.models.pcrnet import pcrnet_refine
+from dpdist_tpu_torch.nn.layers import params_to_device
 from dpdist_tpu_torch.ops.chamfer import nn_distance
 
 ACCURACY_BUCKETS = ((2.5, 0.05), (5.0, 0.05), (10.0, 0.1), (20.0, 0.2))

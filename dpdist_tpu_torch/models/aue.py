@@ -31,7 +31,7 @@ import torch
 
 from dpdist_tpu_torch import resolve_device
 from dpdist_tpu_torch.configs import AUEConfig
-from dpdist_tpu_torch.models.pcrnet import params_to_device
+from dpdist_tpu_torch.nn.layers import params_to_device
 from dpdist_tpu_torch.nn.layers import (
     avg_pool3d,
     batchnorm_apply,

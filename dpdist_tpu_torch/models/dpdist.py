@@ -111,7 +111,7 @@ from dpdist_tpu_torch.kernels.gather_fused import gather_patches_fused
 from dpdist_tpu_torch.kernels.mfv_gather import mfv_x, mfv_x_fits
 from dpdist_tpu_torch.kernels.table_gather import table_gather, table_gather_fits, table_gather_x
 from dpdist_tpu_torch.kernels.threedmfv import threedmfv_fits
-from dpdist_tpu_torch.models.pcrnet import params_to_device
+from dpdist_tpu_torch.nn.layers import params_to_device
 from dpdist_tpu_torch.nn.layers import (
     batchnorm_apply,
     batchnorm_init,

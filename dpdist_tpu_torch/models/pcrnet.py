@@ -45,7 +45,6 @@ from __future__ import annotations
 
 import math
 
-import numpy as np
 import torch
 
 from dpdist_tpu_torch import resolve_device
@@ -60,6 +59,7 @@ from dpdist_tpu_torch.nn.layers import (
     dense_apply,
     dense_init,
     max_pool3d,
+    params_to_device,
 )
 from dpdist_tpu_torch.ops.threedmfv import threedmfv
 
@@ -137,23 +137,6 @@ def init_pcrnet_state(cfg: PCRNetConfig, device="cuda") -> dict:
     return {"mfv_bn": [{name: {"mean": torch.zeros(nf, device=dev),
                                "var": torch.ones(nf, device=dev)} for name in MFV_BRANCHES}
                        for nf in mfv_filters(cfg)]}
-
-
-def params_to_device(params, device, requires_grad: bool = False):
-    """The tree with every leaf (numpy array or tensor) as a float32 tensor
-    on `device`, a fresh copy (a leaf of autograd with requires_grad); None
-    stays None."""
-    if params is None:
-        return None
-    if isinstance(params, dict):
-        return {k: params_to_device(v, device, requires_grad) for k, v in params.items()}
-    if isinstance(params, (list, tuple)):
-        return [params_to_device(v, device, requires_grad) for v in params]
-    if isinstance(params, torch.Tensor):
-        t = params.detach().to(device, torch.float32).clone()
-    else:
-        t = torch.from_numpy(np.array(params, np.float32)).to(device)
-    return t.requires_grad_(requires_grad)
 
 
 def _encode(params, cfg: PCRNetConfig, points):

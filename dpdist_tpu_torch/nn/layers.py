@@ -36,8 +36,26 @@ from __future__ import annotations
 import math
 from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+
+def params_to_device(params, device, requires_grad: bool = False):
+    """The tree with every leaf (numpy array or tensor) as a float32 tensor
+    on `device`, a fresh copy (a leaf of autograd with requires_grad); None
+    stays None."""
+    if params is None:
+        return None
+    if isinstance(params, dict):
+        return {k: params_to_device(v, device, requires_grad) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [params_to_device(v, device, requires_grad) for v in params]
+    if isinstance(params, torch.Tensor):
+        t = params.detach().to(device, torch.float32).clone()
+    else:
+        t = torch.from_numpy(np.array(params, np.float32)).to(device)
+    return t.requires_grad_(requires_grad)
 
 
 def xavier_uniform(shape, fan_in: int, fan_out: int, generator=None) -> torch.Tensor:

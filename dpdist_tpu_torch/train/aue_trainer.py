@@ -42,7 +42,7 @@ from dpdist_tpu_torch import resolve_device
 from dpdist_tpu_torch.configs import AUEConfig, DPDistConfig, TrainConfig
 from dpdist_tpu_torch.losses.dpdist_loss import make_frozen_dpdist_loss
 from dpdist_tpu_torch.models.aue import apply_aue, init_aue
-from dpdist_tpu_torch.models.pcrnet import params_to_device
+from dpdist_tpu_torch.nn.layers import params_to_device
 from dpdist_tpu_torch.ops.chamfer import chamfer_distance
 from dpdist_tpu_torch.train.checkpoint import (
     archive_checkpoint,
@@ -94,7 +94,7 @@ class AUETrainer:
         self.global_step = 0
         self._dp_loss = make_frozen_dpdist_loss(
             params_to_device(dpdist_params, self.device), dpdist_cfg,
-            state=None if dpdist_state is None else params_to_device(dpdist_state, self.device))
+            state=params_to_device(dpdist_state, self.device))
 
     # ------------------------------------------------------------------
 

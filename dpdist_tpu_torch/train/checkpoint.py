@@ -30,6 +30,7 @@ import torch
 
 from dpdist_tpu_torch import resolve_device
 from dpdist_tpu_torch.configs import DPDistConfig
+from dpdist_tpu_torch.nn.layers import params_to_device
 
 
 def _listify(node):
@@ -245,20 +246,9 @@ def params_from_jax(params, device="cuda", *, model: str = "dpdist") -> dict:
     layout and a conv's `w` in DHWIO / HWIO: the layers compute with them
     as they are, no transpose.
     """
-    dev = resolve_device(device)
     if model == "dpdist" and "decoder" not in params:
         raise ValueError(f"a DPDist tree holds its decoder, got keys {sorted(params)}")
-
-    def convert(node):
-        if node is None:
-            return None
-        if isinstance(node, dict):
-            return {k: convert(v) for k, v in node.items()}
-        if isinstance(node, (list, tuple)):
-            return [convert(v) for v in node]
-        return torch.from_numpy(np.array(node, dtype=np.float32)).to(dev)
-
-    return convert(params)
+    return params_to_device(params, resolve_device(device))
 
 
 def params_to_numpy(tree):

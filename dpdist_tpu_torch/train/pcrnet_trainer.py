@@ -55,12 +55,8 @@ from dpdist_tpu_torch.configs import PCRNetConfig, TrainConfig
 from dpdist_tpu_torch.geometry.rotations import normalize_quat
 from dpdist_tpu_torch.geometry.se3 import apply_transform, invert_transform, pose6_to_matrix
 from dpdist_tpu_torch.losses.dpdist_loss import make_frozen_dpdist_loss
-from dpdist_tpu_torch.models.pcrnet import (
-    init_pcrnet,
-    init_pcrnet_state,
-    params_to_device,
-    pcrnet_refine,
-)
+from dpdist_tpu_torch.models.pcrnet import init_pcrnet, init_pcrnet_state, pcrnet_refine
+from dpdist_tpu_torch.nn.layers import params_to_device
 from dpdist_tpu_torch.ops.chamfer import chamfer_distance
 from dpdist_tpu_torch.ops.emd import earth_mover_distance
 from dpdist_tpu_torch.train.checkpoint import (
@@ -91,9 +87,9 @@ class PCRNetTrainer:
                  action_reg: float = 0.0, fp_reg: float = 0.0, fp_steps: int = 4,
                  run_dir: str = "runs/pcrnet", logger: Optional[RunLogger] = None,
                  device="cuda"):
-        """dpdist: (cfg, params[, state]) of the frozen net, as
-        load_dpdist_checkpoint returns it (numpy leaves) or with the port's
-        tensors. The policy starts from init_pcrnet with a generator seeded
+        """dpdist: (cfg, params, state) of the frozen net (state None for a
+        net without BN), as load_dpdist_checkpoint returns it (numpy
+        leaves) or with the port's tensors. The policy starts from init_pcrnet with a generator seeded
         with tcfg.seed; restore() loads a checkpoint over it."""
         if loss_type not in LOSS_TYPES:
             raise ValueError(f"loss_type must be one of {LOSS_TYPES}, got {loss_type!r}")
@@ -122,11 +118,9 @@ class PCRNetTrainer:
         self.global_step = 0
         self._dp_loss = None
         if loss_type == "dpdist":
-            dcfg, dparams = dpdist[0], dpdist[1]
-            dstate = dpdist[2] if len(dpdist) > 2 else None
-            self._dp_loss = make_frozen_dpdist_loss(
-                params_to_device(dparams, self.device), dcfg,
-                state=None if dstate is None else params_to_device(dstate, self.device))
+            dcfg, dparams, dstate = dpdist
+            self._dp_loss = make_frozen_dpdist_loss(params_to_device(dparams, self.device), dcfg,
+                                                    state=params_to_device(dstate, self.device))
         # The chamfer monitor's batch, frozen at the first train batch so the
         # logged curve is comparable across epochs.
         self._probe = None

@@ -55,7 +55,7 @@ from dpdist_tpu_torch.models.dpdist import (
     init_dpdist,
     resolve_for_grad,
 )
-from dpdist_tpu_torch.models.pcrnet import params_to_device
+from dpdist_tpu_torch.nn.layers import params_to_device
 from dpdist_tpu_torch.train.checkpoint import (
     archive_checkpoint,
     archived_metric,

@@ -57,7 +57,7 @@ from dpdist_tpu_torch.data.registration import (  # noqa: E402
 )
 from dpdist_tpu_torch.eval.registration import ACCURACY_BUCKETS  # noqa: E402
 from dpdist_tpu_torch.eval.registration import _eval_program as port_program  # noqa: E402
-from dpdist_tpu_torch.models.pcrnet import params_to_device  # noqa: E402
+from dpdist_tpu_torch.nn.layers import params_to_device  # noqa: E402
 
 POLICY = str(ROOT / "results" / "policy_mf_tsn1200clip_dpdist_final")
 MF = dict(n_templates=125, families=("chair", "sphere", "box", "cylinder", "torus"),

@@ -28,7 +28,7 @@ from dpdist_tpu.train.pcrnet_trainer import PCRNetTrainer as JaxTrainer
 
 from dpdist_tpu_torch.configs import PCRNetConfig, TrainConfig
 from dpdist_tpu_torch.data.registration import RegistrationDataset
-from dpdist_tpu_torch.models.pcrnet import params_to_device
+from dpdist_tpu_torch.nn.layers import params_to_device
 from dpdist_tpu_torch.train.checkpoint import load_dpdist_checkpoint, tree_flatten_with_paths
 from dpdist_tpu_torch.train.logging import RunLogger
 from dpdist_tpu_torch.train.pcrnet_trainer import PCRNetTrainer

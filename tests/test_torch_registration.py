@@ -46,7 +46,7 @@ from dpdist_tpu.train.checkpoint import restore_params_maybe_state as jax_restor
 from dpdist_tpu_torch.cli.common import load_pcrnet_checkpoint
 from dpdist_tpu_torch.data import registration as treg
 from dpdist_tpu_torch.eval import registration as teval
-from dpdist_tpu_torch.models.pcrnet import params_to_device
+from dpdist_tpu_torch.nn.layers import params_to_device
 
 ROOT = Path(__file__).resolve().parent.parent
 GOLDEN_PATH = ROOT / "dpdist_tpu_torch" / "assets" / "golden_registration.json"
