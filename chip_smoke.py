@@ -23,7 +23,10 @@ adjoint), by the trainer and by the train_pcrnet and eval_registration
 CLIs; and the autoencoder trained on the frozen DPDist loss at full width
 (table-gather kernel and adjoint), by the trainer and the train_aue CLI,
 compare_losses (the fused kernel), the blocked EMD and the 3dmfv PCRNet
-encoder.
+encoder; and the serving export: the frozen distance and the production
+policy as torch.export programs, portable (plain ops) and native (the
+kernels as torch.library ops), saved, loaded onto the card and served,
+and the export_serving and run_serving CLIs.
 
   1. device        the card's name and power limit; fails without CUDA.
   2. build         compiles dpdist_tpu_torch/csrc (one nvcc per source,
@@ -50,6 +53,12 @@ encoder.
                    plain encode at B = 16, N = 256.
   6. gather6_kernel the patch-only table gather against its plain version
                    at B = 256, N = 256 with off-grid queries (exact).
+  6b. fault5       ROADMAP.md §3's fault 5: the patch-only gather (row 6) at
+                   B = 2, N = 128^3 = 2,097,152 (65,536 tiles of 32 queries,
+                   past the grid's 65,535 y-blocks) on a g = 2, k = 1, C = 1
+                   window, float32 and bfloat16, exact; the adjoint (row 3)
+                   at N = 860,000, past its old 32-bit cloud offsets, on
+                   integer grads, exact; row 6's time at B = 256, N = 256.
   7. chamfer_kernel the NN-min kernel against its plain version at B = 1,
                    N = M = 10,000, B = 2, N = 1,000, M = 4,099, N = 1,
                    M = 1, M below one float4 group, N and M one past a tile
@@ -282,6 +291,26 @@ encoder.
                    golden subsample; timed.
                    These three run after times (see there); their launches
                    join the kernels' record.
+ 25. serving_export the frozen distance of results/ckpt_best as
+                   torch.export programs with a symbolic batch, exported on
+                   the CPU by three background processes started after build
+                   (`chip_smoke.py --export-artifacts DIR PART`; export times
+                   printed), saved and loaded onto the card: portable f32,
+                   bf16 and with_grad (no launch), native f32 (1 row-1
+                   launch a request), bf16 "full" (1 row 9), with_grad
+                   (2 row 2, 1 row 3), "on" (2 row 10) and f32 at np = 256
+                   (2 row 7, 2 row 6); three requests of B = 256 at np = 64
+                   (256) each, counted, against the eager model (TOL_DIST;
+                   bf16 TOL_BF16; d/dsrc by the per-point criterion); each
+                   served at B = 1 and 64, timed.
+ 26. serving_registration the production policy under its protocol (50
+                   iterations, the period0 stop) as programs, fixed-length
+                   and early exit: equal to each other bit for bit at B = 64
+                   and 1, against the eager pcrnet_refine +
+                   accumulate_with_stopping (TOL_POLICY), no launch, timed
+                   at B = 1 and 64; then export_serving (in a background
+                   process, a static batch of 8) -> run_serving --synthetic
+                   chair --bench 20 on the card.
 
 Every phase prints a start and an end line. A wall-clock guard ends the
 run with a non-zero exit naming the phase. The last lines are the
@@ -462,12 +491,51 @@ TOL_EMD_BLOCKED = 1e-5
 # sums 1e-4, the eval refinement's poses after the step 1e-3.
 TOL_PCR3_GNORM, TOL_PCR3_POSES = 5e-3, 1e-3
 
+# Fault 5 (ROADMAP.md §3): row 6 at 128^3 = 2,097,152 queries a cloud, one
+# tile of 32 past the grid's 65,535 y-blocks, on a small window (g = 2,
+# k = 1, C = 1: 8 MB out), exact; row 3 at N = 860,000, past its old
+# 32-bit cloud offsets ((N - 1) * 2,500 + 2,500 > 2^31 - 1), on integer
+# grads (exact sums in any order).
+FAULT5_QUERIES, FAULT5_ADJOINT_QUERIES = 128 ** 3, 860_000
+# The serving export: artifacts of results/ckpt_best and of the production
+# policy, exported on the CPU by background processes (`--export-artifacts
+# DIR PART`) while the card runs the earlier phases, then loaded onto the card.
+# Served calls timed at B = 1 and B = SERVE_TIMED_BATCH (CUDA-event medians
+# of SERVE_TIMED_RUNS); the policy under REG_STOP at 50 iterations.
+SERVE_EXPORTS = {
+    "portable_f32": {},
+    "portable_bf16": {"cfg": {"dtype": "bfloat16"}},
+    "portable_grad": {"with_grad": True},
+    "native_f32": {"portable": False},
+    "native_bf16_full": {"portable": False, "cfg": {"dtype": "bfloat16", "fused_gather": "full"}},
+    "native_grad": {"portable": False, "with_grad": True},
+    "native_on": {"portable": False, "cfg": {"fused_gather": "on"}},
+    "native_f32_np256": {"portable": False, "num_point": NP_LARGE},
+}
+SERVE_TIMED_BATCH, SERVE_TIMED_RUNS, CLI_POLICY_BATCH = 64, 10, 8
+# The exports split over background processes, one a part, balanced by their
+# export times on the H100 machine's CPU beside the card's phases.
+EXPORT_PARTS = (("portable_f32", "native_f32", "native_bf16_full", "native_grad", "native_on",
+                 "native_f32_np256"),
+                ("portable_bf16", "policy_fixed", "policy_cli"),
+                ("portable_grad", "policy_early"))
+TOL_POLICY = 1e-5        # transforms and aligned clouds, program vs eager
+
 _phase = "start"
+_children = []           # processes this run started, stopped at its end
+
+
+def _stop_children():
+    for proc in _children:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
 
 
 def _time_out(*_):
     print(f"chip_smoke: FAILED, time limit of {TIME_LIMIT_S} s hit in phase "
           f"'{_phase}'", flush=True)
+    _stop_children()
     os._exit(124)
 
 
@@ -752,6 +820,58 @@ def write_cloud(path, pts):
     np.savetxt(path, pts, delimiter=",", fmt="%.8g")
 
 
+def export_artifacts(out: Path, part: int) -> int:
+    """The serving artifacts of EXPORT_PARTS[part], exported on the CPU into
+    `out` (run as `chip_smoke.py --export-artifacts DIR PART` beside the
+    card's phases): the frozen distance of NETS[0] (SERVE_EXPORTS), the
+    production policy fixed-length and early exit, and the export_serving
+    CLI's policy at a static batch. Writes each program's export seconds to
+    times_PART.json and the CLI's line to cli.json."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from dpdist_tpu_torch.cli import export_serving
+    from dpdist_tpu_torch.cli.common import load_pcrnet_checkpoint_state
+    from dpdist_tpu_torch.serving import (
+        export_frozen_distance,
+        export_registration,
+        save_exported,
+    )
+    from dpdist_tpu_torch.train import load_dpdist_checkpoint, params_from_jax
+
+    torch.set_num_threads(1)
+    times = {}
+    cfg, params, state = load_dpdist_checkpoint(str(ROOT / NETS[0]))
+    params, state = params_from_jax(params, "cpu"), params_from_jax(state, "cpu")
+    pcfg, pparams, pstate = load_pcrnet_checkpoint_state(str(ROOT / POLICY))
+    for name in EXPORT_PARTS[part]:
+        t0 = time.perf_counter()
+        if name in SERVE_EXPORTS:
+            kw = dict(SERVE_EXPORTS[name])
+            ep = export_frozen_distance(params, state, cfg.replace(**kw.pop("cfg", {})),
+                                        device="cpu", **kw)
+        elif name != "policy_cli":
+            ep = export_registration(pparams, pcfg, state=pstate, iterations=REG_ITERATIONS,
+                                     device="cpu", early_exit=name == "policy_early",
+                                     **REG_STOP)
+        else:
+            stop = REG_STOP
+            with contextlib.redirect_stdout(io.StringIO()) as line:
+                export_serving.main([
+                    "--pcrnet_ckpt", str(ROOT / POLICY), "--out", str(out / "policy_cli.pt2"),
+                    "--batch", str(CLI_POLICY_BATCH), "--iterations", str(REG_ITERATIONS),
+                    "--stop_threshold", str(stop["stop_threshold"]),
+                    "--stop_period", str(stop["stop_period"]),
+                    "--stop_select", stop["stop_select"], "--early_exit", "--device", "cpu"])
+            (out / "cli.json").write_text(line.getvalue())
+            ep = None
+        times[name] = time.perf_counter() - t0
+        if ep is not None:
+            save_exported(ep, str(out / f"{name}.pt2"))
+    (out / f"times_{part}.json").write_text(json.dumps(times))
+    return 0
+
+
 def main() -> int:
     signal.signal(signal.SIGALRM, _time_out)
     signal.alarm(TIME_LIMIT_S)
@@ -773,6 +893,7 @@ def main() -> int:
         from dpdist_tpu_torch.cli import gen_data as gen_data_cli
         from dpdist_tpu_torch.cli import train_dpdist as train_dpdist_cli
         from dpdist_tpu_torch.cli import compare_losses as compare_losses_cli
+        from dpdist_tpu_torch.cli import run_serving as run_serving_cli
         from dpdist_tpu_torch.cli import train_aue as train_aue_cli
         from dpdist_tpu_torch.cli import train_pcrnet as train_pcrnet_cli
         from dpdist_tpu_torch.cli.common import load_pcrnet_checkpoint
@@ -837,7 +958,8 @@ def main() -> int:
             threedmfv_plain,
             voxel_assign,
         )
-        from dpdist_tpu_torch.serving import FrozenDistance, load_frozen_distance
+        from dpdist_tpu_torch.geometry.se3 import apply_transform, invert_transform
+        from dpdist_tpu_torch.serving import FrozenDistance, load_exported, load_frozen_distance
         from dpdist_tpu_torch.train import load_dpdist_checkpoint, params_from_jax
         from dpdist_tpu_torch.train.aue_trainer import AUETrainer, split_same_surface
         from dpdist_tpu_torch.train.checkpoint import tree_flatten_with_paths
@@ -881,6 +1003,20 @@ def main() -> int:
         check(native_lib.available(), "the native host library does not load")
         print(f"native host library {native_path.relative_to(ROOT)} built in "
               f"{native_done['s']:.2f} s (g++ {' '.join(native_lib.GXX_FLAGS)})", flush=True)
+
+    # The serving artifacts are exported on the CPU by processes of their
+    # own while the card runs the phases before serving_export.
+    export_dir = tempfile.TemporaryDirectory()
+    export_path = Path(export_dir.name)
+    exporters = []
+    for part in range(len(EXPORT_PARTS)):
+        with open(export_path / f"export_{part}.log", "w") as log:
+            exporters.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--export-artifacts",
+                 str(export_path), str(part)], stdout=log, stderr=subprocess.STDOUT,
+                cwd=str(ROOT)))
+    _children.extend(exporters)
+    t_export = time.perf_counter()
 
     def nn_plan(B, N, M):
         """The NN-min kernel's launch plan for these sizes on this card."""
@@ -993,6 +1129,50 @@ def main() -> int:
         check(off6 > 0, "no off-grid query in the gather check")
         check(torch.equal(out6, ref6), f"table_gather differs from its plain version ({err_tg6})")
         del fv6, q6, vox6, out6, ref6
+
+    with Phase("fault5"):
+        # Row 6 past 65,535 tiles of queries, and row 3 past 32-bit cloud
+        # offsets (ROADMAP.md §3, fault 5); inputs from a generator of their
+        # own, so that the later phases' do not move.
+        r5 = np.random.default_rng(5)
+        g5, k5, c5 = 2, 1, 1
+        fv5 = torch.as_tensor(r5.normal(size=(2, g5 ** 3, c5)).astype(np.float32), device=dev)
+        vox5 = torch.as_tensor(r5.integers(0, g5 ** 3, (2, FAULT5_QUERIES)).astype(np.int32),
+                               device=dev)
+        with torch.no_grad():
+            ref5 = table_gather_plain(fv5, vox5, g5, k5)
+            for dt in (torch.float32, torch.bfloat16):
+                out5 = table_gather(fv5, vox5, g5, k5, dtype=dt)
+                torch.cuda.synchronize()
+                check(torch.equal(out5, ref5.to(dt)),
+                      f"row 6 at N={FAULT5_QUERIES} ({dt}) differs from its plain version")
+        print(f"fault5: row 6 at B=2, N={FAULT5_QUERIES} ({-(-FAULT5_QUERIES // 32)} tiles of "
+              f"32 queries a cloud, past the grid's 65,535 y-blocks), g={g5}, k={k5}, C={c5}: "
+              f"float32 and bfloat16 equal to the plain version", flush=True)
+        del fv5, vox5, ref5, out5
+        n3 = FAULT5_ADJOINT_QUERIES
+        vox3 = torch.as_tensor(r5.integers(0, G, (1, n3)).astype(np.int32), device=dev)
+        grad3 = torch.randint(-4, 5, (1, n3, K ** 3 * C), dtype=torch.int8, device=dev,
+                              generator=torch.Generator(dev).manual_seed(5)).float()
+        dfv3 = table_gather_bwd(vox3, grad3, GRID, K)
+        torch.cuda.synchronize()
+        check(torch.equal(dfv3, table_gather_bwd_plain(vox3, grad3, GRID, K)),
+              f"row 3 at N={n3} differs from the plain adjoint")
+        print(f"fault5: row 3 at B=1, N={n3} ((N - 1) * {K ** 3 * C} + {K ** 3 * C} = "
+              f"{(n3 - 1) * K ** 3 * C + K ** 3 * C} > 2^31 - 1), integer grads: equal to the "
+              f"plain adjoint", flush=True)
+        del vox3, grad3, dfv3
+        torch.cuda.empty_cache()
+        # Row 6's time at PR 10's shape (B = 256, N = 256), on its 1-D grid.
+        fv6 = torch.as_tensor(r5.normal(size=(B_SERVE, G, C)).astype(np.float32), device=dev)
+        q6 = torch.as_tensor(r5.uniform(-1.2, 1.2, (B_SERVE, NP_LARGE, 3)).astype(np.float32),
+                             device=dev)
+        vox6 = voxel_assign(q6, GRID)[0]
+        ms6 = cuda_median_ms(lambda: table_gather(fv6, vox6, GRID, K))
+        dev6 = device_ms(lambda: table_gather(fv6, vox6, GRID, K), "table_gather_kernel<float")
+        print(f"fault5: row 6 at B={B_SERVE}, N={NP_LARGE} (uniform queries): {ms6:.4f} ms "
+              f"(CUDA events), {dev6:.4f} ms device (torch.profiler); on {card}", flush=True)
+        del fv6, q6, vox6
 
     with Phase("chamfer_kernel"):
         err_nn = 0.0
@@ -3171,6 +3351,148 @@ def main() -> int:
         check(err_gold <= TOL_DIST, f"dense: vs golden {err_gold}")
         del field, d_off, d_on, q_all
 
+    with Phase("serving_export"):
+        # The frozen distance of results/ckpt_best as torch.export programs,
+        # exported on the CPU beside the earlier phases, saved, loaded onto
+        # the card: portable (plain ops, no launch) and native (the kernels
+        # as dpdist:: ops, launching what `route` names), each against the
+        # eager model on the first np = 64 requests.
+        export_times = {}
+        for part, proc in enumerate(exporters):
+            rc = proc.wait(timeout=max(1.0, TIME_LIMIT_S - 20 - (time.perf_counter() - t_start)))
+            log_tail = (export_path / f"export_{part}.log").read_text()[-3000:]
+            check(rc == 0, f"export process {part} failed ({rc}):\n{log_tail}")
+            export_times.update(json.loads((export_path / f"times_{part}.json").read_text()))
+        print(f"exports (host, CPU, {len(exporters)} background processes of one thread, done "
+              f"{time.perf_counter() - t_export:.1f} s after they started): "
+              + ", ".join(f"{k} {v:.2f} s" for k, v in export_times.items()), flush=True)
+        net0 = str(ROOT / NETS[0])
+        eager = {"f32": load_frozen_distance(net0, device=dev),
+                 "off": load_frozen_distance(net0, device=dev, fused_gather="off"),
+                 "bf16_full": load_frozen_distance(net0, device=dev, dtype="bfloat16",
+                                                   fused_gather="full"),
+                 "bf16_off": load_frozen_distance(net0, device=dev, dtype="bfloat16",
+                                                  fused_gather="off")}
+        programs = {}
+        for name in SERVE_EXPORTS:
+            programs[name] = load_exported(str(export_path / f"{name}.pt2"), device=dev).module()
+
+        def eager_value_and_grad(model, a, b):
+            a = a.detach().requires_grad_(True)
+            d = model(a, b)
+            return d.detach(), torch.autograd.grad(d.sum(), a)[0]
+
+        # Per program: the launches its requests make, and the eager model
+        # it is held against.
+        want_launches = {
+            "portable_f32": expected(), "portable_bf16": expected(),
+            "portable_grad": expected(), "native_f32": expected(mfv_gather_x=REQUESTS),
+            "native_bf16_full": expected(fused_forward=REQUESTS),
+            "native_grad": expected(table_gather_x=2 * REQUESTS, table_gather_bwd=REQUESTS),
+            "native_on": expected(gather_patches_fused=2 * REQUESTS),
+            "native_f32_np256": expected(threedmfv=2 * REQUESTS, table_gather=2 * REQUESTS)}
+        eager_of = {"portable_f32": "f32", "portable_bf16": "bf16_off", "portable_grad": "off",
+                    "native_f32": "f32", "native_bf16_full": "bf16_full", "native_grad": "f32",
+                    "native_on": "f32", "native_f32_np256": "f32"}
+        serve_ms = {}
+        for name, prog in programs.items():
+            reqs = requests_large if SERVE_EXPORTS[name].get("num_point") else requests
+            start_count()
+            with torch.no_grad():
+                outs = [prog(a, b) for a, b in reqs]
+            launched = read_count()
+            print(f"{name}: {REQUESTS} requests of {B_SERVE} pairs at np={reqs[0][0].shape[1]}, "
+                  f"kernel launches { {k: v for k, v in launched.items() if v} }", flush=True)
+            check(launched == want_launches[name], f"{name}: unexpected launches")
+            ref_model = eager[eager_of[name]]
+            if SERVE_EXPORTS[name].get("with_grad"):
+                err_v = err_g = 0.0
+                for (a, b), (vals, grads) in zip(reqs, outs):
+                    want_v, want_g = eager_value_and_grad(ref_model, a, b)
+                    check(vals.shape == (B_SERVE,) and grads.shape == a.shape
+                          and bool(torch.isfinite(grads).all()), f"{name}: bad outputs")
+                    err_v = max(err_v, float((vals - want_v).abs().max()))
+                    err_g = max(err_g, check_grad_rows(grads, want_g, f"{name}: d/dsrc"))
+                print(f"{name}: values vs the eager frozen loss max |d| {err_v:.3e} (tol "
+                      f"{TOL_DIST}); d/dsrc worst point {err_g:.3e} of max (tol {REL_GRAD} on "
+                      f"all but {OUTLIERS}, {REL_GRAD_FEW} on all)", flush=True)
+                check(err_v <= TOL_DIST, f"{name}: values off the eager loss by {err_v}")
+            else:
+                tol = TOL_BF16 if "bf16" in name else TOL_DIST
+                with torch.no_grad():
+                    err = max(float((o - ref_model(a, b)).abs().max())
+                              for o, (a, b) in zip(outs, reqs))
+                check(all(o.shape == (B_SERVE,) and bool(torch.isfinite(o).all())
+                          for o in outs), f"{name}: bad outputs")
+                print(f"{name}: vs the eager model max |d| {err:.3e} (tol {tol})", flush=True)
+                check(err <= tol, f"{name}: off the eager model by {err}")
+            a, b = reqs[0]
+            with torch.no_grad():
+                serve_ms[name] = [cuda_median_ms(lambda: prog(a[:n], b[:n]), runs=SERVE_TIMED_RUNS,
+                                                 warmup=2) for n in (1, SERVE_TIMED_BATCH)]
+        print(f"served calls (np=64 but for np256), ms at B=1 / B={SERVE_TIMED_BATCH} (CUDA "
+              f"events, median of {SERVE_TIMED_RUNS}): " + "; ".join(
+                  f"{k} {v[0]:.3f} / {v[1]:.3f}" for k, v in serve_ms.items()) + f"; on {card}",
+              flush=True)
+        del eager, programs
+
+    with Phase("serving_registration"):
+        # The production policy under its protocol (50 iterations, the
+        # period0 stop), fixed-length and early exit, against the eager
+        # refinement and stop; then export_serving -> run_serving.
+        fixed = load_exported(str(export_path / "policy_fixed.pt2"), device=dev).module()
+        early = load_exported(str(export_path / "policy_early.pt2"), device=dev).module()
+        policy = params_to_device(policy_np, dev)
+        tpl, src, _ = (torch.as_tensor(x, device=dev)
+                       for x in production_cases().sample_batch(SERVE_TIMED_BATCH))
+        with torch.no_grad():
+            _, _, poses = pcrnet_refine(policy, pcfg, src, tpl, iterations=REG_ITERATIONS,
+                                        stop_gradient_iters=False)
+            T_total, _, _, frozen, conv_iter = registration.accumulate_with_stopping(
+                poses, src, tpl, **REG_STOP)
+            want = (invert_transform(T_total), apply_transform(src, T_total))
+            start_count()
+            got = {"fixed": fixed(tpl, src), "early": early(tpl, src)}
+            got1 = {"fixed": fixed(tpl[:1], src[:1]), "early": early(tpl[:1], src[:1])}
+            launched = read_count()
+        check(sum(launched.values()) == 0, f"the policy programs launched kernels: {launched}")
+        for n, g in ((SERVE_TIMED_BATCH, got), (1, got1)):
+            check(all(torch.equal(x, y) for x, y in zip(g["fixed"], g["early"])),
+                  f"policy at B={n}: early exit differs from the fixed-length loop")
+        err_T = float((got["fixed"][0] - want[0]).abs().max())
+        err_al = float((got["fixed"][1] - want[1]).abs().max())
+        err_T1 = float((got1["fixed"][0] - want[0][:1]).abs().max())
+        trips = int(conv_iter.max()) + 1 if bool(frozen.all()) else REG_ITERATIONS
+        trips1 = int(conv_iter[0]) + 1 if bool(frozen[0]) else REG_ITERATIONS
+        print(f"policy at B={SERVE_TIMED_BATCH}: early exit equal to the fixed-length loop (B=1 "
+              f"too); vs eager pcrnet_refine + accumulate_with_stopping: T_pred max |d| "
+              f"{err_T:.3e}, aligned {err_al:.3e}, B=1 T_pred {err_T1:.3e} (tol {TOL_POLICY}); "
+              f"{int(frozen.sum())} of {SERVE_TIMED_BATCH} frozen, the loop's trips {trips} at "
+              f"B={SERVE_TIMED_BATCH}, {trips1} at B=1 (eager conv_iter); no kernel launched",
+              flush=True)
+        check(max(err_T, err_al, err_T1) <= TOL_POLICY, "policy program off the eager policy")
+        with torch.no_grad():
+            pol_ms = {k: [cuda_median_ms(lambda: prog(tpl[:n], src[:n]), runs=5, warmup=1)
+                          for n in (1, SERVE_TIMED_BATCH)]
+                      for k, prog in (("fixed", fixed), ("early", early))}
+        print(f"policy programs, ms at B=1 / B={SERVE_TIMED_BATCH} (CUDA events, median of 5): "
+              + "; ".join(f"{k} {v[0]:.2f} / {v[1]:.2f}" for k, v in pol_ms.items())
+              + f"; on {card}", flush=True)
+        cli_line = json.loads((export_path / "cli.json").read_text().strip().splitlines()[-1])
+        check(cli_line["inputs"] == [[CLI_POLICY_BATCH, pcfg.num_point, 3]] * 2,
+              f"export_serving: {cli_line}")
+        with contextlib.redirect_stdout(io.StringIO()):
+            res = run_serving_cli.main(["--artifact", str(export_path / "policy_cli.pt2"),
+                                        "--synthetic", "chair", "--bench", "20",
+                                        "--device", "cuda"])
+        check(res["batch"] == CLI_POLICY_BATCH and res["num_point"] == pcfg.num_point
+              and bool(np.isfinite(np.asarray(res["T_pred"])).all()), f"run_serving: {res}")
+        print(f"export_serving -> run_serving --synthetic chair --bench 20: {cli_line['bytes']} "
+              f"bytes, batch {res['batch']}, first call {res['first_call_ms']} ms, "
+              f"{res['bench_ms_per_call']} ms a call; on {card}", flush=True)
+        del fixed, early, policy
+    export_dir.cleanup()
+
     for r in records:
         r["launches"] = launches[r["name"]]
 
@@ -3185,4 +3507,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    if len(sys.argv) == 4 and sys.argv[1] == "--export-artifacts":
+        sys.exit(export_artifacts(Path(sys.argv[2]), int(sys.argv[3])))
+    try:
+        sys.exit(main())
+    finally:
+        _stop_children()

@@ -108,11 +108,13 @@ __host__ __device__ inline size_t patch_rows_smem_floats(int g, int k, int C) {
   return G * C + K3 * 2;
 }
 
-// The body of a patch-gather block (row 6): cloud blockIdx.x, queries
-// blockIdx.y * rows_per_block onwards. Stages the cloud's (G, C) volume and
-// the window offsets in shared memory, then one warp per query row writes
-// out[b, n, :] (k^3*C wide). A row is zero where its vox lies outside
-// [0, G) (never made by voxel_assign).
+// The body of a patch-gather block (row 6) on a 1-D grid of B * tiles
+// blocks (a grid's y dimension stops at 65,535 tiles; x at 2^31 - 1): block
+// blockIdx.x takes cloud blockIdx.x % B and its tile blockIdx.x / B of
+// rows_per_block queries, the order of a (B, tiles) grid. Stages the
+// cloud's (G, C) volume and the window offsets in shared memory, then one
+// warp per query row writes out[b, n, :] (k^3*C wide). A row is zero where
+// its vox lies outside [0, G) (never made by voxel_assign).
 template <typename T>
 __device__ __forceinline__ void gather_patch_rows(const float* __restrict__ fv,   // (B, G, C)
                                                   const int* __restrict__ vox,    // (B, N)
@@ -125,8 +127,10 @@ __device__ __forceinline__ void gather_patch_rows(const float* __restrict__ fv, 
   const int lane = threadIdx.x % kWarp;
   const int warp = threadIdx.x / kWarp;
   const int nwarps = blockDim.x / kWarp;
-  const int b = blockIdx.x;
-  const int n0 = blockIdx.y * rows_per_block;
+  const int B = gridDim.x / ((N + rows_per_block - 1) / rows_per_block);
+  const int tile = blockIdx.x / B;
+  const int b = blockIdx.x - tile * B;
+  const int n0 = tile * rows_per_block;
   const int n1 = min(N, n0 + rows_per_block);
 
   float* fv_s = smem;                                     // G * C

@@ -165,20 +165,23 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162f
 // (`slot` elements of TG a run: k^2 * C and up to 16 bytes before it,
 // rounded up to 16 bytes), a stage complete on its mbarrier; one barrier
 // per stage frees it for the stage kBwdStages on. TG is the grad's type
-// and TO dfv's (float or __nv_bfloat16); the sums are float32.
-template <typename TG, typename TO>
+// and TO dfv's (float or __nv_bfloat16); the sums are float32. Off is the
+// type of a run's offset within its cloud's grad rows: int, or int64_t for
+// a cloud past 2^31 - 1 elements (the C entry picks it from the sizes, so
+// that other clouds keep 32-bit offsets and their list's shared memory).
+template <typename TG, typename TO, typename Off>
 __global__ void __launch_bounds__(kBwdMaxThreads)
     table_gather_bwd_kernel(const int* __restrict__ vox,     // (B, N)
                             const TG* __restrict__ grad,     // (B, N, k^3*C), strided
-                            int64_t stride_b, int stride_n,
+                            int64_t stride_b, Off stride_n,
                             TO* __restrict__ dfv,            // (B, G, C)
                             int N, int g, int k, int C, int per_stage, int slot) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int T = blockDim.x;
   TG* ring = reinterpret_cast<TG*>(smem);   // kBwdStages * per_stage * slot
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + kBwdStages * per_stage * slot);
-  int* run_s = reinterpret_cast<int*>(full + kBwdStages);   // T: a listed query's run, from gb
-  int* yz_s = run_s + T;                                    // T: vy | vz << 8 | lead << 16
+  Off* run_s = reinterpret_cast<Off*>(full + kBwdStages);   // T: a listed query's run, from gb
+  int* yz_s = reinterpret_cast<int*>(run_s + T);            // T: vy | vz << 8 | lead << 16
   int* warp_s = yz_s + T;                                   // T / 32: hits per warp
   const int tid = threadIdx.x, lane = tid % kWarp, warp = tid / kWarp;
   const int b = blockIdx.x, slab = blockIdx.y;
@@ -229,14 +232,15 @@ __global__ void __launch_bounds__(kBwdMaxThreads)
       // This chunk's queries whose window meets the slab, in query order.
       const int n = n0 + tid;
       bool hit = false;
-      int run_n = 0, yz = 0;
+      Off run_n = 0;
+      int yz = 0;
       if (n < N) {
         const int v = vb[n];
         const int di = slab - v / gg + kh;
         if (v >= 0 && v < G && static_cast<unsigned>(di) < static_cast<unsigned>(k)) {
           const int vy = (v / g) % g, vz = v % g;
           hit = true;
-          run_n = n * stride_n + di * run;
+          run_n = static_cast<Off>(n) * stride_n + di * run;
           const int lead = static_cast<int>((reinterpret_cast<uintptr_t>(gb + run_n) & 15) /
                                             sizeof(TG));
           yz = vy | (vz << 8) | (lead << 16);
@@ -360,12 +364,17 @@ int dpdist_table_gather(const float* fv, const int* vox, void* out, int B, int N
                         int C, int rows_per_block, int threads, int out_bf16, int device,
                         void* stream) {
   if (B < 1 || N < 1 || bad_window(g, k, C) || rows_per_block < 1 || threads < kWarp ||
-      threads > 1024 || threads % kWarp != 0)
+      threads > 1024 || threads % kWarp != 0 || N > INT_MAX - rows_per_block)
     return static_cast<int>(cudaErrorInvalidValue);
+  // One block per (cloud, tile of queries) on a 1-D grid: past 65,535
+  // tiles a cloud no longer fits the grid's y dimension
+  // (patch_rows.cuh:gather_patch_rows).
+  const int64_t blocks = static_cast<int64_t>(B) * ((N + rows_per_block - 1) / rows_per_block);
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem = dpdist_table_gather_smem(g, k, C);
-  const dim3 grid(B, (N + rows_per_block - 1) / rows_per_block);
+  const dim3 grid(static_cast<unsigned>(blocks));
   const auto s = static_cast<cudaStream_t>(stream);
   if (out_bf16) {
     err = set_smem(table_gather_kernel<__nv_bfloat16>, smem);
@@ -384,11 +393,11 @@ int dpdist_table_gather(const float* fv, const int* vox, void* out, int B, int N
 int dpdist_table_gather_bwd(const int* vox, const void* grad, int64_t stride_b, int64_t stride_n,
                             void* dfv, int B, int N, int g, int k, int C, int bf16, int device,
                             void* stream) {
-  // A cloud's grad rows are addressed with 32-bit offsets; digits fit a byte.
-  // Strides count elements of the grad's type.
-  if (B < 1 || N < 1 || bad_window(g, k, C) || g > 255 || stride_n < 0 ||
-      (N - 1) * stride_n + static_cast<int64_t>(k) * k * k * C > INT_MAX)
+  // Digits fit a byte. Strides count elements of the grad's type. A cloud's
+  // grad rows past 2^31 - 1 elements take 64-bit run offsets (fault 5).
+  if (B < 1 || N < 1 || bad_window(g, k, C) || g > 255 || stride_n < 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  const bool wide = (N - 1) * stride_n + static_cast<int64_t>(k) * k * k * C > INT_MAX;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   int max_smem = 0;
@@ -401,7 +410,9 @@ int dpdist_table_gather_bwd(const int* vox, const void* grad, int64_t stride_b, 
   // group's worth before them.
   const int bytes = bf16 ? 2 : 4, per16 = 16 / bytes;
   const int slot = (k * k * C + 2 * (per16 - 1)) / per16 * per16;
-  const size_t fixed = kBwdStages * sizeof(uint64_t) + (2 * threads + threads / kWarp) * sizeof(int);
+  const size_t off_bytes = wide ? sizeof(int64_t) : sizeof(int);
+  const size_t fixed = kBwdStages * sizeof(uint64_t) + threads * (off_bytes + sizeof(int)) +
+                       threads / kWarp * sizeof(int);
   const size_t stage_run = static_cast<size_t>(kBwdStages) * slot * bytes;
   const int per_stage =
       static_cast<int>(std::min<size_t>(kBwdMaxPerStage, (max_smem - fixed) / stage_run));
@@ -409,20 +420,24 @@ int dpdist_table_gather_bwd(const int* vox, const void* grad, int64_t stride_b, 
   const size_t smem = per_stage * stage_run + fixed;
   const dim3 grid(B, g);
   const auto s = static_cast<cudaStream_t>(stream);
-  auto launch = [&](auto kernel, auto* in, auto* out) {
+  auto launch = [&](auto kernel, auto* in, auto* out, auto off) {
     const cudaError_t e = set_smem(kernel, smem);
     if (e != cudaSuccess) return e;
-    kernel<<<grid, threads, smem, s>>>(vox, in, stride_b, static_cast<int>(stride_n), out, N, g,
-                                       k, C, per_stage, slot);
+    kernel<<<grid, threads, smem, s>>>(vox, in, stride_b, static_cast<decltype(off)>(stride_n),
+                                       out, N, g, k, C, per_stage, slot);
     return cudaGetLastError();
   };
   using bf = __nv_bfloat16;
+  const auto* gf = static_cast<const float*>(grad);
+  const auto* gh = static_cast<const bf*>(grad);
+  auto* df = static_cast<float*>(dfv);
+  auto* dh = static_cast<bf*>(dfv);
   if (bf16)
-    err = launch(table_gather_bwd_kernel<bf, bf>, static_cast<const bf*>(grad),
-                 static_cast<bf*>(dfv));
+    err = wide ? launch(table_gather_bwd_kernel<bf, bf, int64_t>, gh, dh, int64_t{0})
+               : launch(table_gather_bwd_kernel<bf, bf, int>, gh, dh, 0);
   else
-    err = launch(table_gather_bwd_kernel<float, float>, static_cast<const float*>(grad),
-                 static_cast<float*>(dfv));
+    err = wide ? launch(table_gather_bwd_kernel<float, float, int64_t>, gf, df, int64_t{0})
+               : launch(table_gather_bwd_kernel<float, float, int>, gf, df, 0);
   return static_cast<int>(err);
 }
 

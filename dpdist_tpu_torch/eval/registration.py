@@ -81,9 +81,11 @@ def init_stop_carry(dtype, B: int, stop_period: int, source, template, stop_sele
             torch.full((B,), -1, dtype=torch.int32, device=dev), sc0)
 
 
-def stopping_step(carry, pose7, i: int, source, template, *, stop_threshold,
+def stopping_step(carry, pose7, i, source, template, *, stop_threshold,
                   stop_period: int, stop_select: str):
-    """One pose accumulation and freeze step (iteration i, 0-based).
+    """One pose accumulation and freeze step (iteration i, 0-based: a
+    Python int, or a 0-dim integer tensor inside a traced loop, for which
+    the steps that depend on i are tensor ops with the same results).
 
     With stop_threshold set, a case freezes once the convergence measure of
     its new transform against the one stop_period iterations back falls
@@ -101,13 +103,20 @@ def stopping_step(carry, pose7, i: int, source, template, *, stop_threshold,
     if stop_threshold is not None:
         ce_stop = ce if stop_period == 1 else convergence_measure(T_cand, hist[0])
         newly = (~frozen) & (ce_stop < stop_threshold)
-        if i < stop_period - 1:   # the period-p check needs p transforms first
+        armed = i >= stop_period - 1   # the period-p check needs p transforms first
+        if torch.is_tensor(armed):
+            newly = newly & armed
+        elif not armed:
             newly = torch.zeros_like(newly)
         pick = T_cand
         if stop_select == "period0":
             # T_cand composes i + 1 poses; hist[p - r] composes i + 1 - r.
             r = (i + 1) % stop_period
-            pick = T_cand if r == 0 else hist[(stop_period - r) % stop_period]
+            back = (stop_period - r) % stop_period
+            if torch.is_tensor(r):
+                pick = torch.where(r == 0, T_cand, hist.index_select(0, back.reshape(1))[0])
+            else:
+                pick = T_cand if r == 0 else hist[back]
         if stop_select == "chamfer":
             sc_cand = _percase_chamfer(apply_transform(source, T_cand), template)
             better_prev = sc_prev < sc_cand
@@ -116,7 +125,8 @@ def stopping_step(carry, pose7, i: int, source, template, *, stop_threshold,
                              torch.where(newly, torch.minimum(sc_prev, sc_cand), sc_cand))
         T = torch.where(frozen[:, None, None], T_prev,
                         torch.where(newly[:, None, None], pick, T_cand))
-        conv_iter = conv_iter.masked_fill(newly, i)
+        fill = i.to(conv_iter.dtype) if torch.is_tensor(i) else i
+        conv_iter = conv_iter.masked_fill(newly, fill)
         ce = torch.where(frozen, torch.zeros_like(ce), ce)
         frozen = frozen | newly
     else:

@@ -20,8 +20,10 @@ from dpdist_tpu_torch.geometry.rotations import (
 def _homogeneous(R, t):
     """(..., 3, 3), (..., 3) -> (..., 4, 4) [[R, t], [0, 0, 0, 1]]."""
     top = torch.cat([R, t[..., None]], dim=-1)
-    bottom = torch.zeros(R.shape[:-2] + (1, 4), dtype=R.dtype, device=R.device)
-    bottom[..., 0, 3] = 1.0
+    # The bottom row by ops without Python scalars stored into a tensor,
+    # which a loop traced for torch.export could not serialise.
+    zeros = torch.zeros(R.shape[:-2] + (1, 3), dtype=R.dtype, device=R.device)
+    bottom = torch.cat([zeros, torch.ones_like(zeros[..., :1])], dim=-1)
     return torch.cat([top, bottom], dim=-2)
 
 

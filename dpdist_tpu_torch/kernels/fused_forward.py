@@ -91,6 +91,19 @@ def decoder_unfit(hidden_widths) -> str | None:
     return None
 
 
+# The row tile of the layer kernels (csrc/fused_forward.cu:kBM).
+TILE_ROWS = 128
+
+
+def fused_forward_batch_fits(n_clouds: int, n_points: int, grid_size: int, C: int) -> bool:
+    """Whether the kernel takes n_clouds volumes of grid_size^3 x C and
+    n_clouds * n_points query rows: it addresses the volumes and the rows
+    with 32-bit offsets (the C entry's B * G * C < 2^31 and
+    B * N < 2^31 - TILE_ROWS)."""
+    return (n_clouds * grid_size ** 3 * C < 2 ** 31
+            and n_clouds * n_points < 2 ** 31 - TILE_ROWS)
+
+
 def fused_forward_fits(grid_size: int, k: int, hidden_widths) -> bool:
     """Whether the kernel serves a decoder of these hidden widths on a
     grid_size^3 grid with a k^3 window."""

@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from dpdist_tpu_torch.configs import DPDistConfig
+from dpdist_tpu_torch.kernels.ops import route_device
 from dpdist_tpu_torch.models.dpdist import dpdist_distance, resolve_for_grad
 
 
@@ -43,7 +44,7 @@ def make_frozen_dpdist_loss(params, cfg: DPDistConfig, *, state=None,
     """
 
     def loss_fn(pcA, pcB):
-        gcfg = resolve_for_grad(cfg, pcA.device)
+        gcfg = resolve_for_grad(cfg, route_device(pcA))
         d = dpdist_distance(_detached(params), gcfg, pcA, pcB,
                             state=None if state is None else _detached(state))
         if out_of_grid_penalty > 0:

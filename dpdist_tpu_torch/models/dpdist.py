@@ -106,9 +106,15 @@ import torch
 
 from dpdist_tpu_torch import resolve_device
 from dpdist_tpu_torch.configs import DPDistConfig
-from dpdist_tpu_torch.kernels.fused_forward import fused_forward, fused_forward_fits, pack_decoder
+from dpdist_tpu_torch.kernels.fused_forward import (
+    fused_forward,
+    fused_forward_batch_fits,
+    fused_forward_fits,
+    pack_decoder,
+)
 from dpdist_tpu_torch.kernels.gather_fused import gather_patches_fused
 from dpdist_tpu_torch.kernels.mfv_gather import mfv_x, mfv_x_fits
+from dpdist_tpu_torch.kernels.ops import dispatch, route_device
 from dpdist_tpu_torch.kernels.table_gather import table_gather, table_gather_fits, table_gather_x
 from dpdist_tpu_torch.kernels.threedmfv import threedmfv_fits
 from dpdist_tpu_torch.nn.layers import params_to_device
@@ -212,7 +218,7 @@ def _encode_route(cfg: DPDistConfig, n: int) -> str:
 
 
 def route(cfg: DPDistConfig, device_type: str, n_a: int, n_b: int, grad: bool = False,
-          train: bool = False) -> Route:
+          train: bool = False, batch=None) -> Route:
     """The kernels apply_dpdist runs for clouds of n_a and n_b points on a
     `device_type` device; grad=True for a computation that will be
     differentiated (it resolves "auto" as `resolve_for_grad` does, and
@@ -233,8 +239,12 @@ def route(cfg: DPDistConfig, device_type: str, n_a: int, n_b: int, grad: bool = 
     The kernels' limits (each kernel module's *_fits, from shapes alone):
     the fused kernels give way to "table" (`resolve_mode`), and an encode or
     a gather kernel that does not take the config gives way to the plain op
-    for that step ("plain"), which computes the same function. The same
-    routes on either device, apart from "auto"."""
+    for that step ("plain"), which computes the same function. `batch`, the
+    pairs of the call where it is known (an int), is held to the limits
+    that depend on it: "full" gives way to "table" where the fused forward
+    does not take the 2B stack (fused_forward_batch_fits); None (a symbolic
+    batch of an export, which bounds its batch instead) checks none. The
+    same routes on either device, apart from "auto"."""
     check_ported(cfg)
     if grad:
         _check_full_grad(cfg, train)
@@ -252,7 +262,10 @@ def route(cfg: DPDistConfig, device_type: str, n_a: int, n_b: int, grad: bool = 
             raise ValueError(f'fused_gather="full" serves both directions in one call over '
                              f"the 2B stack, which needs clouds of one size; got {n_a} and "
                              f"{n_b} points")
-        return Route("full", encode, ("fused_forward",) * 2)
+        if batch is None or fused_forward_batch_fits(2 * batch, n_a, cfg.grid_size,
+                                                     cfg.fv_channels):
+            return Route("full", encode, ("fused_forward",) * 2)
+        mode = "table"
     gather_fits = table_gather_fits(cfg.grid_size, cfg.k, cfg.fv_channels)
     if mode == "on":
         return Route("on", encode, ("gather_patches_fused" if gather_fits else "plain",) * 2)
@@ -446,7 +459,7 @@ def _fused_head(params, cfg: DPDistConfig, fv, queries):
     one (serving.FrozenDistance), else packs it for this call."""
     vox, mask, delta = voxel_assign(queries, cfg.grid_size)
     packed = params.get("packed") or pack_decoder(params["decoder"]["layers"])
-    y = fused_forward(fv.to(torch.bfloat16), vox, delta, packed, cfg.grid_size, cfg.k)
+    y = dispatch(fused_forward)(fv.to(torch.bfloat16), vox, delta, packed, cfg.grid_size, cfg.k)
     return _activate(y, cfg, mask)
 
 
@@ -523,15 +536,15 @@ def _decoder_input(cfg: DPDistConfig, encode: str, gather: str, points_enc, quer
     dtype = DTYPES[cfg.dtype]
     args = (cfg.embedding_size, cfg.sigma, cfg.grid_size, cfg.k)
     if gather == "mfv_gather_x":
-        return mfv_x(points_enc, queries, *args, dtype=dtype)[0]
+        return dispatch(mfv_x)(points_enc, queries, *args, dtype=dtype)[0]
     fv = _encode(cfg, encode, points_enc)
     if gather == "table_gather_x":
-        return table_gather_x(fv, queries, cfg.grid_size, cfg.k, dtype=dtype)[0]
+        return dispatch(table_gather_x)(fv, queries, cfg.grid_size, cfg.k, dtype=dtype)[0]
     if gather == "table_gather":
-        patches = table_gather(fv, vox, cfg.grid_size, cfg.k, dtype=dtype)
+        patches = dispatch(table_gather)(fv, vox, cfg.grid_size, cfg.k, dtype=dtype)
         delta = delta.to(dtype)
     elif gather == "gather_patches_fused":
-        patches = gather_patches_fused(fv, vox, mask, cfg.grid_size, cfg.k, dtype=dtype)
+        patches = dispatch(gather_patches_fused)(fv, vox, mask, cfg.grid_size, cfg.k, dtype=dtype)
     else:
         patches = gather_patches(extract_patches(fv.to(dtype), cfg.grid_size, cfg.k), vox)
         delta = delta.to(dtype)
@@ -540,6 +553,21 @@ def _decoder_input(cfg: DPDistConfig, encode: str, gather: str, points_enc, quer
 
 def _prep(points):
     return points.to(torch.float32).contiguous()
+
+
+def _halves(x):
+    """The two halves of a 2B stack along the batch, torch.chunk's, as
+    views of one (2, B, ...) view: both of the batch's symbolic size when
+    an export traces them (chunk and slices leave guards on it)."""
+    pair = x.unflatten(0, (2, -1))
+    return pair[0], pair[1]
+
+
+def _batch(points):
+    """The batch of `points` for `route`: an int, or None where it is
+    symbolic (an export's)."""
+    b = points.shape[0]
+    return b if isinstance(b, int) else None
 
 
 def _direction_input(params, state, cfg, encode, gather, points_enc, queries, train,
@@ -570,7 +598,8 @@ def apply_direction(params, cfg: DPDistConfig, points_enc, queries, *, state=Non
     points_enc, queries = _prep(points_enc), _prep(queries)
     _check_grad(cfg, params, train, points_enc, queries)
     state = _state(cfg, state)
-    r = route(cfg, queries.device.type, points_enc.shape[1], queries.shape[1], train=train)
+    r = route(cfg, route_device(queries), points_enc.shape[1], queries.shape[1], train=train,
+              batch=_batch(queries))
     if r.gather[0] == "fused_forward":
         return _fused_head(params, cfg, _encode(cfg, r.encode[0], points_enc), queries)
     x, mask, _ = _direction_input(params, state, cfg, r.encode[0], r.gather[0], points_enc,
@@ -598,24 +627,24 @@ def forward_dpdist(params, state, cfg: DPDistConfig, pcA, pcB, *, noise=None,
     _check_grad(cfg, params, train, pcA, pcB, noise)
     state = _state(cfg, state)
     pcA_enc = pcA if noise is None else _prep(pcA + noise)
-    r = route(cfg, pcA.device.type, pcA.shape[1], pcB.shape[1], train=train)
+    r = route(cfg, route_device(pcA), pcA.shape[1], pcB.shape[1], train=train, batch=_batch(pcA))
     kw = dict(train=train, bn_momentum=bn_momentum)
     if r.mode == "full":
         # Both directions in one kernel call: volumes [A; B], queries [B; A].
         fv2 = torch.cat([_encode(cfg, r.encode[0], pcA_enc), _encode(cfg, r.encode[1], pcB)])
         pred = _fused_head(params, cfg, fv2, torch.cat([pcB, pcA]))
-        return (*torch.chunk(pred, 2, dim=0), {"decoder": {}})
+        return (*_halves(pred), {"decoder": {}})
     if r.mode == "mfv" and pcA.shape == pcB.shape:
         # Both directions in one kernel call: encode [A; B], query [B; A];
         # its 2B output is also the BN decoder's batch.
         args = (cfg.embedding_size, cfg.sigma, cfg.grid_size, cfg.k)
-        x2 = mfv_x(torch.cat([pcA_enc, pcB]), torch.cat([pcB, pcA]), *args,
-                   dtype=DTYPES[cfg.dtype])[0]
+        x2 = dispatch(mfv_x)(torch.cat([pcA_enc, pcB]), torch.cat([pcB, pcA]), *args,
+                             dtype=DTYPES[cfg.dtype])[0]
         _, maskAB, _ = voxel_assign(pcB, cfg.grid_size)
         _, maskBA, _ = voxel_assign(pcA, cfg.grid_size)
         y, dec_state = _decode(params, state, cfg, x2, **kw)
         pred = _activate(y, cfg, torch.cat([maskAB, maskBA]))
-        return (*torch.chunk(pred, 2, dim=0), {"decoder": dec_state})
+        return (*_halves(pred), {"decoder": dec_state})
     xAB, maskAB, _ = _direction_input(params, state, cfg, r.encode[0], r.gather[0], pcA_enc,
                                       pcB, **kw)                  # B's points vs surface(A)
     xBA, maskBA, enc_state = _direction_input(params, state, cfg, r.encode[1], r.gather[1],
@@ -624,7 +653,7 @@ def forward_dpdist(params, state, cfg: DPDistConfig, pcA, pcB, *, noise=None,
         # One 2B batch through the decoder: the reference's
         # tf.concat([net, netB], 0) batch statistics.
         y, dec_state = _decode(params, state, cfg, torch.cat([xAB, xBA]), **kw)
-        yAB, yBA = torch.chunk(y, 2, dim=0)
+        yAB, yBA = _halves(y)
     else:
         # BN off: each decoder row is independent, so the directions
         # decode separately.

@@ -48,10 +48,12 @@ def chamfer_distance(pc1, pc2, *, sqrt: bool = True, impl: str = "auto"):
     """
     if impl not in ("auto", "plain"):
         raise ValueError(f"impl must be 'auto' or 'plain', got {impl!r}")
+    from dpdist_tpu_torch.kernels.ops import dispatch, route_device
+
     N, M = pc1.shape[1], pc2.shape[1]
-    if impl == "auto" and pc1.device.type == "cuda" and N * M >= KERNEL_MIN_PAIRS:
-        return chamfer_distance_kernel(pc1.to(torch.float32).contiguous(),
-                                       pc2.to(torch.float32).contiguous(), sqrt=sqrt)
+    if impl == "auto" and route_device(pc1) == "cuda" and N * M >= KERNEL_MIN_PAIRS:
+        return dispatch(chamfer_distance_kernel)(pc1.to(torch.float32).contiguous(),
+                                                 pc2.to(torch.float32).contiguous(), sqrt=sqrt)
     d = pairwise_sqdist(pc1, pc2)
     d1 = torch.amin(d, dim=2)
     d2 = torch.amin(d, dim=1)

@@ -87,9 +87,11 @@ def threedmfv(points: torch.Tensor, n_gaussians: int = 512, sigma: float = 0.125
               full_fv: bool = True) -> torch.Tensor:
     """The 3DmFV of (B, N, D) clouds, (B, G, C) float32 (or (B, C*G) with
     flatten), by the kernel or the plain encode (see the module docstring)."""
+    from dpdist_tpu_torch.kernels.ops import dispatch, route_device
+
     ok = kernel_computes(points.shape[-1], full_fv, normalize)
     if impl == "auto":
-        impl = ("kernel" if ok and points.device.type == "cuda"
+        impl = ("kernel" if ok and route_device(points) == "cuda"
                 and points.shape[1] >= KERNEL_MIN_POINTS else "plain")
     if impl == "plain":
         return threedmfv_plain(points, n_gaussians, sigma, flatten=flatten, normalize=normalize,
@@ -100,7 +102,8 @@ def threedmfv(points: torch.Tensor, n_gaussians: int = 512, sigma: float = 0.125
                              f"D={points.shape[-1]}, full_fv={full_fv}, normalize={normalize})")
         from dpdist_tpu_torch.kernels.threedmfv import threedmfv_kernel
 
-        fv = threedmfv_kernel(points.to(torch.float32).contiguous(), n_gaussians, sigma)
+        fv = dispatch(threedmfv_kernel)(points.to(torch.float32).contiguous(), n_gaussians,
+                                        sigma)
         return _flatten([fv]) if flatten else fv
     raise ValueError(f"impl must be 'auto', 'kernel' or 'plain', got {impl!r}")
 

@@ -415,6 +415,42 @@ def test_table_gather_kernel_matches_plain(cuda, B, N, g, k, C):
     assert torch.equal(out, table_gather_plain(fv, vox, g, k))
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_table_gather_kernel_past_65535_query_tiles(cuda, dtype):
+    """Fault 5: 2,097,152 queries a cloud (a 128^3 field) is 65,536 tiles of
+    32, one past the grid's y limit; the blocks stride over the tiles. A
+    small window (g = 2, k = 1, C = 1: an 8 MB output), exact, with the
+    vox of every query distinct from its neighbours'."""
+    B, N, g, k, C = 2, 128 ** 3, 2, 1, 1
+    r = np.random.default_rng(13)
+    fv = torch.as_tensor(r.normal(size=(B, g ** 3, C)).astype(np.float32), device=cuda)
+    vox = torch.as_tensor(r.integers(0, g ** 3, (B, N)).astype(np.int32), device=cuda)
+    before = table_gather.launches
+    out = table_gather(fv, vox, g, k, dtype=dtype)
+    torch.cuda.synchronize()
+    assert table_gather.launches == before + 1
+    assert torch.equal(out, table_gather_plain(fv, vox, g, k).to(dtype))
+
+
+@pytest.mark.gpu
+def test_table_gather_bwd_kernel_past_32_bit_cloud_offsets(cuda):
+    """Fault 5: row 3 addressed a cloud's grad rows with 32-bit offsets, so
+    it refused (N - 1) * 2,500 + 2,500 > 2^31 - 1 at k = 5, C = 20; such a
+    cloud now takes its 64-bit-offset instantiation. N = 860,000 (8.6 GB of
+    grad) against autograd of the plain gather, exactly: the grad holds
+    small integers, whose sums (below 2^24) are exact in any order."""
+    B, N, g, k, C = 1, 860_000, 8, 5, 20
+    assert (N - 1) * k ** 3 * C + k ** 3 * C > 2 ** 31 - 1
+    r = np.random.default_rng(14)
+    vox = torch.as_tensor(r.integers(0, g ** 3, (B, N)).astype(np.int32), device=cuda)
+    grad = torch.randint(-4, 5, (B, N, k ** 3 * C), dtype=torch.int8, device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(14)).float()
+    dfv = table_gather_bwd(vox, grad, g, k)
+    torch.cuda.synchronize()
+    assert torch.equal(dfv, table_gather_bwd_plain(vox, grad, g, k))
+
+
 def _cuda_kernels(fn, calls):
     """Names of the CUDA kernels that `calls` calls of fn launch, as
     torch.profiler records them (memsets and copies are not kernels)."""

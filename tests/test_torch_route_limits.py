@@ -20,6 +20,7 @@ from dpdist_tpu_torch.configs import DPDistConfig
 from dpdist_tpu_torch.kernels.fused_forward import (
     MAX_GRID,
     decoder_unfit,
+    fused_forward_batch_fits,
     fused_forward_fits,
     pack_decoder,
 )
@@ -27,6 +28,7 @@ from dpdist_tpu_torch.kernels.mfv_gather import MAX_GAUSSIANS, mfv_x_fits
 from dpdist_tpu_torch.kernels.table_gather import table_gather_fits
 from dpdist_tpu_torch.kernels.threedmfv import threedmfv_fits, threedmfv_kernel
 from dpdist_tpu_torch.models import init_dpdist
+from dpdist_tpu_torch.models import dpdist as model_dpdist
 from dpdist_tpu_torch.models.dpdist import Route, resolve_mode, route
 from dpdist_tpu_torch.serving import load_frozen_distance
 from dpdist_tpu_torch.train.checkpoint import params_to_numpy, save_checkpoint
@@ -113,6 +115,59 @@ def test_wrappers_called_directly_still_raise():
                       {"w": torch.zeros(40, 3), "b": torch.zeros(3)}])
     with pytest.raises(ValueError, match="at most 1024"):
         threedmfv_kernel(torch.zeros(1, 4, 3), 1331)
+
+
+# Fault 5: the limits that depend on N or B. Row 9 addresses the 2B
+# volumes and the 2B * N query rows with 32-bit offsets
+# (csrc/fused_forward.cu): at G * C = 10,240 the volumes bind up to
+# 2B = 209,714 clouds; at N = 20,000 the rows bind first.
+FULL_BF16 = DPDistConfig(fused_gather="full", dtype="bfloat16")
+F2 = ("fused_forward",) * 2
+
+
+@pytest.mark.parametrize("n,largest", [(64, 104_857), (20_000, 53_687)])
+def test_route_full_gives_way_past_row_9_batch_limit(n, largest):
+    g, C = FULL_BF16.grid_size, FULL_BF16.fv_channels
+    assert fused_forward_batch_fits(2 * largest, n, g, C)
+    assert not fused_forward_batch_fits(2 * (largest + 1), n, g, C)
+    fits = route(FULL_BF16, "cuda", n, n, batch=largest)
+    assert (fits.mode, fits.gather) == ("full", F2)
+    over = route(FULL_BF16, "cuda", n, n, batch=largest + 1)
+    assert over.mode == "table" and "fused_forward" not in over.gather
+    # A symbolic batch (an export's) is bounded by the export instead.
+    assert route(FULL_BF16, "cuda", n, n).mode == "full"
+
+
+@pytest.mark.parametrize("fused_gather", ["auto", "table"])
+@pytest.mark.parametrize("grad", [False, True])
+def test_route_keeps_row_6_for_two_million_queries(fused_gather, grad):
+    """128^3 = 2,097,152 queries a cloud (distance_field(resolution=128))
+    take row 6, now that it strides past the grid's 65,535 y-blocks, and its
+    adjoint (row 3) no longer bounds N: no direction gives way."""
+    cfg = DPDistConfig(fused_gather=fused_gather)
+    r = route(cfg, "cuda", 1024, 128 ** 3, grad=grad)
+    assert r == Route("table", ("threedmfv",) * 2, ("table_gather", "table_gather"))
+    assert route(cfg, "cuda", 64, 128 ** 3, grad=grad).gather == ("table_gather",
+                                                                   "table_gather_x")
+
+
+def test_forward_hands_route_its_batch(monkeypatch):
+    """forward_dpdist and apply_direction pass the batch of their clouds to
+    route, so row 9's batch limit is held before any launch."""
+    seen = []
+
+    def spy(*args, **kw):
+        seen.append(kw.get("batch"))
+        return route(*args, **kw)
+
+    monkeypatch.setattr(model_dpdist, "route", spy)
+    cfg = DPDistConfig(num_point=16, embedding_size=64, k=3, mlp=(32, 32, 32))
+    params, state = init_dpdist(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    a, b = (torch.as_tensor(c[:, :16]) for c in _clouds(5))
+    with torch.no_grad():
+        model_dpdist.forward_dpdist(params, state, cfg, a, b)
+        model_dpdist.apply_direction(params, cfg, a, b, state=state)
+    assert seen == [3, 3]
 
 
 def _clouds(seed, B=3, n=64):
