@@ -311,6 +311,26 @@ and the export_serving and run_serving CLIs.
                    at B = 1 and 64; then export_serving (in a background
                    process, a static batch of 8) -> run_serving --synthetic
                    chair --bench 20 on the card.
+ 27. data_parallel the port's parallelism (dpdist_tpu_torch/parallel). At
+                   world size 1 on NCCL (initialize_distributed with a file
+                   store): the canonical DPDist train step at B = 256 f32
+                   on the world's 1 x 1 mesh (no collective) equal bit for
+                   bit to the step with no mesh, the two timed in turns;
+                   the step's all_reduce of its flat loss-and-gradient
+                   buffer, exact over one rank, timed alone; the
+                   production PCRNet step on the frozen loss on the 1 x 1
+                   mesh against the step with no mesh; a 64^3 field on
+                   results/ckpt_best (pretransform "off") on the world's
+                   mesh; launches of rows 2, 3, 6 and 7 by name. Then two
+                   processes on the one card over gloo (NCCL refuses two
+                   ranks on one GPU; `chip_smoke.py --dp-worker RANK DIR`,
+                   started at the phase's start): the canonical step at
+                   B = DP_LOCAL_BATCH a process, its loss and params against
+                   the single-process step on the whole batch, both
+                   processes' params equal bit for bit, timed; and the 64^3
+                   field sharded over the points axis, gathered on both,
+                   against the unsharded field; their launches join the
+                   record. Multi-GPU NCCL is not exercised on one card.
 
 Every phase prints a start and an end line. A wall-clock guard ends the
 run with a non-zero exit naming the phase. The last lines are the
@@ -520,6 +540,16 @@ EXPORT_PARTS = (("portable_f32", "native_f32", "native_bf16_full", "native_grad"
                 ("portable_bf16", "policy_fixed", "policy_cli"),
                 ("portable_grad", "policy_early"))
 TOL_POLICY = 1e-5        # transforms and aligned clouds, program vs eager
+# Data parallelism on the one card: two processes over gloo, DP_LOCAL_BATCH
+# pairs each, held against the single-process step on the whole batch by
+# the JAX package's own bound on its data-parallel losses
+# (tests/test_train.py:71) and Adam's first-step criterion on the params
+# (within 2 lr; within 1e-6 on all but 1 % of them); the sharded field
+# within DP_TOL_FIELD of the unsharded one (the decoder's products run on
+# half the rows, so cuBLAS may sum in another order). Steps and fields timed
+# over DP_TIMED_RUNS calls; the workers stop after DP_WORKER_TIMEOUT_S.
+DP_WORLD, DP_LOCAL_BATCH, DP_TIMED_RUNS, DP_WORKER_TIMEOUT_S = 2, 64, 10, 150
+DP_LOSS_RTOL, DP_LOSS_ATOL, DP_TOL_FIELD = 2e-3, 1e-5, 1e-5
 
 _phase = "start"
 _children = []           # processes this run started, stopped at its end
@@ -754,7 +784,7 @@ def make_requests(rng, torch, dev, n_points=NP):
     return reqs
 
 
-def make_train_batch(rng, torch, dev):
+def make_train_batch(rng, torch, dev, batch=B_TRAIN):
     """One dataset batch in the reference's layout: batch_data (B, 6N, 3) =
     [surface(2N), near(2N), far(2N)] and labels (B, 4N) = [near_d, far_d],
     the distances of the near and far points to a SURFACE_POINTS-point
@@ -764,13 +794,13 @@ def make_train_batch(rng, torch, dev):
 
     fams = ("chair", "box", "sphere", "torus")
     surf = np.stack([synthetic_surface(fams[i % 4], seed=100 + i, n_points=SURFACE_POINTS) * 0.8
-                     for i in range(B_TRAIN)]).astype(np.float32)
+                     for i in range(batch)]).astype(np.float32)
     n2 = 2 * NP
-    pick = np.stack([rng.choice(SURFACE_POINTS, 2 * n2, replace=False) for _ in range(B_TRAIN)])
+    pick = np.stack([rng.choice(SURFACE_POINTS, 2 * n2, replace=False) for _ in range(batch)])
     samples = np.take_along_axis(surf, pick[..., None], axis=1)
     on_surface = samples[:, :n2]
-    near = samples[:, n2:] + rng.normal(0.0, 0.05, (B_TRAIN, n2, 3)).astype(np.float32)
-    far = rng.uniform(-1.0, 1.0, (B_TRAIN, n2, 3)).astype(np.float32)
+    near = samples[:, n2:] + rng.normal(0.0, 0.05, (batch, n2, 3)).astype(np.float32)
+    far = rng.uniform(-1.0, 1.0, (batch, n2, 3)).astype(np.float32)
     surf_t = torch.as_tensor(surf, device=dev)
     probes = torch.as_tensor(np.concatenate([near, far], axis=1), device=dev)
     labels = torch.cdist(probes, surf_t).amin(dim=-1).cpu().numpy()
@@ -869,6 +899,85 @@ def export_artifacts(out: Path, part: int) -> int:
         if ep is not None:
             save_exported(ep, str(out / f"{name}.pt2"))
     (out / f"times_{part}.json").write_text(json.dumps(times))
+    return 0
+
+
+def flat_params(tree):
+    """{path: tensor} of a tree, detached."""
+    from dpdist_tpu_torch.train.checkpoint import tree_flatten_with_paths
+
+    return {p: t.detach() for p, t in tree_flatten_with_paths(tree)}
+
+
+def dp_worker(rank: int, out: Path) -> int:
+    """One of DP_WORLD processes on the one card (run as `chip_smoke.py
+    --dp-worker RANK DIR` by the data_parallel phase), in a gloo group met
+    through a file store in DIR: the canonical DPDist train step on its
+    rows of DIR/batch.npz's global batch (one step, then DP_TIMED_RUNS
+    timed), and distance_field's 64^3 queries of results/ckpt_best sharded
+    over the points axis (pretransform "off", timed). Writes its launches,
+    times, loss and field to DIR/rank<RANK>.npz and .json."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from dpdist_tpu_torch.configs import DPDistConfig, TrainConfig
+    from dpdist_tpu_torch.eval.dense import dense_point_to_surface
+    from dpdist_tpu_torch.kernels import build
+    from dpdist_tpu_torch.kernels.table_gather import table_gather, table_gather_x
+    from dpdist_tpu_torch.kernels.threedmfv import threedmfv_kernel
+    from dpdist_tpu_torch.parallel import make_mesh
+    from dpdist_tpu_torch.train import load_dpdist_checkpoint, params_from_jax
+    from dpdist_tpu_torch.train.logging import NullLogger
+    from dpdist_tpu_torch.train.trainer import DPDistTrainer
+
+    torch.set_num_threads(1)
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    build.library()
+    dist.init_process_group("gloo", init_method=f"file://{out / 'gloo_store'}",
+                            world_size=DP_WORLD, rank=rank)
+    try:
+        inputs = np.load(out / "inputs.npz")
+        data, labels = inputs["data"], inputs["labels"]
+        counters = {"table_gather_x": table_gather_x, "table_gather": table_gather,
+                    "threedmfv": threedmfv_kernel}
+        res = {"launches": {}}
+        mesh = make_mesh(data=DP_WORLD, device=dev)
+        tr = DPDistTrainer(DPDistConfig(), TrainConfig(batch_size=data.shape[0], augment=False),
+                           run_dir=str(out / f"run{rank}"), mesh=mesh, logger=NullLogger(),
+                           device=dev)
+        for w in counters.values():
+            w.launches = 0
+        m = tr.train_step(data, labels)
+        res["loss"], res["grad_norm"] = float(m["loss"]), float(m["grad_norm"])
+        res["launches"]["step"] = {k: w.launches for k, w in counters.items()}
+        params = {p: t.cpu().clone().numpy() for p, t in flat_params(tr.params).items()}
+        res["step_ms"] = cuda_median_ms(lambda: tr.train_step(data, labels),
+                                        runs=DP_TIMED_RUNS, warmup=2)
+        cfg, p_np, s_np = load_dpdist_checkpoint(str(ROOT / NETS[0]))
+        dparams, dstate = params_from_jax(p_np, dev), params_from_jax(s_np, dev)
+        cloud = torch.as_tensor(inputs["cloud"], device=dev)
+        q = torch.as_tensor(inputs["queries"], device=dev)
+        pmesh = make_mesh(points=DP_WORLD, device=dev)
+
+        def field():
+            with torch.no_grad():
+                return dense_point_to_surface(dparams, cfg, cloud, q, state=dstate, mesh=pmesh,
+                                              pretransform="off")
+
+        for w in counters.values():
+            w.launches = 0
+        d = field()
+        torch.cuda.synchronize()
+        res["launches"]["field"] = {k: w.launches for k, w in counters.items()}
+        res["field_ms"] = cuda_median_ms(field, runs=3, warmup=1)
+        res["mesh"] = [mesh.index("data"), pmesh.index("points")]
+        np.savez(out / f"rank{rank}.npz", field=d.cpu().numpy(), **params)
+        (out / f"rank{rank}.json").write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
     return 0
 
 
@@ -2110,13 +2219,14 @@ def main() -> int:
         tmpl, src, pose6 = recipe.sample_batch(PCR_BATCH, random_points_prob=1.0, noise_prob=1.0)
         per_step = expected(table_gather_x=2, table_gather_bwd=1)
 
-        def pcr_trainer(name, mode=None):
+        def pcr_trainer(name, mode=None, mesh=None):
             cfg_, params_, state_ = dpdist_net
             d = os.path.join(tmp, name)
             return PCRNetTrainer(pcfg, ptcfg, loss_type="dpdist", train_single=True,
                                  dpdist=(cfg_.replace(fused_gather=mode) if mode else cfg_,
                                          params_, state_),
-                                 run_dir=d, device=dev, logger=RunLogger(d, echo=False))
+                                 run_dir=d, mesh=mesh, device=dev,
+                                 logger=RunLogger(d, echo=False))
 
         resumed = pcr_trainer("resumed")
         resumed.restore(str(ROOT / POLICY))
@@ -3493,6 +3603,190 @@ def main() -> int:
         del fixed, early, policy
     export_dir.cleanup()
 
+    with Phase("data_parallel"), tempfile.TemporaryDirectory() as tmp:
+        import torch.distributed as dist
+
+        from dpdist_tpu_torch.parallel import initialize_distributed, make_mesh
+
+        # The two gloo processes start first (they take seconds to import
+        # and reach the card) on inputs written here: the global batch of
+        # the canonical step, and the 64^3 field's cloud and queries.
+        check(dg["net"] == NETS[0], f"the dense phase's net {dg['net']} is not {NETS[0]}")
+        dp_dir = Path(tmp)
+        dp_data, dp_labels = make_train_batch(rng, torch, dev, batch=DP_WORLD * DP_LOCAL_BATCH)
+        np.savez(dp_dir / "inputs.npz", data=dp_data, labels=dp_labels, cloud=cloud_np,
+                 queries=q_np[None])
+        workers = []
+        for r in range(DP_WORLD):
+            with open(dp_dir / f"worker{r}.log", "w") as log:
+                workers.append(subprocess.Popen(
+                    [sys.executable, str(Path(__file__).resolve()), "--dp-worker", str(r),
+                     str(dp_dir)], stdout=log, stderr=subprocess.STDOUT, cwd=str(ROOT),
+                    env={**os.environ, "LOCAL_RANK": "0"}))
+        _children.extend(workers)
+
+        # World size 1 on NCCL.
+        check(initialize_distributed(f"file://{dp_dir / 'nccl_store'}", 1, 0, device="cuda"),
+              "initialize_distributed did not start a group")
+        check(dist.get_backend() == "nccl", f"backend {dist.get_backend()}")
+        mesh1 = make_mesh(device="cuda")
+        data256, labels256 = make_train_batch(rng, torch, dev, batch=B_SERVE)
+        tcfg256 = TrainConfig(batch_size=B_SERVE, augment=False)
+
+        def dp_trainer(mesh=None):
+            return DPDistTrainer(DPDistConfig(), tcfg256, run_dir=os.path.join(tmp, "t"),
+                                 mesh=mesh, logger=RunLogger(os.path.join(tmp, "t"), echo=False),
+                                 device=dev)
+
+        # Every trainer step is the sharded step; on the world's 1 x 1 mesh
+        # it makes no collective and must equal the step with no mesh.
+        plain_tr, mesh_tr = dp_trainer(), dp_trainer(mesh1)
+        start_count()
+        m_plain = plain_tr.train_step(data256, labels256)
+        launched_plain = read_count()
+        start_count()
+        m_mesh = mesh_tr.train_step(data256, labels256)
+        launched_mesh = read_count()
+        same_params = all(torch.equal(a, b) for a, b in zip(
+            flat_params(plain_tr.params).values(), flat_params(mesh_tr.params).values()))
+        same = (torch.equal(m_plain["loss"], m_mesh["loss"])
+                and torch.equal(m_plain["grad_norm"], m_mesh["grad_norm"]) and same_params)
+        print(f"data_parallel, NCCL at world size 1: canonical step at B={B_SERVE} on the "
+              f"world's 1 x 1 mesh vs no mesh: loss {float(m_mesh['loss']):.7f} / "
+              f"{float(m_plain['loss']):.7f}, grad norm {float(m_mesh['grad_norm']):.6f} / "
+              f"{float(m_plain['grad_norm']):.6f}, params and metrics equal bit for bit: "
+              f"{same}; launches {launched_mesh} / {launched_plain}", flush=True)
+        check(same, "the step on the 1 x 1 mesh differs from the step with no mesh")
+        check(launched_plain == launched_mesh == expected(table_gather_x=1),
+              "data_parallel: unexpected launches of the canonical step")
+        # The step's all_reduce over one NCCL rank, on the flat buffer of the
+        # loss and the gradients that a data axis of n > 1 reduces: exact.
+        loss_g, grads_g = plain_tr.loss_and_grads(*plain_tr.make_batch(data256, labels256))
+        buf = torch.cat([loss_g.reshape(1), *(g.reshape(-1) for g in grads_g)])
+        reduced = buf.clone()
+        dist.all_reduce(reduced)
+        check(torch.equal(reduced, buf), "data_parallel: the all_reduce over one rank moved "
+              "the gradients")
+        turns = {"no mesh": [], "1 x 1 mesh": []}
+        for name_ in ("no mesh", "1 x 1 mesh", "1 x 1 mesh", "no mesh"):
+            fn = {"no mesh": lambda: plain_tr.train_step(data256, labels256),
+                  "1 x 1 mesh": lambda: mesh_tr.train_step(data256, labels256)}[name_]
+            turns[name_].append(cuda_median_ms(fn, runs=DP_TIMED_RUNS, warmup=2))
+        reduce_ms = cuda_median_ms(lambda: dist.all_reduce(reduced), runs=DP_TIMED_RUNS,
+                                   warmup=2)
+        print(f"data_parallel: canonical train step at B={B_SERVE} f32 (dataset batch in, "
+              f"CUDA-event medians of {DP_TIMED_RUNS}, in turns A B B A), ms: " + "; ".join(
+                  f"{k} {v[0]:.4f}, {v[1]:.4f}" for k, v in turns.items())
+              + f"; the step's all_reduce alone ({buf.numel()} f32, "
+              f"{buf.numel() * 4 / 1e6:.1f} MB, exact over one rank) {reduce_ms:.4f} ms; "
+              f"on {card}", flush=True)
+        del plain_tr, mesh_tr, buf, reduced, grads_g
+
+        # The production PCRNet step on the frozen loss on the world's 1 x 1
+        # mesh, on train_pcrnet's first batch.
+        tmpl_dp, src_dp, pose6_dp = RegistrationDataset(
+            num_point=pcfg.num_point, **REG_RECIPE).sample_batch(
+                PCR_BATCH, random_points_prob=1.0, noise_prob=1.0)
+        pcr_plain, pcr_mesh = pcr_trainer("dp_plain"), pcr_trainer("dp_mesh", mesh=mesh1)
+        for t in (pcr_plain, pcr_mesh):
+            t.restore(str(ROOT / POLICY))
+        start_count()
+        mp_ = pcr_plain.train_step(tmpl_dp, src_dp, pose6_dp)
+        launched_pcr_plain = read_count()
+        start_count()
+        ms_ = pcr_mesh.train_step(tmpl_dp, src_dp, pose6_dp)
+        launched_pcr = read_count()
+        err_pcr = abs(float(ms_["loss"]) - float(mp_["loss"])) / float(mp_["loss"])
+        err_pcr_gn = abs(float(ms_["grad_norm"]) - float(mp_["grad_norm"])) / float(
+            mp_["grad_norm"])
+        lr_pcr = ptcfg.learning_rate
+        pcr_off = [float((a - b).abs().max()) for a, b in zip(
+            flat_params(pcr_plain.params).values(), flat_params(pcr_mesh.params).values())]
+        print(f"data_parallel: production PCRNet step (B={PCR_BATCH}, full BPTT, frozen loss) "
+              f"on the world's 1 x 1 mesh vs no mesh: loss rel |d| {err_pcr:.2e} (tol "
+              f"{TOL_PCR_LOSS}), grad norm rel |d| {err_pcr_gn:.2e}, params max |d| "
+              f"{max(pcr_off):.2e} (Adam's first step, tol 2 lr = {2 * lr_pcr:.0e}); launches "
+              f"{launched_pcr} / {launched_pcr_plain}", flush=True)
+        check(err_pcr <= TOL_PCR_LOSS and max(pcr_off) <= 2 * lr_pcr + 1e-6,
+              "data_parallel: the PCRNet step on the 1 x 1 mesh differs from the step with "
+              "no mesh")
+        check(launched_pcr == launched_pcr_plain == per_step,
+              "data_parallel: unexpected PCRNet launches")
+        del pcr_plain, pcr_mesh
+
+        # The 64^3 field on the world's mesh (1 x 1: the single-device path).
+        q_field = torch.as_tensor(q_np[None], device=dev)
+        start_count()
+        with torch.no_grad():
+            field1 = dense_point_to_surface(dparams, dcfg, cloud, q_field, state=dstate,
+                                            mesh=mesh1, pretransform="off")
+        launched_field1 = read_count()
+        check(launched_field1 == expected(threedmfv=1, table_gather=1),
+              f"data_parallel: field launches {launched_field1}")
+        dist.destroy_process_group()
+
+        # The single-process step on the whole batch of the two processes.
+        whole = dp_trainer()
+        m_whole = whole.train_step(dp_data, dp_labels)
+        whole_params = {p: t.cpu().clone().numpy() for p, t in flat_params(whole.params).items()}
+        try:
+            for w in workers:
+                w.wait(timeout=DP_WORKER_TIMEOUT_S)
+        finally:
+            for w in workers:
+                if w.poll() is None:
+                    w.kill()
+        for r, w in enumerate(workers):
+            if w.returncode != 0:
+                print((dp_dir / f"worker{r}.log").read_text()[-4000:], flush=True)
+            check(w.returncode == 0, f"dp worker {r} exited with {w.returncode}")
+        res = [json.loads((dp_dir / f"rank{r}.json").read_text()) for r in range(DP_WORLD)]
+        arrs = [np.load(dp_dir / f"rank{r}.npz") for r in range(DP_WORLD)]
+        loss_w = float(m_whole["loss"])
+        lr = tcfg256.learning_rate
+        off = total = 0
+        worst = 0.0
+        for p, want in whole_params.items():
+            got = arrs[0][p]
+            check(np.array_equal(got, arrs[1][p]), f"dp: params {p} differ between processes")
+            worst = max(worst, float(np.abs(got - want).max()))
+            off += int((np.abs(got - want) > 1e-6).sum())
+            total += want.size
+        loss_ok = abs(res[0]["loss"] - loss_w) <= DP_LOSS_ATOL + DP_LOSS_RTOL * abs(loss_w)
+        fields = [a["field"] for a in arrs]
+        err_field = float(np.abs(fields[0] - field1.cpu().numpy()).max())
+        print(f"data_parallel, {DP_WORLD} processes on the one card over gloo: canonical step "
+              f"at B={DP_LOCAL_BATCH} a process: loss {res[0]['loss']:.7f} / "
+              f"{res[1]['loss']:.7f} against {loss_w:.7f} for the single-process step on the "
+              f"{DP_WORLD * DP_LOCAL_BATCH}-pair batch (rtol {DP_LOSS_RTOL}), grad norm "
+              f"{res[0]['grad_norm']:.6f} / {float(m_whole['grad_norm']):.6f}; params equal "
+              f"between processes, {worst:.2e} max |d| from the whole step (tol 2 lr), "
+              f"{off} of {total} off by more than 1e-6; step {res[0]['step_ms']:.3f} / "
+              f"{res[1]['step_ms']:.3f} ms (CUDA-event medians of {DP_TIMED_RUNS}); launches "
+              f"{[r_['launches']['step'] for r_ in res]}", flush=True)
+        check(loss_ok and res[0]["loss"] == res[1]["loss"], "dp: loss off the whole step")
+        check(worst <= 2 * lr + 1e-6 and off < 0.01 * total, "dp: params off the whole step")
+        print(f"data_parallel: the 64^3 field sharded over the points axis of {DP_WORLD} "
+              f"processes (pretransform off): gathered fields equal on both: "
+              f"{np.array_equal(fields[0], fields[1])}; vs the unsharded field max |d| "
+              f"{err_field:.2e} (tol {DP_TOL_FIELD}); {res[0]['field_ms']:.3f} / "
+              f"{res[1]['field_ms']:.3f} ms a call (median of 3); launches "
+              f"{[r_['launches']['field'] for r_ in res]}; mesh indices "
+              f"{[r_['mesh'] for r_ in res]}; on {card}", flush=True)
+        check(np.array_equal(fields[0], fields[1]) and err_field <= DP_TOL_FIELD,
+              "dp: the sharded field is off the unsharded one")
+        for r_ in res:
+            check(r_["launches"]["step"] == {"table_gather_x": 1, "table_gather": 0,
+                                              "threedmfv": 0}, "dp: worker step launches")
+            check(r_["launches"]["field"] == {"table_gather_x": 0, "table_gather": 1,
+                                               "threedmfv": 1}, "dp: worker field launches")
+            for part in r_["launches"].values():
+                for k, v in part.items():
+                    launches[k] += v
+        check([r_["mesh"] for r_ in res] == [[r, r] for r in range(DP_WORLD)],
+              "dp: mesh indices")
+        del whole, arrs, fields, field1
+
     for r in records:
         r["launches"] = launches[r["name"]]
 
@@ -3509,6 +3803,8 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 4 and sys.argv[1] == "--export-artifacts":
         sys.exit(export_artifacts(Path(sys.argv[2]), int(sys.argv[3])))
+    if len(sys.argv) == 4 and sys.argv[1] == "--dp-worker":
+        sys.exit(dp_worker(int(sys.argv[2]), Path(sys.argv[3])))
     try:
         sys.exit(main())
     finally:

@@ -1,6 +1,11 @@
 """Shared CLI flags (port of dpdist_tpu/cli/common.py): the same flags and
 defaults, plus --device, which takes the place of the reference's
 DPDIST_PLATFORM hook (dpdist_tpu/cli/__init__.py, a JAX platform switch).
+
+The training CLIs run data-parallel under torchrun, one process per
+device (parallel.initialize_distributed, then mesh_from_args):
+
+    torchrun --nproc_per_node 4 -m dpdist_tpu_torch.cli.train_dpdist ...
 """
 
 from __future__ import annotations
@@ -69,8 +74,9 @@ def add_train_args(p: argparse.ArgumentParser):
     p.add_argument("--no_augment", action="store_true")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--data_parallel", type=int, default=0,
-                   help="devices on the data axis: 0 or 1, one device (data-parallel "
-                        "training is not ported yet)")
+                   help="processes on the data axis: 0 for every process of the run "
+                        "(torchrun's world; 1 without torchrun); any other value must "
+                        "equal the world size")
 
 
 def train_config_from_args(a) -> TrainConfig:
@@ -92,13 +98,15 @@ def train_config_from_args(a) -> TrainConfig:
     )
 
 
-def check_data_parallel(a) -> None:
-    """The port trains on one device: --data_parallel other than 0 or 1
-    raises (ROADMAP.md §1 item 9, parallelism)."""
-    if a.data_parallel not in (0, 1):
-        raise NotImplementedError(
-            f"--data_parallel {a.data_parallel}: data-parallel training is not ported yet "
-            "(ROADMAP.md §1 item 9, parallelism); use 0 or 1")
+def mesh_from_args(a):
+    """The data-parallel mesh of --data_parallel on --device: 0 puts every
+    process of the run on the data axis; another value that is not the
+    world size raises ValueError (one process per device)."""
+    from dpdist_tpu_torch.parallel import make_mesh
+    from dpdist_tpu_torch.parallel.distributed import world_size
+
+    return make_mesh(data=a.data_parallel if a.data_parallel > 0 else world_size(),
+                     device=a.device)
 
 
 def load_pcrnet_checkpoint_state(path: str):

@@ -8,8 +8,9 @@ than dpdist).
         --data_root data/synthetic --category chair --log_dir runs/aue
 
 The learning rate is max(--learning_rate, 1e-3), as the reference's. Runs
-on the card unless --device cpu is given; --data_parallel other than 0 or
-1 raises (data-parallel training is not ported yet).
+on the card unless --device cpu is given; under torchrun data-parallel,
+one process per card (--data_parallel 0 takes every process, another
+value must equal the world size; rank 0 writes the checkpoints and logs).
 """
 
 from __future__ import annotations
@@ -19,9 +20,10 @@ import argparse
 from dpdist_tpu_torch.cli.common import (
     add_device_arg,
     add_train_args,
-    check_data_parallel,
+    mesh_from_args,
     train_config_from_args,
 )
+from dpdist_tpu_torch.parallel import initialize_distributed
 from dpdist_tpu_torch.train.checkpoint import load_dpdist_checkpoint
 
 __all__ = ["load_dpdist_checkpoint", "main"]
@@ -50,7 +52,8 @@ def main(argv=None):
                         "improvement")
     add_device_arg(p)
     a = p.parse_args(argv)
-    check_data_parallel(a)
+    initialize_distributed(device=a.device)
+    mesh = mesh_from_args(a)
 
     from dpdist_tpu_torch import resolve_device
     from dpdist_tpu_torch.configs import AUEConfig
@@ -62,7 +65,7 @@ def main(argv=None):
     tcfg = train_config_from_args(a).replace(learning_rate=max(a.learning_rate, 1e-3))
     acfg = AUEConfig(num_point=a.num_point, encoder=a.encoder_aue)
     trainer = AUETrainer(acfg, tcfg, dcfg, dparams, dstate, opt_type=a.opt_type,
-                         run_dir=a.log_dir, device=a.device)
+                         run_dir=a.log_dir, mesh=mesh, device=a.device)
     if a.resume:
         trainer.restore(a.resume)
     ds, test_ds = (SurfacePairDataset(a.data_root, batch_size=tcfg.batch_size,

@@ -5,11 +5,17 @@ train_multi_gpu_pc_compare_dist.py, phase 1).
         --log_dir runs/dpdist --max_epoch 201 [--dtype bfloat16] [--resume]
     python -m dpdist_tpu_torch.cli.train_dpdist --device cpu ...
 
-Trains on one device, the card unless --device cpu is given, from a
-dataset that gen_data wrote. --resume restores the newest checkpoint under
---log_dir; --archive_to copies ckpt_best to a base path on every
-improvement. Its checkpoints load in serving.load_frozen_distance and in
-the JAX package's restore_checkpoint.
+Trains on the card unless --device cpu is given, from a dataset that
+gen_data wrote; under torchrun data-parallel, one process per card
+(--data_parallel 0 takes every process; rank 0 writes the checkpoints and
+logs):
+
+    torchrun --nproc_per_node 4 -m dpdist_tpu_torch.cli.train_dpdist ...
+
+--resume restores the newest checkpoint under --log_dir; --archive_to
+copies ckpt_best to a base path on every improvement. Its checkpoints load
+in serving.load_frozen_distance and in the JAX package's
+restore_checkpoint.
 """
 
 from __future__ import annotations
@@ -20,10 +26,11 @@ from dpdist_tpu_torch.cli.common import (
     add_device_arg,
     add_dpdist_model_args,
     add_train_args,
-    check_data_parallel,
+    mesh_from_args,
     dpdist_config_from_args,
     train_config_from_args,
 )
+from dpdist_tpu_torch.parallel import initialize_distributed
 
 
 def main(argv=None):
@@ -43,14 +50,15 @@ def main(argv=None):
                         "improvement, e.g. results/dpdist_multi")
     add_device_arg(p)
     a = p.parse_args(argv)
-    check_data_parallel(a)
+    initialize_distributed(device=a.device)
+    mesh = mesh_from_args(a)
 
     from dpdist_tpu_torch.data.modelnet import SurfacePairDataset
     from dpdist_tpu_torch.train.trainer import DPDistTrainer
 
     mcfg = dpdist_config_from_args(a)
     tcfg = train_config_from_args(a)
-    trainer = DPDistTrainer(mcfg, tcfg, run_dir=a.log_dir, device=a.device)
+    trainer = DPDistTrainer(mcfg, tcfg, run_dir=a.log_dir, mesh=mesh, device=a.device)
     if a.resume:
         trainer.restore()
 

@@ -10,8 +10,10 @@ originals are iterative_PCRNet_ours.py and iterative_PCRNet.py).
 
 --loss_type dpdist trains on the frozen DPDist loss (on the card, its
 table-gather and adjoint kernels); chamfer and emd are the baselines.
-Runs on the card unless --device cpu is given; --data_parallel other than
-0 or 1 raises (data-parallel training is not ported yet).
+Runs on the card unless --device cpu is given; under torchrun
+data-parallel, one process per card (--data_parallel 0 takes every
+process, another value must equal the world size; rank 0 writes the
+checkpoints and logs).
 """
 
 from __future__ import annotations
@@ -21,9 +23,10 @@ import argparse
 from dpdist_tpu_torch.cli.common import (
     add_device_arg,
     add_train_args,
-    check_data_parallel,
+    mesh_from_args,
     train_config_from_args,
 )
+from dpdist_tpu_torch.parallel import initialize_distributed
 
 
 def main(argv=None):
@@ -74,7 +77,8 @@ def main(argv=None):
                         "improvement")
     add_device_arg(p)
     a = p.parse_args(argv)
-    check_data_parallel(a)
+    initialize_distributed(device=a.device)
+    mesh = mesh_from_args(a)
 
     from dpdist_tpu_torch.configs import PCRNetConfig
     from dpdist_tpu_torch.data.registration import RegistrationDataset
@@ -93,7 +97,7 @@ def main(argv=None):
     trainer = PCRNetTrainer(pcfg, tcfg, loss_type=a.loss_type, dpdist=dpdist,
                             train_single=a.train_single, action_reg=a.action_reg,
                             fp_reg=a.fp_reg, fp_steps=a.fp_steps, run_dir=a.log_dir,
-                            device=a.device)
+                            mesh=mesh, device=a.device)
     if a.resume:
         trainer.restore(a.resume)
     ds_kw = dict(h5_path=a.templates_h5, families=tuple(a.families),

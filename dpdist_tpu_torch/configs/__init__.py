@@ -1,3 +1,9 @@
-from dpdist_tpu_torch.configs.config import AUEConfig, DPDistConfig, PCRNetConfig, TrainConfig
+from dpdist_tpu_torch.configs.config import (
+    AUEConfig,
+    DPDistConfig,
+    MeshConfig,
+    PCRNetConfig,
+    TrainConfig,
+)
 
-__all__ = ["AUEConfig", "DPDistConfig", "PCRNetConfig", "TrainConfig"]
+__all__ = ["AUEConfig", "DPDistConfig", "MeshConfig", "PCRNetConfig", "TrainConfig"]

@@ -130,3 +130,21 @@ class TrainConfig(_JsonMixin):
     seed: int = 0
     log_every: int = 10
     checkpoint_every_epochs: int = 10
+
+
+@dataclass(frozen=True)
+class MeshConfig(_JsonMixin):
+    """Device mesh layout (parallel.make_mesh).
+
+    data:   the data-parallel axis: the batch is sharded over it and the
+            gradients averaged by one all_reduce.
+    points: the query-point axis of dense evaluation: each query is
+            independent given the embedding, so N shards over it.
+    """
+
+    data: int = 1
+    points: int = 1
+
+    @property
+    def num_devices(self) -> int:
+        return self.data * self.points

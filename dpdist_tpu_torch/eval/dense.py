@@ -1,6 +1,4 @@
-"""Dense point-to-surface evaluation (port of dpdist_tpu/eval/dense.py on
-one device; the reference's `points` mesh axis, which shards the query
-axis, comes with the port of its parallelism, ROADMAP.md §1 item 9).
+"""Dense point-to-surface evaluation (port of dpdist_tpu/eval/dense.py).
 
 Every query point is scored independently against one encoded surface, so
 10^5-10^6 queries (a distance field for level-set surface extraction, or
@@ -28,12 +26,19 @@ Two paths, as the reference's:
     computes it outside any kernel.
 Both run the decoder in float32 on an input rounded to cfg.dtype, as the
 reference's dense path does (it never casts the decoder).
+
+With a mesh whose 'points' axis holds P > 1 processes (parallel.make_mesh)
+the N queries shard over it, as the reference's shard_map does: every
+process encodes the cloud (replicated work), decodes its contiguous N / P
+queries on either path, and an all_gather along the axis returns the whole
+(B, N) to every process. N must divide by P.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from dpdist_tpu_torch.configs import DPDistConfig
 from dpdist_tpu_torch.models.dpdist import (
@@ -49,9 +54,6 @@ from dpdist_tpu_torch.models.dpdist import (
 )
 from dpdist_tpu_torch.nn.layers import dense_apply
 from dpdist_tpu_torch.ops.voxel import gather_patches, voxel_assign
-
-MESH = ("a mesh (the reference's 'points' axis) is not ported yet: dense evaluation runs on "
-        "one device (ROADMAP.md §1 item 9, parallelism)")
 
 
 def _decode_queries(params, state, cfg: DPDistConfig, cloud, queries, encode: str,
@@ -84,30 +86,43 @@ def dense_point_to_surface(params, cfg: DPDistConfig, cloud, queries, *, state=N
     k > 0).
 
     state: the BN state (None for a config without BN); the net runs in
-    eval mode. pretransform: "auto" | "on" | "off", fold the first decoder
-    layer into the patch table (conv_version 1 without BN, k > 0 only;
-    "auto" at N >= 4 embedding_size). A mesh raises NotImplementedError.
+    eval mode. mesh: a parallel.Mesh; its 'points' axis shards the queries
+    (N must divide by it, else ValueError). pretransform: "auto" | "on" |
+    "off", fold the first decoder layer into the patch table (conv_version
+    1 without BN, k > 0 only; "auto" at N >= 4 embedding_size).
     """
-    if mesh is not None:
-        raise NotImplementedError(MESH)
     if pretransform not in ("auto", "on", "off"):
         raise ValueError(f"pretransform must be 'auto', 'on' or 'off', got {pretransform!r}")
+    npoints = 1 if mesh is None else mesh.shape["points"]
+    if queries.shape[1] % npoints:
+        raise ValueError(f"query axis {queries.shape[1]} not divisible by points={npoints}")
     check_ported(cfg)
     state = _state(cfg, state)
     cloud, queries = _prep(cloud), _prep(queries)
-    # AB: the queries against the surface of the cloud.
-    r = route(cfg if cfg.fused_gather == "off" else cfg.replace(fused_gather="table"),
-              cloud.device.type, cloud.shape[1], queries.shape[1])
     can_pre = cfg.k > 0 and cfg.conv_version != 3 and not cfg.use_bn
     use_pre = can_pre and (pretransform == "on" or (
         pretransform == "auto" and queries.shape[1] >= 4 * cfg.embedding_size))
+    if npoints > 1:
+        n = queries.shape[1] // npoints
+        i = mesh.index("points")
+        queries = queries[:, i * n:(i + 1) * n].contiguous()
+    # AB: the queries against the surface of the cloud (this process's
+    # queries on a mesh, as the reference routes inside its shard_map).
+    r = route(cfg if cfg.fused_gather == "off" else cfg.replace(fused_gather="table"),
+              cloud.device.type, cloud.shape[1], queries.shape[1])
     if not use_pre:
-        return _decode_queries(params, state, cfg, cloud, queries, r.encode[0], r.gather[0])
-    table, _ = dpdist_embed(params, state, cfg, cloud, encode=r.encode[0])
-    first = params["decoder"]["layers"][0]
-    table_w1 = torch.matmul(table.to(torch.float32), first["w"][cfg.dims:])
-    return _decode_queries_pretransformed(params, cfg, queries, table_w1,
-                                          first["w"][:cfg.dims], first["b"])
+        d = _decode_queries(params, state, cfg, cloud, queries, r.encode[0], r.gather[0])
+    else:
+        table, _ = dpdist_embed(params, state, cfg, cloud, encode=r.encode[0])
+        first = params["decoder"]["layers"][0]
+        table_w1 = torch.matmul(table.to(torch.float32), first["w"][cfg.dims:])
+        d = _decode_queries_pretransformed(params, cfg, queries, table_w1,
+                                           first["w"][:cfg.dims], first["b"])
+    if npoints == 1:
+        return d
+    parts = [torch.empty_like(d) for _ in range(npoints)]
+    dist.all_gather(parts, d.contiguous(), group=mesh.group("points"))
+    return torch.cat(parts, dim=1)
 
 
 def distance_field(params, cfg: DPDistConfig, cloud, *, state=None, resolution: int = 64,
@@ -115,7 +130,8 @@ def distance_field(params, cfg: DPDistConfig, cloud, *, state=None, resolution: 
     """The learned distance on a dense regular grid: (B, R, R, R) for R =
     resolution points per axis over [-extent, extent], the implicit field
     for level-set / marching-cubes extraction from a trained DPDist. The
-    queries are ordered (x, y, z) with z fastest (meshgrid "ij")."""
+    queries are ordered (x, y, z) with z fastest (meshgrid "ij"); a mesh's
+    'points' axis shards them (dense_point_to_surface)."""
     r = np.linspace(-extent, extent, resolution).astype(np.float32)
     X, Y, Z = np.meshgrid(r, r, r, indexing="ij")
     q = torch.as_tensor(np.stack([X, Y, Z], -1).reshape(1, -1, 3), device=cloud.device)

@@ -1,6 +1,6 @@
-"""The autoencoder trained on the frozen DPDist loss, on one device (port of
-AUETrainer, dpdist_tpu/train/aue_trainer.py; data-parallel training comes
-with the port of dpdist_tpu/parallel).
+"""The autoencoder trained on the frozen DPDist loss (port of AUETrainer,
+dpdist_tpu/train/aue_trainer.py), on one device or data-parallel over a
+mesh.
 
     trainer = AUETrainer(AUEConfig(encoder="3dmfv"), TrainConfig(), dcfg, dparams, dstate,
                          opt_type="ours")
@@ -20,14 +20,18 @@ the "ours" step's frozen loss runs the table-gather kernel twice (both
 directions) and its adjoint once (the gradient reaches the reconstruction
 through surface(rec)); chamfer at 64 points is the plain path.
 
-A step is the reference's sharded step body on one device
-(dpdist_tpu/parallel/shard.py:53-66, without the pmean): the loss and its
-gradients in the AUE's params, one optimizer update (make_optimizer: Adam
-with the staircase LR by default), the new BN state (EMA, detached) and
-the gradient's global norm. The monitor (DPDist and squared chamfer of the
-eval-mode reconstruction, outside autograd) and the checkpoints ({"params",
-"state"}, aue_config and opt_type in the metadata) are the reference's, so
-either package restores the other's checkpoints.
+A step is the reference's sharded step body (dpdist_tpu/parallel/shard.py:
+53-66): the loss and its gradients in the AUE's params, one optimizer
+update (make_optimizer: Adam with the staircase LR by default), the new BN
+state (EMA, detached) and the gradient's global norm, built by
+parallel.build_sharded_train_step. On one device it makes no collective
+(no pmean); on a mesh whose 'data' axis holds n > 1 processes every
+process takes its rows of the pair batch and the step averages the
+gradients, the loss and the state over the axis; rank 0 alone writes
+checkpoints and logs. The monitor (DPDist and squared chamfer of the
+eval-mode reconstruction, outside autograd) and the checkpoints
+({"params", "state"}, aue_config and opt_type in the metadata) are the
+reference's, so either package restores the other's checkpoints.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ from dpdist_tpu_torch.losses.dpdist_loss import make_frozen_dpdist_loss
 from dpdist_tpu_torch.models.aue import apply_aue, init_aue
 from dpdist_tpu_torch.nn.layers import params_to_device
 from dpdist_tpu_torch.ops.chamfer import chamfer_distance
+from dpdist_tpu_torch.parallel import build_sharded_train_step, local_mesh, replicate, shard_batch
 from dpdist_tpu_torch.train.checkpoint import (
     archive_checkpoint,
     archived_meta,
@@ -52,7 +57,7 @@ from dpdist_tpu_torch.train.checkpoint import (
     save_checkpoint,
     tree_flatten_with_paths,
 )
-from dpdist_tpu_torch.train.logging import RunLogger
+from dpdist_tpu_torch.train.logging import NullLogger, RunLogger
 from dpdist_tpu_torch.train.optim import make_optimizer
 
 OPT_TYPES = ("ours", "chamfer")
@@ -71,11 +76,13 @@ def split_same_surface(batch_data: np.ndarray):
 class AUETrainer:
     def __init__(self, aue_cfg: AUEConfig, train_cfg: TrainConfig, dpdist_cfg: DPDistConfig,
                  dpdist_params, dpdist_state=None, *, opt_type: str = "ours",
-                 run_dir: str = "runs/aue", logger: Optional[RunLogger] = None, device="cuda"):
+                 run_dir: str = "runs/aue", mesh=None, logger: Optional[RunLogger] = None,
+                 device="cuda"):
         """dpdist_params, dpdist_state: the frozen net's params and BN state
         as load_dpdist_checkpoint returns them (numpy leaves) or as the
         port's tensors (the state None for a net without BN). The AUE starts
-        from init_aue with a generator seeded with train_cfg.seed."""
+        from init_aue with a generator seeded with train_cfg.seed. mesh: a
+        parallel.Mesh (None: one device)."""
         if opt_type not in OPT_TYPES:
             raise ValueError(f"opt_type must be one of {OPT_TYPES}, got {opt_type!r}")
         self.device = resolve_device(device)
@@ -83,14 +90,18 @@ class AUETrainer:
         self.tcfg = train_cfg
         self.opt_type = opt_type
         self.run_dir = run_dir
-        self.logger = logger or RunLogger(run_dir, config_json=aue_cfg.to_json(),
-                                          name=f"train_aue_{opt_type}")
+        self.mesh = mesh if mesh is not None else local_mesh(self.device)
+        self.logger = logger or (RunLogger(run_dir, config_json=aue_cfg.to_json(),
+                                           name=f"train_aue_{opt_type}")
+                                 if self.mesh.writes else NullLogger())
         self.params, self.state = init_aue(
             aue_cfg, torch.Generator().manual_seed(train_cfg.seed), self.device)
         for _, t in tree_flatten_with_paths(self.params):
             t.requires_grad_(True)
+        replicate({"params": self.params, "state": self.state}, self.mesh)
         self.optimizer = make_optimizer(train_cfg, base_lr=train_cfg.learning_rate)
-        self.opt_state = self.optimizer.init(self.params)
+        init_opt, self._step = build_sharded_train_step(self.step_loss, self.optimizer, self.mesh)
+        self.opt_state = init_opt(self.params)
         self.global_step = 0
         self._dp_loss = make_frozen_dpdist_loss(
             params_to_device(dpdist_params, self.device), dpdist_cfg,
@@ -110,6 +121,10 @@ class AUETrainer:
         # squared chamfer, the reference's chmafer_dist (:912-916)
         return chamfer_distance(x1, rec, sqrt=False), new_state
 
+    def step_loss(self, params, state, batch):
+        """(the train loss, the new BN state) of batch = (x1, x2)."""
+        return self.loss(params, state, *batch)
+
     def loss_grads_state(self, x1, x2):
         """The train loss, its gradients in the params (in the order of
         tree_flatten_with_paths(self.params)) and the new BN state."""
@@ -122,11 +137,11 @@ class AUETrainer:
     def train_step(self, batch_data):
         """One optimizer step on a dataset batch (B, 6N, 3); returns {"loss",
         "grad_norm"} as 0-d device tensors."""
-        loss, grads, self.state = self.loss_grads_state(*self._pair(batch_data))
-        self.opt_state = self.optimizer.step(self.params, grads, self.opt_state)
+        self.params, self.state, self.opt_state, metrics = self._step(
+            self.params, self.state, self.opt_state,
+            shard_batch(self._pair(batch_data), self.mesh))
         self.global_step += 1
-        gnorm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-        return {"loss": loss, "grad_norm": gnorm}
+        return metrics
 
     @torch.no_grad()
     def monitor(self, x1, x2):
@@ -212,7 +227,7 @@ class AUETrainer:
                 if np.isfinite(score) and score < best:
                     best = score
                     best_path = self.save(tag="best")
-                    if archive_to is not None:
+                    if archive_to is not None and self.mesh.writes:
                         archive_checkpoint(best_path, archive_to, metric=score,
                                            metric_name="eval_score",
                                            extra={"opt_type": self.opt_type})
@@ -223,11 +238,15 @@ class AUETrainer:
         return best_path or final
 
     def save(self, tag):
+        """Write aue_ckpt_<tag>; on a mesh rank 0 writes and every process
+        waits for it."""
         path = os.path.join(self.run_dir, f"aue_ckpt_{tag}")
-        save_checkpoint(path, {"params": self.params, "state": self.state},
-                        step=self.global_step,
-                        metadata={"aue_config": self.acfg.to_json(),
-                                  "opt_type": self.opt_type})
+        if self.mesh.writes:
+            save_checkpoint(path, {"params": self.params, "state": self.state},
+                            step=self.global_step,
+                            metadata={"aue_config": self.acfg.to_json(),
+                                      "opt_type": self.opt_type})
+        self.mesh.barrier()
         self.logger.log(f"checkpoint saved: {path}")
         return path
 

@@ -54,3 +54,17 @@ class RunLogger:
     def close(self):
         self._log.close()
         self._metrics.close()
+
+
+class NullLogger:
+    """The logger of a process that writes nothing: every rank of a
+    data-parallel run but rank 0 (train/trainer.py and the others)."""
+
+    def log(self, msg: str):
+        pass
+
+    def metrics(self, step: int, **scalars: Any):
+        pass
+
+    def close(self):
+        pass

@@ -1,6 +1,6 @@
-"""Iterative PCRNet training on one device (port of PCRNetTrainer,
-dpdist_tpu/train/pcrnet_trainer.py; data-parallel training comes with the
-port of dpdist_tpu/parallel).
+"""Iterative PCRNet training (port of PCRNetTrainer,
+dpdist_tpu/train/pcrnet_trainer.py), on one device or data-parallel over a
+mesh.
 
     trainer = PCRNetTrainer(PCRNetConfig(num_point=64), TrainConfig(),
                             loss_type="dpdist", dpdist=load_dpdist_checkpoint(ckpt))
@@ -40,6 +40,13 @@ clipping) and the checkpoint format ({"params", "state"} with
 pcrnet_config and loss_type in the metadata) are the reference's, so
 either package restores the other's checkpoints. Dropout is never applied,
 as in the reference, whose trainer passes no dropout key.
+
+Every step runs through parallel.build_sharded_train_step, which makes
+no collective on one device. Data parallelism (mesh with a 'data' axis of
+n > 1 processes): every process samples the same global batch and steps
+on its rows of template, source and (under fp_reg) pose6, the gradients,
+the loss and the BN state averaged over the axis before clipping and the
+update; rank 0 alone writes checkpoints and logs (train/trainer.py).
 """
 
 from __future__ import annotations
@@ -59,6 +66,7 @@ from dpdist_tpu_torch.models.pcrnet import init_pcrnet, init_pcrnet_state, pcrne
 from dpdist_tpu_torch.nn.layers import params_to_device
 from dpdist_tpu_torch.ops.chamfer import chamfer_distance
 from dpdist_tpu_torch.ops.emd import earth_mover_distance
+from dpdist_tpu_torch.parallel import build_sharded_train_step, local_mesh, replicate, shard_batch
 from dpdist_tpu_torch.train.checkpoint import (
     archive_checkpoint,
     archived_meta,
@@ -67,7 +75,7 @@ from dpdist_tpu_torch.train.checkpoint import (
     save_checkpoint,
     tree_flatten_with_paths,
 )
-from dpdist_tpu_torch.train.logging import RunLogger
+from dpdist_tpu_torch.train.logging import NullLogger, RunLogger
 from dpdist_tpu_torch.train.optim import make_optimizer
 
 LOSS_TYPES = ("dpdist", "chamfer", "emd")
@@ -85,12 +93,13 @@ class PCRNetTrainer:
     def __init__(self, pcfg: PCRNetConfig, tcfg: TrainConfig, *, loss_type: str = "chamfer",
                  dpdist: Optional[tuple] = None, train_single: bool = False,
                  action_reg: float = 0.0, fp_reg: float = 0.0, fp_steps: int = 4,
-                 run_dir: str = "runs/pcrnet", logger: Optional[RunLogger] = None,
+                 run_dir: str = "runs/pcrnet", mesh=None, logger: Optional[RunLogger] = None,
                  device="cuda"):
         """dpdist: (cfg, params, state) of the frozen net (state None for a
         net without BN), as load_dpdist_checkpoint returns it (numpy
         leaves) or with the port's tensors. The policy starts from init_pcrnet with a generator seeded
-        with tcfg.seed; restore() loads a checkpoint over it."""
+        with tcfg.seed; restore() loads a checkpoint over it. mesh: a
+        parallel.Mesh (None: one device)."""
         if loss_type not in LOSS_TYPES:
             raise ValueError(f"loss_type must be one of {LOSS_TYPES}, got {loss_type!r}")
         if loss_type == "dpdist" and dpdist is None:
@@ -107,14 +116,18 @@ class PCRNetTrainer:
         self.fp_reg = fp_reg
         self.fp_steps = fp_steps
         self.run_dir = run_dir
-        self.logger = logger or RunLogger(run_dir, config_json=pcfg.to_json(),
-                                          name=f"train_pcrnet_{loss_type}")
+        self.mesh = mesh if mesh is not None else local_mesh(self.device)
+        self.logger = logger or (RunLogger(run_dir, config_json=pcfg.to_json(),
+                                           name=f"train_pcrnet_{loss_type}")
+                                 if self.mesh.writes else NullLogger())
         self.params = params_to_device(
             init_pcrnet(pcfg, torch.Generator().manual_seed(tcfg.seed), self.device),
             self.device, requires_grad=True)
         self.state = init_pcrnet_state(pcfg, self.device)
+        replicate({"params": self.params, "state": self.state}, self.mesh)
         self.optimizer = make_optimizer(tcfg, base_lr=tcfg.learning_rate)
-        self.opt_state = self.optimizer.init(self.params)
+        init_opt, self._step = build_sharded_train_step(self.step_loss, self.optimizer, self.mesh)
+        self.opt_state = init_opt(self.params)
         self.global_step = 0
         self._dp_loss = None
         if loss_type == "dpdist":
@@ -147,6 +160,8 @@ class PCRNetTrainer:
     def loss(self, params, template, source, pose6=None, state=None):
         """(the train loss of one batch, the new BN state); tensors on the
         device, `state` the BN state before the step."""
+        if self.fp_reg and pose6 is None:
+            raise ValueError("fp_reg training needs the gt pose6 batch")
         cfg = self.pcfg
         if self.train_single:
             _, _, poses, traj, new_state = pcrnet_refine(
@@ -166,6 +181,11 @@ class PCRNetTrainer:
             loss = loss + self.fp_reg * self._fp_penalty(params, state, template, source, pose6)
         return loss, new_state
 
+    def step_loss(self, params, state, batch):
+        """(the train loss, the new BN state) of batch = (template, source,
+        pose6)."""
+        return self.loss(params, *batch, state=state)
+
     def _batch(self, *arrays):
         """numpy arrays or tensors as float32 tensors on the device."""
         return tuple(None if a is None else
@@ -176,8 +196,6 @@ class PCRNetTrainer:
     def loss_grads_state(self, template, source, pose6=None):
         """The train loss, its gradients in the parameters (in the order of
         tree_flatten_with_paths(self.params)) and the new BN state."""
-        if self.fp_reg and pose6 is None:
-            raise ValueError("fp_reg training needs the gt pose6 batch")
         leaves = [t for _, t in tree_flatten_with_paths(self.params)]
         with torch.enable_grad():
             loss, new_state = self.loss(self.params, template, source, pose6, self.state)
@@ -193,11 +211,11 @@ class PCRNetTrainer:
         "grad_norm"} as 0-d device tensors, the norm before clipping."""
         template, source, pose6 = self._batch(template, source,
                                               pose6 if self.fp_reg else None)
-        loss, grads, self.state = self.loss_grads_state(template, source, pose6)
-        self.opt_state = self.optimizer.step(self.params, grads, self.opt_state)
+        self.params, self.state, self.opt_state, metrics = self._step(
+            self.params, self.state, self.opt_state,
+            shard_batch((template, source, pose6), self.mesh))
         self.global_step += 1
-        gnorm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-        return {"loss": loss, "grad_norm": gnorm}
+        return metrics
 
     @torch.no_grad()
     def monitor(self, template, source):
@@ -285,7 +303,7 @@ class PCRNetTrainer:
                 if err < best_err:
                     best_err = err
                     best_path = self.save(tag="best")
-                    if archive_to is not None:
+                    if archive_to is not None and self.mesh.writes:
                         archive_checkpoint(best_path, archive_to, metric=err,
                                            metric_name="select_err",
                                            extra={"select_family": select_family or ""})
@@ -294,11 +312,15 @@ class PCRNetTrainer:
         return best_path or final
 
     def save(self, tag):
+        """Write pcrnet_ckpt_<tag>; on a mesh rank 0 writes and every
+        process waits for it."""
         path = os.path.join(self.run_dir, f"pcrnet_ckpt_{tag}")
-        save_checkpoint(path, {"params": self.params, "state": self.state},
-                        step=self.global_step,
-                        metadata={"pcrnet_config": self.pcfg.to_json(),
-                                  "loss_type": self.loss_type})
+        if self.mesh.writes:
+            save_checkpoint(path, {"params": self.params, "state": self.state},
+                            step=self.global_step,
+                            metadata={"pcrnet_config": self.pcfg.to_json(),
+                                      "loss_type": self.loss_type})
+        self.mesh.barrier()
         self.logger.log(f"checkpoint saved: {path}")
         return path
 

@@ -1,6 +1,5 @@
-"""DPDist training on one device (port of DPDistTrainer,
-dpdist_tpu/train/trainer.py; data-parallel training comes with the port of
-dpdist_tpu/parallel).
+"""DPDist training (port of DPDistTrainer, dpdist_tpu/train/trainer.py), on
+one device or data-parallel over a mesh.
 
     trainer = DPDistTrainer(DPDistConfig(), TrainConfig(), run_dir="runs/dpdist")
     trainer.fit(train_dataset, test_dataset)
@@ -33,6 +32,16 @@ encoder's copy of pcA only, through the noise channel, with the
 reference's draws in its order (dpdist_tpu/train/trainer.py:83-106): one
 uniform per item, then data.registration.add_occlusions_np on the
 selected items, then the gaussian noise of add_noise.
+
+Data parallelism: with a mesh whose 'data' axis holds n > 1 processes
+(parallel.make_mesh; batch_size must divide by n) every process builds the
+same global batch, its draws included, and a step runs on the process's
+rows: the gradients, the loss and the new BN state averaged over the axis,
+BN normalising with local batch statistics as the reference's shard_map
+does. The params start from rank 0's (one broadcast). Rank 0 alone writes
+checkpoints and logs, and every process waits for a checkpoint's writing
+before going on. mesh=None is the single-device path, with no collective.
+Either way the step is the one parallel.build_sharded_train_step builds.
 """
 
 from __future__ import annotations
@@ -56,6 +65,7 @@ from dpdist_tpu_torch.models.dpdist import (
     resolve_for_grad,
 )
 from dpdist_tpu_torch.nn.layers import params_to_device
+from dpdist_tpu_torch.parallel import build_sharded_train_step, local_mesh, replicate, shard_batch
 from dpdist_tpu_torch.train.checkpoint import (
     archive_checkpoint,
     archived_metric,
@@ -66,29 +76,38 @@ from dpdist_tpu_torch.train.checkpoint import (
     save_checkpoint,
     tree_flatten_with_paths,
 )
-from dpdist_tpu_torch.train.logging import RunLogger
+from dpdist_tpu_torch.train.logging import NullLogger, RunLogger
 from dpdist_tpu_torch.train.optim import make_optimizer
 
 
 class DPDistTrainer:
     def __init__(self, model_cfg: DPDistConfig, train_cfg: TrainConfig, *,
-                 run_dir: str = "runs/dpdist", logger: Optional[RunLogger] = None,
+                 run_dir: str = "runs/dpdist", mesh=None, logger: Optional[RunLogger] = None,
                  device="cuda"):
         """Parameters and state start from init_dpdist with a generator
-        seeded with train_cfg.seed; restore() loads a checkpoint over them."""
+        seeded with train_cfg.seed; restore() loads a checkpoint over them.
+        mesh: a parallel.Mesh (None: one device)."""
         check_ported(model_cfg)
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else local_mesh(self.device)
+        ndata = self.mesh.shape["data"]
+        if train_cfg.batch_size % ndata:
+            raise ValueError(f"batch_size {train_cfg.batch_size} not divisible by data axis "
+                             f"{ndata}")
         self.mcfg = model_cfg
         self.tcfg = train_cfg
         self.run_dir = run_dir
-        self.logger = logger or RunLogger(
+        self.logger = logger or (RunLogger(
             run_dir, config_json='{"model": %s, "train": %s}' % (model_cfg.to_json(),
                                                                  train_cfg.to_json()))
+            if self.mesh.writes else NullLogger())
         params, self.state = init_dpdist(
             model_cfg, torch.Generator().manual_seed(train_cfg.seed), self.device)
         self._set_params(params)
+        replicate({"params": self.params, "state": self.state}, self.mesh)
         self.optimizer = make_optimizer(train_cfg)
-        self.opt_state = self.optimizer.init(self.params)
+        init_opt, self._step = build_sharded_train_step(self.step_loss, self.optimizer, self.mesh)
+        self.opt_state = init_opt(self.params)
         self.global_step = 0
         self._np_rng = np.random.default_rng(train_cfg.seed + 1)
         self._grad_cfg = resolve_for_grad(model_cfg, self.device)
@@ -99,9 +118,9 @@ class DPDistTrainer:
     # ------------------------------------------------------------------
 
     def make_batch(self, batch_data, batch_labels):
-        """(pcA, pcB, labels, noise) on the device from one dataset batch;
-        noise is None unless train_cfg asks for encoder occlusion or
-        add_noise > 0."""
+        """(pcA, pcB, labels, noise) on the device from one dataset batch
+        (the global batch on a mesh); noise is None unless train_cfg asks
+        for encoder occlusion or add_noise > 0."""
         pcA, pcB, labels = assemble_dpdist_batch(batch_data, batch_labels)
         noise = None
         tc = self.tcfg
@@ -119,33 +138,40 @@ class DPDistTrainer:
         return tuple(None if a is None else torch.as_tensor(a, device=self.device)
                      for a in (pcA, pcB, labels, noise))
 
+    def step_loss(self, params, state, batch):
+        """(the train loss, the new BN state) of batch = (pcA, pcB, labels,
+        noise)."""
+        pcA, pcB, labels, noise = batch
+        if self.mcfg.use_bn:
+            pred_AB, _, new_state = forward_dpdist(params, state, self._grad_cfg, pcA, pcB,
+                                                   noise=noise, train=True)
+        else:
+            pcA_enc = pcA if noise is None else pcA + noise
+            pred_AB = apply_direction(params, self._grad_cfg, pcA_enc, pcB, state=state,
+                                      train=True)
+            new_state = state
+        return l1_sample_loss(pred_AB, labels), new_state
+
     def loss_and_grads(self, pcA, pcB, labels, noise=None):
         """The train loss and its gradients in the parameters, in the
         order of tree_flatten_with_paths(self.params); with BN the new state
         replaces self.state."""
         leaves = [t for _, t in tree_flatten_with_paths(self.params)]
         with torch.enable_grad():
-            if self.mcfg.use_bn:
-                pred_AB, _, new_state = forward_dpdist(self.params, self.state, self._grad_cfg,
-                                                       pcA, pcB, noise=noise, train=True)
-            else:
-                pcA_enc = pcA if noise is None else pcA + noise
-                pred_AB = apply_direction(self.params, self._grad_cfg, pcA_enc, pcB,
-                                          state=self.state, train=True)
-                new_state = self.state
-            loss = l1_sample_loss(pred_AB, labels)
+            loss, new_state = self.step_loss(self.params, self.state, (pcA, pcB, labels, noise))
             grads = torch.autograd.grad(loss, leaves)
         self.state = new_state
         return loss.detach(), grads
 
     def train_step(self, batch_data, batch_labels):
         """One optimizer step; returns {"loss", "grad_norm"} as 0-d device
-        tensors (read them when the host needs them)."""
-        loss, grads = self.loss_and_grads(*self.make_batch(batch_data, batch_labels))
-        self.opt_state = self.optimizer.step(self.params, grads, self.opt_state)
+        tensors (read them when the host needs them). On a mesh the loss
+        and the norm are those of the averaged step."""
+        batch = shard_batch(self.make_batch(batch_data, batch_labels), self.mesh)
+        self.params, self.state, self.opt_state, metrics = self._step(
+            self.params, self.state, self.opt_state, batch)
         self.global_step += 1
-        gnorm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-        return {"loss": loss, "grad_norm": gnorm}
+        return metrics
 
     def train_epoch(self, dataset, epoch: int, *, prefetch: bool = True):
         # Per-step losses stay on the device and are read once per epoch;
@@ -225,7 +251,7 @@ class DPDistTrainer:
                 if np.isfinite(ev) and ev < best:
                     best = ev
                     path = self.save(tag="best")
-                    if archive_to is not None:
+                    if archive_to is not None and self.mesh.writes:
                         archive_checkpoint(path, archive_to, metric=ev, metric_name="eval_l1")
                         self.logger.log(f"archived -> {archive_to} (eval_l1 {ev:f})")
             if epoch % self.tcfg.checkpoint_every_epochs == 0:
@@ -235,12 +261,15 @@ class DPDistTrainer:
 
     def save(self, tag):
         """Write ckpt_<tag> in the reference's format ({"params", "state"};
-        the state of a BN-off model is empty and has no leaves)."""
+        the state of a BN-off model is empty and has no leaves); on a mesh
+        rank 0 writes and every process waits for it."""
         path = os.path.join(self.run_dir, f"ckpt_{tag}")
-        save_checkpoint(path, {"params": params_to_numpy(self.params),
-                               "state": params_to_numpy(self.state)},
-                        step=self.global_step,
-                        metadata={"model_config": self.mcfg.to_json()})
+        if self.mesh.writes:
+            save_checkpoint(path, {"params": params_to_numpy(self.params),
+                                   "state": params_to_numpy(self.state)},
+                            step=self.global_step,
+                            metadata={"model_config": self.mcfg.to_json()})
+        self.mesh.barrier()
         self.logger.log(f"checkpoint saved: {path}")
         return path
 

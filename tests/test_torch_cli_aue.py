@@ -2,9 +2,10 @@
 synthetic data: train_aue (the pn AUE at 16 points, both opt_types) trains
 for 2 epochs, keeps and archives its best checkpoint, resumes from a
 checkpoint that dpdist_tpu's train_aue wrote, and its checkpoints restore
-through the JAX package; --data_parallel other than 0 or 1 raises;
-compare_losses writes the report it returns. (The 3dmfv AUE's CLI runs
-at full width, 512 Gaussians; it runs on the card, in chip_smoke.py.)"""
+through the JAX package; --data_parallel other than the world size (1
+without torchrun) raises; compare_losses writes the report it returns.
+(The 3dmfv AUE's CLI runs at full width, 512 Gaussians; it runs on the
+card, in chip_smoke.py.)"""
 
 import json
 import os
@@ -80,7 +81,7 @@ def test_train_aue_resumes_from_a_jax_checkpoint(data_root, tmp_path):
 
 
 def test_train_aue_rejects_data_parallel(data_root, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(ValueError, match="world size 1"):
         train_aue.main(AUE + ["--data_root", data_root, "--log_dir", str(tmp_path),
                               "--data_parallel", "2", "--device", "cpu"])
 

@@ -128,6 +128,6 @@ def test_eval_matrix_cli(trained, tmp_path, capsys):
 
 
 def test_data_parallel_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 9"):
+    with pytest.raises(ValueError, match="world size 1"):
         train_pcrnet.main(TINY + ["--loss_type", "chamfer", "--data_parallel", "2",
                                   "--log_dir", str(tmp_path)])

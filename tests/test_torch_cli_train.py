@@ -110,7 +110,7 @@ def test_train_dpdist_trains_resumes_and_serves(data_root, tmp_path, dtype):
 
 
 def test_train_dpdist_rejects_data_parallel(data_root, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(ValueError, match="world size 1"):
         train_dpdist.main(TRAIN + ["--data_root", str(data_root / "mine"), "--log_dir",
                                    str(tmp_path), "--data_parallel", "2"])
 

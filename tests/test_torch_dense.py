@@ -114,10 +114,16 @@ def test_distance_field_matches_jax():
 
 
 def test_dense_refuses_a_mesh_and_unknown_modes():
+    """A points axis that does not divide the queries raises, as the
+    reference asserts (dpdist_tpu/eval/dense.py:94,121), before any
+    collective; so does an unknown pretransform mode."""
+    from dpdist_tpu_torch.parallel import Mesh
+
     _, (tcfg, tp, ts) = _net("canonical")
     cloud, q = (torch.as_tensor(c) for c in _clouds(3, 8))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        dense_point_to_surface(tp, tcfg, cloud, q, mesh=object())
+    three = Mesh({"data": 1, "points": 3}, torch.device("cpu"))
+    with pytest.raises(ValueError, match="not divisible by points=3"):
+        dense_point_to_surface(tp, tcfg, cloud, q, mesh=three)
     with pytest.raises(ValueError, match="pretransform"):
         dense_point_to_surface(tp, tcfg, cloud, q, pretransform="sometimes")
 

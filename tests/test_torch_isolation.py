@@ -41,7 +41,9 @@ def test_scan_covers_the_port():
                    "eval/__init__.py", "eval/registration.py", "eval/viz.py",
                    "train/pcrnet_trainer.py", "cli/train_pcrnet.py", "cli/eval_registration.py",
                    "cli/eval_matrix.py", "cli/make_templates.py", "serving.py",
-                   "kernels/ops.py", "cli/export_serving.py", "cli/run_serving.py"):
+                   "kernels/ops.py", "cli/export_serving.py", "cli/run_serving.py",
+                   "parallel/__init__.py", "parallel/mesh.py", "parallel/shard.py",
+                   "parallel/distributed.py", "eval/dense.py"):
         assert "dpdist_tpu_torch/" + module in names
     assert "chip_smoke.py" in names
     assert (ROOT / "dpdist_tpu_torch" / "native" / "src" / "pointcloud_native.cpp").is_file()
