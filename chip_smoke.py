@@ -26,7 +26,8 @@ compare_losses (the fused kernel), the blocked EMD and the 3dmfv PCRNet
 encoder; and the serving export: the frozen distance and the production
 policy as torch.export programs, portable (plain ops) and native (the
 kernels as torch.library ops), saved, loaded onto the card and served,
-and the export_serving and run_serving CLIs.
+and the export_serving and run_serving CLIs; the 3dmfv registration policy
+at full width as programs (row 7 inside the refinement loop).
 
   1. device        the card's name and power limit; fails without CUDA.
   2. build         compiles dpdist_tpu_torch/csrc (one nvcc per source,
@@ -311,6 +312,28 @@ and the export_serving and run_serving CLIs.
                    at B = 1 and 64; then export_serving (in a background
                    process, a static batch of 8) -> run_serving --synthetic
                    chair --bench 20 on the card.
+ 26b. serving_registration_3dmfv the 3dmfv policy at full width
+                   (PCRNetConfig(encoder="3dmfv"): num_point 1024, an 8^3
+                   grid, sigma 0.25, out_features 1024, head (1024, 512,
+                   256)) from seeded weights and a BN state off its init
+                   (policy3), under the production protocol (50
+                   iterations, the period0 stop). Row 7 on this path's
+                   clouds (B = 64 and 1, N = 1024) against the plain
+                   encode (TOL_X), both timed. Three programs exported in
+                   two more background processes: native (row 7's op inside
+                   the loop) fixed-length and early exit, portable
+                   fixed-length; at B = 64 and 1: native early exit equal
+                   to fixed-length bit for bit; each against the eager
+                   pcrnet_refine + accumulate_with_stopping at the same
+                   batch on the program's route (native: row 7; portable:
+                   the plain encode) within TOL_POLICY, with T_pred's
+                   spread over the batch printed and required above it;
+                   row-7 launches exact (1 for the hoisted template + 1 a
+                   trip, none portable); timed at B = 1 and 64 after the
+                   checked calls; then a 3dmfv checkpoint with its state
+                   through export_serving --native_kernels (background) ->
+                   run_serving --synthetic chair (one call) on the card,
+                   T_pred finite.
  27. data_parallel the port's parallelism (dpdist_tpu_torch/parallel). At
                    world size 1 on NCCL (initialize_distributed with a file
                    store): the canonical DPDist train step at B = 256 f32
@@ -355,7 +378,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-TIME_LIMIT_S = 300
+TIME_LIMIT_S = 420
 NETS = ("results/ckpt_best", "results/dpdist_multi_r4_ckpt_best")
 B_SERVE = 256            # pairs per request
 REQUESTS = 3
@@ -538,8 +561,21 @@ SERVE_TIMED_BATCH, SERVE_TIMED_RUNS, CLI_POLICY_BATCH = 64, 10, 8
 EXPORT_PARTS = (("portable_f32", "native_f32", "native_bf16_full", "native_grad", "native_on",
                  "native_f32_np256"),
                 ("portable_bf16", "policy_fixed", "policy_cli"),
-                ("portable_grad", "policy_early"))
+                ("portable_grad", "policy_early"),
+                ("policy3_native_fixed", "policy3_native_early"),
+                ("policy3_portable_fixed", "policy3_cli"))
 TOL_POLICY = 1e-5        # transforms and aligned clouds, program vs eager
+# The 3dmfv policy served as programs (serving_registration_3dmfv):
+# PCRNetConfig(encoder="3dmfv")'s defaults (num_point 1024, an 8^3 grid,
+# sigma 0.25, out_features 1024, head (1024, 512, 256)) under REG_STOP at
+# REG_ITERATIONS, from the weights init_pcrnet draws from
+# torch.Generator().manual_seed(POLICY3_SEED) and a BN state drawn after
+# them off its init (policy3). Each program against the eager refinement
+# at its batch on its route (native: row 7; portable: the plain encode)
+# within TOL_POLICY, and timed at B = 1 and SERVE_TIMED_BATCH (CUDA-event
+# medians of POLICY3_TIMED_RUNS calls after the checked calls).
+POLICY3_SEED, POLICY3_TIMED_RUNS, POLICY3_CLI_BATCH = 3, 3, 4
+POLICY3_PROGRAMS = ("native_fixed", "native_early", "portable_fixed")
 # Data parallelism on the one card: two processes over gloo, DP_LOCAL_BATCH
 # pairs each, held against the single-process step on the whole batch by
 # the JAX package's own bound on its data-parallel losses
@@ -850,17 +886,56 @@ def write_cloud(path, pts):
     np.savetxt(path, pts, delimiter=",", fmt="%.8g")
 
 
+def policy3(device):
+    """(cfg, params, state) of the 3dmfv policy at full width: init_pcrnet's
+    weights from torch.Generator().manual_seed(POLICY3_SEED), then from the
+    same generator a BN state off its init (running means N(0, 0.1^2),
+    variances U(0.5, 2)), so that the running statistics matter. Drawn on
+    the CPU, then moved to `device`: the same numbers everywhere."""
+    import torch
+
+    from dpdist_tpu_torch.configs import PCRNetConfig
+    from dpdist_tpu_torch.models.pcrnet import init_pcrnet, init_pcrnet_state
+    from dpdist_tpu_torch.nn import params_to_device
+
+    cfg = PCRNetConfig(encoder="3dmfv")
+    gen = torch.Generator().manual_seed(POLICY3_SEED)
+    params = init_pcrnet(cfg, gen, "cpu")
+    state = {"mfv_bn": [{k: {"mean": 0.1 * torch.randn(v["mean"].shape, generator=gen),
+                             "var": 0.5 + 1.5 * torch.rand(v["var"].shape, generator=gen)}
+                         for k, v in blk.items()}
+                        for blk in init_pcrnet_state(cfg, "cpu")["mfv_bn"]]}
+    return cfg, params_to_device(params, device), params_to_device(state, device)
+
+
+def _export_policy_cli(ckpt: str, out: Path, name: str, batch: int, *extra):
+    """export_serving --pcrnet_ckpt under REG_STOP with early exit into
+    out/NAME.pt2; its printed line into out/NAME.json."""
+    from dpdist_tpu_torch.cli import export_serving
+
+    stop = REG_STOP
+    with contextlib.redirect_stdout(io.StringIO()) as line:
+        export_serving.main([
+            "--pcrnet_ckpt", ckpt, "--out", str(out / f"{name}.pt2"), "--batch", str(batch),
+            "--iterations", str(REG_ITERATIONS), "--stop_threshold", str(stop["stop_threshold"]),
+            "--stop_period", str(stop["stop_period"]), "--stop_select", stop["stop_select"],
+            "--early_exit", "--device", "cpu", *extra])
+    (out / f"{name}.json").write_text(line.getvalue())
+
+
 def export_artifacts(out: Path, part: int) -> int:
     """The serving artifacts of EXPORT_PARTS[part], exported on the CPU into
     `out` (run as `chip_smoke.py --export-artifacts DIR PART` beside the
     card's phases): the frozen distance of NETS[0] (SERVE_EXPORTS), the
-    production policy fixed-length and early exit, and the export_serving
-    CLI's policy at a static batch. Writes each program's export seconds to
-    times_PART.json and the CLI's line to cli.json."""
+    production policy fixed-length and early exit, the 3dmfv policy
+    (policy3) native fixed-length and early exit and portable fixed-length,
+    and the export_serving CLI's programs of the production policy and of a
+    3dmfv checkpoint written here (native) at static batches. Writes each
+    program's export seconds to times_PART.json and the CLIs' lines to
+    policy_cli.json and policy3_cli.json."""
     import torch
 
     sys.path.insert(0, str(ROOT))
-    from dpdist_tpu_torch.cli import export_serving
     from dpdist_tpu_torch.cli.common import load_pcrnet_checkpoint_state
     from dpdist_tpu_torch.serving import (
         export_frozen_distance,
@@ -868,33 +943,37 @@ def export_artifacts(out: Path, part: int) -> int:
         save_exported,
     )
     from dpdist_tpu_torch.train import load_dpdist_checkpoint, params_from_jax
+    from dpdist_tpu_torch.train.checkpoint import save_checkpoint
 
     torch.set_num_threads(1)
     times = {}
     cfg, params, state = load_dpdist_checkpoint(str(ROOT / NETS[0]))
     params, state = params_from_jax(params, "cpu"), params_from_jax(state, "cpu")
     pcfg, pparams, pstate = load_pcrnet_checkpoint_state(str(ROOT / POLICY))
+    cfg3, p3, s3 = policy3("cpu")
     for name in EXPORT_PARTS[part]:
         t0 = time.perf_counter()
+        ep = None
         if name in SERVE_EXPORTS:
             kw = dict(SERVE_EXPORTS[name])
             ep = export_frozen_distance(params, state, cfg.replace(**kw.pop("cfg", {})),
                                         device="cpu", **kw)
-        elif name != "policy_cli":
+        elif name in ("policy_fixed", "policy_early"):
             ep = export_registration(pparams, pcfg, state=pstate, iterations=REG_ITERATIONS,
                                      device="cpu", early_exit=name == "policy_early",
                                      **REG_STOP)
+        elif name == "policy_cli":
+            _export_policy_cli(str(ROOT / POLICY), out, name, CLI_POLICY_BATCH)
+        elif name == "policy3_cli":
+            ckpt = str(out / "policy3_ckpt")
+            save_checkpoint(ckpt, {"params": p3, "state": s3},
+                            metadata={"pcrnet_config": cfg3.to_json()})
+            _export_policy_cli(ckpt, out, name, POLICY3_CLI_BATCH, "--native_kernels")
         else:
-            stop = REG_STOP
-            with contextlib.redirect_stdout(io.StringIO()) as line:
-                export_serving.main([
-                    "--pcrnet_ckpt", str(ROOT / POLICY), "--out", str(out / "policy_cli.pt2"),
-                    "--batch", str(CLI_POLICY_BATCH), "--iterations", str(REG_ITERATIONS),
-                    "--stop_threshold", str(stop["stop_threshold"]),
-                    "--stop_period", str(stop["stop_period"]),
-                    "--stop_select", stop["stop_select"], "--early_exit", "--device", "cpu"])
-            (out / "cli.json").write_text(line.getvalue())
-            ep = None
+            kind = name[len("policy3_"):]
+            ep = export_registration(p3, cfg3, state=s3, iterations=REG_ITERATIONS,
+                                     portable=kind.startswith("portable"), device="cpu",
+                                     early_exit=kind.endswith("early"), **REG_STOP)
         times[name] = time.perf_counter() - t0
         if ep is not None:
             save_exported(ep, str(out / f"{name}.pt2"))
@@ -3588,7 +3667,8 @@ def main() -> int:
         print(f"policy programs, ms at B=1 / B={SERVE_TIMED_BATCH} (CUDA events, median of 5): "
               + "; ".join(f"{k} {v[0]:.2f} / {v[1]:.2f}" for k, v in pol_ms.items())
               + f"; on {card}", flush=True)
-        cli_line = json.loads((export_path / "cli.json").read_text().strip().splitlines()[-1])
+        cli_line = json.loads((export_path / "policy_cli.json").read_text().strip()
+                              .splitlines()[-1])
         check(cli_line["inputs"] == [[CLI_POLICY_BATCH, pcfg.num_point, 3]] * 2,
               f"export_serving: {cli_line}")
         with contextlib.redirect_stdout(io.StringIO()):
@@ -3601,6 +3681,147 @@ def main() -> int:
               f"bytes, batch {res['batch']}, first call {res['first_call_ms']} ms, "
               f"{res['bench_ms_per_call']} ms a call; on {card}", flush=True)
         del fixed, early, policy
+
+    with Phase("serving_registration_3dmfv"):
+        # The 3dmfv policy at full width (policy3) under REG_STOP at 50
+        # iterations. Row 7 first, on this path's clouds at B = 64 and 1,
+        # against the plain encode. Then three programs exported on the CPU
+        # in the background: native (row 7's op encodes the hoisted template
+        # once and the source on every trip of the loop) fixed-length and
+        # early exit, and portable (the plain encode) fixed-length. Each is
+        # held against the eager refinement and stop on the card at the same
+        # batch and on its route: native against the eager path (row 7),
+        # portable against the eager path routed as a portable export routes
+        # it (ops.exporting("portable"): the plain encode). The two routes'
+        # gap and the gap between batches of 64 and 1 are printed beside the
+        # spread of T_pred: a random policy amplifies rounding over 50 trips.
+        from dpdist_tpu_torch.kernels import ops as kernel_ops
+
+        pcfg3, p3, s3 = policy3(dev)
+        tpl3, src3, _ = (torch.as_tensor(x, device=dev).contiguous() for x in RegistrationDataset(
+            pose_file=default_eval_poses(), num_point=pcfg3.num_point,
+            **REG_MF).sample_batch(SERVE_TIMED_BATCH))
+        batches = (SERVE_TIMED_BATCH, 1)
+        G3, sigma3, N3 = pcfg3.mfv_grid ** 3, pcfg3.sigma3dmfv, pcfg3.num_point
+        err7, ms7 = 0.0, {}
+        with torch.no_grad():
+            for n in batches:
+                for pts in (tpl3[:n], src3[:n]):
+                    fv7 = threedmfv_kernel(pts, G3, sigma3)
+                    check(fv7.shape == (n, G3, C) and bool(torch.isfinite(fv7).all()),
+                          f"row 7 at B={n}, N={N3}: bad encode")
+                    err7 = max(err7, float((fv7 - threedmfv_plain(pts, G3, sigma3)).abs().max()))
+                # Points and Gaussian centres in, the volumes out.
+                ms7[n] = (cuda_median_ms(lambda: threedmfv_kernel(src3[:n], G3, sigma3)),
+                          cuda_median_ms(lambda: threedmfv_plain(src3[:n], G3, sigma3)),
+                          *bound(4 * (n * N3 * 3 + G3 * 3 + n * G3 * C),
+                                 ENCODE_OPS_PER_PAIR * n * N3 * G3))
+        print(f"row 7 on this path's clouds (template and source, N={N3}, {G3} Gaussians, sigma "
+              f"{sigma3}) vs the plain encode: max |d fv| {err7:.3e} (tol {TOL_X}); ms (CUDA "
+              f"events, median of {TIMED_RUNS}): " + "; ".join(
+                  f"B={n} kernel {v[0]:.4f}, plain {v[1]:.4f}, bound {v[2]:.4f} ({v[3]})"
+                  for n, v in ms7.items()) + f"; on {card}", flush=True)
+        check(err7 <= TOL_X, f"row 7 on the 3dmfv policy's clouds: max |d fv| {err7} > {TOL_X}")
+
+        progs3 = {k: load_exported(str(export_path / f"policy3_{k}.pt2"), device=dev).module()
+                  for k in POLICY3_PROGRAMS}
+
+        def eager3(n):
+            """(T_pred, aligned, frozen, conv_iter) of the eager policy on the
+            first n cases."""
+            _, _, poses = pcrnet_refine(p3, pcfg3, src3[:n], tpl3[:n], iterations=REG_ITERATIONS,
+                                        stop_gradient_iters=False, state=s3)
+            T, _, _, frozen, conv_iter = registration.accumulate_with_stopping(
+                poses, src3[:n], tpl3[:n], **REG_STOP)
+            return invert_transform(T), apply_transform(src3[:n], T), frozen, conv_iter
+
+        with torch.no_grad():
+            want3 = {("native", n): eager3(n) for n in batches}
+            with kernel_ops.exporting("portable"):
+                want3.update({("portable", n): eager3(n) for n in batches})
+            # One checked call of each program at each batch, counted; then
+            # the timed calls.
+            got3, launched3 = {}, {}
+            for k, prog in progs3.items():
+                start_count()
+                for n in batches:
+                    got3[k, n] = prog(tpl3[:n], src3[:n])
+                launched3[k] = read_count()
+            ms3 = {k: [cuda_median_ms(lambda: prog(tpl3[:n], src3[:n]), runs=POLICY3_TIMED_RUNS,
+                                      warmup=0) for n in (1, SERVE_TIMED_BATCH)]
+                   for k, prog in progs3.items()}
+        frozen3, conv3 = want3["native", SERVE_TIMED_BATCH][2:]
+        trips = int(conv3.max()) + 1 if bool(frozen3.all()) else REG_ITERATIONS
+        trips1 = int(conv3[0]) + 1 if bool(frozen3[0]) else REG_ITERATIONS
+        # Row 7 a call: the hoisted template's encode, then one a trip.
+        want_launches3 = {"native_fixed": 2 * (REG_ITERATIONS + 1),
+                          "native_early": trips + trips1 + 2, "portable_fixed": 0}
+        print(f"3dmfv policy programs: row-7 launches of the checked calls at "
+              f"B={SERVE_TIMED_BATCH} and 1: "
+              + ", ".join(f"{k} {v['threedmfv']}" for k, v in launched3.items())
+              + f" ({int(frozen3.sum())} of {SERVE_TIMED_BATCH} cases frozen, the early loop's "
+              f"trips {trips} at B={SERVE_TIMED_BATCH}, {trips1} at B=1)", flush=True)
+        for k in POLICY3_PROGRAMS:
+            check(launched3[k] == expected(threedmfv=want_launches3[k]),
+                  f"3dmfv policy {k}: unexpected launches")
+            check(all(bool(torch.isfinite(o).all()) for n in batches for o in got3[k, n]),
+                  f"3dmfv policy {k}: non-finite outputs")
+        for n in batches:
+            check(all(torch.equal(x, y) for x, y in zip(got3["native_fixed", n],
+                                                        got3["native_early", n])),
+                  f"3dmfv policy at B={n}: early exit differs from the fixed loop")
+
+        def gap(a, b):
+            return max(float((x - y).abs().max()) for x, y in zip(a[:2], b[:2]))
+
+        err3 = {kind: max(gap(got3[f"{kind}_fixed", n], want3[kind, n]) for n in batches)
+                for kind in ("native", "portable")}
+        route_gap = max(gap(want3["native", n], want3["portable", n]) for n in batches)
+        batch_gap = gap(want3["native", 1], [w[:1] for w in want3["native", SERVE_TIMED_BATCH]])
+        T64 = want3["native", SERVE_TIMED_BATCH][0]
+        spread3 = float((T64.amax(0) - T64.amin(0)).max())
+        print(f"3dmfv policy (num_point {N3}, {pcfg3.mfv_grid}^3 grid, "
+              f"out_features {pcfg3.out_features}, BN state, {REG_ITERATIONS} iterations, "
+              f"{REG_STOP['stop_select']} stop): native early exit equal to the fixed-length "
+              f"loop at B={SERVE_TIMED_BATCH} and 1; T_pred and aligned max |d| vs eager "
+              f"pcrnet_refine + accumulate_with_stopping on the program's route at its batch: "
+              f"native {err3['native']:.3e}, portable {err3['portable']:.3e} (tol "
+              f"{TOL_POLICY}); T_pred's spread over the batch {spread3:.3e} (must exceed the "
+              f"tolerance); for scale, the eager paths' gaps over {REG_ITERATIONS} trips: plain "
+              f"encode vs row 7 {route_gap:.3e}, B=1 vs row 0 of B={SERVE_TIMED_BATCH} "
+              f"{batch_gap:.3e}; max |T_pred| {float(T64.abs().max()):.3f}", flush=True)
+        check(err3["native"] <= TOL_POLICY, "3dmfv native program off the eager policy")
+        check(err3["portable"] <= TOL_POLICY, "3dmfv portable program off the eager policy")
+        check(spread3 > TOL_POLICY, "3dmfv policy: T_pred does not spread over the batch by "
+              "more than the tolerance, so it cannot fail")
+        print(f"3dmfv policy programs, ms at B=1 / B={SERVE_TIMED_BATCH} (CUDA events, median of "
+              f"{POLICY3_TIMED_RUNS}, after the checked calls): "
+              + "; ".join(f"{k} {v[0]:.2f} / {v[1]:.2f}" for k, v in ms3.items())
+              + "; exported in " + ", ".join(f"{k} {export_times[f'policy3_{k}']:.2f} s"
+                                              for k in POLICY3_PROGRAMS)
+              + f" (host CPU); on {card}", flush=True)
+        cli3 = json.loads((export_path / "policy3_cli.json").read_text().strip()
+                          .splitlines()[-1])
+        check(cli3["inputs"] == [[POLICY3_CLI_BATCH, pcfg3.num_point, 3]] * 2
+              and cli3["native_kernels"], f"export_serving (3dmfv): {cli3}")
+        start_count()
+        with contextlib.redirect_stdout(io.StringIO()):
+            res3 = run_serving_cli.main(["--artifact", str(export_path / "policy3_cli.pt2"),
+                                         "--synthetic", "chair", "--device", "cuda"])
+        launched_cli3 = read_count()
+        check(res3["batch"] == POLICY3_CLI_BATCH and res3["num_point"] == pcfg3.num_point
+              and bool(np.isfinite(np.asarray(res3["T_pred"])).all()),
+              f"run_serving (3dmfv): {res3}")
+        # One call: the template's encode and one a trip of the early loop.
+        check(launched_cli3 == expected(threedmfv=launched_cli3["threedmfv"])
+              and 2 <= launched_cli3["threedmfv"] <= REG_ITERATIONS + 1,
+              f"run_serving (3dmfv): unexpected launches {launched_cli3}")
+        print(f"export_serving --pcrnet_ckpt (a 3dmfv checkpoint with its BN state, "
+              f"--native_kernels, batch {POLICY3_CLI_BATCH}, "
+              f"{export_times['policy3_cli']:.2f} s) -> run_serving --synthetic chair: "
+              f"{cli3['bytes']} bytes, T_pred finite, one call {res3['first_call_ms']} ms, "
+              f"row-7 launches {launched_cli3['threedmfv']}; on {card}", flush=True)
+        del progs3, got3, want3, p3, s3
     export_dir.cleanup()
 
     with Phase("data_parallel"), tempfile.TemporaryDirectory() as tmp:

@@ -37,7 +37,7 @@ import math
 import torch
 
 from dpdist_tpu_torch.kernels.table_gather import check_dtype, dfv_of, needs_grad, window_fits
-from dpdist_tpu_torch.ops.threedmfv import threedmfv_grid, threedmfv_plain
+from dpdist_tpu_torch.ops.threedmfv import threedmfv_centers, threedmfv_plain
 from dpdist_tpu_torch.ops.voxel import (
     extract_patches,
     gather_patches,
@@ -73,7 +73,7 @@ def mfv_x_plain(points, queries, n_gaussians: int, sigma: float,
 @functools.lru_cache(maxsize=8)
 def _grid_tables(G: int, device: torch.device):
     """(G, 3) Gaussian centres and (G, 3) cell centres on `device`."""
-    mu = torch.as_tensor(threedmfv_grid(G), device=device).contiguous()
+    mu = threedmfv_centers(G, device=device)
     centers = torch.as_tensor(grid_centers(G), device=device).contiguous()
     return mu, centers
 

@@ -30,12 +30,12 @@ import math
 import torch
 
 from dpdist_tpu_torch.kernels.build import MAX_SMEM
-from dpdist_tpu_torch.ops.threedmfv import threedmfv_grid, threedmfv_plain
+from dpdist_tpu_torch.ops.threedmfv import threedmfv_centers, threedmfv_plain
 
 
 @functools.lru_cache(maxsize=8)
 def _mu(G: int, device: torch.device):
-    return torch.as_tensor(threedmfv_grid(G), device=device).contiguous()
+    return threedmfv_centers(G, device=device)
 
 
 def _threads(G: int) -> int:

@@ -169,7 +169,7 @@ def template_feats_invariant(cfg: PCRNetConfig, state=None, train: bool = False)
     check_encoder(cfg)
     if cfg.encoder != "3dmfv":
         return True
-    return (not train) and bool(state) and state.get("mfv_bn") is not None
+    return (not train) and state is not None and state.get("mfv_bn") is not None
 
 
 def encode_template(params, cfg: PCRNetConfig, template, *, state=None):
@@ -188,7 +188,7 @@ def _encode_3dmfv(params, cfg: PCRNetConfig, points, *, state=None, train: bool 
     is given, else it is `state` as it is."""
     B, g = points.shape[0], cfg.mfv_grid
     x = threedmfv(points, g ** 3, cfg.sigma3dmfv).reshape(B, g, g, g, -1)
-    bn_in = state.get("mfv_bn") if state else None
+    bn_in = state.get("mfv_bn") if state is not None else None
     bn_out = []
 
     def bn(h, i, name):
@@ -204,7 +204,7 @@ def _encode_3dmfv(params, cfg: PCRNetConfig, points, *, state=None, train: bool 
         return torch.relu((h - m) * torch.rsqrt(v + BN_EPS))
 
     for i, blk in enumerate(params["mfv_blocks"]):
-        if bn_in is not None:
+        if bn_in is not None and train:
             bn_out.append(dict(bn_in[i]))
         one = bn(conv3d_apply(blk["one"], x), i, "one")
         three = bn(conv3d_apply(blk["three"], one), i, "three")
@@ -249,7 +249,10 @@ def apply_pcrnet(params, cfg: PCRNetConfig, source, template, *, template_feats=
     elif cfg.encoder == "3dmfv":
         feats, new_state = _encode_3dmfv(params, cfg, torch.cat([source, template]),
                                          state=state, train=train)
-        sf, tf_ = torch.chunk(feats, 2, dim=0)
+        # Slices, not torch.chunk: chunk's size puts an unprovable guard on
+        # a symbolic batch.
+        B = source.shape[0]
+        sf, tf_ = feats[:B], feats[B:]
     else:
         sf, tf_ = _encode(params, cfg, source), _encode(params, cfg, template)
     x = torch.cat([sf, tf_], dim=-1)

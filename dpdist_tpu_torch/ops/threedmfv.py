@@ -34,26 +34,32 @@ reference's channel-major (B, C*G): each group's channels transposed to
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
 
-def threedmfv_grid(n_gaussians: int, dims: int = 3) -> np.ndarray:
-    """(G, D) Gaussian centers on the uniform grid, in the reference's flat order.
+def threedmfv_centers(n_gaussians: int, dims: int = 3, device=None) -> torch.Tensor:
+    """(G, D) float32 Gaussian centers on the uniform grid, in the reference's
+    flat order, built by torch ops (so they trace inside a while_loop).
 
     l = linspace(-1, 1, g, endpoint=False) + 1/g on np.meshgrid's default
     'xy' indexing: in 3-D flat index v = iy*g^2 + ix*g + iz carries center
     (l[ix], l[iy], l[iz]); in 2-D v = iy*g + ix carries (l[ix], l[iy]).
+    l is formed in float64 as np.linspace forms it (i * (2 / g) - 1, then
+    + 1/g) and rounded to float32 once, so the centers equal the numpy
+    construction's bit for bit.
     """
-    if dims == 2:
-        g = int(np.sqrt(n_gaussians))
-        l = np.linspace(-1, 1, g, False) + 1.0 / g
-        x, y = np.meshgrid(l, l)
-        return np.stack([x.flatten(), y.flatten()], -1).astype(np.float32)
-    g = int(np.ceil(n_gaussians ** (1.0 / 3.0)))
-    l = np.linspace(-1, 1, g, False) + 1.0 / g
-    x, y, z = np.meshgrid(l, l, l)
-    return np.stack([x.flatten(), y.flatten(), z.flatten()], -1).astype(np.float32)
+    g = math.isqrt(n_gaussians) if dims == 2 else math.ceil(n_gaussians ** (1.0 / 3.0))
+    l = torch.arange(g, dtype=torch.float64, device=device) * (2.0 / g) + (-1.0) + 1.0 / g
+    axes = torch.meshgrid(*([l] * dims), indexing="xy")
+    return torch.stack([a.flatten() for a in axes], -1).to(torch.float32)
+
+
+def threedmfv_grid(n_gaussians: int, dims: int = 3) -> np.ndarray:
+    """threedmfv_centers as a numpy array."""
+    return threedmfv_centers(n_gaussians, dims).numpy()
 
 
 def _l2_normalize_over_gaussians(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -128,7 +134,7 @@ def threedmfv_plain(points: torch.Tensor, n_gaussians: int = 512, sigma: float =
     B, N, D = points.shape
     if D not in (2, 3):
         raise ValueError(f"clouds must be 2-D or 3-D, got D={D}")
-    mu = torch.as_tensor(threedmfv_grid(n_gaussians, D), device=points.device)
+    mu = threedmfv_centers(n_gaussians, D, points.device)
     G = mu.shape[0]
     w = 1.0 / G
 
@@ -142,7 +148,7 @@ def threedmfv_plain(points: torch.Tensor, n_gaussians: int = 512, sigma: float =
     Q = torch.softmax(-0.5 * torch.sum(diff * diff, dim=-1), dim=-1)  # (B, N, G)
     Qd = Q[..., None]
 
-    d_pi_all = (Q - w) / (np.sqrt(w) * N)                        # (B, N, G)
+    d_pi_all = (Q - w) / (math.sqrt(w) * N)                      # (B, N, G)
     d_mu_all = Qd * diff                                         # (B, N, G, D)
     d_sig_all = Qd * (diff * diff - 1.0)                         # (B, N, G, D)
 
@@ -158,8 +164,8 @@ def threedmfv_plain(points: torch.Tensor, n_gaussians: int = 512, sigma: float =
         d_pi = torch.mean(d_pi_all, dim=1)[..., None]
         d_mu = torch.mean(d_mu_all, dim=1)
         d_sig = torch.mean(d_sig_all, dim=1)
-    d_mu = d_mu / np.sqrt(w)
-    d_sig = d_sig / np.sqrt(2.0 * w)
+    d_mu = d_mu / math.sqrt(w)
+    d_sig = d_sig / math.sqrt(2.0 * w)
 
     if normalize:
         d_pi = _l2_normalize_over_gaussians(_power_normalize(d_pi))

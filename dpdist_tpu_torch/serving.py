@@ -38,6 +38,10 @@ the weights their buffers, which `save_exported` writes and
   program is routed as on the card wherever it was exported.
 - batch=None exports a symbolic batch (torch.export.Dim), bounded for a
   native program by the batch limits of the kernels it holds.
+- export_registration serves the pointnet and the 3dmfv policies: the
+  whole refinement is one while_loop in the program; a native 3dmfv
+  program at num_point >= 128 launches row 7 (dpdist::threedmfv) on every
+  trip, and once before the loop for a hoisted template.
 - with_grad exports (per-pair value (B,), d/dsrc (B, N, 3)) with the
   out-of-grid barrier taken per pair, as the reference's vmap over pairs
   does; the function is traced with make_fx (torch.export cannot trace
@@ -277,10 +281,14 @@ def export_registration(params, pcfg: PCRNetConfig, *, state=None,
     source). early_exit (with a stop_threshold) also returns from the loop
     once every case of the batch has frozen: the same outputs, and fewer
     iterations on a converging policy.
-    params, state: a pointnet policy's trees (its state is {}); a 3dmfv
-    policy raises NotImplementedError (its convs do not trace inside the
-    while_loop yet). portable and device as in export_frozen_distance; a
-    pointnet policy reaches no kernel."""
+    params, state: a policy's trees. A pointnet policy's state is {}; it
+    reaches no kernel. A 3dmfv policy's state holds its BN running
+    statistics (the template then encoded once, before the loop); with
+    state None BN normalises with batch statistics and template and source
+    are encoded as one batch on every trip, as pcrnet_iteration does. A
+    native 3dmfv program at num_point >= 128 holds row 7's op
+    (dpdist::threedmfv) inside the loop, as `threedmfv` routes on the
+    card. portable and device as in export_frozen_distance."""
     from torch._higher_order_ops import while_loop
 
     from dpdist_tpu_torch.eval.registration import init_stop_carry, stopping_step
@@ -291,10 +299,6 @@ def export_registration(params, pcfg: PCRNetConfig, *, state=None,
         template_feats_invariant,
     )
 
-    if pcfg.encoder == "3dmfv":
-        raise NotImplementedError(
-            "export_registration takes the pointnet policies: the 3dmfv encoder's convs do not "
-            "trace inside the refinement's while_loop yet (its weights take symbolic shapes there)")
     if early_exit and stop_threshold is None:
         raise ValueError("early_exit requires stop_threshold: without a stopping criterion "
                          "nothing can freeze, so the artifact would silently run all "
@@ -327,7 +331,13 @@ def export_registration(params, pcfg: PCRNetConfig, *, state=None,
             return (new_src, *(t.clone() for t in carry), i + 1)
 
         i0 = torch.zeros((), dtype=torch.int64, device=source.device)
-        aligned, T_total = while_loop(cond, body, (source, *carry0, i0))[:2]
+        # torch.export traces the loop's body through dynamo with every size
+        # symbolic (assume_static_by_default=False), the weights' too; the
+        # 3dmfv encoder's SAME padding, computed from its conv windows, then
+        # did not trace (its branches' sizes parted). Static by default,
+        # only the batch stays symbolic, as the carried clouds give it.
+        with torch._dynamo.config.patch(assume_static_by_default=True):
+            aligned, T_total = while_loop(cond, body, (source, *carry0, i0))[:2]
         if stop_threshold is not None:
             aligned = apply_transform(source, T_total)
         return invert_transform(T_total), aligned
@@ -335,6 +345,10 @@ def export_registration(params, pcfg: PCRNetConfig, *, state=None,
     # The while_loop is traced through torch._dynamo, whose cache of an
     # earlier export's frames would add guards that pin the batch.
     torch._dynamo.reset()
+    # A symbolic batch needs no bound here: row 7, the one kernel a policy
+    # reaches, takes any batch (threedmfv_fits reads only the Gaussians;
+    # the batch runs along the grid's x, up to 2^31 - 1 blocks, and
+    # split_plan keeps the y dimension at most BLOCKS_PER_SM * SMs).
     with ops.exporting("portable" if portable else "native"), torch.no_grad():
         return _export(_Program(fn, _leaves(params, state)), num_point, batch, dev)
 

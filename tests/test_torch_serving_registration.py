@@ -27,6 +27,8 @@ from dpdist_tpu_torch.cli.export_serving import main as export_main
 from dpdist_tpu_torch.cli.run_serving import main as run_main
 from dpdist_tpu_torch.configs import PCRNetConfig
 from dpdist_tpu_torch.data.io import read_ply, write_ply
+from dpdist_tpu_torch.geometry.se3 import invert_transform
+from dpdist_tpu_torch.models.pcrnet import init_pcrnet, pcrnet_refine
 from dpdist_tpu_torch.train import params_from_jax
 
 SMALL_PCR = dict(num_point=32, out_features=64, max_loops=2, eval_iterations=3,
@@ -118,7 +120,9 @@ def test_export_registration_early_exit_equals_masked_loop(policy, kw):
 def test_export_registration_stop_protocol(policy):
     """Threshold 0 never fires (the fixed-iteration policy); an infinite
     threshold with chamfer selection on a self-aligned pair freezes the
-    identity, so T_pred == I and aligned == source."""
+    identity, so T_pred == I and aligned == source. A 3dmfv policy without
+    a BN state exports with a symbolic batch; early_exit without a
+    threshold raises."""
     _, _, p, tpl, src = policy
     Tb, ab = _call(_export_reg(p), tpl, src)
     Tn, an = _call(_export_reg(p, stop_threshold=0.0), tpl, src)
@@ -128,9 +132,23 @@ def test_export_registration_stop_protocol(policy):
     np.testing.assert_allclose(Tc, np.broadcast_to(np.eye(4, dtype=np.float32), (2, 4, 4)),
                                atol=1e-5)
     np.testing.assert_allclose(ac, tpl, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="pointnet policies"):
-        serving.export_registration(p, PCRNetConfig(**SMALL_PCR, encoder="3dmfv"),
-                                    device="cpu")
+    # A 3dmfv policy exports too: without a state (batch-statistics BN, the
+    # two clouds encoded as one batch on every trip) and with a symbolic
+    # batch, served at B = 1 and 2; over the config's 3 iterations its
+    # program gives the eager refinement bit for bit
+    # (tests/test_torch_serving_3dmfv.py holds every form against JAX's).
+    cfg3 = PCRNetConfig(**{**SMALL_PCR, "encoder": "3dmfv", "out_features": 32})
+    p3 = init_pcrnet(cfg3, torch.Generator().manual_seed(0), "cpu")
+    ep3 = serving.export_registration(p3, cfg3, batch=None, device="cpu")
+    for n in (1, 2):
+        T3, a3 = _call(ep3, tpl[:n], src[:n])
+        with torch.no_grad():
+            want_a, want_T, _ = pcrnet_refine(p3, cfg3, torch.as_tensor(src[:n]),
+                                              torch.as_tensor(tpl[:n]),
+                                              iterations=cfg3.eval_iterations,
+                                              stop_gradient_iters=False)
+        np.testing.assert_array_equal(T3, invert_transform(want_T).numpy())
+        np.testing.assert_array_equal(a3, want_a.numpy())
     with pytest.raises(ValueError, match="early_exit requires stop_threshold"):
         serving.export_registration(p, PCRNetConfig(**SMALL_PCR), early_exit=True,
                                     device="cpu")
