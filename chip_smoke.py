@@ -365,6 +365,7 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import io
 import json
 import os
@@ -666,38 +667,45 @@ def cuda_median_ms(fn, runs=TIMED_RUNS, warmup=3):
 def device_ms(fn, match, calls=5, sessions=12):
     """Mean device time (ms) of one launch of the CUDA kernel whose name
     holds `match` (or one of the names in a tuple), which fn launches once a
-    call, under torch.profiler. The mean runs over the records the profiler
-    kept, which may be fewer than the calls: it drops records of short
-    profiled runs (mostly the first; now and then all of them, for six
-    sessions running). Sessions repeat, up to
-    `sessions`, until `calls` records are kept; a session that kept none
-    makes the next one twice as long (up to 8 `calls`)."""
+    call, under torch.profiler. The mean runs over the kernel records the
+    profiler kept with a device time, which may be fewer than the calls: it
+    drops records of short profiled runs (mostly the first; now and then
+    all of them, for six sessions running), and may keep a record with no
+    device time, which would halve a mean taken over its count. Sessions
+    repeat, up to `sessions`, until `calls` timed records are kept; a
+    session that kept none makes the next one twice as long (up to 8
+    `calls`). Prints the records' spread where some had no device time or
+    the slowest took over 1.5 times the fastest."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     matches = (match,) if isinstance(match, str) else match
     fn()
     torch.cuda.synchronize()
-    us = n = 0
+    timed, untimed = [], 0
     length = calls
     for session in range(1, sessions + 1):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(length):
                 fn()
             torch.cuda.synchronize()
-        kept = [e for e in prof.key_averages() if any(m in e.key for m in matches)]
-        us += sum(e.self_device_time_total for e in kept)
-        n += sum(e.count for e in kept)
-        if n >= calls:
+        kept = [e.self_device_time_total for e in prof.events() if any(m in e.key for m in matches)]
+        timed += [us for us in kept if us > 0]
+        untimed += sum(us <= 0 for us in kept)
+        if len(timed) >= calls:
             break
         if not kept:
             length = min(2 * length, 8 * calls)
-    check(us > 0 and n >= 1, f"torch.profiler kept no launch of {match} in {session} "
+    check(len(timed) >= 1, f"torch.profiler kept no timed launch of {match} in {session} "
           f"sessions of {calls} to {length} calls")
-    if session > 1 or n < calls:
-        print(f"torch.profiler kept {n} records of {match} in {session} session(s) of "
-              f"{calls} to {length} calls", flush=True)
-    return us / n / 1e3
+    if session > 1 or len(timed) < calls or untimed:
+        print(f"torch.profiler kept {len(timed)} timed records of {match} in {session} "
+              f"session(s) of {calls} to {length} calls, {untimed} without device time",
+              flush=True)
+    if untimed or max(timed) > 1.5 * min(timed):
+        print(f"  {match}: device us of each timed record {sorted(round(us, 1) for us in timed)}",
+              flush=True)
+    return sum(timed) / len(timed) / 1e3
 
 
 def cuda_kernel_names(fn, calls):
@@ -716,9 +724,9 @@ def cuda_kernel_names(fn, calls):
             and not e.name.startswith(("Memset", "Memcpy"))]
 
 
-def sass_loop_counts(lib_path, kernel):
+def sass_loop_counts(lib_path, kernel, op="FMNMX"):
     """The instruction counts of the innermost loop of `kernel` that holds
-    the most FMNMX, in the built library's SASS (cuobjdump): {opcode: n}."""
+    the most `op`, in the built library's SASS (cuobjdump): {opcode: n}."""
     import collections
     import re
 
@@ -733,18 +741,51 @@ def sass_loop_counts(lib_path, kernel):
             re.finditer(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)[^;]*;",
                         body)]
     loops = []   # (first, last) address of each backward branch's loop
-    for addr, op, text in code:
+    for addr, opcode, text in code:
         target = re.search(r"0x([0-9a-f]+)", text)
-        if op.startswith("BRA") and target and int(target.group(1), 16) < addr:
+        if opcode.startswith("BRA") and target and int(target.group(1), 16) < addr:
             loops.append((int(target.group(1), 16), addr))
     best = collections.Counter()
     for lo, hi in loops:
         if any(lo <= a < hi for a2, a in loops if (a2, a) != (lo, hi)):
             continue   # holds another loop
-        loop = collections.Counter(op.split(".")[0] for a, op, _ in code if lo <= a <= hi)
-        if loop["FMNMX"] > best["FMNMX"]:
+        loop = collections.Counter(o.split(".")[0] for a, o, _ in code if lo <= a <= hi)
+        if loop[op] > best[op]:
             best = loop
     return dict(best)
+
+
+def sm_clock_hz():
+    """The card's top SM clock (nvidia-smi clocks.max.sm), in Hz."""
+    return 1e6 * float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.split()[0])
+
+
+def bwd_bf16_warp_runs(torch, vox, g, k, C, plan):
+    """What the bf16 adjoint's consumers do on these vox (csrc/
+    table_gather.cu:table_gather_bwd_bf16_kernel): (listed runs, consumer
+    warp-runs in which some owner of the warp lies in the run's window and
+    so issues the sum). Owner o of a part holds channels (o % Q) * 10 ..
+    of cell o // Q, Q = ceil(C / 10); warp w the owners 32 w .. 32 w + 31."""
+    from dpdist_tpu_torch.kernels.table_gather import BWD_BF16_GROUP
+
+    gg, kh = g * g, k // 2
+    Q = -(-C // BWD_BF16_GROUP)
+    v = vox.long().flatten()
+    v = v[(v >= 0) & (v < gg * g)]
+    slabs = torch.arange(g, device=v.device)
+    di = slabs[None] - (v // gg)[:, None] + kh
+    hits = ((di >= 0) & (di < k)).sum(1)                           # runs a query
+    yz = (v // g % g) * g + v % g
+    runs_at = torch.zeros(gg, dtype=torch.long, device=v.device).index_add_(0, yz, hits)
+    own = torch.arange(plan["parts"] * plan["consumers"], device=v.device)
+    cell = own // Q
+    ty, tz = (cell // g)[:, None], (cell % g)[:, None]
+    vy, vz = (torch.arange(gg, device=v.device) // g)[None], (torch.arange(gg, device=v.device) % g)[None]
+    near = (cell < gg)[:, None] & ((ty - vy).abs() <= kh) & ((tz - vz).abs() <= kh)   # (owners, gg)
+    warps = near.view(-1, 32, gg).any(1)                           # (warps, gg)
+    return int(runs_at.sum()), int((warps.long().sum(0) * runs_at).sum())
 
 
 def bound(bytes_moved, flops, peak=F32_FLOP_PER_S):
@@ -1119,6 +1160,7 @@ def main() -> int:
         )
         from dpdist_tpu_torch.kernels.mfv_gather import mfv_x, mfv_x_plain
         from dpdist_tpu_torch.kernels.table_gather import (
+            BWD_BF16_GROUP,
             table_gather,
             table_gather_bwd,
             table_gather_bwd_ordered,
@@ -1802,8 +1844,11 @@ def main() -> int:
                                   device=dev).to(bf)
             g16 = g16[..., 3:] if strided else g16[..., 3:].contiguous()
             dfv16 = table_gather_bwd(vox16, g16, GRID, K)
-            again16 = table_gather_bwd(vox16, g16, GRID, K)
+            # Run to run: 50 calls back to back, each equal to the first.
+            runs16 = [table_gather_bwd(vox16, g16, GRID, K) for _ in range(50)]
             torch.cuda.synchronize()
+            same16 = sum(torch.equal(dfv16, o) for o in runs16)
+            del runs16
             ordered16 = table_gather_bwd_ordered(vox16, g16, GRID, K)
             exact = table_gather_bwd_plain(vox16, g16.double(), GRID, K)
             rounded = exact.to(bf)
@@ -1815,15 +1860,15 @@ def main() -> int:
                 vox16, g16, GRID, K).float()).abs().max()))
             print(f"table_gather_bwd bf16 at B={B_SERVE}, N={n_q} ({'strided' if strided else 'contiguous'} "
                   f"grad, {int((vox16 == 0).sum())} queries in cell 0): equal to the ordered plain sum "
-                  f"{bool(torch.equal(dfv16, ordered16))}, run to run {bool(torch.equal(dfv16, again16))}; "
+                  f"{bool(torch.equal(dfv16, ordered16))}, run to run {same16} of 50 calls equal; "
                   f"vs float64 sums max |d| = {err:.3e}, entries beyond one bf16 ulp {off}; "
                   f"equal to the float64 sums rounded: {float((dfv16 == rounded).float().mean()):.4f}",
                   flush=True)
             check(dfv16.dtype == bf and torch.equal(dfv16, ordered16),
                   f"table_gather_bwd bf16 at N={n_q} differs from the ordered plain sum")
-            check(torch.equal(dfv16, again16), f"table_gather_bwd bf16 at N={n_q}: run to run")
+            check(same16 == 50, f"table_gather_bwd bf16 at N={n_q}: run to run")
             check(off == 0, f"table_gather_bwd bf16 at N={n_q}: {off} entries beyond one ulp")
-        del dfv16, again16, ordered16, exact, rounded, g16
+        del dfv16, ordered16, exact, rounded, g16
 
     def serve_bf16(reqs, n_key, clouds, want):
         """Per committed net, "full" and "auto" in bf16: the requests,
@@ -2785,16 +2830,37 @@ def main() -> int:
             # dfv out; one float32 add per such entry.
             b16, b16_by = bound(2 * adds + 4 * B * N + 2 * B * V * C, adds)
             dev16 = device_ms(lambda: table_gather_bwd(vox, grad_patch16, GRID, K),
-                              "table_gather_bwd_kernel<__nv_bfloat16")
+                              "table_gather_bwd_bf16_kernel")
+            # Its launch (the C entry's plan) and its issue-slot floor: the
+            # consumer warp-runs that sum (some owner of the warp in the
+            # run's window) times the instructions of a run in the SASS of
+            # the consumers' loop, over 4 schedulers an SM at the top clock.
+            # Out-of-window tests, the producer and the prologue add to it.
+            plan_out = (ctypes.c_int64 * 6)()
+            build.check_launch(build.library().dpdist_table_gather_bwd_bf16_plan(
+                B, GRID, K, C, dev.index, plan_out), "table_gather_bwd_bf16 plan")
+            plan16 = dict(zip(("consumers", "parts", "runs", "smem", "blocks", "items"),
+                              list(plan_out)))
+            n_runs16, warp_runs16 = bwd_bf16_warp_runs(torch, vox, GRID, K, C, plan16)
+            loop16 = sass_loop_counts(lib_path, "table_gather_bwd_bf16_kernel", "FADD")
+            per_run16 = sum(loop16.values()) / (loop16["FADD"] / BWD_BF16_GROUP)
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            floor16 = warp_runs16 * per_run16 / (4 * sms) / sm_clock_hz() * 1e3
             records.append({"name": "table_gather_bwd_bf16", "route": "cuda",
                             "source": "dpdist_tpu_torch/csrc/table_gather.cu",
                             "replaces": "dpdist_tpu/kernels/table_gather_pallas.py:237",
                             "launches": launches["table_gather_bwd_bf16"],
                             "max_abs_err": err_bwd16, "ms": ms16, "plain_ms": plain16_ms,
                             "bound_ms": b16, "bound_by": b16_by, "library_ms": lib16_ms,
-                            "device_ms": dev16, "library_max_abs_diff": err_lib16})
+                            "device_ms": dev16, "library_max_abs_diff": err_lib16,
+                            "issue_floor_ms": floor16, "plan": plan16})
+            print(f"table_gather_bwd_bf16_kernel's plan at B={B}: {plan16}; {n_runs16} runs, "
+                  f"{warp_runs16} consumer warp-runs that sum; its consumers' loop in SASS: "
+                  f"{loop16}, {per_run16:.1f} instructions a run", flush=True)
             print(f"table_gather_bwd bf16 at B={B}, N={N}: {ms16:.4f} ms, {dev16:.4f} ms on the "
                   f"device; bound {b16:.4f} ms = {b16 / ms16:.1%} / {b16 / dev16:.1%} of bound; "
+                  f"issue-slot floor {floor16:.4f} ms = {floor16 / dev16:.1%} of the device time; "
+                  f"the float32 design on bf16 read 0.0714 / 0.0707 ms on the device (PERF.md); "
                   f"index_add_ (bf16) {lib16_ms:.4f} ms, max |d| {err_lib16:.3e} from the kernel; "
                   f"on {card}", flush=True)
             del sink16, src_rows16, lib16, dfv16
@@ -2889,7 +2955,7 @@ def main() -> int:
             gradL16 = gradL.to(bf)
             msL16 = cuda_median_ms(lambda: table_gather_bwd(voxL, gradL16, GRID, K))
             devL16 = device_ms(lambda: table_gather_bwd(voxL, gradL16, GRID, K),
-                               "table_gather_bwd_kernel<__nv_bfloat16")
+                               "table_gather_bwd_bf16_kernel")
             bnd_L16, _ = bound(2 * addsL + 4 * B * NL + 2 * B * V * C, addsL)
             next(r for r in records if r["name"] == "table_gather_bwd_bf16")[f"n{NL}"] = {
                 "ms": msL16, "device_ms": devL16, "bound_ms": bnd_L16}
@@ -2915,9 +2981,7 @@ def main() -> int:
             dev_ms = device_ms(lambda: nn_min_sqdist(eA, eB), "nn_min_kernel")
             # The issue slots the per-dimension form needs, at the card's
             # top SM clock (a lower clock under load would lower the floor).
-            sm_hz = 1e6 * float(subprocess.run(
-                ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-                capture_output=True, text=True, timeout=60, check=True).stdout.split()[0])
+            sm_hz = sm_clock_hz()
             sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
             def issue_floor_ms(pairs):

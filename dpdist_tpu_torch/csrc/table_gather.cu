@@ -87,10 +87,26 @@
 //   the one dependent load per add of a shared-memory scatter.
 // The adjoint takes a float32 or a bfloat16 grad and writes dfv in the same
 // type, as the reference's table_gather_bwd(dtype=) does
-// (table_gather_pallas.py:159-256): the bfloat16 variant reads the bf16 grad
-// (half the bytes), sums each slot in float32 registers in query order as
-// the float32 one does, and rounds each dfv value once to nearest even. One
-// kernel, templated on the two types.
+// (table_gather_pallas.py:159-256). The kernel above is instantiated for
+// float32. A bfloat16 grad halves the bytes, and at half the bytes the
+// kernel above was bound by its issue slots (about 9 a slot and query, a
+// slot being one channel, 61 % of them adds of 0 outside the window) and
+// its exposed prologue, not by memory: table_gather_bwd_bf16_kernel is its
+// own design. Persistent blocks walk (cloud, slab) items; a producer warp
+// lists the next items' queries and keeps their runs in flight by bulk
+// copies while consumer warps sum; a consumer thread owns 10 channels of
+// one cell, tests the window once a query for all ten and reads them as
+// bf16 pairs in 32-bit words (51 instructions a query for the ten in its
+// window, against about 90 for the kernel above's 5 slots x 9 and its
+// adds of 0; a warp whose cells all miss the window skips the query). It
+// sums in float32 registers in query order, as the float32 kernel does,
+// and rounds each dfv value once to nearest even.
+//   What bounds it on an H100: device memory, the in-grid bf16 grad
+// entries (about 75 MB at B = 256, N = 64: 0.024 ms at 3.35 TB/s). What
+// holds it on the card is its pipeline, not memory nor the sums: without
+// any grad byte moved and without the sums, the producer warp's listing,
+// copy issue and stage hand-offs take about 60 % of its time
+// (scripts/torch_bwd_bf16_ablations.py, PERF.md).
 //
 // Plain C interface for ctypes; no PyTorch headers. Built with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC
@@ -165,7 +181,9 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162f
 // (`slot` elements of TG a run: k^2 * C and up to 16 bytes before it,
 // rounded up to 16 bytes), a stage complete on its mbarrier; one barrier
 // per stage frees it for the stage kBwdStages on. TG is the grad's type
-// and TO dfv's (float or __nv_bfloat16); the sums are float32. Off is the
+// and TO dfv's; the sums are float32. It is instantiated on float only (a
+// bfloat16 grad takes table_gather_bwd_bf16_kernel below); the template
+// stays as written so that the float32 kernel is unchanged. Off is the
 // type of a run's offset within its cloud's grad rows: int, or int64_t for
 // a cloud past 2^31 - 1 elements (the C entry picks it from the sizes, so
 // that other clouds keep 32-bit offsets and their list's shared memory).
@@ -303,8 +321,333 @@ __global__ void __launch_bounds__(kBwdMaxThreads)
   }
 }
 
+// --- table_gather_bwd on a bfloat16 grad (row 3 bf16)
+
+constexpr int kB16Group = 10;        // channels an owner sums: 5 words of bf16 pairs
+constexpr int kB16Stages = 4;        // stages of the ring of grad runs
+constexpr int kB16MaxRuns = 8;       // runs a stage
+constexpr int kB16MaxConsumerWarps = 8;
+constexpr int kB16VoxChunk = 128;    // queries' vox a producer chunk (4 a lane)
+constexpr int kB16VoxDepth = 4;      // vox chunks in flight
+constexpr int kB16BlocksPerSm = 4;
+// A run's slot in the ring: its 16-byte-aligned span (k^2 * C elements and
+// up to 7 before and after) and the kB16Group + 2 elements an owner's last
+// word pair may read past its channels, in whole 16-byte groups.
+__host__ __device__ constexpr int b16_slot(int run) { return (run + 14 + kB16Group + 2 + 7) / 8 * 8; }
+
+// Shared memory with `runs` runs a stage: the ring of slots first, then
+// byte offsets of the barriers, the runs' (vy | vz << 16, lead - (vy * k +
+// vz) * C), the stages' headers, the vox chunks, and the total.
+struct B16Layout {
+  int runs, slot;   // runs a stage; elements a run's slot
+  size_t bars, meta, header, vox, bytes;
+};
+
+__host__ __device__ inline B16Layout b16_layout(int run, int runs) {
+  B16Layout l;
+  l.runs = runs;
+  l.slot = b16_slot(run);
+  l.bars = static_cast<size_t>(kB16Stages) * runs * l.slot * 2;     // full, then empty
+  l.meta = l.bars + 2 * kB16Stages * sizeof(uint64_t);              // int2 a run
+  l.header = l.meta + static_cast<size_t>(kB16Stages) * runs * sizeof(int2);
+  l.vox = l.header + kB16Stages * sizeof(int);
+  l.bytes = l.vox + kB16VoxDepth * kB16VoxChunk * sizeof(int);
+  return l;
+}
+
+__device__ __forceinline__ void mbar_init_count(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(dpdist::smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(dpdist::smem_u32(bar)) : "memory");
+}
+
+// Raises the bytes the barrier's current phase waits for, without arriving.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;" ::"r"(
+                   dpdist::smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(int* dst, const int* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(dpdist::smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(kPending) : "memory");
+}
+
+// The adjoint on a bf16 grad, redesigned for its type. A work item is
+// (cloud b, slab, part): the slab's owners, an owner being kB16Group
+// channels of one cell (owner = cell * Q + j, Q = ceil(C / kB16Group)),
+// part p the owners [p * Tc, (p + 1) * Tc) for Tc consumer threads. Each
+// block takes a contiguous range of items, so that a cloud's slabs follow
+// each other and its vox comes from L1.
+// - Warp 0 produces: it walks its items' queries in chunks of
+//   kB16VoxChunk, their vox arriving by cp.async kB16VoxDepth chunks ahead,
+//   lists the queries whose window meets the item's slab in query order
+//   (a ballot), and brings each listed query's run (k^2 * C elements, its
+//   16-byte-aligned span) into the ring by one bulk copy issued by the lane
+//   that found it, with the query's (vy, vz) and the run's lead beside it.
+//   A stage holds up to `runs` runs of one item; it is closed (its header:
+//   count, last of its item) by one arrive on its full barrier, the
+//   lanes having raised its expected bytes before their copies.
+// - Warps 1.. consume: each thread owns one owner of the item and keeps its
+//   kB16Group float32 sums in registers. For each listed query of a stage,
+//   in order, one window test and one address for the owner's channels,
+//   then its channels read as 32-bit words from shared memory, realigned
+//   by one funnel shift where the run's element sits at an odd position,
+//   and unpacked exactly (a bf16 is the top half of its float32). A stage
+//   is released by one arrive a warp on its empty barrier; after its
+//   item's last stage each owner rounds its sums once to bf16 and stores.
+// Each dfv value is then the float32 sum over the queries that reach it,
+// in query order, from +0.0f (a query whose window misses an owner's cell
+// adds nothing, and +0.0f added changes no bit of such a sum), rounded
+// once: bit for bit table_gather_bwd_ordered, the same from run to run.
+template <typename Off>
+__global__ void __launch_bounds__(32 * (1 + kB16MaxConsumerWarps))
+    table_gather_bwd_bf16_kernel(const int* __restrict__ vox,             // (B, N)
+                                 const __nv_bfloat16* __restrict__ grad,  // (B, N, k^3*C), strided
+                                 int64_t stride_b, Off stride_n,
+                                 __nv_bfloat16* __restrict__ dfv,         // (B, G, C)
+                                 int N, int g, int k, int C, int parts, int64_t n_items,
+                                 const B16Layout lay) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + lay.bars);
+  uint64_t* empty = full + kB16Stages;
+  int2* meta = reinterpret_cast<int2*>(smem + lay.meta);
+  int* header = reinterpret_cast<int*>(smem + lay.header);
+  int* vring = reinterpret_cast<int*>(smem + lay.vox);
+  const int tid = threadIdx.x, lane = tid % kWarp, warp = tid / kWarp;
+  const int consumers = blockDim.x - kWarp;
+  const int P = lay.runs, slot = lay.slot;
+  const int gg = g * g, G = gg * g, kh = k / 2, run = k * k * C;
+  const int Q = (C + kB16Group - 1) / kB16Group;
+  const int64_t first = n_items * blockIdx.x / gridDim.x;
+  const int64_t last = n_items * (blockIdx.x + 1) / gridDim.x;
+
+  if (tid == 0) {
+    for (int s = 0; s < kB16Stages; ++s) {
+      mbar_init(&full[s]);
+      mbar_init_count(&empty[s], consumers / kWarp);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 0) {
+    // The producer. Vox chunks: item it's queries [n0, n0 + kB16VoxChunk),
+    // issued by a cursor kB16VoxDepth chunks ahead of the one listed; each
+    // lane copies and reads only its own elements.
+    constexpr int U = kB16VoxChunk / kWarp;
+    int64_t c_item = first;
+    int c_n0 = 0;
+    auto issue_vox = [&](int buf) {
+      if (c_item < last) {
+        const int* src = vox + (c_item / parts / g) * N;
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int n = c_n0 + lane + u * kWarp;
+          if (n < N) cp_async4(vring + buf * kB16VoxChunk + lane + u * kWarp, src + n);
+        }
+        c_n0 += kB16VoxChunk;
+        if (c_n0 >= N) c_n0 = 0, ++c_item;
+      }
+      cp_async_commit();   // an empty group past the last item keeps the count
+    };
+    for (int d = 0; d < kB16VoxDepth; ++d) issue_vox(d);
+
+    uint32_t uses = 0;   // stages acquired so far
+    int stage = 0, fill = 0, buf = 0;
+    bool held = false;   // the current stage is acquired
+    auto acquire = [&] {
+      if (held) return;
+      if (uses >= static_cast<uint32_t>(kB16Stages))
+        mbar_wait(&empty[stage], (uses / kB16Stages - 1) & 1);
+      ++uses;
+      held = true;
+    };
+    auto close = [&](bool last_of_item) {
+      acquire();
+      __syncwarp();
+      if (lane == 0) {
+        header[stage] = fill | (last_of_item ? INT_MIN : 0);
+        __threadfence_block();
+        mbar_arrive(&full[stage]);
+      }
+      __syncwarp();
+      stage = (stage + 1) % kB16Stages;
+      fill = 0;
+      held = false;
+    };
+
+    for (int64_t item = first; item < last; ++item) {
+      const int64_t bs = item / parts;
+      const int slab = static_cast<int>(bs % g);
+      const __nv_bfloat16* gb = grad + (bs / g) * stride_b;
+      for (int n0 = 0; n0 < N; n0 += kB16VoxChunk) {
+        cp_async_wait<kB16VoxDepth - 1>();
+        int v[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+          v[u] = n0 + lane + u * kWarp < N ? vring[buf * kB16VoxChunk + lane + u * kWarp] : -1;
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int n = n0 + lane + u * kWarp;
+          const int di = slab - v[u] / gg + kh;
+          const bool hit = v[u] >= 0 && v[u] < G && static_cast<unsigned>(di) < static_cast<unsigned>(k);
+          int2 mt = make_int2(0, 0);
+          uintptr_t a0 = 0;
+          uint32_t len = 0;
+          if (hit) {
+            const int vy = (v[u] / g) % g, vz = v[u] % g;
+            const uintptr_t a = reinterpret_cast<uintptr_t>(
+                gb + (static_cast<Off>(n) * stride_n + static_cast<Off>(di) * run));
+            a0 = a & ~uintptr_t{15};
+            len = static_cast<uint32_t>(((a + 2 * static_cast<uintptr_t>(run) + 15) &
+                                         ~uintptr_t{15}) - a0);
+            mt = make_int2(vy | (vz << 16), static_cast<int>((a & 15) / 2) - (vy * k + vz) * C);
+          }
+          unsigned m = __ballot_sync(0xffffffffu, hit);
+          while (m) {
+            acquire();
+            const int room = P - fill;
+            const int rank = __popc(m & ((1u << lane) - 1u));
+            const bool go = ((m >> lane) & 1u) && rank < room;
+            if (go) {
+              const int i = stage * P + fill + rank;
+              meta[i] = mt;
+              mbar_expect_tx(&full[stage], len);
+              dpdist::bulk_load(ring + static_cast<size_t>(i) * slot,
+                                reinterpret_cast<const void*>(a0), len, &full[stage]);
+            }
+            fill += min(__popc(m), room);
+            m &= ~__ballot_sync(0xffffffffu, go);
+            if (fill == P) close(false);
+          }
+        }
+        // This chunk's vox are used (the ballots above): refill its buffer.
+        issue_vox(buf);
+        buf = (buf + 1) % kB16VoxDepth;
+      }
+      close(true);
+    }
+    asm volatile("cp.async.wait_all;" ::: "memory");
+    return;
+  }
+
+  // The consumers: owner ctid of each item's part.
+  const int ctid = tid - kWarp;
+  uint32_t uses = 0;
+  for (int64_t item = first; item < last; ++item) {
+    const int64_t bs = item / parts;
+    const int part = static_cast<int>(item - bs * parts);
+    const int slab = static_cast<int>(bs % g);
+    const int own = part * consumers + ctid;   // < parts * consumers <= 2^31 - 1 (the C entry)
+    const int cell = own / Q, j = own - cell * Q;
+    const bool mine = cell < gg;
+    const int ty = mine ? cell / g + kh : INT_MIN / 2;   // never within k of a digit
+    const int tz = mine ? cell % g + kh : INT_MIN / 2;
+    const int off = mine ? (ty * k + tz) * C + j * kB16Group : 0;
+    float acc[kB16Group];
+#pragma unroll
+    for (int i = 0; i < kB16Group; ++i) acc[i] = 0.f;
+    bool last_of_item = false;
+    while (!last_of_item) {
+      const int stage = uses % kB16Stages;
+      mbar_wait(&full[stage], (uses / kB16Stages) & 1);
+      const int h = header[stage];
+      last_of_item = h < 0;
+      const int count = h & 0xffff;
+      const int2* mts = meta + stage * P;
+      const uint32_t* runs =
+          reinterpret_cast<const uint32_t*>(ring + static_cast<size_t>(stage) * P * slot);
+      for (int i = 0; i < count; ++i) {
+        const int2 mt = mts[i];
+        const int dj = ty - (mt.x & 0xffff), dl = tz - (mt.x >> 16);
+        if (static_cast<unsigned>(dj) < static_cast<unsigned>(k) &&
+            static_cast<unsigned>(dl) < static_cast<unsigned>(k)) {
+          // Element p of the run's slot is this owner's first channel.
+          const int p = mt.y + off;
+          const uint32_t* w = runs + i * (slot / 2) + (p >> 1);
+          const uint32_t sh = (p & 1) * 16;
+          uint32_t word[kB16Group / 2 + 1];
+#pragma unroll
+          for (int m = 0; m <= kB16Group / 2; ++m) word[m] = w[m];
+#pragma unroll
+          for (int m = 0; m < kB16Group / 2; ++m) {
+            const uint32_t pair = __funnelshift_r(word[m], word[m + 1], sh);
+            acc[2 * m] += __uint_as_float(pair << 16);
+            acc[2 * m + 1] += __uint_as_float(pair & 0xffff0000u);
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[stage]);
+      ++uses;
+    }
+    if (mine) {
+      const int c0 = j * kB16Group;
+      __nv_bfloat16* out =
+          dfv + ((bs / g) * G + static_cast<int64_t>(slab) * gg + cell) * C + c0;
+#pragma unroll
+      for (int i = 0; i < kB16Group; ++i)
+        if (c0 + i < C) out[i] = __float2bfloat16_rn(acc[i]);
+    }
+  }
+}
+
 bool bad_window(int g, int k, int C) {
   return g < 1 || k < 1 || (k % 2) == 0 || k > 2 * g + 1 || C < 1;
+}
+
+// The bf16 adjoint's launch: consumer warps for a slab's owners (at most
+// kB16MaxConsumerWarps; parts split the rest), the most runs a stage that
+// fit the block's shared memory (at most kB16MaxRuns), up to
+// kB16BlocksPerSm persistent blocks an SM, no more blocks than items.
+struct B16Plan {
+  int threads, parts, grid;
+  int64_t n_items;
+  B16Layout lay;
+};
+
+cudaError_t b16_plan(int B, int g, int k, int C, int device, B16Plan* plan) {
+  const int64_t run = static_cast<int64_t>(k) * k * C;
+  const int64_t owners = static_cast<int64_t>(g) * g * ((C + kB16Group - 1) / kB16Group);
+  const int cw = static_cast<int>(std::min<int64_t>(kB16MaxConsumerWarps, (owners + 31) / 32));
+  const int64_t parts = (owners + 32 * cw - 1) / (32 * cw);
+  if (run > (1 << 24) || parts * 32 * cw > INT_MAX) return cudaErrorInvalidValue;
+  int max_smem = 0, sm_smem = 0, n_sm = 0;
+  cudaError_t err;
+  if ((err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, device)) ||
+      (err = cudaDeviceGetAttribute(&sm_smem, cudaDevAttrMaxSharedMemoryPerMultiprocessor,
+                                    device)) ||
+      (err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device)))
+    return err;
+  int runs = kB16MaxRuns;
+  while (runs > 0 && b16_layout(static_cast<int>(run), runs).bytes > static_cast<size_t>(max_smem))
+    --runs;
+  if (runs < 1) return cudaErrorInvalidValue;
+  plan->lay = b16_layout(static_cast<int>(run), runs);
+  plan->threads = 32 * (1 + cw);
+  plan->parts = static_cast<int>(parts);
+  plan->n_items = static_cast<int64_t>(B) * g * parts;
+  const int per_sm = std::max(
+      1, std::min({kB16BlocksPerSm, sm_smem / static_cast<int>(plan->lay.bytes + 1024),
+                   2048 / plan->threads}));
+  plan->grid = static_cast<int>(std::min<int64_t>(plan->n_items, static_cast<int64_t>(n_sm) * per_sm));
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -400,15 +743,32 @@ int dpdist_table_gather_bwd(const int* vox, const void* grad, int64_t stride_b, 
   const bool wide = (N - 1) * stride_n + static_cast<int64_t>(k) * k * k * C > INT_MAX;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (bf16) {
+    B16Plan plan;
+    err = b16_plan(B, g, k, C, device, &plan);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    auto launch = [&](auto kernel, auto off) {
+      const cudaError_t e = set_smem(kernel, plan.lay.bytes);
+      if (e != cudaSuccess) return e;
+      kernel<<<plan.grid, plan.threads, plan.lay.bytes, static_cast<cudaStream_t>(stream)>>>(
+          vox, static_cast<const __nv_bfloat16*>(grad), stride_b,
+          static_cast<decltype(off)>(stride_n), static_cast<__nv_bfloat16*>(dfv), N, g, k, C,
+          plan.parts, plan.n_items, plan.lay);
+      return cudaGetLastError();
+    };
+    err = wide ? launch(table_gather_bwd_bf16_kernel<int64_t>, int64_t{0})
+               : launch(table_gather_bwd_bf16_kernel<int>, 0);
+    return static_cast<int>(err);
+  }
   int max_smem = 0;
   err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int slots = g * g * C;
   const int per_thread = (slots + kBwdSlots - 1) / kBwdSlots;
   const int threads = std::min(kBwdMaxThreads, (per_thread + kWarp - 1) / kWarp * kWarp);
-  // A run's 16-byte-aligned span: k^2 * C elements and up to one 16-byte
-  // group's worth before them.
-  const int bytes = bf16 ? 2 : 4, per16 = 16 / bytes;
+  // The float32 kernel. A run's 16-byte-aligned span: k^2 * C elements and
+  // up to one 16-byte group's worth before them.
+  const int bytes = sizeof(float), per16 = 16 / bytes;
   const int slot = (k * k * C + 2 * (per16 - 1)) / per16 * per16;
   const size_t off_bytes = wide ? sizeof(int64_t) : sizeof(int);
   const size_t fixed = kBwdStages * sizeof(uint64_t) + threads * (off_bytes + sizeof(int)) +
@@ -427,18 +787,26 @@ int dpdist_table_gather_bwd(const int* vox, const void* grad, int64_t stride_b, 
                                        out, N, g, k, C, per_stage, slot);
     return cudaGetLastError();
   };
-  using bf = __nv_bfloat16;
   const auto* gf = static_cast<const float*>(grad);
-  const auto* gh = static_cast<const bf*>(grad);
   auto* df = static_cast<float*>(dfv);
-  auto* dh = static_cast<bf*>(dfv);
-  if (bf16)
-    err = wide ? launch(table_gather_bwd_kernel<bf, bf, int64_t>, gh, dh, int64_t{0})
-               : launch(table_gather_bwd_kernel<bf, bf, int>, gh, dh, 0);
-  else
-    err = wide ? launch(table_gather_bwd_kernel<float, float, int64_t>, gf, df, int64_t{0})
-               : launch(table_gather_bwd_kernel<float, float, int>, gf, df, 0);
+  err = wide ? launch(table_gather_bwd_kernel<float, float, int64_t>, gf, df, int64_t{0})
+             : launch(table_gather_bwd_kernel<float, float, int>, gf, df, 0);
   return static_cast<int>(err);
+}
+
+// The bf16 adjoint's launch for B clouds on `device`: out = {consumer
+// threads a block, parts a slab, runs a stage, shared memory bytes, blocks,
+// work items}. Returns 0, or cudaErrorInvalidValue for sizes it does not
+// take (kernels/table_gather.py:bwd_bf16_plan mirrors it).
+int dpdist_table_gather_bwd_bf16_plan(int B, int g, int k, int C, int device, int64_t* out) {
+  if (B < 1 || bad_window(g, k, C) || g > 255) return static_cast<int>(cudaErrorInvalidValue);
+  B16Plan plan;
+  const cudaError_t err = b16_plan(B, g, k, C, device, &plan);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t v[6] = {plan.threads - kWarp, plan.parts, plan.lay.runs,
+                        static_cast<int64_t>(plan.lay.bytes), plan.grid, plan.n_items};
+  std::copy(v, v + 6, out);
+  return 0;
 }
 
 }  // extern "C"

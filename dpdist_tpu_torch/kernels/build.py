@@ -151,6 +151,9 @@ def library() -> ctypes.CDLL:
         lib.dpdist_table_gather_bwd.argtypes = [vp, vp, i64, i64, vp, ci, ci, ci, ci, ci, ci,
                                                 ci, vp]
         lib.dpdist_table_gather_bwd.restype = ci
+        lib.dpdist_table_gather_bwd_bf16_plan.argtypes = [ci, ci, ci, ci, ci,
+                                                          ctypes.POINTER(i64)]
+        lib.dpdist_table_gather_bwd_bf16_plan.restype = ci
         for fn in (lib.dpdist_nn_min_tile_points, lib.dpdist_nn_min_max_chunk):
             fn.argtypes = []
             fn.restype = ci

@@ -13,14 +13,20 @@ what bounds each on an H100 and how its design meets that:
   the previous run is written, and rows leave in 16-byte-aligned groups
   (4 float32 or 8 bfloat16 rows) by bulk stores from a double buffer.
 - table_gather: one block per (cloud, tile of queries), one warp per row.
-- table_gather_bwd: owner-computes. One block per (cloud, slab of g^2
-  cells); each thread owns a few dfv slots in registers and pulls the grad
-  entries of the queries whose window meets its slab, in query order: no
-  atomics, no barrier per query. Each slot is summed from 0 in query
-  order, so the kernel equals `table_gather_bwd_ordered` (one index_add_
-  per query, in query order) bit for bit and is the same from run to run.
-  It takes a float32 or a bfloat16 grad (one kernel, templated on the
-  types): in bfloat16 it sums in float32 and rounds each dfv value once.
+- table_gather_bwd: owner-computes. On a float32 grad, one block per
+  (cloud, slab of g^2 cells); each thread owns a few dfv slots in
+  registers and pulls the grad entries of the queries whose window meets
+  its slab, in query order: no atomics, no barrier per query. On a
+  bfloat16 grad, its own kernel: persistent blocks walk (cloud, slab)
+  items, a producer warp listing each item's queries and bringing their
+  grad runs into a ring by bulk copies while the consumer warps sum; a
+  thread owns 10 channels of one cell, tests the window once a query and
+  reads the bf16 pairs as 32-bit words, summing in float32 and rounding
+  each dfv value once. Each value is summed from 0 in query order, so both
+  kernels equal `table_gather_bwd_ordered` (one index_add_ per query, in
+  query order) bit for bit and are the same from run to run.
+  `table_gather_bwd_fits` holds their shared-memory limits, which
+  `models.dpdist.route` reads.
 
     x, vox = table_gather_x(fv, queries, grid_size, k)
         (B, V, C) volume + (B, N, 3) queries -> x = [delta, patch]
@@ -97,6 +103,50 @@ def table_gather_fits(grid_size: int, k: int, C: int) -> bool:
     descriptions, csrc/row_groups.cuh:plan_rows) fits wherever
     gather_smem does."""
     return window_fits(grid_size, k) and gather_smem(grid_size, k, C) <= MAX_SMEM
+
+
+# The adjoint kernels' shared memory (csrc/table_gather.cu), mirrored from
+# shapes so that route sees their limits before any launch.
+BWD_F32_STAGES, BWD_F32_SLOTS, BWD_F32_MAX_THREADS = 4, 5, 256
+# The bf16 adjoint: an owner sums BWD_BF16_GROUP channels of one cell; a
+# ring of BWD_BF16_STAGES stages of runs; vox chunks of 128 queries, 4 in
+# flight. Its C entry plans the rest of its launch
+# (dpdist_table_gather_bwd_bf16_plan).
+BWD_BF16_GROUP, BWD_BF16_STAGES = 10, 4
+BWD_BF16_VOX_BYTES = 4 * 128 * 4
+
+
+def bwd_f32_smem(grid_size: int, k: int, C: int) -> int:
+    """Shared memory bytes of the float32 adjoint's smallest layout (one run
+    a stage, 64-bit run offsets), as its C entry sizes it."""
+    per_thread = -(-grid_size ** 2 * C // BWD_F32_SLOTS)
+    threads = min(BWD_F32_MAX_THREADS, -(-per_thread // 32) * 32)
+    fixed = BWD_F32_STAGES * 8 + threads * (8 + 4) + threads // 32 * 4
+    slot = (k * k * C + 6) // 4 * 4       # a run's 16-byte-aligned span, in floats
+    return BWD_F32_STAGES * slot * 4 + fixed
+
+
+def bwd_bf16_smem(k: int, C: int, runs: int) -> int:
+    """Shared memory bytes of the bf16 adjoint with `runs` runs a stage
+    (csrc/table_gather.cu:b16_layout): the ring of runs' slots (a run's
+    16-byte-aligned span and BWD_BF16_GROUP + 2 elements past it), the full
+    and empty barriers, each run's (vy, vz, lead) pair, the stages' headers
+    and the vox chunks."""
+    slot = (k * k * C + 14 + BWD_BF16_GROUP + 2 + 7) // 8 * 8
+    return (BWD_BF16_STAGES * runs * (2 * slot + 8) + 2 * BWD_BF16_STAGES * 8
+            + BWD_BF16_STAGES * 4 + BWD_BF16_VOX_BYTES)
+
+
+def table_gather_bwd_fits(grid_size: int, k: int, C: int, dtype=torch.float32) -> bool:
+    """Whether the adjoint kernel of `dtype` (float32 or bfloat16) takes
+    this window and channel count: g <= 255 and one run a stage of its ring
+    in shared memory. In bf16 that also keeps a run below 2^24 elements and
+    a slab's owners below 2^31, the C entry's other limits."""
+    if not window_fits(grid_size, k) or not 1 <= grid_size <= 255 or C < 1:
+        return False
+    if dtype == torch.bfloat16:
+        return bwd_bf16_smem(k, C, 1) <= MAX_SMEM
+    return bwd_f32_smem(grid_size, k, C) <= MAX_SMEM
 
 
 def table_gather_x_plain(fv, queries, grid_size: int, k: int):
@@ -339,10 +389,17 @@ def table_gather_bwd(vox, grad, grid_size: int, k: int):
     if grad.device != vox.device:
         raise ValueError(f"device mismatch: {vox.device} vs {grad.device}")
     C = grad.shape[2] // k ** 3
-    _check_window(grid_size, k, C, grad.device)
+    if k < 1 or k % 2 == 0:
+        raise ValueError(f"k must be odd and positive, got {k}")
     dev = grad.device
     if dev.type == "cpu":
         return table_gather_bwd_plain(vox, grad, grid_size, k)
+    if dev.type != "cuda":
+        raise ValueError(f"the table gather runs on cpu or cuda tensors, got {dev}")
+    # The adjoint stages grad runs, not the volume: its own limits.
+    if not table_gather_bwd_fits(grid_size, k, C, grad.dtype):
+        raise ValueError(f"the {grad.dtype} adjoint kernel does not take g = {grid_size}, "
+                         f"k = {k}, C = {C} (table_gather_bwd_fits)")
 
     from dpdist_tpu_torch.kernels import build
 

@@ -115,7 +115,12 @@ from dpdist_tpu_torch.kernels.fused_forward import (
 from dpdist_tpu_torch.kernels.gather_fused import gather_patches_fused
 from dpdist_tpu_torch.kernels.mfv_gather import mfv_x, mfv_x_fits
 from dpdist_tpu_torch.kernels.ops import dispatch, route_device
-from dpdist_tpu_torch.kernels.table_gather import table_gather, table_gather_fits, table_gather_x
+from dpdist_tpu_torch.kernels.table_gather import (
+    table_gather,
+    table_gather_bwd_fits,
+    table_gather_fits,
+    table_gather_x,
+)
 from dpdist_tpu_torch.kernels.threedmfv import threedmfv_fits
 from dpdist_tpu_torch.nn.layers import params_to_device
 from dpdist_tpu_torch.nn.layers import (
@@ -239,7 +244,9 @@ def route(cfg: DPDistConfig, device_type: str, n_a: int, n_b: int, grad: bool = 
     The kernels' limits (each kernel module's *_fits, from shapes alone):
     the fused kernels give way to "table" (`resolve_mode`), and an encode or
     a gather kernel that does not take the config gives way to the plain op
-    for that step ("plain"), which computes the same function. `batch`, the
+    for that step ("plain"), which computes the same function; under
+    grad=True so does a gather whose adjoint (row 3, in the config's dtype)
+    does not take it, "mfv" giving way first. `batch`, the
     pairs of the call where it is known (an int), is held to the limits
     that depend on it: "full" gives way to "table" where the fused forward
     does not take the 2B stack (fused_forward_batch_fits); None (a symbolic
@@ -254,7 +261,12 @@ def route(cfg: DPDistConfig, device_type: str, n_a: int, n_b: int, grad: bool = 
         on_card = device_type == "cuda" and cfg.fused_gather != "off"
         encode = tuple(_encode_route(cfg, n) if on_card else "plain" for n in (n_a, n_b))
         return Route("off", encode, ("plain",) * 2)
-    if mode == "mfv" and max(n_a, n_b) <= MAX_TILE_POINTS:
+    # A gradient runs row 3's adjoint in the forward's dtype behind every
+    # gather kernel.
+    adjoint_fits = not grad or table_gather_bwd_fits(
+        cfg.grid_size, cfg.k, cfg.fv_channels,
+        torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32)
+    if mode == "mfv" and max(n_a, n_b) <= MAX_TILE_POINTS and adjoint_fits:
         return Route("mfv", ("mfv_gather_x",) * 2, ("mfv_gather_x",) * 2)
     encode = tuple(_encode_route(cfg, n) for n in (n_a, n_b))
     if mode == "full":
@@ -266,7 +278,7 @@ def route(cfg: DPDistConfig, device_type: str, n_a: int, n_b: int, grad: bool = 
                                                      cfg.fv_channels):
             return Route("full", encode, ("fused_forward",) * 2)
         mode = "table"
-    gather_fits = table_gather_fits(cfg.grid_size, cfg.k, cfg.fv_channels)
+    gather_fits = table_gather_fits(cfg.grid_size, cfg.k, cfg.fv_channels) and adjoint_fits
     if mode == "on":
         return Route("on", encode, ("gather_patches_fused" if gather_fits else "plain",) * 2)
     # AB queries B's points, BA queries A's.

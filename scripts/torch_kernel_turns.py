@@ -6,7 +6,10 @@ and power limit: each kernel's device time a launch (torch.profiler, the
 mean over PROFILED calls) and its CUDA-event median over RUNS calls, at
 B = 256 clouds, N = 256 queries, the committed grid (8^3 cells, k = 5,
 C = 20), on inputs drawn from a fixed seed (queries uniform in
-[-1.2, 1.2]^3, a contiguous grad as row 6's backward hands row 3).
+[-1.2, 1.2]^3, a contiguous grad as row 6's backward hands row 3); and
+row 3 on a bf16 grad ("table_gather_bwd_bf16"), at N = 64 on the strided
+patch part of a bf16 x's gradient as rows 2 and 1 hand it (queries
+uniform in [-1, 1]^3) and at N = 256 on the contiguous grad in bf16.
 
     python3 scripts/torch_kernel_turns.py --root .
     python3 scripts/torch_kernel_turns.py --root path/to/other/checkout
@@ -24,6 +27,7 @@ import subprocess
 import sys
 
 B, N, GRID, K, C = 256, 256, 8, 5, 20
+N_BF16 = 64
 RUNS, PROFILED, WARMUP = 50, 20, 5
 
 
@@ -49,6 +53,11 @@ def main() -> int:
     q = torch.as_tensor(rng.uniform(-1.2, 1.2, (B, N, 3)).astype(np.float32), device=dev)
     vox = voxel_assign(q, GRID)[0]
     grad = torch.as_tensor(rng.normal(size=(B, N, K ** 3 * C)).astype(np.float32), device=dev)
+    q64 = torch.as_tensor(rng.uniform(-1, 1, (B, N_BF16, 3)).astype(np.float32), device=dev)
+    vox64 = voxel_assign(q64, GRID)[0]
+    grad64 = torch.as_tensor(rng.normal(size=(B, N_BF16, 3 + K ** 3 * C)).astype(np.float32),
+                             device=dev).to(torch.bfloat16)[..., 3:]
+    grad16 = grad.to(torch.bfloat16)
 
     def event_ms(fn):
         for _ in range(WARMUP):
@@ -64,20 +73,26 @@ def main() -> int:
             times.append(start.elapsed_time(end))
         return statistics.median(times)
 
-    def device_ms(fn, name):
+    def device_ms(fn, names):
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(PROFILED):
                 fn()
             torch.cuda.synchronize()
-        kept = [e for e in prof.key_averages() if name in e.key]
+        kept = [e for e in prof.key_averages() if any(name in e.key for name in names)]
         n = sum(e.count for e in kept)
         return sum(e.self_device_time_total for e in kept) / n / 1e3 if n else None
 
-    rows = {"table_gather": (lambda: table_gather(fv, vox, GRID, K), "table_gather_kernel<float"),
+    # The bf16 adjoint's kernel name since it has its own design, and
+    # before (row 3's kernel instantiated on bf16).
+    bf16_names = ("table_gather_bwd_bf16_kernel", "table_gather_bwd_kernel<__nv_bfloat16")
+    rows = {"table_gather": (lambda: table_gather(fv, vox, GRID, K), ("table_gather_kernel<float",)),
             "table_gather_bwd": (lambda: table_gather_bwd(vox, grad, GRID, K),
-                                 "table_gather_bwd_kernel<float")}
+                                 ("table_gather_bwd_kernel<float",)),
+            "table_gather_bwd_bf16": (lambda: table_gather_bwd(vox64, grad64, GRID, K), bf16_names),
+            "table_gather_bwd_bf16_n256": (lambda: table_gather_bwd(vox, grad16, GRID, K),
+                                           bf16_names)}
     out = {"root": args.root, "card": card}
     for name, (fn, kernel) in rows.items():
         out[name] = {"ms": event_ms(fn), "device_ms": device_ms(fn, kernel)}

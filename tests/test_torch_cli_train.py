@@ -20,6 +20,7 @@ from dpdist_tpu_torch.cli import gen_data, train_dpdist
 from dpdist_tpu_torch.serving import load_frozen_distance
 from dpdist_tpu_torch.train import latest_checkpoint
 from dpdist_tpu_torch.train.checkpoint import tree_flatten_with_paths
+from reference_native import _reference_native_so, reference_native  # noqa: F401
 
 GEN = ["--families", "chair", "box", "--n_train", "2", "--n_test", "1", "--n_surface", "1500",
        "--num_neg_points", "200", "--seed", "1"]
@@ -43,13 +44,13 @@ def data_root(tmp_path_factory):
     return root
 
 
-def test_gen_data_equals_jax(data_root):
+def test_gen_data_equals_jax(data_root, reference_native):
     jax_gen_data(GEN + ["--out", str(data_root / "ref")])
     mine, ref = _tree(data_root / "mine"), _tree(data_root / "ref")
     assert sorted(mine) == sorted(ref) and mine == ref
 
 
-def test_gen_data_from_modelnet_equals_jax(tmp_path):
+def test_gen_data_from_modelnet_equals_jax(tmp_path, reference_native):
     """--from_modelnet on a ModelNet-layout tree of csv point files: the
     same ground-truth files as dpdist_tpu's gen_data, and models that
     already have theirs are skipped."""

@@ -29,6 +29,7 @@ from dpdist_tpu_torch.native import available, fast_loadtxt
 from dpdist_tpu_torch.train import params_from_jax
 from dpdist_tpu_torch.train.logging import RunLogger
 from dpdist_tpu_torch.train.trainer import DPDistTrainer
+from reference_native import _reference_native_so, reference_native  # noqa: F401
 
 SMALL = dict(num_point=16, embedding_size=64, k=3, mlp=(32, 32, 32))
 # One occluded train step, port (plain PyTorch) against JAX (XLA), both on
@@ -127,7 +128,7 @@ def test_io_round_trips_against_jax(tmp_path, fmt):
             np.testing.assert_array_equal(back, getattr(jax_io, read)(str(ref / "f")))
 
 
-def test_fast_loadtxt_equals_jax_and_numpy(tmp_path):
+def test_fast_loadtxt_equals_jax_and_numpy(tmp_path, reference_native):
     """The native parser (built into the port's own build directory) reads
     the ground-truth files as dpdist_tpu's does and as np.loadtxt does."""
     assert available()
@@ -143,7 +144,7 @@ def test_fast_loadtxt_equals_jax_and_numpy(tmp_path):
         fast_loadtxt(str(tmp_path / "missing.txt"), 4)
 
 
-def test_native_nn_distance_equals_jax():
+def test_native_nn_distance_equals_jax(reference_native):
     """The native library's nearest-neighbour pass, which both packages
     build from one source: the same squared distances and indices."""
     from dpdist_tpu.native import nn_distance_native as jax_nn

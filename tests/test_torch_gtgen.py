@@ -15,6 +15,7 @@ from dpdist_tpu.native import min_distances_native as jax_min_native
 
 from dpdist_tpu_torch.data import gtgen
 from dpdist_tpu_torch.native import lib as native
+from reference_native import _reference_native_so, reference_native  # noqa: F401
 
 # numpy's expanded form |q|^2 + |d|^2 - 2 q.d against the native
 # per-dimension form: float32 cancellation near 0, then a sqrt.
@@ -32,7 +33,7 @@ def _files(root):
 
 
 @pytest.mark.parametrize("scheme", ["dropped_coordinates", "cube"])
-def test_synthetic_dataset_files_equal_jax(tmp_path, scheme):
+def test_synthetic_dataset_files_equal_jax(tmp_path, scheme, reference_native):
     kw = dict(families=("chair", "sphere"), n_train=2, n_test=1, n_surface=2000,
               num_neg_points=300, seed=4, scheme=scheme)
     gtgen.generate_synthetic_dataset(str(tmp_path / "mine"), device="cpu", **kw)
@@ -51,7 +52,7 @@ def test_uniform_sampling_equals_jax(scheme):
         gtgen.uniform_sampling(np.random.default_rng(1), 5, "grid")
 
 
-def test_min_distances_native_and_numpy(monkeypatch):
+def test_min_distances_native_and_numpy(monkeypatch, reference_native):
     """The native path equals dpdist_tpu's native path bit for bit; the
     numpy path (the fallback where the native library is missing), tiled
     here, agrees within TOL_NUMPY."""

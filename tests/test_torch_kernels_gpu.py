@@ -216,23 +216,58 @@ def test_table_gather_bwd_kernel_vox_outside_the_grid_and_off_grid_rows(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B,N,g,k,C", [(2, 50, 16, 7, 20), (1, 300, 16, 5, 20)])
+def test_table_gather_bwd_kernel_past_the_gathers_volume(cuda, B, N, g, k, C):
+    """The float32 adjoint stages grad runs, not the (g^3, C) volume, so it
+    takes a g = 16, C = 20 grid (a 320 KB volume, past a block's shared
+    memory, which the gathers refuse; four passes of 256 x 5 slots a slab):
+    bit for bit the ordered plain sum, the same from run to run, and within
+    REL_BWD of float64 sums."""
+    q = torch.as_tensor(_edge_inputs(B, 1, N, g, seed=50)[1], device=cuda)
+    _, vox = table_gather_x_plain(torch.zeros(B, g ** 3, C, device=cuda), q, g, k)
+    grad = torch.as_tensor(np.random.default_rng(51).normal(
+        size=(B, N, 3 + k ** 3 * C)).astype(np.float32), device=cuda)[..., 3:]
+    before = table_gather_bwd.launches
+    dfv = table_gather_bwd(vox, grad, g, k)
+    assert torch.equal(dfv, table_gather_bwd(vox, grad, g, k))
+    assert table_gather_bwd.launches == before + 2
+    assert torch.equal(dfv, table_gather_bwd_ordered(vox, grad, g, k))
+    ref = table_gather_bwd_plain(vox, grad.double(), g, k)
+    assert float((dfv.double() - ref).abs().max()) <= REL_BWD * float(ref.abs().max())
+
+
+def _beyond_one_ulp(dfv, exact):
+    """Entries of a bf16 dfv more than one bf16 ulp (of the exact sum
+    rounded) from the exact sums (float64, or float32 where they are
+    exact)."""
+    exact = exact.double()
+    ulp = torch.ldexp(torch.ones_like(exact), torch.frexp(exact.to(torch.bfloat16).double())[1] - 8)
+    return int(((dfv.double() - exact).abs() > ulp).sum())
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("strided", [True, False])
-@pytest.mark.parametrize("B,N,g,k", [
-    (256, 64, 8, 5),    # the bf16 frozen loss at np = 64
-    (256, 256, 8, 5),   # and at np = 256
-    (2, 16, 4, 3),
-    (3, 13, 8, 5),
-    (1, 1, 8, 5),
+@pytest.mark.parametrize("B,N,g,k,C", [
+    (256, 64, 8, 5, 20),    # the bf16 frozen loss at np = 64
+    (256, 256, 8, 5, 20),   # and at np = 256
+    (2, 16, 4, 3, 20),
+    (3, 13, 8, 5, 20),
+    (1, 1, 8, 5, 20),
+    (3, 40, 8, 5, 7),       # C = 7: owners of 10 channels, 3 of them past the cell's
+    (2, 37, 4, 3, 7),
+    (2, 50, 16, 7, 20),     # g = 16, k = 7: two parts a slab
+    (2, 300, 8, 5, 20),     # N past one producer chunk of 128 queries
+    (1, 1000, 2, 5, 7),     # every query's window meets every slab: many stages an item
 ])
-def test_table_gather_bwd_bf16_kernel_matches_ordered_sum(cuda, B, N, g, k, strided):
+def test_table_gather_bwd_bf16_kernel_matches_ordered_sum(cuda, B, N, g, k, C, strided):
     """Row 3 on a bf16 grad (the strided patch part of a bf16 x's gradient,
     or a contiguous one): a bf16 dfv equal bit for bit to the ordered plain
     sum of the float32 upcast rounded once, the same from run to run, and
     counted as a bf16 launch."""
     q = torch.as_tensor(_edge_inputs(B, 1, N, g, seed=30)[1], device=cuda)
-    _, vox = table_gather_x_plain(torch.zeros(B, g ** 3, 20, device=cuda), q, g, k)
+    _, vox = table_gather_x_plain(torch.zeros(B, g ** 3, C, device=cuda), q, g, k)
     gx = torch.as_tensor(np.random.default_rng(31).normal(
-        size=(B, N, 3 + k ** 3 * 20)).astype(np.float32), device=cuda).to(torch.bfloat16)
+        size=(B, N, 3 + k ** 3 * C)).astype(np.float32), device=cuda).to(torch.bfloat16)
     grad = gx[..., 3:] if strided else gx[..., 3:].contiguous()
     before = (table_gather_bwd.launches, table_gather_bwd.launches_bf16)
     dfv = table_gather_bwd(vox, grad, g, k)
@@ -243,6 +278,101 @@ def test_table_gather_bwd_bf16_kernel_matches_ordered_sum(cuda, B, N, g, k, stri
     assert dfv.dtype == torch.bfloat16 and torch.equal(dfv, dfv2)
     assert torch.equal(dfv, table_gather_bwd_ordered(vox, grad, g, k))
     assert torch.equal(dfv, table_gather_bwd_ordered(vox, grad.float(), g, k).to(torch.bfloat16))
+    assert _beyond_one_ulp(dfv, table_gather_bwd_plain(vox, grad.double(), g, k)) == 0
+
+
+def _leads(grad, vox, g, k):
+    """The 2-byte offsets within 16 bytes at which the runs that row 3
+    reads start (one run per query and slab its window meets)."""
+    C = grad.shape[2] // k ** 3
+    v = vox.long().cpu()
+    di = torch.arange(g)[None, None] - v[..., None] // g ** 2 + k // 2          # (B, N, g)
+    hit = (di >= 0) & (di < k) & (v[..., None] >= 0) & (v[..., None] < g ** 3)
+    n = torch.arange(grad.shape[1])[None, :, None]
+    b = torch.arange(grad.shape[0])[:, None, None]
+    elem = grad.storage_offset() + b * grad.stride(0) + n * grad.stride(1) + di * k * k * C
+    return set((elem[hit] % 8).tolist())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [20, 7])
+@pytest.mark.parametrize("base", range(8))
+def test_table_gather_bwd_bf16_kernel_every_lead(cuda, base, C):
+    """Runs of a strided bf16 grad that start at every 2-byte offset within
+    16 bytes (the view starts `base` elements into its buffer; rows of
+    3 + k^3 * C elements, an odd stride at C = 20, runs of 175 elements at
+    C = 7), off-grid rows included: bit for bit the ordered sum, the same
+    from run to run."""
+    B, N, g, k = 2, 41, 8, 5
+    W = 3 + k ** 3 * C
+    q = torch.as_tensor(_edge_inputs(B, 1, N, g, seed=40 + base)[1], device=cuda)
+    _, vox = table_gather_x_plain(torch.zeros(B, g ** 3, C, device=cuda), q, g, k)
+    flat = torch.as_tensor(np.random.default_rng(41).normal(size=base + B * N * W).astype(
+        np.float32), device=cuda).to(torch.bfloat16)
+    grad = flat[base:].view(B, N, W)[..., 3:]
+    assert _leads(grad, vox, g, k) == set(range(8))
+    before = table_gather_bwd.launches_bf16
+    dfv = table_gather_bwd(vox, grad, g, k)
+    again = table_gather_bwd(vox, grad, g, k)
+    torch.cuda.synchronize()
+    assert table_gather_bwd.launches_bf16 == before + 2
+    assert torch.equal(dfv, again) and torch.equal(dfv, table_gather_bwd_ordered(vox, grad, g, k))
+    assert _beyond_one_ulp(dfv, table_gather_bwd_plain(vox, grad.double(), g, k)) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [20, 7])
+def test_table_gather_bwd_bf16_kernel_skips_vox_outside_the_grid(cuda, C):
+    """A vox outside [0, g^3) adds nothing in the bf16 kernel either; every
+    query off the grid (vox 0) fills only cell 0's neighbourhood."""
+    B, N, g, k = 3, 40, 8, 5
+    r = np.random.default_rng(26)
+    q = torch.as_tensor(_edge_inputs(B, 1, N, g, seed=27)[1], device=cuda)
+    _, vox = table_gather_x_plain(torch.zeros(B, g ** 3, C, device=cuda), q, g, k)
+    grad = torch.as_tensor(r.normal(size=(B, N, k ** 3 * C)).astype(np.float32),
+                           device=cuda).to(torch.bfloat16)
+    bad = torch.as_tensor(r.random((B, N)) < 0.2, device=cuda)
+    bad[:, 0] = True
+    vox_bad = torch.where(bad, torch.where(torch.as_tensor(r.random((B, N)) < 0.5, device=cuda),
+                                           -1 - vox, g ** 3 + vox), vox).to(torch.int32)
+    before = table_gather_bwd.launches_bf16
+    dfv = table_gather_bwd(vox_bad, grad, g, k)
+    assert torch.equal(dfv, table_gather_bwd(vox_bad, grad, g, k))
+    assert table_gather_bwd.launches_bf16 == before + 2
+    assert torch.equal(dfv, table_gather_bwd_ordered(vox_bad, grad, g, k))
+    kept = torch.where(bad, torch.zeros_like(vox), vox)
+    alone = table_gather_bwd_ordered(kept, torch.where(bad[..., None], 0.0, grad.float()), g, k)
+    assert torch.equal(dfv, alone.to(torch.bfloat16))
+    zero = torch.zeros(B, N, dtype=torch.int32, device=cuda)
+    dfv0 = table_gather_bwd(zero, grad, g, k)
+    assert torch.equal(dfv0, table_gather_bwd_ordered(zero, grad, g, k))
+    dfv0 = dfv0.view(B, g, g, g, C)
+    kh = k // 2
+    assert bool((dfv0[:, kh + 1:] == 0).all() and (dfv0[:, :, kh + 1:] == 0).all()
+                and (dfv0[:, :, :, kh + 1:] == 0).all())
+    assert bool((dfv0[:, :kh + 1, :kh + 1, :kh + 1] != 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g,k,C", [(8, 5, 20), (8, 5, 7), (16, 7, 20), (4, 9, 20), (255, 5, 20),
+                                   (16, 33, 26), (16, 33, 27), (256, 5, 20), (8, 19, 20)])
+def test_table_gather_bwd_bf16_fits_matches_the_c_plan(cuda, g, k, C):
+    """route's table_gather_bwd_fits in bf16 takes what the C entry's
+    launch plan takes on this card, and bwd_bf16_smem is the plan's shared
+    memory at its runs a stage. (16, 33, 26) is the last C at k = 33 whose
+    one run a stage fits a block, (16, 33, 27) the first that does not."""
+    import ctypes
+
+    from dpdist_tpu_torch.kernels import build
+    from dpdist_tpu_torch.kernels.table_gather import bwd_bf16_smem, table_gather_bwd_fits
+
+    out = (ctypes.c_int64 * 6)()
+    rc = build.library().dpdist_table_gather_bwd_bf16_plan(2, g, k, C, cuda.index, out)
+    assert (rc == 0) == table_gather_bwd_fits(g, k, C, torch.bfloat16)
+    if rc == 0:
+        consumers, parts, runs, smem = list(out)[:4]
+        assert 1 <= runs <= 8 and smem == bwd_bf16_smem(k, C, runs)
+        assert parts * consumers >= g * g * -(-C // 10)
 
 
 def _bf16_grads(fn, inputs, co):
@@ -434,21 +564,30 @@ def test_table_gather_kernel_past_65535_query_tiles(cuda, dtype):
 
 
 @pytest.mark.gpu
-def test_table_gather_bwd_kernel_past_32_bit_cloud_offsets(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_table_gather_bwd_kernel_past_32_bit_cloud_offsets(cuda, dtype):
     """Fault 5: row 3 addressed a cloud's grad rows with 32-bit offsets, so
     it refused (N - 1) * 2,500 + 2,500 > 2^31 - 1 at k = 5, C = 20; such a
-    cloud now takes its 64-bit-offset instantiation. N = 860,000 (8.6 GB of
-    grad) against autograd of the plain gather, exactly: the grad holds
-    small integers, whose sums (below 2^24) are exact in any order."""
+    cloud now takes its 64-bit-offset instantiation, in float32 and in
+    bfloat16. N = 860,000 (8.6 GB of float32 grad) against autograd of the
+    plain gather, exactly: the grad holds small integers, whose sums (below
+    2^24) are exact in any order, and a bf16 dfv is that sum rounded once,
+    so within one bf16 ulp of it."""
     B, N, g, k, C = 1, 860_000, 8, 5, 20
     assert (N - 1) * k ** 3 * C + k ** 3 * C > 2 ** 31 - 1
     r = np.random.default_rng(14)
     vox = torch.as_tensor(r.integers(0, g ** 3, (B, N)).astype(np.int32), device=cuda)
     grad = torch.randint(-4, 5, (B, N, k ** 3 * C), dtype=torch.int8, device=cuda,
-                         generator=torch.Generator(cuda).manual_seed(14)).float()
+                         generator=torch.Generator(cuda).manual_seed(14)).to(dtype)
+    before = (table_gather_bwd.launches, table_gather_bwd.launches_bf16)
     dfv = table_gather_bwd(vox, grad, g, k)
     torch.cuda.synchronize()
-    assert torch.equal(dfv, table_gather_bwd_plain(vox, grad, g, k))
+    bf16 = dtype == torch.bfloat16
+    assert (table_gather_bwd.launches, table_gather_bwd.launches_bf16) == (
+        before[0] + (not bf16), before[1] + bf16)
+    exact = table_gather_bwd_plain(vox, grad.float(), g, k)
+    assert dfv.dtype == dtype and torch.equal(dfv, exact.to(dtype))
+    assert not bf16 or _beyond_one_ulp(dfv, exact) == 0
 
 
 def _cuda_kernels(fn, calls):

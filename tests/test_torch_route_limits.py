@@ -25,7 +25,13 @@ from dpdist_tpu_torch.kernels.fused_forward import (
     pack_decoder,
 )
 from dpdist_tpu_torch.kernels.mfv_gather import MAX_GAUSSIANS, mfv_x_fits
-from dpdist_tpu_torch.kernels.table_gather import table_gather_fits
+from dpdist_tpu_torch.kernels.table_gather import (
+    MAX_SMEM,
+    bwd_bf16_smem,
+    bwd_f32_smem,
+    table_gather_bwd_fits,
+    table_gather_fits,
+)
 from dpdist_tpu_torch.kernels.threedmfv import threedmfv_fits, threedmfv_kernel
 from dpdist_tpu_torch.models import init_dpdist
 from dpdist_tpu_torch.models import dpdist as model_dpdist
@@ -149,6 +155,72 @@ def test_route_keeps_row_6_for_two_million_queries(fused_gather, grad):
     assert r == Route("table", ("threedmfv",) * 2, ("table_gather", "table_gather"))
     assert route(cfg, "cuda", 64, 128 ** 3, grad=grad).gather == ("table_gather",
                                                                    "table_gather_x")
+
+
+# Row 3's adjoint (csrc/table_gather.cu) stages grad runs of k^2 * C
+# elements in shared memory: its limits from shapes, which route reads for
+# a gradient (tests/test_torch_kernels_gpu.py holds bwd_bf16_smem to the C
+# entry's plan on the card).
+@pytest.mark.parametrize("k,C,runs,want", [
+    (5, 20, 8, 36176),    # the main path: 8 runs a stage of 1,056-byte slots
+    (5, 7, 8, 15696),
+    (7, 20, 8, 66896),
+    (1, 1, 8, 4432),
+    (5, 20, 1, 6384),
+])
+def test_bwd_bf16_smem(k, C, runs, want):
+    """The bf16 ring's bytes: 4 stages of `runs` slots of the run's
+    16-byte-aligned span and 12 elements past it, each with its 8-byte
+    (vy, vz, lead) pair, 8 barriers, 4 headers and 4 vox chunks of 512 B;
+    every such layout fits a block."""
+    assert bwd_bf16_smem(k, C, runs) == want <= MAX_SMEM
+
+
+def test_bwd_bf16_fits_while_one_run_a_stage_fits():
+    """The bf16 adjoint takes a window while one run a stage fits shared
+    memory (its C entry then takes fewer runs a stage), whatever g, and not
+    one channel more."""
+    C = next(c for c in range(1, 10 ** 5) if bwd_bf16_smem(33, c, 1) > MAX_SMEM)
+    assert bwd_bf16_smem(33, C - 1, 8) > MAX_SMEM >= bwd_bf16_smem(33, C - 1, 1)
+    for g in (16, 255):
+        assert table_gather_bwd_fits(g, 33, C - 1, torch.bfloat16)
+        assert not table_gather_bwd_fits(g, 33, C, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_table_gather_bwd_fits(dtype):
+    """The committed config fits; so do g = 1 and 255; g = 256 (digits of
+    a byte), an even k, k past 2g + 1 and a run of the ring past shared
+    memory do not. The float32 kernel's run is twice the bytes."""
+    cfg = DPDistConfig()
+    assert table_gather_bwd_fits(cfg.grid_size, cfg.k, cfg.fv_channels, dtype)
+    assert table_gather_bwd_fits(1, 3, 20, dtype) and table_gather_bwd_fits(255, 5, 20, dtype)
+    for g, k, C in ((256, 5, 20), (8, 4, 20), (8, 19, 20), (16, 33, 2000)):
+        assert not table_gather_bwd_fits(g, k, C, dtype)
+    # k^2 C = 16,200: past the float32 ring's 4 runs of 64 KB, within bf16's.
+    assert table_gather_bwd_fits(16, 9, 200, torch.bfloat16)
+    assert not table_gather_bwd_fits(16, 9, 200, torch.float32)
+    assert bwd_f32_smem(16, 9, 200) > MAX_SMEM >= bwd_bf16_smem(9, 200, 1)
+
+
+@pytest.mark.parametrize("fused_gather", ["auto", "table", "mfv", "on"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_route_gives_way_where_the_adjoint_does_not_fit(monkeypatch, fused_gather, dtype):
+    """Under grad=True every gather kernel runs row 3 in the config's dtype
+    behind it: where that adjoint does not take the config, the gathers
+    give way to the plain op ("mfv" first to the table path); forwards
+    without a gradient keep their kernels. No config of the reference's
+    channel counts (20, 7) meets this before the gathers' own limits, so
+    the adjoint's is patched to fail for the config's dtype only."""
+    cfg = DPDistConfig(fused_gather=fused_gather, dtype=dtype)
+    unfit = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    monkeypatch.setattr(model_dpdist, "table_gather_bwd_fits",
+                        lambda g, k, C, dt: dt != unfit)
+    grad = route(cfg, "cuda", 64, 64, grad=True)
+    assert grad.gather == P2 and grad.mode != "mfv"
+    assert route(cfg, "cuda", 64, 64).gather != P2
+    monkeypatch.setattr(model_dpdist, "table_gather_bwd_fits", lambda g, k, C, dt: dt == unfit)
+    assert route(cfg, "cuda", 64, 64, grad=True).gather != P2
 
 
 def test_forward_hands_route_its_batch(monkeypatch):

@@ -21,6 +21,7 @@ from dpdist_tpu.ops.voxel import voxel_assign as jax_voxel_assign
 
 from dpdist_tpu_torch.kernels.mfv_gather import mfv_x
 from dpdist_tpu_torch.kernels.table_gather import (
+    BWD_BF16_GROUP,
     table_gather_bwd,
     table_gather_bwd_ordered,
     table_gather_bwd_plain,
@@ -154,6 +155,131 @@ def test_table_gather_bwd_slab_tiling_matches_jax(g, k, C, pallas):
     for want in wants:
         tol = REL_BWD * float(np.abs(want).max())
         assert float(np.abs(ordered - want).max()) <= tol
+
+
+def _bf16_owners(g, C):
+    """The bf16 kernel's split of a slab's owners (csrc/table_gather.cu:
+    b16_plan): g^2 * ceil(C / 10) owners, at most 8 consumer warps a block,
+    parts of `consumers` owners. Returns (consumers, parts)."""
+    owners = g * g * -(-C // BWD_BF16_GROUP)
+    consumers = 32 * min(8, -(-owners // 32))
+    return consumers, -(-owners // consumers)
+
+
+def _bf16_owner_mirror(vox, bits, offset, stride_n, g, k, C, blocks):
+    """The bf16 adjoint kernel's work split (csrc/table_gather.cu:
+    table_gather_bwd_bf16_kernel) in numpy, on the bf16 grad (B, N,
+    k^3 * C) that starts `offset` elements into the 16-byte-aligned buffer
+    `bits` (uint16), rows `stride_n` elements apart, clouds N * stride_n.
+
+    Work items (cloud b, slab, part) go to `blocks` blocks in
+    contiguous ranges; each item lists, in query order, the queries whose
+    vox lies in [0, g^3) and whose window meets the slab, and stages each
+    one's run as the bulk copy does: from the 16-byte boundary at or before
+    it, `lead` elements before its first, to the boundary after its last,
+    in a slot of the ring (garbage past the span). Owner o of
+    part p (cell = (p * consumers + o) // Q, channels j * 10 .. j * 10 + 9,
+    Q = ceil(C / 10)) tests each listed query's window once, reads its 6
+    words, shifts them by 16 bits where its first channel sits at an odd
+    element, and adds the unpacked bf16 values into float32 sums in list
+    order. Returns dfv rounded once to bf16 (as float32), how often each
+    (b, n, e) grad entry was read, the items each block took, and the
+    runs' leads."""
+    B, N = vox.shape
+    gg, G, kh, run = g * g, g ** 3, k // 2, k * k * C
+    Q = -(-C // BWD_BF16_GROUP)
+    consumers, parts = _bf16_owners(g, C)
+    items = B * g * parts
+    slot = (run + 14 + BWD_BF16_GROUP + 2 + 7) // 8 * 8
+    garbage = np.random.default_rng(0).integers(0, 2 ** 16, slot, dtype=np.uint16)
+    bits = np.concatenate([bits, garbage[:8]])   # a span may end past the last element
+    dfv = np.zeros((B, G, C), np.float32)
+    reads = np.zeros((B, N, k ** 3 * C), np.int64)
+    taken, leads = [], set()
+    for blk in range(blocks):
+        first, last = items * blk // blocks, items * (blk + 1) // blocks
+        taken.append(list(range(first, last)))
+        for item in range(first, last):
+            b, slab, part = item // parts // g, item // parts % g, item % parts
+            listed = []
+            for n in range(N):
+                v = int(vox[b, n])
+                di = slab - v // gg + kh
+                if 0 <= v < G and 0 <= di < k:
+                    e = offset + (b * N + n) * stride_n + di * run
+                    a0, end = e // 8 * 8, -(-(e + run) // 8) * 8
+                    staged = garbage.copy()
+                    staged[:end - a0] = bits[a0:end]
+                    listed.append((n, di, v // g % g, v % g, e - a0, staged.view(np.uint32)))
+                    leads.add(e - a0)
+            own = part * consumers + np.arange(consumers)
+            cell, j = own // Q, own % Q
+            mine = cell < gg
+            ty, tz = cell // g + kh, cell % g + kh
+            acc = np.zeros((consumers, BWD_BF16_GROUP), np.float32)
+            for n, di, vy, vz, lead, words in listed:
+                dj, dl = ty - vy, tz - vz
+                inside = mine & (dj >= 0) & (dj < k) & (dl >= 0) & (dl < k)
+                p = lead + (dj * k + dl) * C + j * BWD_BF16_GROUP               # first channel
+                w = words[(p[inside] >> 1)[:, None] + np.arange(BWD_BF16_GROUP // 2 + 1)]
+                w = w.astype(np.uint64)
+                pair = ((w[:, 1:] << np.uint64(32) | w[:, :-1])
+                        >> (np.uint64(16) * (p[inside] & 1).astype(np.uint64))[:, None])
+                pair = (pair & np.uint64(0xffffffff)).astype(np.uint32)
+                lo = (pair << np.uint32(16)).view(np.float32)
+                hi = (pair & np.uint32(0xffff0000)).view(np.float32)
+                # Channels past C (C = 7) sum whatever lies past the cell's;
+                # they are never stored.
+                with np.errstate(over="ignore", invalid="ignore"):
+                    acc[inside] += np.stack([lo, hi], -1).reshape(-1, BWD_BF16_GROUP)
+                for o in np.flatnonzero(inside):
+                    c = j[o] * BWD_BF16_GROUP + np.arange(BWD_BF16_GROUP)
+                    c = c[c < C]
+                    np.add.at(reads[b, n], di * run + (dj[o] * k + dl[o]) * C + c, 1)
+            for o in np.flatnonzero(mine):
+                c = j[o] * BWD_BF16_GROUP + np.arange(BWD_BF16_GROUP)
+                keep = c < C
+                dfv[b, slab * gg + cell[o], c[keep]] = acc[o, keep]
+    rounded = torch.from_numpy(dfv).to(torch.bfloat16).float().numpy()
+    return rounded, reads, taken, leads
+
+
+@pytest.mark.parametrize("g,k,C", [(4, 3, 20), (4, 5, 20), (8, 3, 20), (8, 5, 20),
+                                   (4, 3, 7), (4, 5, 7), (8, 3, 7), (8, 5, 7), (16, 3, 20)])
+def test_table_gather_bwd_bf16_owner_tiling_matches_ordered_sum(g, k, C):
+    """The bf16 kernel's work split reads every in-grid (n, o, c) entry of a
+    strided bf16 grad in exactly one (item, owner) and no other, its blocks
+    take every item once, and its float32 sums rounded once equal the
+    ordered plain sum bit for bit, for runs at every lead 0-7 (the grad
+    starts `base` = 0..7 elements into its buffer; rows of 3 + k^3 * C
+    elements as a bf16 x's gradient hands it), off-grid rows (vox 0) and a
+    vox outside the grid (adds nothing) included. Four blocks (one SM's
+    worth) take the items in contiguous ranges; g = 16 splits a slab in two
+    parts."""
+    B, N = 2, 24
+    W = 3 + k ** 3 * C
+    parts = _bf16_owners(g, C)[1]
+    assert parts == (2 if g == 16 else 1)
+    all_leads = set()
+    for base in range(8):
+        r = np.random.default_rng(100 * g + 10 * k + C + base)
+        vox = np.asarray(jax_voxel_assign(jnp.asarray(_queries(r, B, N, g)), g)[0]).copy()
+        vox[:, 5] = np.array([-3, g ** 3 + 1])[:B]
+        assert (vox == 0).any()
+        x = torch.from_numpy(r.normal(size=base + B * N * W).astype(np.float32)).to(torch.bfloat16)
+        grad = x[base:].view(B, N, W)[..., 3:]
+        bits = x.view(torch.int16).numpy().view(np.uint16)
+        mirror, reads, taken, leads = _bf16_owner_mirror(vox, bits, base + 3, W, g, k, C, blocks=4)
+        all_leads |= leads
+        assert sorted(i for t in taken for i in t) == list(range(B * g * parts))
+        tvox = torch.as_tensor(vox.astype(np.int32))
+        in_grid = neighbor_ids(tvox, torch.ones(B, N), g, k).numpy() >= 0
+        in_grid[:, 5] = False
+        np.testing.assert_array_equal(reads, np.repeat(in_grid, C, axis=-1).astype(np.int64))
+        ordered = table_gather_bwd_ordered(tvox, grad, g, k)
+        assert ordered.dtype == torch.bfloat16
+        np.testing.assert_array_equal(mirror, ordered.float().numpy())
+    assert all_leads == set(range(8))
 
 
 def test_table_gather_bwd_ordered_skips_vox_outside_the_grid():
