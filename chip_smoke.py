@@ -55,8 +55,9 @@ at full width as programs (row 7 inside the refinement loop).
   6. gather6_kernel the patch-only table gather against its plain version
                    at B = 256, N = 256 with off-grid queries (exact).
   6b. fault5       ROADMAP.md §3's fault 5: the patch-only gather (row 6) at
-                   B = 2, N = 128^3 = 2,097,152 (65,536 tiles of 32 queries,
-                   past the grid's 65,535 y-blocks) on a g = 2, k = 1, C = 1
+                   B = 2, N = 128^3 = 2,097,152 (16,384 runs of 128 rows a
+                   cloud; 65,536 tiles of 32 queries under the old grid,
+                   past its 65,535 y-blocks) on a g = 2, k = 1, C = 1
                    window, float32 and bfloat16, exact; the adjoint (row 3)
                    at N = 860,000, past its old 32-bit cloud offsets, on
                    integer grads, exact; row 6's time at B = 256, N = 256.
@@ -238,11 +239,12 @@ at full width as programs (row 7 inside the refinement loop).
                    TFLOP/s at both sizes; the cuBLAS bf16 decoder with the
                    first layer's K padded to the pack's (a yardstick the
                    port never runs); the device time of each CUDA kernel
-                   that rows 9 and 7 launch (torch.profiler); rows 2 (also
-                   with its bf16 output) and 3 with their device times
+                   that rows 9 and 7 launch (torch.profiler); rows 2 and
+                   6 (each also with its bf16 output, bound and index_select
+                   on the bf16 volume) and 3 with their device times
                    (torch.profiler) and % of bound on both times, as rows 1
                    (also with its bf16 output and at M = N = 128, checked
-                   against its plain version there), 10, 6 and 8 have
+                   against its plain version there), 10 and 8 have
                    theirs, row 8 also with the issue-slot floor of its
                    per-dimension form at the card's top SM clock and at
                    B = 2, N = 1,000, M = 4,099 and B = 256, N = M = 64;
@@ -535,8 +537,9 @@ TOL_EMD_BLOCKED = 1e-5
 # sums 1e-4, the eval refinement's poses after the step 1e-3.
 TOL_PCR3_GNORM, TOL_PCR3_POSES = 5e-3, 1e-3
 
-# Fault 5 (ROADMAP.md §3): row 6 at 128^3 = 2,097,152 queries a cloud, one
-# tile of 32 past the grid's 65,535 y-blocks, on a small window (g = 2,
+# Fault 5 (ROADMAP.md §3): row 6 at 128^3 = 2,097,152 queries a cloud (one
+# tile of 32 past the 65,535 y-blocks of its old grid; 16,384 runs of 128
+# rows of the persistent gather), on a small window (g = 2,
 # k = 1, C = 1: 8 MB out), exact; row 3 at N = 860,000, past its old
 # 32-bit cloud offsets ((N - 1) * 2,500 + 2,500 > 2^31 - 1), on integer
 # grads (exact sums in any order).
@@ -1361,7 +1364,7 @@ def main() -> int:
         del fv6, q6, vox6, out6, ref6
 
     with Phase("fault5"):
-        # Row 6 past 65,535 tiles of queries, and row 3 past 32-bit cloud
+        # Row 6 at 2,097,152 queries a cloud, and row 3 past 32-bit cloud
         # offsets (ROADMAP.md §3, fault 5); inputs from a generator of their
         # own, so that the later phases' do not move.
         r5 = np.random.default_rng(5)
@@ -1376,8 +1379,8 @@ def main() -> int:
                 torch.cuda.synchronize()
                 check(torch.equal(out5, ref5.to(dt)),
                       f"row 6 at N={FAULT5_QUERIES} ({dt}) differs from its plain version")
-        print(f"fault5: row 6 at B=2, N={FAULT5_QUERIES} ({-(-FAULT5_QUERIES // 32)} tiles of "
-              f"32 queries a cloud, past the grid's 65,535 y-blocks), g={g5}, k={k5}, C={c5}: "
+        print(f"fault5: row 6 at B=2, N={FAULT5_QUERIES} ({-(-FAULT5_QUERIES // 128)} runs of "
+              f"128 rows a cloud; past the old grid's 65,535 y-blocks), g={g5}, k={k5}, C={c5}: "
               f"float32 and bfloat16 equal to the plain version", flush=True)
         del fv5, vox5, ref5, out5
         n3 = FAULT5_ADJOINT_QUERIES
@@ -1399,7 +1402,7 @@ def main() -> int:
                              device=dev)
         vox6 = voxel_assign(q6, GRID)[0]
         ms6 = cuda_median_ms(lambda: table_gather(fv6, vox6, GRID, K))
-        dev6 = device_ms(lambda: table_gather(fv6, vox6, GRID, K), "table_gather_kernel<float")
+        dev6 = device_ms(lambda: table_gather(fv6, vox6, GRID, K), "table_gather_rows_kernel<float")
         print(f"fault5: row 6 at B={B_SERVE}, N={NP_LARGE} (uniform queries): {ms6:.4f} ms "
               f"(CUDA events), {dev6:.4f} ms device (torch.profiler); on {card}", flush=True)
         del fv6, q6, vox6
@@ -2755,7 +2758,8 @@ def main() -> int:
                             "launches": launches["mfv_gather_x"], "max_abs_err": err_mfv,
                             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                             "library_ms": None, "device_ms": dev_ms,
-                            "bf16": {"ms": ms_bf, "device_ms": dev_bf, "bound_ms": b_bf},
+                            "bf16": {"ms": ms_bf, "device_ms": dev_bf, "bound_ms": b_bf,
+                                     "library_ms": None},
                             f"n{N1}": {"ms": ms128, "device_ms": dev128, "bound_ms": b128,
                                        "max_abs_err": err128}})
             print(f"mfv_gather_x with a bf16 output: {ms_bf:.4f} ms, {dev_bf:.4f} ms on the "
@@ -2781,16 +2785,22 @@ def main() -> int:
                                "table_gather_x_kernel<__nv_bfloat16")
             b_bf, _ = bound(4 * (n_reached * C + B * N * 3 + V * 3 + B * N) + 2 * B * N * (3 + E),
                             3 * B * N)
+            # index_select on the volume rounded to bf16: the patch part.
+            fv_pad_bf = fv_pad.to(bf)
+            lib_bf = cuda_median_ms(lambda: fv_pad_bf.index_select(0, rows_idx))
             records.append({"name": "table_gather_x", "route": "cuda",
                             "source": "dpdist_tpu_torch/csrc/table_gather.cu",
                             "replaces": "dpdist_tpu/kernels/table_gather_pallas.py:539",
                             "launches": launches["table_gather_x"], "max_abs_err": err_tgx,
                             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                             "library_ms": lib_ms, "device_ms": dev_ms,
-                            "bf16": {"ms": ms_bf, "device_ms": dev_bf, "bound_ms": b_bf}})
+                            "bf16": {"ms": ms_bf, "device_ms": dev_bf, "bound_ms": b_bf,
+                                     "library_ms": lib_bf}})
             print(f"table_gather_x with a bf16 output: {ms_bf:.4f} ms, {dev_bf:.4f} ms on the "
                   f"device; bound {b_bf:.4f} ms = {b_bf / ms_bf:.1%} / {b_bf / dev_bf:.1%} of "
-                  f"bound; on {card}", flush=True)
+                  f"bound; index_select (bf16, the patch part) {lib_bf:.4f} ms; on {card}",
+                  flush=True)
+            del fv_pad_bf
 
             ms = cuda_median_ms(lambda: table_gather_bwd(vox, grad_patch, GRID, K))
             plain_ms = cuda_median_ms(lambda: table_gather_bwd_plain(vox, grad_patch, GRID, K))
@@ -2907,13 +2917,28 @@ def main() -> int:
             lib_ms = cuda_median_ms(lambda: fv_pad6.index_select(0, rows6))
             # The reached cells of fv and vox in, the patch rows out; no arithmetic.
             b_ms, b_by = bound(4 * (n_reached6 * C + B * NL + B * NL * E), 0)
-            dev_ms = device_ms(lambda: table_gather(fvL, voxL, GRID, K), "table_gather_kernel<float")
+            dev_ms = device_ms(lambda: table_gather(fvL, voxL, GRID, K),
+                               "table_gather_rows_kernel<float")
+            # The bf16 output: the rows in half the bytes; index_select on
+            # the volume rounded to bf16 computes the same rows.
+            fv_pad6_bf = fv_pad6.to(bf)
+            ms_bf = cuda_median_ms(lambda: table_gather(fvL, voxL, GRID, K, dtype=bf))
+            dev_bf = device_ms(lambda: table_gather(fvL, voxL, GRID, K, dtype=bf),
+                               "table_gather_rows_kernel<__nv_bfloat16")
+            lib_bf = cuda_median_ms(lambda: fv_pad6_bf.index_select(0, rows6))
+            b_bf, _ = bound(4 * (n_reached6 * C + B * NL) + 2 * B * NL * E, 0)
             records.append({"name": "table_gather", "route": "cuda",
                             "source": "dpdist_tpu_torch/csrc/table_gather.cu",
                             "replaces": "dpdist_tpu/kernels/table_gather_pallas.py:106",
                             "launches": launches["table_gather"], "max_abs_err": err_tg6,
                             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                            "library_ms": lib_ms, "device_ms": dev_ms})
+                            "library_ms": lib_ms, "device_ms": dev_ms,
+                            "bf16": {"ms": ms_bf, "device_ms": dev_bf, "bound_ms": b_bf,
+                                     "library_ms": lib_bf}})
+            print(f"table_gather with a bf16 output: {ms_bf:.4f} ms, {dev_bf:.4f} ms on the "
+                  f"device; bound {b_bf:.4f} ms = {b_bf / ms_bf:.1%} / {b_bf / dev_bf:.1%} of "
+                  f"bound; index_select (bf16) {lib_bf:.4f} ms; on {card}", flush=True)
+            del fv_pad6_bf
 
             # Row 3 at N = 256 on the np = 256 frozen loss's inputs: pcB's
             # voxels, and a contiguous grad as row 6's backward hands it.
@@ -3156,15 +3181,6 @@ def main() -> int:
                             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                             "library_ms": lib_ms, "device_ms": dev_ms})
             del fv_pad10, rows10, reached10, nid
-
-            # The bf16 outputs of rows 1, 2 and 6 beside their float32 times.
-            bf = torch.bfloat16
-            for name_, fn in (
-                    ("mfv_gather_x", lambda: mfv_x(pts, q, G, SIGMA, GRID, K, dtype=bf)),
-                    ("table_gather_x", lambda: table_gather_x(fv, b, GRID, K, dtype=bf)),
-                    ("table_gather", lambda: table_gather(fvL, voxL, GRID, K, dtype=bf))):
-                print(f"{name_} kernel with a bf16 output: {cuda_median_ms(fn):.4f} ms; on "
-                      f"{card}", flush=True)
 
             for r in records:
                 on_device = (f", {r['device_ms']:.4f} ms on the device = "

@@ -50,8 +50,7 @@
 
 namespace {
 
-constexpr int kThreads = 512;        // threads of a block
-constexpr int kGroupBytes = 40064;   // a row group's size, as row 2's
+constexpr int kThreads = 512;   // threads of a block
 
 // The patch rows of given voxels, zero where the mask is not positive or
 // the voxel lies outside the grid.
@@ -92,28 +91,15 @@ int dpdist_gather_patches_fused(const float* fv, const int* vox, const float* ma
                                 int B, int N, int g, int k, int C, int device, void* stream) {
   if (B < 1 || N < 1 || g < 1 || k < 1 || (k % 2) == 0 || k > 2 * g + 1 || C < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
+  dpdist::XLaunch l;
+  cudaError_t err = dpdist::plan_launch(B, N, g * g * g, C, k * k * k * C, 4, dpdist::kGroupBytes,
+                                        fv, out, kThreads, device, &l);
   if (err != cudaSuccess) return static_cast<int>(err);
-  int n_sm = 0, max_smem = 0, sm_smem = 0;
-  if ((err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device)) ||
-      (err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, device)) ||
-      (err = cudaDeviceGetAttribute(&sm_smem, cudaDevAttrMaxSharedMemoryPerMultiprocessor,
-                                    device)))
-    return static_cast<int>(err);
-  const dpdist::XPlan plan = dpdist::plan_rows(
-      B, N, g * g * g, C, k * k * k * C, 4, kGroupBytes,
-      reinterpret_cast<uintptr_t>(fv) % 16 == 0, reinterpret_cast<uintptr_t>(out) % 16 == 0,
-      n_sm, max_smem);
-  if (plan.smem == 0) return static_cast<int>(cudaErrorInvalidValue);
-  // Persistent blocks: as many as fit on the card at once, or one per item.
-  const int per_sm =
-      std::max(1, std::min(2048 / kThreads, sm_smem / static_cast<int>(plan.smem + 1024)));
-  const int grid = std::min(plan.n_items, n_sm * per_sm);
   auto kernel = C % 4 == 0 ? gather_fused_kernel<4, 5> : gather_fused_kernel<1, 5>;
-  err = dpdist::set_smem(kernel, plan.smem);
+  err = dpdist::set_smem(kernel, l.plan.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, kThreads, plan.smem, static_cast<cudaStream_t>(stream)>>>(fv, vox, mask, out, N,
-                                                                          g, k, C, plan);
+  kernel<<<l.grid, kThreads, l.plan.smem, static_cast<cudaStream_t>(stream)>>>(fv, vox, mask, out,
+                                                                              N, g, k, C, l.plan);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -14,9 +14,10 @@
 //   What bounds it on an H100: device memory, almost all of it the x it
 //   writes (164 MB at B = 256 clouds, N = 64 queries, k = 5, C = 20: about
 //   0.05 ms at 3.35 TB/s; 10.5 MB of volumes in). The design, the
-//   persistent gather of row_groups.cuh (which gather_fused.cu and
-//   mfv_gather.cu share), keeps the copy engine writing while the threads
-//   build rows, and the volume loads off the threads' path:
+//   persistent gather of row_groups.cuh (which table_gather below,
+//   gather_fused.cu and mfv_gather.cu share), keeps the copy engine
+//   writing while the threads build rows, and the volume loads off the
+//   threads' path:
 //   - one persistent block per SM walks work items (a cloud's run of at
 //     most 128 rows); each item's volume arrives by one bulk copy
 //     (cp.async.bulk, completion on an mbarrier), and the next item's
@@ -42,16 +43,33 @@
 // table_gather, `pl.pallas_call` in _table_gather_impl): the same patch rows
 // without voxel assignment and delta, for given voxel ids,
 // (V, C) volume + (N,) vox -> (N, k^3*C). The reference takes it for
-// N > 128 queries, where its VMEM budget forces that split. One block per
-// (cloud, tile of queries) stages the volume in shared memory, then one warp
-// per row (patch_rows.cuh:gather_patch_rows).
-// Off-grid queries carry vox = 0 and read cell 0's patch, as the reference
-// does; the model's mask zeroes them later. A vox outside [0, V) (never made
-// by voxel_assign) gives a zero row. A pure copy: it equals the plain
-// gather_patches(extract_patches(fv), vox) exactly.
-//   What bounds it on an H100: device memory. At B = 256, N = 256 it writes
-//   655 MB (about 0.2 ms at 3.35 TB/s); the design keeps the volume on chip
-//   and touches each output element once, coalesced.
+// N > 128 queries, where its VMEM budget forces that split; dense
+// evaluation gathers through it too. Off-grid queries carry vox = 0 and
+// read cell 0's patch, as the reference does; the model's mask zeroes them
+// later. A vox outside [0, V) (never made by voxel_assign) gives a zero
+// row. A pure copy: it equals the plain gather_patches(extract_patches(fv),
+// vox) exactly.
+//   What bounds it on an H100: device memory, the rows it writes (655 MB of
+//   float32 at B = 256, N = 256, k = 5, C = 20: about 0.2 ms at 3.35 TB/s;
+//   half that in bfloat16). The design is table_gather_x's persistent
+//   gather on the rows of given cells (CellRows: no delta, kLead = 0), the
+//   design row 10 (gather_fused.cu) runs on masked rows: one block per SM
+//   walks runs of at most 128 of a cloud's rows, each run's volume arriving
+//   by one bulk copy into a second buffer while the last run is written, so
+//   that a cloud's 40 KB volume is read from device memory once a run, not
+//   once a tile of 32 queries; rows leave in groups of up to 40 KB (4
+//   float32 rows of 10,000 B or 8 bfloat16 rows of 5,000 B) by bulk stores
+//   from a double buffer, and a thread builds chunks of 4 elements of one
+//   neighbour cell with one window test and one 16-byte shared load a chunk
+//   (chunks of 1 where C is not a multiple of 4), a bfloat16 chunk leaving
+//   by one 8-byte store. A run's head or tail off a group boundary
+//   (bfloat16 rows start 16-byte aligned only at even rows) goes by
+//   per-thread stores. What holds it on the card is, as for rows 2 and 10,
+//   the rate at which the threads build groups and the bulk stores drain
+//   them (PERF.md).
+//   Limits: N <= 2^31 - 129 queries a cloud and B * ceil(N / L) <= 2^30 - 1
+//   runs of L <= 128 rows (row_groups.cuh: kMaxCloudRows, kMaxItems), far
+//   past 2,097,152 queries a cloud (a 128^3 field); row offsets are int64.
 //
 // Both forward kernels write float32 or, for the bf16 serving paths,
 // bfloat16: each value of x (the patch and delta) is the float32 value
@@ -150,14 +168,31 @@ __global__ void __launch_bounds__(kXThreads, 1)
                                            dpdist::QueryRows{queries, centers, vox_out, g, C});
 }
 
-// --- table_gather (row 6)
+// --- table_gather (row 6): the same persistent gather on the patch rows of
+// given voxels.
 
-template <typename T>
-__global__ void table_gather_kernel(const float* __restrict__ fv,   // (B, G, C)
-                                    const int* __restrict__ vox,    // (B, N)
-                                    T* __restrict__ out,            // (B, N, k^3*C)
-                                    int N, int g, int k, int C, int rows_per_block) {
-  dpdist::gather_patch_rows(fv, vox, out, N, g, k, C, rows_per_block);
+// The patch row of each given voxel; a vox outside [0, G) gives a zero row.
+struct CellRows {
+  static constexpr int kLead = 0;
+  const int* vox;   // (rows,)
+  int g, C;
+
+  __device__ __forceinline__ dpdist::XRow operator()(int64_t r) const {
+    const int v = vox[r];
+    return v >= 0 && v < g * g * g ? dpdist::cell_row(v, g, C) : dpdist::zero_row();
+  }
+};
+
+// CW and J as table_gather_x_kernel's: 512 * J * CW covers a float32 group
+// of 4 rows or a bfloat16 group of 8 at k^3*C = 2,500.
+template <typename T, int CW, int J>
+__global__ void __launch_bounds__(kXThreads, 1)
+    table_gather_rows_kernel(const float* __restrict__ fv,   // (B, G, C)
+                             const int* __restrict__ vox,    // (B, N)
+                             T* __restrict__ out,            // (B, N, k^3*C)
+                             int N, int g, int k, int C, const dpdist::XPlan plan) {
+  dpdist::gather_rows<kXThreads, T, CW, J>(fv, out, N, g, k, C, k * k * k * C, plan,
+                                           CellRows{vox, g, C});
 }
 
 // --- table_gather_bwd (rows 3, 4, 5)
@@ -654,10 +689,13 @@ cudaError_t b16_plan(int B, int g, int k, int C, int device, B16Plan* plan) {
 
 extern "C" {
 
-// Shared memory bytes the patch-only gather takes: the (G, C) volume and
-// the window's offset tables.
+// Shared memory bytes of the smallest layout of the persistent gathers
+// (rows 2, 6 and 10) for a (g^3, C) volume, whatever the window: where it
+// does not fit a block, their C entries refuse the launch
+// (kernels/table_gather.py:gather_smem mirrors it).
 size_t dpdist_table_gather_smem(int g, int k, int C) {
-  return 4 * dpdist::patch_rows_smem_floats(g, k, C);
+  (void)k;
+  return dpdist::min_rows_smem(g * g * g, C);
 }
 
 // All three launch on `stream` and return cudaGetLastError() after the launch (0
@@ -668,28 +706,16 @@ int dpdist_table_gather_x(const float* fv, const float* queries, const float* ce
                           int* vox, int B, int N, int g, int k, int C, int out_bf16, int device,
                           void* stream) {
   if (B < 1 || N < 1 || bad_window(g, k, C)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
+  dpdist::XLaunch l;
+  cudaError_t err = dpdist::plan_launch(B, N, g * g * g, C, 3 + k * k * k * C, out_bf16 ? 2 : 4, 0,
+                                        fv, x, kXThreads, device, &l);
   if (err != cudaSuccess) return static_cast<int>(err);
-  int n_sm = 0, max_smem = 0, sm_smem = 0;
-  if ((err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device)) ||
-      (err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, device)) ||
-      (err = cudaDeviceGetAttribute(&sm_smem, cudaDevAttrMaxSharedMemoryPerMultiprocessor,
-                                    device)))
-    return static_cast<int>(err);
-  const dpdist::XPlan plan = dpdist::plan_rows(
-      B, N, g * g * g, C, 3 + k * k * k * C, out_bf16 ? 2 : 4, 0,
-      reinterpret_cast<uintptr_t>(fv) % 16 == 0, reinterpret_cast<uintptr_t>(x) % 16 == 0, n_sm,
-      max_smem);
-  if (plan.smem == 0) return static_cast<int>(cudaErrorInvalidValue);
-  // Persistent blocks: as many as fit on the card at once, or one per item.
-  const int per_sm =
-      std::max(1, std::min(2048 / kXThreads, sm_smem / static_cast<int>(plan.smem + 1024)));
-  const int grid = std::min(plan.n_items, n_sm * per_sm);
   const auto s = static_cast<cudaStream_t>(stream);
   auto launch = [&](auto kernel, auto* out) {
-    const cudaError_t e = set_smem(kernel, plan.smem);
+    const cudaError_t e = set_smem(kernel, l.plan.smem);
     if (e != cudaSuccess) return e;
-    kernel<<<grid, kXThreads, plan.smem, s>>>(fv, queries, centers, out, vox, N, g, k, C, plan);
+    kernel<<<l.grid, kXThreads, l.plan.smem, s>>>(fv, queries, centers, out, vox, N, g, k, C,
+                                                  l.plan);
     return cudaGetLastError();
   };
   using bf16 = __nv_bfloat16;
@@ -703,34 +729,33 @@ int dpdist_table_gather_x(const float* fv, const float* queries, const float* ce
   return static_cast<int>(err);
 }
 
+// Row 6: any N up to dpdist::kMaxCloudRows (2^31 - 129) queries a cloud and
+// B * ceil(N / L) up to dpdist::kMaxItems (2^30 - 1) runs; a volume whose
+// smallest layout does not fit a block is refused (plan.smem == 0).
 int dpdist_table_gather(const float* fv, const int* vox, void* out, int B, int N, int g, int k,
-                        int C, int rows_per_block, int threads, int out_bf16, int device,
-                        void* stream) {
-  if (B < 1 || N < 1 || bad_window(g, k, C) || rows_per_block < 1 || threads < kWarp ||
-      threads > 1024 || threads % kWarp != 0 || N > INT_MAX - rows_per_block)
+                        int C, int out_bf16, int device, void* stream) {
+  if (B < 1 || N < 1 || N > dpdist::kMaxCloudRows || bad_window(g, k, C))
     return static_cast<int>(cudaErrorInvalidValue);
-  // One block per (cloud, tile of queries) on a 1-D grid: past 65,535
-  // tiles a cloud no longer fits the grid's y dimension
-  // (patch_rows.cuh:gather_patch_rows).
-  const int64_t blocks = static_cast<int64_t>(B) * ((N + rows_per_block - 1) / rows_per_block);
-  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
+  dpdist::XLaunch l;
+  cudaError_t err = dpdist::plan_launch(B, N, g * g * g, C, k * k * k * C, out_bf16 ? 2 : 4,
+                                        dpdist::kGroupBytes, fv, out, kXThreads, device, &l);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = dpdist_table_gather_smem(g, k, C);
-  const dim3 grid(static_cast<unsigned>(blocks));
   const auto s = static_cast<cudaStream_t>(stream);
-  if (out_bf16) {
-    err = set_smem(table_gather_kernel<__nv_bfloat16>, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    table_gather_kernel<<<grid, threads, smem, s>>>(
-        fv, vox, static_cast<__nv_bfloat16*>(out), N, g, k, C, rows_per_block);
-  } else {
-    err = set_smem(table_gather_kernel<float>, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    table_gather_kernel<<<grid, threads, smem, s>>>(
-        fv, vox, static_cast<float*>(out), N, g, k, C, rows_per_block);
-  }
-  return static_cast<int>(cudaGetLastError());
+  auto launch = [&](auto kernel, auto* o) {
+    const cudaError_t e = set_smem(kernel, l.plan.smem);
+    if (e != cudaSuccess) return e;
+    kernel<<<l.grid, kXThreads, l.plan.smem, s>>>(fv, vox, o, N, g, k, C, l.plan);
+    return cudaGetLastError();
+  };
+  using bf16 = __nv_bfloat16;
+  const bool by4 = C % 4 == 0;
+  if (out_bf16)
+    err = by4 ? launch(table_gather_rows_kernel<bf16, 4, 10>, static_cast<bf16*>(out))
+              : launch(table_gather_rows_kernel<bf16, 1, 10>, static_cast<bf16*>(out));
+  else
+    err = by4 ? launch(table_gather_rows_kernel<float, 4, 5>, static_cast<float*>(out))
+              : launch(table_gather_rows_kernel<float, 1, 5>, static_cast<float*>(out));
+  return static_cast<int>(err);
 }
 
 int dpdist_table_gather_bwd(const int* vox, const void* grad, int64_t stride_b, int64_t stride_n,

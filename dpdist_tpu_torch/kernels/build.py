@@ -137,7 +137,7 @@ def library() -> ctypes.CDLL:
         lib.dpdist_table_gather_x.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci,
                                               vp]
         lib.dpdist_table_gather_x.restype = ci
-        lib.dpdist_table_gather.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci, vp]
+        lib.dpdist_table_gather.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp]
         lib.dpdist_table_gather.restype = ci
         lib.dpdist_gather_patches_fused.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
         lib.dpdist_gather_patches_fused.restype = ci

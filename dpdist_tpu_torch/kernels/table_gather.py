@@ -12,7 +12,10 @@ what bounds each on an H100 and how its design meets that:
   rows; each run's volume arrives in shared memory by one bulk copy while
   the previous run is written, and rows leave in 16-byte-aligned groups
   (4 float32 or 8 bfloat16 rows) by bulk stores from a double buffer.
-- table_gather: one block per (cloud, tile of queries), one warp per row.
+- table_gather: the same persistent design on the patch rows of given
+  voxels (no delta): rows in groups of up to 40 KB (4 float32 or 8
+  bfloat16 rows of k^3*C = 2,500), a bfloat16 chunk of 4 elements by one
+  8-byte store.
 - table_gather_bwd: owner-computes. On a float32 grad, one block per
   (cloud, slab of g^2 cells); each thread owns a few dfv slots in
   registers and pulls the grad entries of the queries whose window meets
@@ -79,8 +82,9 @@ from dpdist_tpu_torch.ops.voxel import (
     voxel_assign,
 )
 
-X_ROWS_PER_BLOCK = 32       # queries per block of the patch-only gather
-X_THREADS = 256
+# The persistent gathers' run of rows and a row's description
+# (csrc/row_groups.cuh: kMaxRows, sizeof(XRow)).
+MAX_ROWS, XROW_BYTES = 128, 20
 
 
 def window_fits(grid_size: int, k: int) -> bool:
@@ -89,19 +93,25 @@ def window_fits(grid_size: int, k: int) -> bool:
     return k % 2 == 1 and 1 <= k <= 2 * grid_size + 1
 
 
+def _align128(n: int) -> int:
+    return -(-n // 128) * 128
+
+
 def gather_smem(grid_size: int, k: int, C: int) -> int:
-    """Shared memory bytes of the gathers of rows 2, 3, 6 and 10: the
-    (G, C) volume and the window's two offset tables (the C entry
+    """Shared memory bytes of the smallest layout of the persistent gathers
+    (rows 2, 6 and 10; csrc/row_groups.cuh:plan_rows): one (G, C) float32
+    volume buffer and a run's row descriptions, each rounded up to 128
+    bytes, and two mbarriers; the window does not enter (the C entry
     dpdist_table_gather_smem)."""
-    return 4 * (grid_size ** 3 * C + 2 * k ** 3)
+    return _align128(4 * grid_size ** 3 * C) + _align128(MAX_ROWS * XROW_BYTES) + 16
 
 
 def table_gather_fits(grid_size: int, k: int, C: int) -> bool:
-    """Whether the gather kernels (rows 2, 3 and 6 here, row 10 in
-    kernels/gather_fused.py) take this volume and window. For C = 20 the
-    persistent gathers' smallest layout (the volume and a run's row
-    descriptions, csrc/row_groups.cuh:plan_rows) fits wherever
-    gather_smem does."""
+    """Whether the gather kernels (rows 2 and 6 here, row 10 in
+    kernels/gather_fused.py) take this volume and window: exactly where
+    their plan finds a layout, gather_smem <= MAX_SMEM; larger plans take
+    more shared memory only where it is there. Row 3 has its own limits
+    (table_gather_bwd_fits)."""
     return window_fits(grid_size, k) and gather_smem(grid_size, k, C) <= MAX_SMEM
 
 
@@ -324,9 +334,8 @@ def _table_gather_impl(fv, vox, grid_size, k, dtype=torch.float32):
     N = vox.shape[1]
     out = torch.empty((B, N, k ** 3 * C), dtype=dtype, device=dev)
     err = build.library().dpdist_table_gather(
-        fv.data_ptr(), vox.data_ptr(), out.data_ptr(), B, N, grid_size, k, C, X_ROWS_PER_BLOCK,
-        X_THREADS, int(dtype == torch.bfloat16), dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
+        fv.data_ptr(), vox.data_ptr(), out.data_ptr(), B, N, grid_size, k, C,
+        int(dtype == torch.bfloat16), dev.index, torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch(err, "table_gather")
     table_gather.launches += 1
     return out

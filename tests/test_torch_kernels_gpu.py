@@ -531,27 +531,81 @@ def test_threedmfv_kernel_backward_replays_the_plain_encode(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,N,g,k,C", [(256, 256, 8, 5, 20), (2, 16, 4, 3, 7), (3, 200, 8, 5, 20)])
-def test_table_gather_kernel_matches_plain(cuda, B, N, g, k, C):
-    """Exact, off-grid queries (vox 0) included."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,N,g,k,C", [
+    (256, 256, 8, 5, 20),   # the main path's shape
+    (2, 16, 4, 3, 7),       # chunks of 1 element (C = 7)
+    (3, 200, 8, 5, 20),     # runs of 128 and 72 rows
+    (2, 13, 8, 5, 20),      # a run's tail past its groups (4 f32, 8 bf16 rows)
+    (2, 200, 8, 5, 7),      # C = 7: groups of 8 f32 or 16 bf16 rows
+    (1, 3000, 8, 5, 20),    # one cloud over many runs (dense evaluation)
+    (2, 100, 2, 1, 1),      # rows of one element
+])
+def test_table_gather_kernel_matches_plain(cuda, B, N, g, k, C, dtype):
+    """Exact, off-grid queries (vox 0) included: float32, and bfloat16 equal
+    to the float32 values rounded once; one launch a call."""
     r = np.random.default_rng(11)
     fv = torch.as_tensor(r.normal(size=(B, g ** 3, C)).astype(np.float32), device=cuda)
     q = torch.as_tensor(_edge_inputs(B, 1, N, g, seed=12)[1], device=cuda)
     vox = table_gather_x_plain(torch.zeros(B, g ** 3, C, device=cuda), q, g, k)[1]
     before = table_gather.launches
-    out = table_gather(fv, vox, g, k)
+    out = table_gather(fv, vox, g, k, dtype=dtype)
     torch.cuda.synchronize()
     assert table_gather.launches == before + 1
-    assert torch.equal(out, table_gather_plain(fv, vox, g, k))
+    assert out.dtype == dtype and torch.equal(out, table_gather_plain(fv, vox, g, k).to(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_table_gather_kernel_vox_outside_the_grid(cuda, dtype):
+    """A vox outside [0, V) (never made by voxel_assign) gives a zero row;
+    the other rows are the plain version's."""
+    B, N, g, k, C = 3, 150, 8, 5, 20
+    G = g ** 3
+    r = np.random.default_rng(15)
+    fv = torch.as_tensor(r.normal(size=(B, G, C)).astype(np.float32), device=cuda)
+    vox = torch.as_tensor(r.integers(-3, G + 3, (B, N)).astype(np.int32), device=cuda)
+    vox[:, :2] = torch.tensor([-1, G], dtype=torch.int32, device=cuda)
+    inside = (vox >= 0) & (vox < G)
+    out = table_gather(fv, vox, g, k, dtype=dtype)
+    torch.cuda.synchronize()
+    want = table_gather_plain(fv, torch.where(inside, vox, torch.zeros_like(vox)), g, k)
+    want = torch.where(inside[..., None], want, torch.zeros_like(want)).to(dtype)
+    assert bool((~inside).sum() >= 2 * B) and torch.equal(out, want)
+
+
+@pytest.mark.gpu
+def test_table_gather_c_entry_refuses_past_the_shared_memory_limit(cuda):
+    """table_gather_fits holds exactly where the persistent gathers' plan
+    finds a layout: at g = 8, 112 channels fit (the kernel runs, exact) and
+    113 do not (the C entry refuses the launch, as table_gather_fits
+    does)."""
+    from dpdist_tpu_torch.kernels import build
+    from dpdist_tpu_torch.kernels.table_gather import table_gather_fits
+
+    g, k = 8, 1
+    assert table_gather_fits(g, k, 112) and not table_gather_fits(g, k, 113)
+    r = np.random.default_rng(16)
+    fv = torch.as_tensor(r.normal(size=(2, g ** 3, 112)).astype(np.float32), device=cuda)
+    vox = torch.as_tensor(r.integers(0, g ** 3, (2, 40)).astype(np.int32), device=cuda)
+    assert torch.equal(table_gather(fv, vox, g, k), table_gather_plain(fv, vox, g, k))
+    fv = torch.zeros(2, g ** 3, 113, device=cuda)
+    out = torch.empty(2, 40, 113, device=cuda)
+    err = build.library().dpdist_table_gather(
+        fv.data_ptr(), vox.data_ptr(), out.data_ptr(), 2, 40, g, k, 113, 0, cuda.index,
+        torch.cuda.current_stream(cuda).cuda_stream)
+    assert err != 0
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_table_gather_kernel_past_65535_query_tiles(cuda, dtype):
-    """Fault 5: 2,097,152 queries a cloud (a 128^3 field) is 65,536 tiles of
-    32, one past the grid's y limit; the blocks stride over the tiles. A
-    small window (g = 2, k = 1, C = 1: an 8 MB output), exact, with the
-    vox of every query distinct from its neighbours'."""
+    """Fault 5: 2,097,152 queries a cloud (a 128^3 field) was 65,536 tiles
+    of 32 under the old one-block-a-tile grid, one past the grid's y limit;
+    the persistent gather walks the cloud's runs of 128 rows (16,384 of
+    them) whatever N. A small window (g = 2, k = 1, C = 1: an 8 MB
+    output), exact, with the vox of every query distinct from its
+    neighbours'."""
     B, N, g, k, C = 2, 128 ** 3, 2, 1, 1
     r = np.random.default_rng(13)
     fv = torch.as_tensor(r.normal(size=(B, g ** 3, C)).astype(np.float32), device=cuda)

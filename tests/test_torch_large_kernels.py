@@ -256,6 +256,27 @@ def test_table_gather_matches_pallas_interpret(g, k, C, N):
     assert table_gather.launches == 0 and table_gather_bwd.launches == 0
 
 
+@pytest.mark.parametrize("g,k,C,N", [(8, 5, 20, 150), (4, 3, 7, 12)])
+def test_table_gather_bf16_matches_pallas_interpret(g, k, C, N):
+    """The bf16 output: the reference's kernel on the volume cast to
+    bfloat16 (as its bf16 paths hand it) equals the port's dtype=bfloat16
+    output, each value the float32 one rounded once; off-grid queries
+    (vox 0) included."""
+    r = np.random.default_rng(g * k + 1)
+    B = 2
+    fv = r.normal(size=(B, g ** 3, C)).astype(np.float32)
+    q = r.uniform(-1.2, 1.2, (B, N, 3)).astype(np.float32)
+    vox, mask, _ = jax_voxel_assign(jnp.asarray(q), g)
+    assert float(np.asarray(mask).min()) == 0.0
+    want = jax_table_gather(jnp.asarray(fv).astype(jnp.bfloat16), vox, g, k, interpret=True)
+    assert want.dtype == jnp.bfloat16
+    got = table_gather(torch.as_tensor(fv), torch.as_tensor(np.array(vox)), g, k,
+                       dtype=torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(), np.asarray(want.astype(jnp.float32)))
+    assert table_gather.launches == 0
+
+
 def test_table_gather_backward_skips_the_adjoint_without_fv_grad():
     import dpdist_tpu_torch.kernels.table_gather as tg
 

@@ -29,6 +29,7 @@ from dpdist_tpu_torch.kernels.table_gather import (
     MAX_SMEM,
     bwd_bf16_smem,
     bwd_f32_smem,
+    gather_smem,
     table_gather_bwd_fits,
     table_gather_fits,
 )
@@ -155,6 +156,33 @@ def test_route_keeps_row_6_for_two_million_queries(fused_gather, grad):
     assert r == Route("table", ("threedmfv",) * 2, ("table_gather", "table_gather"))
     assert route(cfg, "cuda", 64, 128 ** 3, grad=grad).gather == ("table_gather",
                                                                    "table_gather_x")
+
+
+# The persistent gathers (rows 2, 6 and 10, csrc/row_groups.cuh:plan_rows)
+# take a volume wherever their smallest layout fits a block: one volume
+# buffer and a run's 128 row descriptions of 20 B, each rounded up to 128
+# bytes, and two mbarriers; tests/test_torch_kernels_gpu.py holds
+# gather_smem to the C entry and the C entry to this limit on the card.
+@pytest.mark.parametrize("g,C,want", [
+    (8, 20, 43536),     # the committed config: 40,960 B of volume
+    (8, 7, 16912),
+    (2, 1, 2704),       # fault 5's window: a 32-byte volume in 128
+    (14, 20, 222096),
+])
+def test_gather_smem(g, C, want):
+    """The smallest layout's bytes, whatever the window."""
+    assert gather_smem(g, 1, C) == gather_smem(g, 5, C) == want
+
+
+def test_table_gather_fits_where_the_smallest_layout_fits():
+    """At g = 8, 112 channels fit (231,952 B) and 113 do not (234,000 B);
+    the old mirror, the volume and the window's offset tables, took 113 at
+    k = 5 (232,424 B), where the plan finds no layout."""
+    assert gather_smem(8, 5, 112) == 231952 <= MAX_SMEM < gather_smem(8, 5, 113) == 234000
+    assert table_gather_fits(8, 5, 112) and not table_gather_fits(8, 5, 113)
+    assert 4 * (8 ** 3 * 113 + 2 * 5 ** 3) <= MAX_SMEM
+    # g = 14 at C = 20 is the largest grid of the reference's channel count.
+    assert table_gather_fits(14, 5, 20) and not table_gather_fits(15, 5, 20)
 
 
 # Row 3's adjoint (csrc/table_gather.cu) stages grad runs of k^2 * C
