@@ -27,9 +27,14 @@ encoder; and the serving export: the frozen distance and the production
 policy as torch.export programs, portable (plain ops) and native (the
 kernels as torch.library ops), saved, loaded onto the card and served,
 and the export_serving and run_serving CLIs; the 3dmfv registration policy
-at full width as programs (row 7 inside the refinement loop).
+at full width as programs (row 7 inside the refinement loop); and float16,
+the third dtype of the reference's API: rows 1, 2, 6 and 3 in float16, the
+fp16 distance served, the fp16 frozen loss's gradient, fp16 training and an
+fp16 native program.
 
-  1. device        the card's name and power limit; fails without CUDA.
+  1. device        the card's name and power limit; fails without CUDA;
+                   TF32 and cuBLAS's bf16 and fp16 reduced-precision
+                   reductions off.
   2. build         compiles dpdist_tpu_torch/csrc (one nvcc per source,
                    all started together, and one link) and, beside it, the
                    native host library (g++, dpdist_tpu_torch/native).
@@ -138,6 +143,19 @@ at full width as programs (row 7 inside the refinement loop).
                    cell-edge queries: a bf16 dfv equal bit for bit to the
                    ordered plain sum rounded, the same from run to run, and
                    within one bf16 ulp of float64 sums.
+ 17c. fp16_kernels rows 1, 2 and 6 with a float16 output at the main path's
+                   shapes, equal to their float32 outputs rounded once;
+                   rows 2 and 6 on a volume of float16's edge values (65,504,
+                   ties, past it to inf, the subnormals and their ties; 32
+                   clouds) bit for bit numpy's rounding of the float32 rows
+                   on the host;
+                   row 3 on fp16 grads at B = 256, N = 64 (strided) and 256
+                   (contiguous): equal to the ordered float32 sum rounded
+                   once, the same from run to run over 10 calls, within one
+                   fp16 ulp of float64 sums beyond the float32 sums' own
+                   distance from them (a sum that cancels to near 0 can
+                   leave float32's rounding above fp16's finest steps), and
+                   on sums past 65,504 (inf) and in the subnormals. Their times are taken in `times`.
  20. route_limits  configs past the fused kernels' limits, served from the
                    first np = 64 request (counters reset before, read
                    after): the committed decoder at embedding_size=1000
@@ -160,6 +178,23 @@ at full width as programs (row 7 inside the refinement loop).
                    one table-gather launch a step); the loss falls; one step
                    against the plain bf16 path; a torch.profiler trace of a
                    step (train/profiling.trace) with its top kernels.
+ 20c2. serving_fp16 per committed net in float16: "auto" at np = 64 (1
+                   row-1 launch a request) and 256 (2 row-7, 2 row-6),
+                   "full" at 64 (the table path in float16: 2 row-2) and
+                   "on" at 64 (2 row-10); three requests of B = 256 each,
+                   counted, against the port's plain fp16 path; the golden
+                   pairs against the JAX fp16 values within TOL_FP16 and
+                   the float32 ones within TOL_FP16_VS_F32; off-grid
+                   queries exactly 0.
+ 20c3. frozen_grad_fp16 as frozen_grad_bf16 in float16 against the golden
+                   fp16_grad values (loss within TOL_FP16): 2 row-2 and 1
+                   row-3 fp16 launch a call at np = 64, 2 row-7, 2 row-6,
+                   1 row-3 fp16 and one replay at 256; "full" computes
+                   (the table path) instead of being refused.
+ 20c4. train_fp16  30 fp16 trainer steps at B = 16 (float32 master weights,
+                   no loss scaling, as the reference's; one row-2 launch a
+                   step); the loss falls; one step against the plain fp16
+                   path.
  20d. gtgen_kernel the NN-min kernel as the ground-truth generator runs it
                    (50,000 candidates x a 10,000-point surface, then a sqrt)
                    against the native host library, and one model generated
@@ -238,7 +273,8 @@ at full width as programs (row 7 inside the refinement loop).
                    256, and at B = 1, N = 10,000; row 9 at np = 256 and its
                    TFLOP/s at both sizes; the cuBLAS bf16 decoder with the
                    first layer's K padded to the pack's (a yardstick the
-                   port never runs); the device time of each CUDA kernel
+                   port never runs), and the cuBLAS fp16 decoder on the
+                   same rows, unpadded and padded; the device time of each CUDA kernel
                    that rows 9 and 7 launch (torch.profiler); rows 2 and
                    6 (each also with its bf16 output, bound and index_select
                    on the bf16 volume) and 3 with their device times
@@ -259,9 +295,15 @@ at full width as programs (row 7 inside the refinement loop).
                    ("full", "auto") and the "on" forward at np = 64 and
                    256; eval_pair at 10,000 points, end to end and per key;
                    the adjoint's bf16 variant (bound, index_add_ in bf16)
-                   at N = 64 and 256; the NN-min kernel at the generator's
-                   50,000 x 10,000; the bf16 source-gradient step at np = 64
-                   and 256 and the bf16 train step at B = 16 and 256; last,
+                   at N = 64 and 256; the fp16 outputs of rows 1, 2 and 6
+                   (index_select on the fp16 volume) and row 3 on an fp16
+                   grad at N = 64 and 256 (index_add_ in fp16, its SASS
+                   loop and issue-slot floor), the records' "fp16" entries
+                   and table_gather_bwd_fp16; the NN-min kernel at the generator's
+                   50,000 x 10,000; the bf16 and fp16 source-gradient steps
+                   at np = 64 and 256, the bf16 train step at B = 16 and
+                   256 and the fp16 one at 256, the fp16 "auto" forwards;
+                   last,
                    rows 2 and 3's share of the production PCRNet train step's
                    device time over 5 steps (torch.profiler), then the same
                    for the production AUE step, with its idle share.
@@ -278,14 +320,16 @@ at full width as programs (row 7 inside the refinement loop).
                    full_fv=False, k=0, the pointnet encoder (k=0, BN) and
                    dims=2 (16 x 16 Gaussians). Per variant the golden
                    forward at B = 4 (f32 within 1e-4, bf16 within 2e-3,
-                   "full" for full_fv=False: row 9 at C = 7); forwards at
+                   "full" for full_fv=False: row 9 at C = 7; fp16 within
+                   TOL_FP16); forwards at
                    B = 256 against the plain path, with their launches and
                    times (rows 1 and 2 under BN and conv_version=3; rows 2,
                    6, 10 and bf16 9 at C = 7; row 7 for k=0 at np = 256);
                    the frozen loss's source gradient where a kernel runs
                    (per-point criterion); 3 DPDistTrainer steps at B = 16
                    for BN, conv_version=3 and pointnet against the golden
-                   steps (TOL_VARIANT_STEPS), 2 row-2 launches a BN step, 1
+                   steps in float32 (TOL_VARIANT_STEPS) and in float16
+                   (TOL_VARIANT_STEPS_FP16), 2 row-2 launches a BN step, 1
                    a conv_version=3 step, none a pointnet step.
  24. dense         distance_field at 64^3 = 262,144 queries on
                    results/ckpt_best for a 1,024-point surface: the
@@ -301,11 +345,12 @@ at full width as programs (row 7 inside the refinement loop).
                    printed), saved and loaded onto the card: portable f32,
                    bf16 and with_grad (no launch), native f32 (1 row-1
                    launch a request), bf16 "full" (1 row 9), with_grad
-                   (2 row 2, 1 row 3), "on" (2 row 10) and f32 at np = 256
-                   (2 row 7, 2 row 6); three requests of B = 256 at np = 64
-                   (256) each, counted, against the eager model (TOL_DIST;
-                   bf16 TOL_BF16; d/dsrc by the per-point criterion); each
-                   served at B = 1 and 64, timed.
+                   (2 row 2, 1 row 3), "on" (2 row 10), f32 at np = 256
+                   (2 row 7, 2 row 6) and fp16 (1 row 1 in float16); three
+                   requests of B = 256 at np = 64 (256) each, counted,
+                   against the eager model (TOL_DIST; bf16 TOL_BF16; fp16
+                   TOL_FP16; d/dsrc by the per-point criterion); each served
+                   at B = 1 and 64, timed.
  26. serving_registration the production policy under its protocol (50
                    iterations, the period0 stop) as programs, fixed-length
                    and early exit: equal to each other bit for bit at B = 64
@@ -463,6 +508,9 @@ TOL_BF16, TOL_BF16_VS_F32 = 2e-3, 0.03
 # scripts/torch_variant_train_spread.py, are in
 # tests/test_torch_variants.py::TOL_STEPS).
 TOL_VARIANT_STEPS = (1e-4, 5e-3, 1e-3, 4e-6, 5e-3)
+# The same steps in float16 against the golden file's float16 ones
+# (tests/test_torch_variants.py::TOL_STEPS_FP16).
+TOL_VARIANT_STEPS_FP16 = (1e-3, 2e-2, 1e-2, 5e-4, 1e-1)
 # The variants' golden forwards run on informative weights
 # (data.golden.informative_weights): their outputs must spread over at
 # least VARIANT_MIN_SPREAD times TOL_BF16 (tests/test_torch_variants.py's
@@ -476,6 +524,12 @@ OFF_GRID_SHARE = 0.05    # queries pushed off the grid in the kernel checks
 # OUTLIERS_BF16 of the points, within REL_BF16_FEW on every point, and a
 # cosine of at least MIN_COS_BF16.
 TOL_BF16_LOSS, REL_BF16, OUTLIERS_BF16, REL_BF16_FEW, MIN_COS_BF16 = 2e-3, 1e-2, 0.05, 5e-2, 0.999
+# float16: the served distances and the frozen loss against the golden fp16
+# and fp16_grad values (JAX fp16 on the CPU) and against the port's plain
+# fp16 path within TOL_FP16, the golden distances against float32 within
+# TOL_FP16_VS_F32 (tests/test_torch_dpdist.py's bounds, 8x tighter than
+# bf16's); d/dpcA by the bf16 criterion above.
+TOL_FP16, TOL_FP16_VS_F32 = 2.5e-4, 4e-3
 # The ground-truth generator's size (data/gtgen.py): one round of 50,000
 # candidates against a 10,000-point surface, and the files of train_cli's
 # dataset at full size (n_surface 10,000, 10^4 near and far points).
@@ -558,6 +612,8 @@ SERVE_EXPORTS = {
     "native_grad": {"portable": False, "with_grad": True},
     "native_on": {"portable": False, "cfg": {"fused_gather": "on"}},
     "native_f32_np256": {"portable": False, "num_point": NP_LARGE},
+    # float16: row 1 writes an fp16 x.
+    "native_fp16": {"portable": False, "cfg": {"dtype": "float16"}},
 }
 SERVE_TIMED_BATCH, SERVE_TIMED_RUNS, CLI_POLICY_BATCH = 64, 10, 8
 # The exports split over background processes, one a part, balanced by their
@@ -565,7 +621,7 @@ SERVE_TIMED_BATCH, SERVE_TIMED_RUNS, CLI_POLICY_BATCH = 64, 10, 8
 EXPORT_PARTS = (("portable_f32", "native_f32", "native_bf16_full", "native_grad", "native_on",
                  "native_f32_np256"),
                 ("portable_bf16", "policy_fixed", "policy_cli"),
-                ("portable_grad", "policy_early"),
+                ("portable_grad", "policy_early", "native_fp16"),
                 ("policy3_native_fixed", "policy3_native_early"),
                 ("policy3_portable_fixed", "policy3_cli"))
 TOL_POLICY = 1e-5        # transforms and aligned clouds, program vs eager
@@ -711,20 +767,26 @@ def device_ms(fn, match, calls=5, sessions=12):
     return sum(timed) / len(timed) / 1e3
 
 
-def cuda_kernel_names(fn, calls):
+def cuda_kernel_names(fn, calls, sessions=6):
     """Names of the CUDA kernels that `calls` calls of fn launch, as
     torch.profiler records them (memsets and copies are not kernels; the
-    profiler may drop a record of a short run)."""
+    profiler may drop a record of a short run, now and then every record of
+    a session: such a session, with no kernel kept, is run again, up to
+    `sessions`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
+    for _ in range(sessions):
         torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-            and not e.name.startswith(("Memset", "Memcpy"))]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                 and not e.name.startswith(("Memset", "Memcpy"))]
+        if names:
+            break
+    return names
 
 
 def sass_loop_counts(lib_path, kernel, op="FMNMX"):
@@ -767,7 +829,7 @@ def sm_clock_hz():
 
 def bwd_bf16_warp_runs(torch, vox, g, k, C, plan):
     """What the bf16 adjoint's consumers do on these vox (csrc/
-    table_gather.cu:table_gather_bwd_bf16_kernel): (listed runs, consumer
+    table_gather.cu:table_gather_bwd_b16_kernel): (listed runs, consumer
     warp-runs in which some owner of the warp lies in the run's window and
     so issues the sum). Owner o of a part holds channels (o % Q) * 10 ..
     of cell o // Q, Q = ceil(C / 10); warp w the owners 32 w .. 32 w + 31."""
@@ -1133,8 +1195,10 @@ def main() -> int:
         from dpdist_tpu_torch.data import gtgen
         from dpdist_tpu_torch.data.golden import (
             AUE_GOLDEN_PATH,
+            FP16_EDGES,
             VARIANTS_GOLDEN_PATH,
             aue_batch,
+            beyond_one_ulp,
             dense_field_queries,
             dpdist_train_batch,
             golden_clouds,
@@ -1211,6 +1275,10 @@ def main() -> int:
               f"CUDA {torch.version.cuda}", flush=True)
         check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmul is on")
         check(not torch.backends.cudnn.allow_tf32, "TF32 convolution (cuDNN) is on")
+        check(not torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction,
+              "bf16 GEMMs may reduce in bf16")
+        check(not torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction,
+              "fp16 GEMMs may reduce in fp16")
 
     with Phase("build"):
         # The native host library (g++, for this host's CPU) builds beside nvcc.
@@ -1456,13 +1524,15 @@ def main() -> int:
         del a_, p_, d, d_ref, a10, b10
 
     # name -> (wrapper, attribute of its launch count); row 3 counts its
-    # bfloat16 kernel apart from its float32 one.
+    # two-byte kernel on bfloat16 and on float16 grads apart from its
+    # float32 one.
     counters = {name: (w, "launches") for name, w in (
         ("mfv_gather_x", mfv_x), ("table_gather_x", table_gather_x),
         ("table_gather_bwd", table_gather_bwd), ("threedmfv", threedmfv_kernel),
         ("table_gather", table_gather), ("nn_min_sqdist", nn_min_sqdist),
         ("fused_forward", fused_forward), ("gather_patches_fused", gather_patches_fused))}
     counters["table_gather_bwd_bf16"] = (table_gather_bwd, "launches_bf16")
+    counters["table_gather_bwd_fp16"] = (table_gather_bwd, "launches_fp16")
     launches = dict.fromkeys(counters, 0)
 
     def start_count():
@@ -1871,7 +1941,101 @@ def main() -> int:
                   f"table_gather_bwd bf16 at N={n_q} differs from the ordered plain sum")
             check(same16 == 50, f"table_gather_bwd bf16 at N={n_q}: run to run")
             check(off == 0, f"table_gather_bwd bf16 at N={n_q}: {off} entries beyond one ulp")
+        err_bwd_half = {"bf16": err_bwd16}
         del dfv16, ordered16, exact, rounded, g16
+
+    with Phase("fp16_kernels"):
+        # Rows 1, 2 and 6 with a float16 output at the main path's shapes
+        # (as bf16_kernels), equal to their float32 outputs rounded once;
+        # rows 2 and 6 on a volume of float16's edge values, equal to the
+        # float32 rows rounded by numpy on the host; row 3 on fp16 grads
+        # (as bf16_adjoint_kernel, on inputs of its own): equal to the
+        # ordered float32 sum rounded once, the same from run to run, within
+        # one fp16 ulp of float64 sums (beyond the float32 sums' own error),
+        # and on sums that leave float16's range (to inf) or land in its
+        # subnormals.
+        h = torch.float16
+        r16 = np.random.default_rng(16)
+        a16, b16 = requests[0]
+        with torch.no_grad():
+            pairs = {
+                "mfv_gather_x": (mfv_x(pts, q, G, SIGMA, GRID, K, dtype=h)[0],
+                                 mfv_x(pts, q, G, SIGMA, GRID, K)[0]),
+                "table_gather_x": (table_gather_x(fv, b16, GRID, K, dtype=h)[0],
+                                   table_gather_x(fv, b16, GRID, K)[0]),
+                "table_gather": (table_gather(fvL6, voxL6, GRID, K, dtype=h),
+                                 table_gather(fvL6, voxL6, GRID, K)),
+            }
+            # 32 clouds of the request: the host's rounding is the slow part.
+            fv_edge = torch.as_tensor(r16.choice(np.concatenate([FP16_EDGES, -FP16_EDGES]),
+                                                 (32, G, C)).astype(np.float32), device=dev)
+            b_edge = b16[:32].contiguous()
+            x_edge = table_gather_x(fv_edge, b_edge, GRID, K, dtype=h)[0]
+            x_edge32 = table_gather_x(fv_edge, b_edge, GRID, K)[0]
+            vox_edge = voxel_assign(b_edge, GRID)[0]
+            rows_edge = table_gather(fv_edge, vox_edge, GRID, K, dtype=h)
+            rows_edge32 = table_gather(fv_edge, vox_edge, GRID, K)
+        torch.cuda.synchronize()
+        for name_, (got, f32) in pairs.items():
+            equal = bool(torch.equal(got, f32.to(h)))
+            print(f"{name_} fp16 output vs its float32 output rounded: equal {equal}", flush=True)
+            check(got.dtype == h and equal, f"{name_}: fp16 output is not the float32 one rounded")
+        del pairs
+        with np.errstate(over="ignore"):   # past 65,504 to inf, as the kernels round
+            host = [f32.cpu().numpy().astype(np.float16) for f32 in (x_edge32, rows_edge32)]
+        for name_, got, want in (("table_gather_x", x_edge, host[0]),
+                                 ("table_gather", rows_edge, host[1])):
+            bits = got.cpu().numpy().view(np.uint16)
+            same = bool(np.array_equal(bits, want.view(np.uint16)))
+            n_inf, n_sub = int(torch.isinf(got).sum()), int(((got != 0) & (got.abs() < 2.0 ** -14)).sum())
+            print(f"{name_} fp16 on float16's edge values vs numpy's rounding on the host: "
+                  f"bit for bit {same} ({n_inf} infs, {n_sub} subnormals)", flush=True)
+            check(same and n_inf > 0 and n_sub > 0, f"{name_}: fp16 edges not rounded as a cast")
+        del x_edge, x_edge32, rows_edge, rows_edge32, fv_edge, host
+        gen = torch.Generator(dev).manual_seed(16)
+        for n_q, strided in ((NP, True), (NP_LARGE, False)):
+            q16 = torch.as_tensor(r16.uniform(-1.2, 1.2, (B_SERVE, n_q, 3)).astype(np.float32),
+                                  device=dev)
+            vox16 = voxel_assign(q16, GRID)[0]
+            g16 = torch.randn((B_SERVE, n_q, 3 + K ** 3 * C), generator=gen, device=dev).to(h)
+            g16 = g16[..., 3:] if strided else g16[..., 3:].contiguous()
+            dfv16 = table_gather_bwd(vox16, g16, GRID, K)
+            same16 = sum(torch.equal(dfv16, table_gather_bwd(vox16, g16, GRID, K))
+                         for _ in range(10))
+            ordered16 = table_gather_bwd_ordered(vox16, g16, GRID, K)
+            exact = table_gather_bwd_plain(vox16, g16.double(), GRID, K)
+            # One fp16 ulp of the float64 sums beyond the float32 sums' own
+            # distance from them (the kernel rounds the float32 sum).
+            beyond = beyond_one_ulp(dfv16, exact)
+            off = beyond_one_ulp(dfv16, exact, table_gather_bwd_ordered(vox16, g16.float(),
+                                                                       GRID, K))
+            layout = "strided" if strided else "contiguous"
+            print(f"table_gather_bwd fp16 at B={B_SERVE}, N={n_q} ({layout} grad): equal to "
+                  f"the ordered plain sum "
+                  f"{bool(torch.equal(dfv16, ordered16))}, run to run {same16} of 10 calls equal; "
+                  f"entries beyond one fp16 ulp of float64 sums {beyond}, beyond it and the "
+                  f"float32 sums' own error {off}", flush=True)
+            check(dfv16.dtype == h and torch.equal(dfv16, ordered16),
+                  f"table_gather_bwd fp16 at N={n_q} differs from the ordered plain sum")
+            check(same16 == 10 and off == 0, f"table_gather_bwd fp16 at N={n_q}: run to run "
+                  f"or beyond one ulp")
+        # Sums past 65,504 (integers, exact in float32 in any order) and
+        # in the subnormals (multiples of 2^-24).
+        for what, terms in (("overflow", [30000.0, -30000.0, 4096.0, 1.0]),
+                            ("subnormal", [2.0 ** -24, 3 * 2.0 ** -24, -2.0 ** -24])):
+            ge = torch.as_tensor(r16.choice(np.float32(terms), (B_SERVE, NP, K ** 3 * C)),
+                                 device=dev).to(h)
+            dfv_e = table_gather_bwd(vox16[:, :NP].contiguous(), ge, GRID, K)
+            want_e = table_gather_bwd_ordered(vox16[:, :NP].contiguous(), ge.float(), GRID, K)
+            same = bool(torch.equal(dfv_e, want_e.to(h)))
+            special = int((torch.isinf(dfv_e) if what == "overflow"
+                           else (dfv_e != 0) & (dfv_e.abs() < 2.0 ** -14)).sum())
+            print(f"table_gather_bwd fp16 on sums in float16's {what}: equal to the float32 "
+                  f"sums rounded once {same} ({special} {what} entries)", flush=True)
+            check(same and special > 0, f"table_gather_bwd fp16: {what} sums")
+        err_bwd_half["fp16"] = float((dfv16.float() - table_gather_bwd_plain(
+            vox16, g16, GRID, K).float()).abs().max())
+        del dfv16, ordered16, exact, g16, ge, dfv_e, want_e
 
     def serve_bf16(reqs, n_key, clouds, want):
         """Per committed net, "full" and "auto" in bf16: the requests,
@@ -2001,17 +2165,21 @@ def main() -> int:
             check(err <= tol, f"{what}: kernel path vs plain path {err}")
         del model, plain, params40
 
-    def frozen_grad_bf16(reqs, n_key, clouds, want, replays):
-        """Per committed net in bf16: the frozen loss and d/dpcA on the
-        golden pairs against JAX's bf16 values; source-gradient calls on the
-        requests, counted, against the port's plain bf16 path; at np = 64
-        "mfv" and "on" once each; "full" refused; the parameters unchanged
-        and without .grad."""
-        gold = golden["bf16_grad"][n_key]
+    def frozen_grad_half(dtype, reqs, n_key, clouds, want, replays):
+        """Per committed net in `dtype` ("bfloat16" or "float16"): the frozen
+        loss and d/dpcA on the golden pairs against JAX's values in that
+        dtype; source-gradient calls on the requests, counted, against the
+        port's plain path in that dtype; at np = 64 "mfv" and "on" once
+        each; "full" refused in bf16 (the reference refuses its gradient)
+        and the table path in fp16 (the reference resolves it so); the
+        parameters unchanged and without .grad."""
+        lab = {"bfloat16": "bf16", "float16": "fp16"}[dtype]
+        tol_loss = TOL_BF16_LOSS if dtype == "bfloat16" else TOL_FP16
+        gold = golden[f"{lab}_grad"][n_key]
         rows = gold["grad_pairs"]
         for net in NETS:
             cfg, np_params, _ = load_dpdist_checkpoint(str(ROOT / net))
-            cfg = cfg.replace(dtype="bfloat16")
+            cfg = cfg.replace(dtype=dtype)
             params = params_from_jax(np_params, dev)
             leaves = [t.requires_grad_(True) for lp in params["decoder"]["layers"]
                       for t in lp.values()]
@@ -2022,27 +2190,27 @@ def main() -> int:
             err_value = abs(float(value) - gold[net]["value"])
             worst, share, cos = close_bf16_grads(
                 g[rows], torch.as_tensor(gold[net]["grad_pcA"], device=dev),
-                f"{net}: golden bf16 d/dpcA")
-            print(f"{net} bf16: golden frozen loss at {n_key} |d| = {err_value:.3e} (tol "
-                  f"{TOL_BF16_LOSS}); d/dpcA worst point {worst:.3e} of max, share above "
+                f"{net}: golden {lab} d/dpcA")
+            print(f"{net} {lab}: golden frozen loss at {n_key} |d| = {err_value:.3e} (tol "
+                  f"{tol_loss}); d/dpcA worst point {worst:.3e} of max, share above "
                   f"{REL_BF16} {share:.3f}, cosine {cos:.6f}", flush=True)
-            check(err_value <= TOL_BF16_LOSS, f"{net}: golden bf16 frozen loss off by {err_value}")
+            check(err_value <= tol_loss, f"{net}: golden {lab} frozen loss off by {err_value}")
             start_count()
             outs = [src_grad(loss_fn, a, b) for a, b in reqs]
             launched = read_count()
-            print(f"{net} bf16: {REQUESTS} source-gradient calls of {B_SERVE} pairs at {n_key}, "
-                  f"kernel launches {launched}, encode replays {threedmfv_kernel.replays}",
-                  flush=True)
-            check(launched == want, f"{net} bf16: unexpected launches")
-            check(threedmfv_kernel.replays == replays, f"{net} bf16: unexpected encode replays")
+            print(f"{net} {lab}: {REQUESTS} source-gradient calls of {B_SERVE} pairs at "
+                  f"{n_key}, kernel launches {launched}, encode replays "
+                  f"{threedmfv_kernel.replays}", flush=True)
+            check(launched == want, f"{net} {lab}: unexpected launches")
+            check(threedmfv_kernel.replays == replays, f"{net} {lab}: unexpected encode replays")
             plain = make_frozen_dpdist_loss(params, cfg.replace(fused_gather="off"))
             for (v, g), (a, b) in zip(outs, reqs):
-                check(bool(torch.isfinite(g).all()), "bf16: non-finite gradient")
+                check(bool(torch.isfinite(g).all()), f"{lab}: non-finite gradient")
                 v_ref, g_ref = src_grad(plain, a, b)
                 d = abs(float(v - v_ref))
-                worst, share, cos = close_bf16_grads(g, g_ref, f"{net}: bf16 table vs off path")
-                check(d <= TOL_BF16_LOSS, f"{net}: bf16 loss, table vs off path: {d}")
-            print(f"{net} bf16 table path vs off path: loss |d| = {d:.3e}, d/dpcA worst point "
+                worst, share, cos = close_bf16_grads(g, g_ref, f"{net}: {lab} table vs off path")
+                check(d <= tol_loss, f"{net}: {lab} loss, table vs off path: {d}")
+            print(f"{net} {lab} table path vs off path: loss |d| = {d:.3e}, d/dpcA worst point "
                   f"{worst:.3e} of max, share above {REL_BF16} {share:.3f}, cosine {cos:.6f} "
                   f"(last request)", flush=True)
             a, b = reqs[0]
@@ -2050,26 +2218,31 @@ def main() -> int:
             for mode in (("mfv", "on") if n_key == "np64" else ()):
                 other = make_frozen_dpdist_loss(params, cfg.replace(fused_gather=mode))
                 v, g = src_grad(other, a, b)
-                worst, share, cos = close_bf16_grads(g, g_ref, f"{net}: bf16 {mode} vs off path")
+                worst, share, cos = close_bf16_grads(g, g_ref, f"{net}: {lab} {mode} vs off path")
                 d = abs(float(v - v_ref))
-                check(d <= TOL_BF16_LOSS, f"{net}: bf16 loss, {mode} vs off path: {d}")
-                print(f"{net} bf16 {mode} path vs off path: loss |d| = {d:.3e}, d/dpcA worst "
+                check(d <= tol_loss, f"{net}: {lab} loss, {mode} vs off path: {d}")
+                print(f"{net} {lab} {mode} path vs off path: loss |d| = {d:.3e}, d/dpcA worst "
                       f"point {worst:.3e} of max, cosine {cos:.6f}", flush=True)
             full = make_frozen_dpdist_loss(params, cfg.replace(fused_gather="full"))
-            try:
-                src_grad(full, a, b)
-                refused = False
-            except NotImplementedError as e:
-                refused = "refuses" in str(e)
-            check(refused, f"{net}: bf16 full under autograd was not refused")
+            if dtype == "bfloat16":
+                try:
+                    src_grad(full, a, b)
+                    refused = False
+                except NotImplementedError as e:
+                    refused = "refuses" in str(e)
+                check(refused, f"{net}: bf16 full under autograd was not refused")
+            else:
+                v, g = src_grad(full, a, b)
+                close_bf16_grads(g, g_ref, f"{net}: fp16 full (the table path) vs off path")
+                check(abs(float(v - v_ref)) <= tol_loss, f"{net}: fp16 full loss vs off path")
             check(all(t.grad is None for t in leaves), f"{net}: a parameter received .grad")
             check(all(torch.equal(t, b_) for t, b_ in zip(leaves, before)),
                   f"{net}: a parameter changed")
 
     with Phase("frozen_grad_bf16"):
-        frozen_grad_bf16(requests, "np64", (gA, gB),
+        frozen_grad_half("bfloat16", requests, "np64", (gA, gB),
                          expected(table_gather_x=2 * REQUESTS, table_gather_bwd_bf16=REQUESTS), 0)
-        frozen_grad_bf16(requests_large, "np256", (gA_large, gB_large),
+        frozen_grad_half("bfloat16", requests_large, "np256", (gA_large, gB_large),
                          expected(threedmfv=2 * REQUESTS, table_gather=2 * REQUESTS,
                                   table_gather_bwd_bf16=REQUESTS), REQUESTS)
 
@@ -2113,6 +2286,102 @@ def main() -> int:
             f"{e.key[:48]} {e.self_device_time_total:.1f} us" for e in top) + f"; on {card}",
               flush=True)
         del trainer16, plain16, batch16
+
+    with Phase("serving_fp16"):
+        # The float16 distance served per committed net: "auto" at np = 64
+        # (row 1) and 256 (rows 7 and 6), "full" at 64, which is the table
+        # path in float16 (row 2), and "on" at 64 (row 10 on the volume
+        # rounded to float16); the golden pairs against the JAX fp16 values
+        # and against float32, the requests against the port's plain fp16
+        # path, off-grid queries exactly 0.
+        r16 = np.random.default_rng(17)
+        for reqs, n_key, clouds, f32_gold, modes in (
+                (requests, "np64", (gA, gB), golden,
+                 {"auto": expected(mfv_gather_x=REQUESTS),
+                  "full": expected(table_gather_x=2 * REQUESTS),
+                  "on": expected(gather_patches_fused=2 * REQUESTS)}),
+                (requests_large, "np256", (gA_large, gB_large), large,
+                 {"auto": expected(threedmfv=2 * REQUESTS, table_gather=2 * REQUESTS)})):
+            for net in NETS:
+                plain = load_frozen_distance(str(ROOT / net), device=dev, dtype="float16",
+                                             fused_gather="off")
+                for mode, want in modes.items():
+                    model = load_frozen_distance(str(ROOT / net), device=dev, dtype="float16",
+                                                 fused_gather=mode)
+                    start_count()
+                    with torch.no_grad():
+                        outs = [model(a, b) for a, b in reqs]
+                    launched = read_count()
+                    check(launched == want, f"{net} fp16 {mode} at {n_key}: launches {launched}")
+                    with torch.no_grad():
+                        err_plain = max(float((o - plain(a, b)).abs().max())
+                                        for o, (a, b) in zip(outs, reqs))
+                        got_golden = model(*clouds).cpu().numpy()
+                        a, b = reqs[0]
+                        b_off = b.clone()
+                        far = torch.as_tensor(r16.random(b.shape[:2]) < OFF_GRID_SHARE, device=dev)
+                        far[:, 0] = True
+                        b_off[far] = FAR
+                        pred_AB, _ = apply_dpdist(model.params(), model.cfg, a, b_off)
+                    check(all(o.shape == (B_SERVE,) and bool(torch.isfinite(o).all())
+                              and float(o.min()) >= 0.0 and float(o.max()) <= 2.0 for o in outs),
+                          f"{net} fp16 {mode}: a distance non-finite or outside [0, 2]")
+                    check(bool((pred_AB[far] == 0).all()), f"{net} fp16 {mode}: off-grid "
+                          f"queries not exactly 0")
+                    err_g = float(np.abs(got_golden - np.asarray(golden["fp16"]["table"][n_key][net]))
+                                  .max())
+                    err_f32 = float(np.abs(got_golden - np.asarray(f32_gold["distance"][net])).max())
+                    print(f"{net} fp16 {mode} at {n_key}: {REQUESTS} requests of {B_SERVE} pairs, "
+                          f"launches { {k: v for k, v in launched.items() if v} }; vs the plain "
+                          f"fp16 path max |d| {err_plain:.3e}, vs JAX golden fp16 {err_g:.3e} "
+                          f"(tol {TOL_FP16}), vs float32 golden {err_f32:.3e} (tol "
+                          f"{TOL_FP16_VS_F32}); {int(far.sum())} off-grid queries exactly 0",
+                          flush=True)
+                    check(err_plain <= TOL_FP16 and err_g <= TOL_FP16,
+                          f"{net} fp16 {mode}: off the plain path or the golden values")
+                    check(err_f32 <= TOL_FP16_VS_F32, f"{net} fp16 {mode}: off float32")
+        del model, plain
+
+    with Phase("frozen_grad_fp16"):
+        frozen_grad_half("float16", requests, "np64", (gA, gB),
+                         expected(table_gather_x=2 * REQUESTS, table_gather_bwd_fp16=REQUESTS), 0)
+        frozen_grad_half("float16", requests_large, "np256", (gA_large, gB_large),
+                         expected(threedmfv=2 * REQUESTS, table_gather=2 * REQUESTS,
+                                  table_gather_bwd_fp16=REQUESTS), REQUESTS)
+
+    with Phase("train_fp16"), tempfile.TemporaryDirectory() as tmp:
+        # TRAIN_STEPS float16 steps at B_TRAIN (float32 master weights, a
+        # float16 decoder, no loss scaling, as the reference's): one row-2
+        # launch a step, the loss falls; one step against the plain fp16
+        # path from the same params.
+        mcfg_h = DPDistConfig(dtype="float16")
+        trainer_h = DPDistTrainer(mcfg_h, tcfg, run_dir=os.path.join(tmp, "run"), device=dev,
+                                  logger=RunLogger(os.path.join(tmp, "run"), echo=False))
+        start_count()
+        losses_h = [trainer_h.train_step(data, labels)["loss"] for _ in range(TRAIN_STEPS)]
+        launched = read_count()
+        losses_h = torch.stack(losses_h).cpu().numpy()
+        print(f"train fp16: {TRAIN_STEPS} steps at B={B_TRAIN}, kernel launches "
+              f"{ {k: v for k, v in launched.items() if v} }; loss {losses_h[0]:.5f} -> "
+              f"{losses_h[-1]:.5f} (first 5 mean {losses_h[:5].mean():.5f}, last 5 mean "
+              f"{losses_h[-5:].mean():.5f})", flush=True)
+        check(launched == expected(table_gather_x=TRAIN_STEPS), "train fp16: unexpected launches")
+        check(bool(np.isfinite(losses_h).all()), "train fp16: non-finite loss")
+        check(losses_h[-5:].mean() < losses_h[:5].mean(), "train fp16: the loss did not fall")
+        check(all(t.dtype == torch.float32 for lp in trainer_h.params["decoder"]["layers"]
+                  for t in lp.values()), "train fp16: the master weights are not float32")
+        batch_h = trainer_h.make_batch(data, labels)
+        plain_h = DPDistTrainer(mcfg_h.replace(fused_gather="off"), tcfg,
+                                run_dir=os.path.join(tmp, "off"), device=dev,
+                                logger=RunLogger(os.path.join(tmp, "off"), echo=False))
+        plain_h._set_params(trainer_h.params)
+        (l_k, g_k), (l_p, g_p) = (t.loss_and_grads(*batch_h) for t in (trainer_h, plain_h))
+        err_g = max(float((a_ - b_).abs().max()) / float(b_.abs().max()) for a_, b_ in zip(g_k, g_p))
+        print(f"train fp16 step, kernel path vs plain path: loss |d| = {float(l_k - l_p):.3e}, "
+              f"grads worst {err_g:.3e} of max", flush=True)
+        check(abs(float(l_k - l_p)) <= TOL_FP16 and err_g <= 2e-2,
+              "train fp16 step: kernel path and plain path disagree")
+        del trainer_h, plain_h, batch_h
 
     with Phase("gtgen_kernel"):
         # Row 8 as the ground-truth generator calls it: one round of
@@ -2683,6 +2952,29 @@ def main() -> int:
     with Phase("times"):
         records = []
         B, N, V, E = B_SERVE, NP, G, K ** 3 * C
+        # The two-byte dtypes: (record key, dtype, the kernels' C++ type).
+        HALVES = (("bf16", torch.bfloat16, "__nv_bfloat16"), ("fp16", torch.float16, "__half"))
+
+        def half_outputs(name, call, kernel, bound_ms, table=None, idx=None):
+            """A row's two-byte outputs: per dtype the CUDA-event and device
+            ms of call(dtype) (its kernel `kernel<T>`), the bound, and with
+            `table` the ms of index_select of `idx` on the table rounded to
+            the dtype (else no single library call); printed, and returned
+            as the record's entries."""
+            out = {}
+            for lab, dt, ctype in HALVES:
+                ms_ = cuda_median_ms(lambda: call(dt))
+                dev_ = device_ms(lambda: call(dt), f"{kernel}<{ctype}")
+                lib_ = None
+                if table is not None:
+                    rounded = table.to(dt)
+                    lib_ = cuda_median_ms(lambda: rounded.index_select(0, idx))
+                out[lab] = {"ms": ms_, "device_ms": dev_, "bound_ms": bound_ms, "library_ms": lib_}
+                print(f"{name} ({lab} output): {ms_:.4f} ms, {dev_:.4f} ms on the device; "
+                      f"bound {bound_ms:.4f} ms = {bound_ms / ms_:.1%} / {bound_ms / dev_:.1%} of "
+                      f"bound" + ("" if lib_ is None else f"; index_select ({lab}) {lib_:.4f} ms")
+                      + f"; on {card}", flush=True)
+            return out
         # Rows 2 and 3 are timed on the queries the frozen loss hands them:
         # pcB of the first request, the AB direction, whose surface(A) is
         # the one that needs dfv. The clouds lie inside the grid.
@@ -2726,12 +3018,12 @@ def main() -> int:
                                     + B_KERNEL * NP * (3 + E) + B_KERNEL * NP),
                                40 * B_KERNEL * NP * G)
             dev_ms = device_ms(lambda: mfv_x(pts, q, G, SIGMA, GRID, K), "mfv_gather_x_kernel<float")
-            # The bf16 output: x in half the bytes.
-            ms_bf = cuda_median_ms(lambda: mfv_x(pts, q, G, SIGMA, GRID, K, dtype=bf))
-            dev_bf = device_ms(lambda: mfv_x(pts, q, G, SIGMA, GRID, K, dtype=bf),
-                               "mfv_gather_x_kernel<__nv_bfloat16")
-            b_bf, _ = bound(4 * (B_KERNEL * NP * 6 + 2 * G * 3 + B_KERNEL * NP)
-                            + 2 * B_KERNEL * NP * (3 + E), 40 * B_KERNEL * NP * G)
+            # The two-byte outputs: x in half the bytes.
+            b_half, _ = bound(4 * (B_KERNEL * NP * 6 + 2 * G * 3 + B_KERNEL * NP)
+                              + 2 * B_KERNEL * NP * (3 + E), 40 * B_KERNEL * NP * G)
+            halves = half_outputs("mfv_gather_x",
+                                  lambda dt: mfv_x(pts, q, G, SIGMA, GRID, K, dtype=dt),
+                                  "mfv_gather_x_kernel", b_half)
             # N = 128, the most the route sends to row 1: 2B clouds of 128
             # points and 128 queries (inputs of their own, so that the
             # other phases' draws stay as they were).
@@ -2757,14 +3049,9 @@ def main() -> int:
                             "replaces": "dpdist_tpu/kernels/mfv_gather_pallas.py:209",
                             "launches": launches["mfv_gather_x"], "max_abs_err": err_mfv,
                             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                            "library_ms": None, "device_ms": dev_ms,
-                            "bf16": {"ms": ms_bf, "device_ms": dev_bf, "bound_ms": b_bf,
-                                     "library_ms": None},
+                            "library_ms": None, "device_ms": dev_ms, **halves,
                             f"n{N1}": {"ms": ms128, "device_ms": dev128, "bound_ms": b128,
                                        "max_abs_err": err128}})
-            print(f"mfv_gather_x with a bf16 output: {ms_bf:.4f} ms, {dev_bf:.4f} ms on the "
-                  f"device; bound {b_bf:.4f} ms = {b_bf / ms_bf:.1%} / {b_bf / dev_bf:.1%} of "
-                  f"bound; on {card}", flush=True)
             print(f"mfv_gather_x at 2B={B_KERNEL}, M=N={N1}: {ms128:.4f} ms, {dev128:.4f} ms on "
                   f"the device; bound {b128:.4f} ms = {b128 / ms128:.1%} / {b128 / dev128:.1%} "
                   f"of bound; max |dx| {err128:.3e} (tol {TOL_X}), vox equal; on {card}",
@@ -2779,28 +3066,19 @@ def main() -> int:
             b_ms, b_by = bound(4 * (n_reached * C + B * N * 3 + V * 3 + B * N * (3 + E) + B * N),
                                3 * B * N)
             dev_ms = device_ms(lambda: table_gather_x(fv, b, GRID, K), "table_gather_x_kernel<float")
-            # The bf16 output: x in half the bytes.
-            ms_bf = cuda_median_ms(lambda: table_gather_x(fv, b, GRID, K, dtype=bf))
-            dev_bf = device_ms(lambda: table_gather_x(fv, b, GRID, K, dtype=bf),
-                               "table_gather_x_kernel<__nv_bfloat16")
-            b_bf, _ = bound(4 * (n_reached * C + B * N * 3 + V * 3 + B * N) + 2 * B * N * (3 + E),
-                            3 * B * N)
-            # index_select on the volume rounded to bf16: the patch part.
-            fv_pad_bf = fv_pad.to(bf)
-            lib_bf = cuda_median_ms(lambda: fv_pad_bf.index_select(0, rows_idx))
+            # The two-byte outputs: x in half the bytes; index_select on the
+            # volume rounded to the dtype computes the patch part.
+            b_half, _ = bound(4 * (n_reached * C + B * N * 3 + V * 3 + B * N)
+                              + 2 * B * N * (3 + E), 3 * B * N)
+            halves = half_outputs("table_gather_x",
+                                  lambda dt: table_gather_x(fv, b, GRID, K, dtype=dt),
+                                  "table_gather_x_kernel", b_half, fv_pad, rows_idx)
             records.append({"name": "table_gather_x", "route": "cuda",
                             "source": "dpdist_tpu_torch/csrc/table_gather.cu",
                             "replaces": "dpdist_tpu/kernels/table_gather_pallas.py:539",
                             "launches": launches["table_gather_x"], "max_abs_err": err_tgx,
                             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                            "library_ms": lib_ms, "device_ms": dev_ms,
-                            "bf16": {"ms": ms_bf, "device_ms": dev_bf, "bound_ms": b_bf,
-                                     "library_ms": lib_bf}})
-            print(f"table_gather_x with a bf16 output: {ms_bf:.4f} ms, {dev_bf:.4f} ms on the "
-                  f"device; bound {b_bf:.4f} ms = {b_bf / ms_bf:.1%} / {b_bf / dev_bf:.1%} of "
-                  f"bound; index_select (bf16, the patch part) {lib_bf:.4f} ms; on {card}",
-                  flush=True)
-            del fv_pad_bf
+                            "library_ms": lib_ms, "device_ms": dev_ms, **halves})
 
             ms = cuda_median_ms(lambda: table_gather_bwd(vox, grad_patch, GRID, K))
             plain_ms = cuda_median_ms(lambda: table_gather_bwd_plain(vox, grad_patch, GRID, K))
@@ -2821,59 +3099,66 @@ def main() -> int:
                             "covers": ["dpdist_tpu/kernels/table_gather_pallas.py:379",
                                        "dpdist_tpu/kernels/table_gather_pallas.py:425"]})
 
-            # Row 3's bf16 variant on the same queries and the same grad in
-            # bf16, strided as a bf16 x's gradient hands it.
-            grad_patch16 = grad_rows.to(bf)[..., 3:]
-            src_rows16 = grad_patch16.reshape(-1, C).contiguous()
-            sink16 = torch.zeros(B * (V + 1), C, dtype=bf, device=dev)
-            dfv16 = table_gather_bwd(vox, grad_patch16, GRID, K)
-            check(torch.equal(dfv16, table_gather_bwd_ordered(vox, grad_patch16, GRID, K)),
-                  "table_gather_bwd bf16 differs from the ordered plain sum on the timed inputs")
-            lib16 = sink16.zero_().index_add_(0, rows_idx, src_rows16).view(B, V + 1, C)[:, :V]
-            err_lib16 = float((lib16.float() - dfv16.float()).abs().max())
-            ms16 = cuda_median_ms(lambda: table_gather_bwd(vox, grad_patch16, GRID, K))
-            plain16_ms = cuda_median_ms(lambda: table_gather_bwd_plain(vox, grad_patch16, GRID, K))
-            # index_add_ in bf16 (one library call; it sums in bf16 where the
-            # kernel sums in float32, up to err_lib16 apart).
-            lib16_ms = cuda_median_ms(lambda: sink16.zero_().index_add_(0, rows_idx, src_rows16))
-            # The bf16 grad entries of in-grid windows and vox in, the bf16
-            # dfv out; one float32 add per such entry.
-            b16, b16_by = bound(2 * adds + 4 * B * N + 2 * B * V * C, adds)
-            dev16 = device_ms(lambda: table_gather_bwd(vox, grad_patch16, GRID, K),
-                              "table_gather_bwd_bf16_kernel")
-            # Its launch (the C entry's plan) and its issue-slot floor: the
-            # consumer warp-runs that sum (some owner of the warp in the
-            # run's window) times the instructions of a run in the SASS of
-            # the consumers' loop, over 4 schedulers an SM at the top clock.
-            # Out-of-window tests, the producer and the prologue add to it.
+            # Row 3's two-byte kernel on the same queries and the same grad in
+            # bf16 and in fp16, strided as a two-byte x's gradient hands it.
+            # Its launch plan (the C entry's) is the same for both; its
+            # issue-slot floor: the consumer warp-runs that sum (some owner
+            # of the warp in the run's window) times the instructions of a
+            # run in the SASS of the consumers' loop, over 4 schedulers an
+            # SM at the top clock. Out-of-window tests, the producer and the
+            # prologue add to it.
             plan_out = (ctypes.c_int64 * 6)()
             build.check_launch(build.library().dpdist_table_gather_bwd_bf16_plan(
                 B, GRID, K, C, dev.index, plan_out), "table_gather_bwd_bf16 plan")
             plan16 = dict(zip(("consumers", "parts", "runs", "smem", "blocks", "items"),
                               list(plan_out)))
             n_runs16, warp_runs16 = bwd_bf16_warp_runs(torch, vox, GRID, K, C, plan16)
-            loop16 = sass_loop_counts(lib_path, "table_gather_bwd_bf16_kernel", "FADD")
-            per_run16 = sum(loop16.values()) / (loop16["FADD"] / BWD_BF16_GROUP)
+            print(f"table_gather_bwd_b16_kernel's plan at B={B}: {plan16}; {n_runs16} runs, "
+                  f"{warp_runs16} consumer warp-runs that sum", flush=True)
             sms = torch.cuda.get_device_properties(dev).multi_processor_count
-            floor16 = warp_runs16 * per_run16 / (4 * sms) / sm_clock_hz() * 1e3
-            records.append({"name": "table_gather_bwd_bf16", "route": "cuda",
-                            "source": "dpdist_tpu_torch/csrc/table_gather.cu",
-                            "replaces": "dpdist_tpu/kernels/table_gather_pallas.py:237",
-                            "launches": launches["table_gather_bwd_bf16"],
-                            "max_abs_err": err_bwd16, "ms": ms16, "plain_ms": plain16_ms,
-                            "bound_ms": b16, "bound_by": b16_by, "library_ms": lib16_ms,
-                            "device_ms": dev16, "library_max_abs_diff": err_lib16,
-                            "issue_floor_ms": floor16, "plan": plan16})
-            print(f"table_gather_bwd_bf16_kernel's plan at B={B}: {plan16}; {n_runs16} runs, "
-                  f"{warp_runs16} consumer warp-runs that sum; its consumers' loop in SASS: "
-                  f"{loop16}, {per_run16:.1f} instructions a run", flush=True)
-            print(f"table_gather_bwd bf16 at B={B}, N={N}: {ms16:.4f} ms, {dev16:.4f} ms on the "
-                  f"device; bound {b16:.4f} ms = {b16 / ms16:.1%} / {b16 / dev16:.1%} of bound; "
-                  f"issue-slot floor {floor16:.4f} ms = {floor16 / dev16:.1%} of the device time; "
-                  f"the float32 design on bf16 read 0.0714 / 0.0707 ms on the device (PERF.md); "
-                  f"index_add_ (bf16) {lib16_ms:.4f} ms, max |d| {err_lib16:.3e} from the kernel; "
-                  f"on {card}", flush=True)
-            del sink16, src_rows16, lib16, dfv16
+            # The two-byte grad entries of in-grid windows and vox in, the
+            # two-byte dfv out; one float32 add per such entry.
+            b16, b16_by = bound(2 * adds + 4 * B * N + 2 * B * V * C, adds)
+            for lab, dt, ctype in HALVES:
+                grad_patch16 = grad_rows.to(dt)[..., 3:]
+                src_rows16 = grad_patch16.reshape(-1, C).contiguous()
+                sink16 = torch.zeros(B * (V + 1), C, dtype=dt, device=dev)
+                dfv16 = table_gather_bwd(vox, grad_patch16, GRID, K)
+                check(torch.equal(dfv16, table_gather_bwd_ordered(vox, grad_patch16, GRID, K)),
+                      f"table_gather_bwd {lab} differs from the ordered plain sum on the timed "
+                      f"inputs")
+                lib16 = sink16.zero_().index_add_(0, rows_idx, src_rows16).view(B, V + 1, C)[:, :V]
+                err_lib16 = float((lib16.float() - dfv16.float()).abs().max())
+                ms16 = cuda_median_ms(lambda: table_gather_bwd(vox, grad_patch16, GRID, K))
+                plain16_ms = cuda_median_ms(lambda: table_gather_bwd_plain(vox, grad_patch16,
+                                                                           GRID, K))
+                # index_add_ in the dtype (one library call; it sums in the
+                # dtype where the kernel sums in float32, up to err_lib16 apart).
+                lib16_ms = cuda_median_ms(lambda: sink16.zero_().index_add_(0, rows_idx,
+                                                                            src_rows16))
+                dev16 = device_ms(lambda: table_gather_bwd(vox, grad_patch16, GRID, K),
+                                  f"table_gather_bwd_b16_kernel<{ctype}")
+                loop16 = sass_loop_counts(lib_path, f"table_gather_bwd_b16_kernelI{len(ctype)}"
+                                          f"{ctype}", "FADD")
+                per_run16 = sum(loop16.values()) / (loop16["FADD"] / BWD_BF16_GROUP)
+                floor16 = warp_runs16 * per_run16 / (4 * sms) / sm_clock_hz() * 1e3
+                records.append({"name": f"table_gather_bwd_{lab}", "route": "cuda",
+                                "source": "dpdist_tpu_torch/csrc/table_gather.cu",
+                                "replaces": "dpdist_tpu/kernels/table_gather_pallas.py:237",
+                                "launches": launches[f"table_gather_bwd_{lab}"],
+                                "max_abs_err": err_bwd_half[lab], "ms": ms16,
+                                "plain_ms": plain16_ms, "bound_ms": b16, "bound_by": b16_by,
+                                "library_ms": lib16_ms, "device_ms": dev16,
+                                "library_max_abs_diff": err_lib16, "issue_floor_ms": floor16,
+                                "plan": plan16})
+                print(f"table_gather_bwd {lab} at B={B}, N={N}: {ms16:.4f} ms, {dev16:.4f} ms on "
+                      f"the device; bound {b16:.4f} ms = {b16 / ms16:.1%} / {b16 / dev16:.1%} of "
+                      f"bound; its consumers' loop in SASS: {loop16}, {per_run16:.1f} "
+                      f"instructions a run, issue-slot floor {floor16:.4f} ms = "
+                      f"{floor16 / dev16:.1%} of the device time; index_add_ ({lab}) "
+                      f"{lib16_ms:.4f} ms, max |d| {err_lib16:.3e} from the kernel; on {card}",
+                      flush=True)
+                del sink16, src_rows16, lib16, dfv16, grad_patch16
 
             # Rows 7 and 6 on the np = 256 path's inputs: pcA of the first
             # large request is encoded, and pcB queries that surface.
@@ -2919,26 +3204,18 @@ def main() -> int:
             b_ms, b_by = bound(4 * (n_reached6 * C + B * NL + B * NL * E), 0)
             dev_ms = device_ms(lambda: table_gather(fvL, voxL, GRID, K),
                                "table_gather_rows_kernel<float")
-            # The bf16 output: the rows in half the bytes; index_select on
-            # the volume rounded to bf16 computes the same rows.
-            fv_pad6_bf = fv_pad6.to(bf)
-            ms_bf = cuda_median_ms(lambda: table_gather(fvL, voxL, GRID, K, dtype=bf))
-            dev_bf = device_ms(lambda: table_gather(fvL, voxL, GRID, K, dtype=bf),
-                               "table_gather_rows_kernel<__nv_bfloat16")
-            lib_bf = cuda_median_ms(lambda: fv_pad6_bf.index_select(0, rows6))
-            b_bf, _ = bound(4 * (n_reached6 * C + B * NL) + 2 * B * NL * E, 0)
+            # The two-byte outputs: the rows in half the bytes; index_select
+            # on the volume rounded to the dtype computes the same rows.
+            b_half, _ = bound(4 * (n_reached6 * C + B * NL) + 2 * B * NL * E, 0)
+            halves = half_outputs("table_gather",
+                                  lambda dt: table_gather(fvL, voxL, GRID, K, dtype=dt),
+                                  "table_gather_rows_kernel", b_half, fv_pad6, rows6)
             records.append({"name": "table_gather", "route": "cuda",
                             "source": "dpdist_tpu_torch/csrc/table_gather.cu",
                             "replaces": "dpdist_tpu/kernels/table_gather_pallas.py:106",
                             "launches": launches["table_gather"], "max_abs_err": err_tg6,
                             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                            "library_ms": lib_ms, "device_ms": dev_ms,
-                            "bf16": {"ms": ms_bf, "device_ms": dev_bf, "bound_ms": b_bf,
-                                     "library_ms": lib_bf}})
-            print(f"table_gather with a bf16 output: {ms_bf:.4f} ms, {dev_bf:.4f} ms on the "
-                  f"device; bound {b_bf:.4f} ms = {b_bf / ms_bf:.1%} / {b_bf / dev_bf:.1%} of "
-                  f"bound; index_select (bf16) {lib_bf:.4f} ms; on {card}", flush=True)
-            del fv_pad6_bf
+                            "library_ms": lib_ms, "device_ms": dev_ms, **halves})
 
             # Row 3 at N = 256 on the np = 256 frozen loss's inputs: pcB's
             # voxels, and a contiguous grad as row 6's backward hands it.
@@ -2976,17 +3253,21 @@ def main() -> int:
                   flush=True)
             del fv_pad6, reached6, rows6, srcL, sinkL, dfvL
 
-            # Row 3 bf16 at N = 256 (row 6's contiguous bf16 grad).
-            gradL16 = gradL.to(bf)
-            msL16 = cuda_median_ms(lambda: table_gather_bwd(voxL, gradL16, GRID, K))
-            devL16 = device_ms(lambda: table_gather_bwd(voxL, gradL16, GRID, K),
-                               "table_gather_bwd_bf16_kernel")
+            # Row 3's two-byte kernel at N = 256 (row 6's contiguous grad).
             bnd_L16, _ = bound(2 * addsL + 4 * B * NL + 2 * B * V * C, addsL)
-            next(r for r in records if r["name"] == "table_gather_bwd_bf16")[f"n{NL}"] = {
-                "ms": msL16, "device_ms": devL16, "bound_ms": bnd_L16}
-            print(f"table_gather_bwd bf16 at B={B}, N={NL}: {msL16:.4f} ms, {devL16:.4f} ms on "
-                  f"the device; bound {bnd_L16:.4f} ms = {bnd_L16 / msL16:.1%} / "
-                  f"{bnd_L16 / devL16:.1%} of bound; on {card}", flush=True)
+            for lab, dt, ctype in HALVES:
+                gradL16 = gradL.to(dt)
+                check(torch.equal(table_gather_bwd(voxL, gradL16, GRID, K),
+                                  table_gather_bwd_ordered(voxL, gradL16, GRID, K)),
+                      f"table_gather_bwd {lab} at N={NL} differs from the ordered plain sum")
+                msL16 = cuda_median_ms(lambda: table_gather_bwd(voxL, gradL16, GRID, K))
+                devL16 = device_ms(lambda: table_gather_bwd(voxL, gradL16, GRID, K),
+                                   f"table_gather_bwd_b16_kernel<{ctype}")
+                next(r for r in records if r["name"] == f"table_gather_bwd_{lab}")[f"n{NL}"] = {
+                    "ms": msL16, "device_ms": devL16, "bound_ms": bnd_L16}
+                print(f"table_gather_bwd {lab} at B={B}, N={NL}: {msL16:.4f} ms, {devL16:.4f} ms "
+                      f"on the device; bound {bnd_L16:.4f} ms = {bnd_L16 / msL16:.1%} / "
+                      f"{bnd_L16 / devL16:.1%} of bound; on {card}", flush=True)
             del gradL16, gradL
 
             # Row 8 on eval_pair's clouds, one direction.
@@ -3122,6 +3403,19 @@ def main() -> int:
             print(f"cuBLAS bf16 decoder with the first layer's K padded from {x9.shape[-1]} to "
                   f"{k_pad}: {dec_pad_ms:.4f} ms = {flops9 / dec_pad_ms / 1e9:.1f} TFLOP/s "
                   f"(unpadded {dec_ms:.4f} ms); on {card}", flush=True)
+            # The same composed decoder in fp16 (the fp16 "auto" path's,
+            # cuBLAS fp16 accumulating in float32), unpadded and padded.
+            h = torch.float16
+            layers_h = [{k_: t.to(h) for k_, t in lp.items()} for lp in layers_bf]
+            layers_pad_h = [{k_: t.to(h) for k_, t in lp.items()} for lp in layers_pad]
+            x9_h, x9_pad_h = x9.to(h), x9_pad.to(h)
+            dec_h_ms = cuda_median_ms(lambda: mlp_apply({"layers": layers_h}, x9_h, h))
+            dec_pad_h_ms = cuda_median_ms(lambda: mlp_apply({"layers": layers_pad_h}, x9_pad_h, h))
+            print(f"cuBLAS fp16 decoder on the same rows: {dec_h_ms:.4f} ms = "
+                  f"{flops9 / dec_h_ms / 1e9:.1f} TFLOP/s; K padded to {k_pad}: "
+                  f"{dec_pad_h_ms:.4f} ms = {flops9 / dec_pad_h_ms / 1e9:.1f} TFLOP/s; on {card}",
+                  flush=True)
+            del layers_h, layers_pad_h, x9_h, x9_pad_h
             # Row 9 at np = 256: the "full" route's 2B = 512 clouds of 256 queries.
             fv2L, vox2L, _, delta2L = ff_inputs(aL, bL, off_grid=False)
             rows9L = vox2L.numel()
@@ -3228,6 +3522,18 @@ def main() -> int:
                 print(f"train step bf16 (table path, Adam) at B={n_} pairs: {ms_:.4f} ms, "
                       f"{n_ / ms_ * 1e3:.1f} pairs/s; on {card}", flush=True)
             del t16
+            # The fp16 train step at B = 256.
+            t_h = DPDistTrainer(DPDistConfig(dtype="float16"), tcfg, run_dir=tmp16, device=dev,
+                                logger=RunLogger(tmp16, echo=False))
+
+            def step_h():
+                _, grads_h = t_h.loss_and_grads(a, b, labels_t)
+                t_h.opt_state = t_h.optimizer.step(t_h.params, grads_h, t_h.opt_state)
+
+            ms_ = cuda_median_ms(step_h)
+            print(f"train step fp16 (table path, Adam) at B={B_SERVE} pairs: {ms_:.4f} ms, "
+                  f"{B_SERVE / ms_ * 1e3:.1f} pairs/s; on {card}", flush=True)
+            del t_h
 
         with torch.no_grad():
             fwd_ms = cuda_median_ms(lambda: fwd_model_large(aL, bL))
@@ -3235,11 +3541,12 @@ def main() -> int:
               f"{fwd_ms:.4f} ms, {B_SERVE / fwd_ms * 1e3:.1f} pairs/s; on {card}", flush=True)
         for reqs in (requests, requests_large):
             a_, b_ = reqs[0]
-            loss16 = make_frozen_dpdist_loss(params, cfg.replace(dtype="bfloat16"))
-            step_ms = cuda_median_ms(lambda: src_grad(loss16, a_, b_))
-            print(f"frozen source-gradient step bf16 (table path, row 3 bf16) at B={B_SERVE} "
-                  f"pairs, np={a_.shape[1]}: {step_ms:.4f} ms, {B_SERVE / step_ms * 1e3:.1f} "
-                  f"pairs/s; on {card}", flush=True)
+            for lab_, dt_ in (("bf16", "bfloat16"), ("fp16", "float16")):
+                loss16 = make_frozen_dpdist_loss(params, cfg.replace(dtype=dt_))
+                step_ms = cuda_median_ms(lambda: src_grad(loss16, a_, b_))
+                print(f"frozen source-gradient step {lab_} (table path, row 3 {lab_}) at "
+                      f"B={B_SERVE} pairs, np={a_.shape[1]}: {step_ms:.4f} ms, "
+                      f"{B_SERVE / step_ms * 1e3:.1f} pairs/s; on {card}", flush=True)
         loss_fn = make_frozen_dpdist_loss(params, cfg)
         step_ms = cuda_median_ms(lambda: src_grad(loss_fn, aL, bL))
         print(f"frozen source-gradient step at B={B_SERVE} pairs, np={NL}: {step_ms:.4f} ms, "
@@ -3249,6 +3556,7 @@ def main() -> int:
             a_, b_ = reqs[0]
             for over in ({"dtype": "bfloat16", "fused_gather": "full"},
                          {"dtype": "bfloat16", "fused_gather": "auto"},
+                         {"dtype": "float16", "fused_gather": "auto"},
                          {"fused_gather": "on"}):
                 model = load_frozen_distance(str(ROOT / NETS[-1]), device=dev, **over)
                 with torch.no_grad():
@@ -3463,7 +3771,9 @@ def main() -> int:
             errs = []
             for dtype, mode, w, tol in ([("float32", "auto", want, TOL_DIST)]
                                         + [("bfloat16", m, w, TOL_BF16)
-                                           for m, w in want["bf16"].items()]):
+                                           for m, w in want["bf16"].items()]
+                                        + [("float16", m, w, TOL_FP16)
+                                           for m, w in want["fp16"].items()]):
                 pAB, pBA = variant_forward(params, state, cfg.replace(dtype=dtype,
                                                                       fused_gather=mode), gA4, gB4)
                 err = max(float(np.abs(sampled(p) - np.asarray(w[k])).max())
@@ -3523,13 +3833,18 @@ def main() -> int:
                       f"point {worst:.2e} of max; {ms:.3f} ms a call", flush=True)
                 check(d <= TOL_DIST, f"{variant}: frozen loss vs plain path: {d}")
 
-            # DPDist training from the seeded weights on the golden batch.
-            if variant in VARIANT_TRAIN:
-                gt = want["train"]
-                tr = DPDistTrainer(cfg, TrainConfig(batch_size=vgold["train"]["batch_size"],
-                                                    augment=False, seed=vgold["seed"]),
-                                   run_dir=os.path.join(tmp, variant), device=dev,
-                                   logger=RunLogger(os.path.join(tmp, variant), echo=False))
+            # DPDist training from the seeded weights on the golden batch, in
+            # float32 and in float16 (a float16 decoder on float32 masters).
+            trains = (("float32", "train", TOL_VARIANT_STEPS),
+                      ("float16", "train_fp16", TOL_VARIANT_STEPS_FP16))
+            for dtype, key, tols in trains if variant in VARIANT_TRAIN else ():
+                gt = want[key]
+                run_dir = os.path.join(tmp, f"{variant}_{dtype}")
+                tr = DPDistTrainer(cfg.replace(dtype=dtype),
+                                   TrainConfig(batch_size=vgold["train"]["batch_size"],
+                                               augment=False, seed=vgold["seed"]),
+                                   run_dir=run_dir, device=dev,
+                                   logger=RunLogger(run_dir, echo=False))
                 data, labels = dpdist_train_batch({"seed": gt["batch_seed"],
                                                    "batch_size": vgold["train"]["batch_size"],
                                                    "num_point": vgold["train"]["num_point"]})
@@ -3540,12 +3855,12 @@ def main() -> int:
                     m = tr.train_step(data, labels)
                     launched = read_count()
                     check(launched == expected(table_gather_x=VARIANT_TRAIN[variant]),
-                          f"{variant}: train step launches {launched}")
+                          f"{variant}: {dtype} train step launches {launched}")
                     losses.append(float(m["loss"]))
                     gnorms.append(float(m["grad_norm"]))
                     if state_first is None:
                         state_first = state_sample(tr.state, n_state)
-                first, later, gnorm_tol, state_first_tol, state_tol = TOL_VARIANT_STEPS
+                first, later, gnorm_tol, state_first_tol, state_tol = tols
                 err_first = abs(losses[0] - gt["loss"][0]) / gt["loss"][0]
                 err_later = max(abs(a - b) / b for a, b in zip(losses[1:], gt["loss"][1:]))
                 err_gn = abs(gnorms[0] - gt["grad_norm"][0]) / gt["grad_norm"][0]
@@ -3553,7 +3868,8 @@ def main() -> int:
                 err_state_first = state_gap(state_first, gt["state_first"])
                 err_state = state_gap(state_sample(tr.state, n_state), gt["state"])
                 step_ms = cuda_median_ms(lambda: tr.train_step(data, labels), runs=3, warmup=0)
-                print(f"{variant}: {len(losses)} train steps at B = {vgold['train']['batch_size']}: "
+                print(f"{variant}: {len(losses)} {dtype} train steps at B = "
+                      f"{vgold['train']['batch_size']}: "
                       f"losses {', '.join(f'{v:.6f}' for v in losses)} (JAX "
                       f"{', '.join(f'{v:.6f}' for v in gt['loss'])}); first rel |d| "
                       f"{err_first:.2e} (tol {first}), later {err_later:.2e} (tol {later}); "
@@ -3567,7 +3883,7 @@ def main() -> int:
                       f"a step; {step_ms:.3f} ms a step", flush=True)
                 check(err_first <= first and err_later <= later and err_gn <= gnorm_tol
                       and err_state_first <= state_first_tol and err_state <= state_tol,
-                      f"{variant}: train steps off the golden ones")
+                      f"{variant}: {dtype} train steps off the golden ones")
                 del tr
             del params, state
             torch.cuda.empty_cache()
@@ -3641,7 +3957,8 @@ def main() -> int:
                  "bf16_full": load_frozen_distance(net0, device=dev, dtype="bfloat16",
                                                    fused_gather="full"),
                  "bf16_off": load_frozen_distance(net0, device=dev, dtype="bfloat16",
-                                                  fused_gather="off")}
+                                                  fused_gather="off"),
+                 "fp16": load_frozen_distance(net0, device=dev, dtype="float16")}
         programs = {}
         for name in SERVE_EXPORTS:
             programs[name] = load_exported(str(export_path / f"{name}.pt2"), device=dev).module()
@@ -3659,10 +3976,11 @@ def main() -> int:
             "native_bf16_full": expected(fused_forward=REQUESTS),
             "native_grad": expected(table_gather_x=2 * REQUESTS, table_gather_bwd=REQUESTS),
             "native_on": expected(gather_patches_fused=2 * REQUESTS),
-            "native_f32_np256": expected(threedmfv=2 * REQUESTS, table_gather=2 * REQUESTS)}
+            "native_f32_np256": expected(threedmfv=2 * REQUESTS, table_gather=2 * REQUESTS),
+            "native_fp16": expected(mfv_gather_x=REQUESTS)}
         eager_of = {"portable_f32": "f32", "portable_bf16": "bf16_off", "portable_grad": "off",
                     "native_f32": "f32", "native_bf16_full": "bf16_full", "native_grad": "f32",
-                    "native_on": "f32", "native_f32_np256": "f32"}
+                    "native_on": "f32", "native_f32_np256": "f32", "native_fp16": "fp16"}
         serve_ms = {}
         for name, prog in programs.items():
             reqs = requests_large if SERVE_EXPORTS[name].get("num_point") else requests
@@ -3687,7 +4005,7 @@ def main() -> int:
                       f"all but {OUTLIERS}, {REL_GRAD_FEW} on all)", flush=True)
                 check(err_v <= TOL_DIST, f"{name}: values off the eager loss by {err_v}")
             else:
-                tol = TOL_BF16 if "bf16" in name else TOL_DIST
+                tol = TOL_BF16 if "bf16" in name else TOL_FP16 if "fp16" in name else TOL_DIST
                 with torch.no_grad():
                     err = max(float((o - ref_model(a, b)).abs().max())
                               for o, (a, b) in zip(outs, reqs))
@@ -3698,11 +4016,12 @@ def main() -> int:
             a, b = reqs[0]
             with torch.no_grad():
                 serve_ms[name] = [cuda_median_ms(lambda: prog(a[:n], b[:n]), runs=SERVE_TIMED_RUNS,
-                                                 warmup=2) for n in (1, SERVE_TIMED_BATCH)]
+                                                 warmup=2)
+                                  for n in (1, SERVE_TIMED_BATCH)]
         print(f"served calls (np=64 but for np256), ms at B=1 / B={SERVE_TIMED_BATCH} (CUDA "
               f"events, median of {SERVE_TIMED_RUNS}): " + "; ".join(
-                  f"{k} {v[0]:.3f} / {v[1]:.3f}" for k, v in serve_ms.items()) + f"; on {card}",
-              flush=True)
+                  f"{k} " + " / ".join(f"{t:.3f}" for t in v) for k, v in serve_ms.items())
+              + f"; on {card}", flush=True)
         del eager, programs
 
     with Phase("serving_registration"):

@@ -5,10 +5,11 @@ module layout mirrors `dpdist_tpu/`, so each port module sits at the path
 of its reference. This package imports neither `jax` nor `dpdist_tpu`.
 
 Slices covered so far: the frozen DPDist distance served from the
-committed checkpoints (float32, and bfloat16 through the fused
-gather + decoder kernel or the composed bf16 path), its gradient in the
-input clouds (the frozen loss, float32 or bfloat16), DPDist training on
-one device (float32 or bfloat16) from the command line, registration:
+committed checkpoints (float32, bfloat16 through the fused gather +
+decoder kernel or the composed bf16 path, and float16 on the composed
+path), its gradient in the input clouds (the frozen loss, in each of the
+three dtypes), DPDist training on one device (in each of them; float32 or
+bfloat16 from the command line, as the reference's CLIs), registration:
 the iterative PCRNet policy (pointnet and 3dmfv encoders), its evaluator
 with the convergence stops, and PCRNet training on the frozen DPDist loss,
 chamfer or EMD; the point-cloud autoencoder trained on the frozen
@@ -44,13 +45,14 @@ with dense evaluation (distance fields).
 Entry points run on the card (`device="cuda"`) unless the caller asks for
 the CPU; without a card they raise.
 
-Numerics: float32 unless a config asks for bfloat16, with TF32 switched
-off for matmuls and convolutions. The JAX package pins HIGHEST matmul
-precision because lower precision moved its accuracy cells; TF32 is the
-same hazard on Hopper, so importing this package sets both flags to
-False. bfloat16 products accumulate in float32, as the reference's
-(preferred_element_type=float32); cuBLAS may otherwise reduce a bf16
-GEMM in bf16, so importing the package also switches that off.
+Numerics: float32 unless a config asks for bfloat16 or float16, with TF32
+switched off for matmuls and convolutions. The JAX package pins HIGHEST
+matmul precision because lower precision moved its accuracy cells; TF32
+is the same hazard on Hopper, so importing this package sets both flags
+to False. bfloat16 and float16 products accumulate in float32, as the
+reference's (preferred_element_type=float32); cuBLAS may otherwise reduce
+a bf16 or fp16 GEMM in its own type (split-K), so importing the package
+also switches both of those off.
 """
 
 import torch
@@ -58,6 +60,7 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
 
 __version__ = "0.1.0"
 

@@ -30,7 +30,7 @@
 //     4 elements of one neighbour cell (one window test and one 16-byte
 //     shared load a chunk), built in shared memory in groups of R rows whose
 //     span in x starts on a 16-byte boundary (4 float32 rows of 2,503, or 8
-//     bfloat16 ones: 40,048 B either way), each group leaving by one bulk
+//     two-byte ones: 40,048 B either way), each group leaving by one bulk
 //     store (cp.async.bulk) from a double buffer. A row off such a boundary
 //     (the head or tail of a cloud's rows where N is not a multiple of R) is
 //     written by per-thread stores; at N = 64 there is none.
@@ -43,13 +43,13 @@
 // memory, so each runs slower beside the other than alone, and the first
 // cloud's encode on each SM is hidden by nothing.
 //
-// x is written as float32 or, for the bf16 serving path ("auto" in
-// bfloat16), as bfloat16: each value rounded once to nearest even, as the
-// reference's .astype(dtype) on its table and on delta
-// (mfv_gather_pallas.py:169-175). Forward only. The encode is the code row 7
-// runs (threedmfv.cu), on a team of warps instead of the whole block, so its
-// numerics are row 7's: true division where sigma is not a power of two,
-// expf, the finalisation over the whole cloud.
+// x is written as float32 or, for the bf16 and fp16 serving paths ("auto"
+// in bfloat16 or float16), as bfloat16 or float16: each value rounded once
+// to nearest even, as the reference's .astype(dtype) on its table and on
+// delta (mfv_gather_pallas.py:169-175). Forward only. The encode is the
+// code row 7 runs (threedmfv.cu), on a team of warps instead of the whole
+// block, so its numerics are row 7's: true division where sigma is not a
+// power of two, expf, the finalisation over the whole cloud.
 //
 // Plain C interface for ctypes; no PyTorch headers. Built with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC
@@ -62,6 +62,7 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <type_traits>
 
 #include "fv_encode.cuh"
 #include "patch_rows.cuh"
@@ -207,15 +208,17 @@ const char* dpdist_error_string(int err) {
 int dpdist_mfv_gather_x_max_gaussians() { return 1024 - kWarp; }
 
 // Launches on `stream`; returns cudaGetLastError() after the launch (0 on
-// success) or cudaErrorInvalidValue for sizes the kernel does not take. x is
-// float32, or bfloat16 where out_bf16 is set.
+// success) or cudaErrorInvalidValue for sizes or types the kernel does not
+// take. x is of the type of out_type (dpdist::OutType: float32, bfloat16 or
+// float16).
 int dpdist_mfv_gather_x(const float* points, const float* queries, const float* mu,
                         const float* centers, void* x, int* vox, int B, int M, int N, int g,
                         int k, float sigma, float w, float pi_scale, float sw, float sw2,
-                        float inv_m, int out_bf16, int device, void* stream) {
+                        float inv_m, int out_type, int device, void* stream) {
   const int G = g * g * g;
+  const int out_bytes = dpdist::out_bytes(out_type);
   if (B < 1 || M < 1 || N < 1 || g < 1 || k < 1 || (k % 2) == 0 || k > 2 * g + 1 ||
-      G > dpdist_mfv_gather_x_max_gaussians())
+      G > dpdist_mfv_gather_x_max_gaussians() || out_bytes == 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -229,7 +232,6 @@ int dpdist_mfv_gather_x(const float* points, const float* queries, const float* 
   const int ne = std::max(kMinEncodeThreads, (G + kWarp - 1) / kWarp * kWarp);
   const bool small = ne + kRowThreads <= 768;
   const int threads = small ? ne + kRowThreads : 1024;
-  const int out_bytes = out_bf16 ? 2 : 4;
   const MfvPlan plan = plan_mfv(g, k, out_bytes, reinterpret_cast<uintptr_t>(x) % 16 == 0, ne,
                                 max_smem);
   if (plan.smem == 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -246,13 +248,11 @@ int dpdist_mfv_gather_x(const float* points, const float* queries, const float* 
                                             consts, plan);
     return cudaGetLastError();
   };
-  using bf16 = __nv_bfloat16;
-  if (out_bf16)
-    err = small ? launch(mfv_gather_x_kernel<bf16, 768>, static_cast<bf16*>(x))
-                : launch(mfv_gather_x_kernel<bf16, 1024>, static_cast<bf16*>(x));
-  else
-    err = small ? launch(mfv_gather_x_kernel<float, 768>, static_cast<float*>(x))
-                : launch(mfv_gather_x_kernel<float, 1024>, static_cast<float*>(x));
+  err = dpdist::with_out_type(out_type, [&](auto* type) {
+    using T = std::remove_pointer_t<decltype(type)>;
+    return small ? launch(mfv_gather_x_kernel<T, 768>, static_cast<T*>(x))
+                 : launch(mfv_gather_x_kernel<T, 1024>, static_cast<T*>(x));
+  });
   return static_cast<int>(err);
 }
 

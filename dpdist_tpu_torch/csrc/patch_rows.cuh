@@ -1,8 +1,8 @@
 // Device helpers shared by the patch-gather kernels (mfv_gather.cu,
 // table_gather.cu, gather_fused.cu, fused_forward.cu): the k^3 window's
 // offsets, a query's voxel, and the output's stores (float32 or, rounded
-// once to nearest even, bfloat16). The persistent gathers' row machinery is
-// in row_groups.cuh.
+// once to nearest even, bfloat16 or float16) with the C entries' code for
+// each. The persistent gathers' row machinery is in row_groups.cuh.
 //
 // Flat voxel order is the reference's meshgrid order, v = iy*g^2 + ix*g + iz;
 // the window's offsets act on the three digits of v (v/g^2, (v/g)%g, v%g),
@@ -11,6 +11,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -27,18 +28,49 @@ inline cudaError_t set_smem(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
+// The output (and two-byte grad) types of the C entries, by code
+// (kernels/table_gather.py: OUT_TYPES).
+enum OutType { kOutF32 = 0, kOutBf16 = 1, kOutF16 = 2 };
+
+inline int out_bytes(int code) {
+  return code == kOutF32 ? 4 : (code == kOutBf16 || code == kOutF16) ? 2 : 0;
+}
+
+// f(T*{}) with T the type of `code` (float, __nv_bfloat16 or __half);
+// cudaErrorInvalidValue for another code.
+template <typename F>
+inline cudaError_t with_out_type(int code, F f) {
+  switch (code) {
+    case kOutF32: return f(static_cast<float*>(nullptr));
+    case kOutBf16: return f(static_cast<__nv_bfloat16*>(nullptr));
+    case kOutF16: return f(static_cast<__half*>(nullptr));
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// A float32 value stored as is or rounded once to nearest even: past the
+// largest finite value to inf, into the subnormals below the smallest
+// normal, as a cast (torch's .to, numpy's and XLA's astype) rounds.
 __device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
+__device__ __forceinline__ void store_out(__half* p, float v) { *p = __float2half_rn(v); }
 
-// Four consecutive bfloat16 values by one 8-byte store (p 8-byte aligned),
-// each rounded once to nearest even.
+// Four consecutive two-byte values by one 8-byte store (p 8-byte aligned),
+// each rounded once to nearest even; the first of each pair in the low half.
+__device__ __forceinline__ void store_pairs(void* p, unsigned lo, unsigned hi) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(lo, hi);
+}
 __device__ __forceinline__ void store_out4(__nv_bfloat16* p, const float (&v)[4]) {
   const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
   const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
-  *reinterpret_cast<uint2*>(p) =
-      make_uint2(*reinterpret_cast<const unsigned*>(&lo), *reinterpret_cast<const unsigned*>(&hi));
+  store_pairs(p, *reinterpret_cast<const unsigned*>(&lo), *reinterpret_cast<const unsigned*>(&hi));
+}
+__device__ __forceinline__ void store_out4(__half* p, const float (&v)[4]) {
+  const __half2 lo = __floats2half2_rn(v[0], v[1]);
+  const __half2 hi = __floats2half2_rn(v[2], v[3]);
+  store_pairs(p, *reinterpret_cast<const unsigned*>(&lo), *reinterpret_cast<const unsigned*>(&hi));
 }
 
 // Flat shift and (sx, sy, sz) digit shifts of each offset o of the k^3

@@ -11,8 +11,9 @@
 //   1); a thread builds whole chunks, with one window test and one 16-byte
 //   shared load a chunk. Where a chunk lies and what it reads are worked out
 //   once per pass of chunks, or once per kernel where one pass covers a
-//   group of rows. bfloat16 rows with no delta (kLead = 0) in chunks of 4
-//   write a chunk by one 8-byte store wherever the rows start so aligned.
+//   group of rows. Two-byte rows (bfloat16 or float16) with no delta
+//   (kLead = 0) in chunks of 4 write a chunk by one 8-byte store wherever
+//   the rows start so aligned.
 // - Runs of rows: a run's rows are built in groups of R rows whose span in
 //   the output starts on a 16-byte boundary and is a multiple of 16 bytes;
 //   each group leaves by one bulk store from a double buffer
@@ -208,7 +209,7 @@ __device__ __forceinline__ void fill_chunks(Chunks<J>& ch, int q0, int rows, int
 
 // Writes this thread's chunks of rows rows_s[0 ..) to dst (shared or device
 // memory): each element from the volume fv_s, 0 outside the grid; where vec
-// is set (bfloat16, CW = 4, every chunk 8-byte aligned), by one 8-byte store
+// is set (two bytes, CW = 4, every chunk 8-byte aligned), by one 8-byte store
 // a chunk. All loads are issued before the first store, which might alias
 // them.
 template <int CW, int J, typename T>
@@ -266,7 +267,7 @@ __device__ __forceinline__ void emit_rows(T* dst, const XRow* rows_s, int rows, 
       store_out(dst + r * W + d, rows_s[r].delta[d]);
     }
   }
-  // bfloat16 rows with no delta in chunks of 4 (so C and W are multiples of
+  // Two-byte rows with no delta in chunks of 4 (so C and W are multiples of
   // 4): every chunk starts 8 bytes aligned wherever dst does. float32 chunks
   // keep their four stores: on an H100 one 16-byte store a chunk made row 10
   // 2.6 % slower and row 6 under 1 % faster, where the 8-byte store makes

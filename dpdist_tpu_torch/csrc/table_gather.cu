@@ -24,7 +24,7 @@
 //     volume loads into a second buffer while this item's rows are built;
 //   - rows are built in shared memory in groups of R rows whose span in x
 //     starts on a 16-byte boundary and is a multiple of 16 bytes,
-//     R = 16 / gcd(W * bytes, 16) (4 float32 rows of 2,503, or 8 bfloat16
+//     R = 16 / gcd(W * bytes, 16) (4 float32 rows of 2,503, or 8 two-byte
 //     ones: 40,048 B either way), and each group leaves by one bulk store
 //     from a double buffer (commit_group; wait_group.read before a buffer
 //     is refilled). A row off such a boundary (the head or tail of an item
@@ -51,19 +51,19 @@
 // vox) exactly.
 //   What bounds it on an H100: device memory, the rows it writes (655 MB of
 //   float32 at B = 256, N = 256, k = 5, C = 20: about 0.2 ms at 3.35 TB/s;
-//   half that in bfloat16). The design is table_gather_x's persistent
+//   half that in bfloat16 or float16). The design is table_gather_x's persistent
 //   gather on the rows of given cells (CellRows: no delta, kLead = 0), the
 //   design row 10 (gather_fused.cu) runs on masked rows: one block per SM
 //   walks runs of at most 128 of a cloud's rows, each run's volume arriving
 //   by one bulk copy into a second buffer while the last run is written, so
 //   that a cloud's 40 KB volume is read from device memory once a run, not
 //   once a tile of 32 queries; rows leave in groups of up to 40 KB (4
-//   float32 rows of 10,000 B or 8 bfloat16 rows of 5,000 B) by bulk stores
+//   float32 rows of 10,000 B or 8 two-byte rows of 5,000 B) by bulk stores
 //   from a double buffer, and a thread builds chunks of 4 elements of one
 //   neighbour cell with one window test and one 16-byte shared load a chunk
-//   (chunks of 1 where C is not a multiple of 4), a bfloat16 chunk leaving
+//   (chunks of 1 where C is not a multiple of 4), a two-byte chunk leaving
 //   by one 8-byte store. A run's head or tail off a group boundary
-//   (bfloat16 rows start 16-byte aligned only at even rows) goes by
+//   (two-byte rows start 16-byte aligned only at even rows) goes by
 //   per-thread stores. What holds it on the card is, as for rows 2 and 10,
 //   the rate at which the threads build groups and the bulk stores drain
 //   them (PERF.md).
@@ -71,10 +71,14 @@
 //   runs of L <= 128 rows (row_groups.cuh: kMaxCloudRows, kMaxItems), far
 //   past 2,097,152 queries a cloud (a 128^3 field); row offsets are int64.
 //
-// Both forward kernels write float32 or, for the bf16 serving paths,
-// bfloat16: each value of x (the patch and delta) is the float32 value
-// rounded once to nearest even, as the reference's .astype(dtype) on its
-// table and on delta (table_gather_pallas.py:84, :119). Forward only.
+// Both forward kernels write float32 or, for the bf16 and fp16 paths,
+// bfloat16 or float16: each value of x (the patch and delta) is the
+// float32 value rounded once to nearest even (__float2bfloat16_rn,
+// __float2half_rn: past float16's 65,504 to inf, subnormals kept), as the
+// reference's .astype(dtype) on its table and on delta
+// (table_gather_pallas.py:84, :119). A two-byte row is a two-byte row:
+// float16 takes bfloat16's groups of 8 rows, its chunk stores and its
+// handling of a run's odd head and tail. Forward only.
 //
 // table_gather_bwd replaces dpdist_tpu/kernels/table_gather_pallas.py:
 // _bwd_kernel + _fold_and_emit (`pl.pallas_call` in _table_gather_bwd_impl),
@@ -103,23 +107,26 @@
 //   reads (about 150 MB at B = 256, N = 64: 0.048 ms at 3.35 TB/s). Up to
 //   64 KB of runs are in flight per block, three blocks per SM, against
 //   the one dependent load per add of a shared-memory scatter.
-// The adjoint takes a float32 or a bfloat16 grad and writes dfv in the same
-// type, as the reference's table_gather_bwd(dtype=) does
+// The adjoint takes a float32, bfloat16 or float16 grad and writes dfv in
+// the same type, as the reference's table_gather_bwd(dtype=) does
 // (table_gather_pallas.py:159-256). The kernel above is instantiated for
-// float32. A bfloat16 grad halves the bytes, and at half the bytes the
+// float32. A two-byte grad halves the bytes, and at half the bytes the
 // kernel above was bound by its issue slots (about 9 a slot and query, a
 // slot being one channel, 61 % of them adds of 0 outside the window) and
-// its exposed prologue, not by memory: table_gather_bwd_bf16_kernel is its
-// own design. Persistent blocks walk (cloud, slab) items; a producer warp
-// lists the next items' queries and keeps their runs in flight by bulk
-// copies while consumer warps sum; a consumer thread owns 10 channels of
-// one cell, tests the window once a query for all ten and reads them as
-// bf16 pairs in 32-bit words (51 instructions a query for the ten in its
+// its exposed prologue, not by memory: table_gather_bwd_b16_kernel is its
+// own design, instantiated for bfloat16 and for float16. Persistent blocks
+// walk (cloud, slab) items; a producer warp lists the next items' queries
+// and keeps their runs in flight by bulk copies while consumer warps sum;
+// a consumer thread owns 10 channels of one cell, tests the window once a
+// query for all ten and reads them as pairs in 32-bit words (51
+// instructions a query for the ten in its
 // window, against about 90 for the kernel above's 5 slots x 9 and its
 // adds of 0; a warp whose cells all miss the window skips the query). It
 // sums in float32 registers in query order, as the float32 kernel does,
-// and rounds each dfv value once to nearest even.
-//   What bounds it on an H100: device memory, the in-grid bf16 grad
+// and rounds each dfv value once to nearest even. The two types differ in
+// the unpack alone: a bf16 is the top half of its float32 (a shift), a
+// float16 takes a conversion (__half22float2, exact).
+//   What bounds it on an H100: device memory, the in-grid two-byte grad
 // entries (about 75 MB at B = 256, N = 64: 0.024 ms at 3.35 TB/s). What
 // holds it on the card is its pipeline, not memory nor the sums: without
 // any grad byte moved and without the sums, the producer warp's listing,
@@ -133,7 +140,10 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include <string.h>
+
 #include <algorithm>
+#include <type_traits>
 
 #include "patch_rows.cuh"
 #include "row_groups.cuh"
@@ -155,7 +165,7 @@ constexpr int kXThreads = 512;   // threads of a block
 
 // CW: elements per chunk (4 where C is a multiple of 4, else 1); J: chunks
 // per thread per pass, so that 512 * J * CW covers a float32 group of 4
-// rows or a bfloat16 group of 8 at W = 2,503.
+// rows or a two-byte group of 8 at W = 2,503.
 template <typename T, int CW, int J>
 __global__ void __launch_bounds__(kXThreads, 1)
     table_gather_x_kernel(const float* __restrict__ fv,       // (B, G, C)
@@ -184,7 +194,7 @@ struct CellRows {
 };
 
 // CW and J as table_gather_x_kernel's: 512 * J * CW covers a float32 group
-// of 4 rows or a bfloat16 group of 8 at k^3*C = 2,500.
+// of 4 rows or a two-byte group of 8 at k^3*C = 2,500.
 template <typename T, int CW, int J>
 __global__ void __launch_bounds__(kXThreads, 1)
     table_gather_rows_kernel(const float* __restrict__ fv,   // (B, G, C)
@@ -217,7 +227,7 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162f
 // rounded up to 16 bytes), a stage complete on its mbarrier; one barrier
 // per stage frees it for the stage kBwdStages on. TG is the grad's type
 // and TO dfv's; the sums are float32. It is instantiated on float only (a
-// bfloat16 grad takes table_gather_bwd_bf16_kernel below); the template
+// two-byte grad takes table_gather_bwd_b16_kernel below); the template
 // stays as written so that the float32 kernel is unchanged. Off is the
 // type of a run's offset within its cloud's grad rows: int, or int64_t for
 // a cloud past 2^31 - 1 elements (the C entry picks it from the sizes, so
@@ -356,9 +366,9 @@ __global__ void __launch_bounds__(kBwdMaxThreads)
   }
 }
 
-// --- table_gather_bwd on a bfloat16 grad (row 3 bf16)
+// --- table_gather_bwd on a two-byte grad (row 3 in bf16 and in fp16)
 
-constexpr int kB16Group = 10;        // channels an owner sums: 5 words of bf16 pairs
+constexpr int kB16Group = 10;        // channels an owner sums: 5 words of pairs
 constexpr int kB16Stages = 4;        // stages of the ring of grad runs
 constexpr int kB16MaxRuns = 8;       // runs a stage
 constexpr int kB16MaxConsumerWarps = 8;
@@ -422,7 +432,19 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(kPending) : "memory");
 }
 
-// The adjoint on a bf16 grad, redesigned for its type. A work item is
+// The two elements of a 32-bit word of pairs, the first in the low half, in
+// float32 (exactly).
+__device__ __forceinline__ float2 unpack_pair(uint32_t pair, const __nv_bfloat16*) {
+  return make_float2(__uint_as_float(pair << 16), __uint_as_float(pair & 0xffff0000u));
+}
+__device__ __forceinline__ float2 unpack_pair(uint32_t pair, const __half*) {
+  __half2 h;
+  memcpy(&h, &pair, sizeof h);
+  return __half22float2(h);
+}
+
+// The adjoint on a two-byte grad (T: __nv_bfloat16 or __half), redesigned
+// for two bytes. A work item is
 // (cloud b, slab, part): the slab's owners, an owner being kB16Group
 // channels of one cell (owner = cell * Q + j, Q = ceil(C / kB16Group)),
 // part p the owners [p * Tc, (p + 1) * Tc) for Tc consumer threads. Each
@@ -442,23 +464,24 @@ __device__ __forceinline__ void cp_async_wait() {
 //   in order, one window test and one address for the owner's channels,
 //   then its channels read as 32-bit words from shared memory, realigned
 //   by one funnel shift where the run's element sits at an odd position,
-//   and unpacked exactly (a bf16 is the top half of its float32). A stage
-//   is released by one arrive a warp on its empty barrier; after its
-//   item's last stage each owner rounds its sums once to bf16 and stores.
+//   and unpacked exactly (unpack_pair). A stage is released by one arrive a
+//   warp on its empty barrier; after its item's last stage each owner
+//   rounds its sums once to T and stores.
 // Each dfv value is then the float32 sum over the queries that reach it,
 // in query order, from +0.0f (a query whose window misses an owner's cell
 // adds nothing, and +0.0f added changes no bit of such a sum), rounded
 // once: bit for bit table_gather_bwd_ordered, the same from run to run.
-template <typename Off>
+template <typename T, typename Off>
 __global__ void __launch_bounds__(32 * (1 + kB16MaxConsumerWarps))
-    table_gather_bwd_bf16_kernel(const int* __restrict__ vox,             // (B, N)
-                                 const __nv_bfloat16* __restrict__ grad,  // (B, N, k^3*C), strided
-                                 int64_t stride_b, Off stride_n,
-                                 __nv_bfloat16* __restrict__ dfv,         // (B, G, C)
-                                 int N, int g, int k, int C, int parts, int64_t n_items,
-                                 const B16Layout lay) {
+    table_gather_bwd_b16_kernel(const int* __restrict__ vox,   // (B, N)
+                                const T* __restrict__ grad,    // (B, N, k^3*C), strided
+                                int64_t stride_b, Off stride_n,
+                                T* __restrict__ dfv,           // (B, G, C)
+                                int N, int g, int k, int C, int parts, int64_t n_items,
+                                const B16Layout lay) {
+  static_assert(sizeof(T) == 2, "a two-byte type");
   extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem);
+  T* ring = reinterpret_cast<T*>(smem);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + lay.bars);
   uint64_t* empty = full + kB16Stages;
   int2* meta = reinterpret_cast<int2*>(smem + lay.meta);
@@ -530,7 +553,7 @@ __global__ void __launch_bounds__(32 * (1 + kB16MaxConsumerWarps))
     for (int64_t item = first; item < last; ++item) {
       const int64_t bs = item / parts;
       const int slab = static_cast<int>(bs % g);
-      const __nv_bfloat16* gb = grad + (bs / g) * stride_b;
+      const T* gb = grad + (bs / g) * stride_b;
       for (int n0 = 0; n0 < N; n0 += kB16VoxChunk) {
         cp_async_wait<kB16VoxDepth - 1>();
         int v[U];
@@ -622,9 +645,9 @@ __global__ void __launch_bounds__(32 * (1 + kB16MaxConsumerWarps))
           for (int m = 0; m <= kB16Group / 2; ++m) word[m] = w[m];
 #pragma unroll
           for (int m = 0; m < kB16Group / 2; ++m) {
-            const uint32_t pair = __funnelshift_r(word[m], word[m + 1], sh);
-            acc[2 * m] += __uint_as_float(pair << 16);
-            acc[2 * m + 1] += __uint_as_float(pair & 0xffff0000u);
+            const float2 pair = unpack_pair(__funnelshift_r(word[m], word[m + 1], sh), ring);
+            acc[2 * m] += pair.x;
+            acc[2 * m + 1] += pair.y;
           }
         }
       }
@@ -634,11 +657,10 @@ __global__ void __launch_bounds__(32 * (1 + kB16MaxConsumerWarps))
     }
     if (mine) {
       const int c0 = j * kB16Group;
-      __nv_bfloat16* out =
-          dfv + ((bs / g) * G + static_cast<int64_t>(slab) * gg + cell) * C + c0;
+      T* out = dfv + ((bs / g) * G + static_cast<int64_t>(slab) * gg + cell) * C + c0;
 #pragma unroll
       for (int i = 0; i < kB16Group; ++i)
-        if (c0 + i < C) out[i] = __float2bfloat16_rn(acc[i]);
+        if (c0 + i < C) dpdist::store_out(out + i, acc[i]);
     }
   }
 }
@@ -647,7 +669,7 @@ bool bad_window(int g, int k, int C) {
   return g < 1 || k < 1 || (k % 2) == 0 || k > 2 * g + 1 || C < 1;
 }
 
-// The bf16 adjoint's launch: consumer warps for a slab's owners (at most
+// The two-byte adjoint's launch: consumer warps for a slab's owners (at most
 // kB16MaxConsumerWarps; parts split the rest), the most runs a stage that
 // fit the block's shared memory (at most kB16MaxRuns), up to
 // kB16BlocksPerSm persistent blocks an SM, no more blocks than items.
@@ -699,15 +721,18 @@ size_t dpdist_table_gather_smem(int g, int k, int C) {
 }
 
 // All three launch on `stream` and return cudaGetLastError() after the launch (0
-// on success) or cudaErrorInvalidValue for sizes the kernels do not take. The
-// two forward kernels write float32, or bfloat16 where out_bf16 is set; the
-// adjoint reads a bfloat16 grad and writes a bfloat16 dfv where bf16 is set.
+// on success) or cudaErrorInvalidValue for sizes or types the kernels do not
+// take. The two forward kernels write the type of out_type (dpdist::OutType:
+// float32, bfloat16 or float16); the adjoint reads a grad and writes dfv of
+// the type of grad_type.
 int dpdist_table_gather_x(const float* fv, const float* queries, const float* centers, void* x,
-                          int* vox, int B, int N, int g, int k, int C, int out_bf16, int device,
+                          int* vox, int B, int N, int g, int k, int C, int out_type, int device,
                           void* stream) {
-  if (B < 1 || N < 1 || bad_window(g, k, C)) return static_cast<int>(cudaErrorInvalidValue);
+  const int out_bytes = dpdist::out_bytes(out_type);
+  if (B < 1 || N < 1 || bad_window(g, k, C) || out_bytes == 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   dpdist::XLaunch l;
-  cudaError_t err = dpdist::plan_launch(B, N, g * g * g, C, 3 + k * k * k * C, out_bf16 ? 2 : 4, 0,
+  cudaError_t err = dpdist::plan_launch(B, N, g * g * g, C, 3 + k * k * k * C, out_bytes, 0,
                                         fv, x, kXThreads, device, &l);
   if (err != cudaSuccess) return static_cast<int>(err);
   const auto s = static_cast<cudaStream_t>(stream);
@@ -718,14 +743,13 @@ int dpdist_table_gather_x(const float* fv, const float* queries, const float* ce
                                                   l.plan);
     return cudaGetLastError();
   };
-  using bf16 = __nv_bfloat16;
   const bool by4 = C % 4 == 0;
-  if (out_bf16)
-    err = by4 ? launch(table_gather_x_kernel<bf16, 4, 10>, static_cast<bf16*>(x))
-              : launch(table_gather_x_kernel<bf16, 1, 10>, static_cast<bf16*>(x));
-  else
-    err = by4 ? launch(table_gather_x_kernel<float, 4, 5>, static_cast<float*>(x))
-              : launch(table_gather_x_kernel<float, 1, 5>, static_cast<float*>(x));
+  err = dpdist::with_out_type(out_type, [&](auto* type) {
+    using T = std::remove_pointer_t<decltype(type)>;
+    constexpr int J = sizeof(T) == 2 ? 10 : 5;
+    return by4 ? launch(table_gather_x_kernel<T, 4, J>, static_cast<T*>(x))
+               : launch(table_gather_x_kernel<T, 1, J>, static_cast<T*>(x));
+  });
   return static_cast<int>(err);
 }
 
@@ -733,11 +757,12 @@ int dpdist_table_gather_x(const float* fv, const float* queries, const float* ce
 // B * ceil(N / L) up to dpdist::kMaxItems (2^30 - 1) runs; a volume whose
 // smallest layout does not fit a block is refused (plan.smem == 0).
 int dpdist_table_gather(const float* fv, const int* vox, void* out, int B, int N, int g, int k,
-                        int C, int out_bf16, int device, void* stream) {
-  if (B < 1 || N < 1 || N > dpdist::kMaxCloudRows || bad_window(g, k, C))
+                        int C, int out_type, int device, void* stream) {
+  const int out_bytes = dpdist::out_bytes(out_type);
+  if (B < 1 || N < 1 || N > dpdist::kMaxCloudRows || bad_window(g, k, C) || out_bytes == 0)
     return static_cast<int>(cudaErrorInvalidValue);
   dpdist::XLaunch l;
-  cudaError_t err = dpdist::plan_launch(B, N, g * g * g, C, k * k * k * C, out_bf16 ? 2 : 4,
+  cudaError_t err = dpdist::plan_launch(B, N, g * g * g, C, k * k * k * C, out_bytes,
                                         dpdist::kGroupBytes, fv, out, kXThreads, device, &l);
   if (err != cudaSuccess) return static_cast<int>(err);
   const auto s = static_cast<cudaStream_t>(stream);
@@ -747,42 +772,46 @@ int dpdist_table_gather(const float* fv, const int* vox, void* out, int B, int N
     kernel<<<l.grid, kXThreads, l.plan.smem, s>>>(fv, vox, o, N, g, k, C, l.plan);
     return cudaGetLastError();
   };
-  using bf16 = __nv_bfloat16;
   const bool by4 = C % 4 == 0;
-  if (out_bf16)
-    err = by4 ? launch(table_gather_rows_kernel<bf16, 4, 10>, static_cast<bf16*>(out))
-              : launch(table_gather_rows_kernel<bf16, 1, 10>, static_cast<bf16*>(out));
-  else
-    err = by4 ? launch(table_gather_rows_kernel<float, 4, 5>, static_cast<float*>(out))
-              : launch(table_gather_rows_kernel<float, 1, 5>, static_cast<float*>(out));
+  err = dpdist::with_out_type(out_type, [&](auto* type) {
+    using T = std::remove_pointer_t<decltype(type)>;
+    constexpr int J = sizeof(T) == 2 ? 10 : 5;
+    return by4 ? launch(table_gather_rows_kernel<T, 4, J>, static_cast<T*>(out))
+               : launch(table_gather_rows_kernel<T, 1, J>, static_cast<T*>(out));
+  });
   return static_cast<int>(err);
 }
 
 int dpdist_table_gather_bwd(const int* vox, const void* grad, int64_t stride_b, int64_t stride_n,
-                            void* dfv, int B, int N, int g, int k, int C, int bf16, int device,
-                            void* stream) {
+                            void* dfv, int B, int N, int g, int k, int C, int grad_type,
+                            int device, void* stream) {
   // Digits fit a byte. Strides count elements of the grad's type. A cloud's
   // grad rows past 2^31 - 1 elements take 64-bit run offsets (fault 5).
-  if (B < 1 || N < 1 || bad_window(g, k, C) || g > 255 || stride_n < 0)
+  if (B < 1 || N < 1 || bad_window(g, k, C) || g > 255 || stride_n < 0 ||
+      dpdist::out_bytes(grad_type) == 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const bool wide = (N - 1) * stride_n + static_cast<int64_t>(k) * k * k * C > INT_MAX;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (bf16) {
+  if (grad_type != dpdist::kOutF32) {
     B16Plan plan;
     err = b16_plan(B, g, k, C, device, &plan);
     if (err != cudaSuccess) return static_cast<int>(err);
-    auto launch = [&](auto kernel, auto off) {
-      const cudaError_t e = set_smem(kernel, plan.lay.bytes);
-      if (e != cudaSuccess) return e;
-      kernel<<<plan.grid, plan.threads, plan.lay.bytes, static_cast<cudaStream_t>(stream)>>>(
-          vox, static_cast<const __nv_bfloat16*>(grad), stride_b,
-          static_cast<decltype(off)>(stride_n), static_cast<__nv_bfloat16*>(dfv), N, g, k, C,
-          plan.parts, plan.n_items, plan.lay);
-      return cudaGetLastError();
+    auto launch = [&](auto* type) {
+      using T = std::remove_pointer_t<decltype(type)>;
+      auto go = [&](auto kernel, auto off) {
+        const cudaError_t e = set_smem(kernel, plan.lay.bytes);
+        if (e != cudaSuccess) return e;
+        kernel<<<plan.grid, plan.threads, plan.lay.bytes, static_cast<cudaStream_t>(stream)>>>(
+            vox, static_cast<const T*>(grad), stride_b, static_cast<decltype(off)>(stride_n),
+            static_cast<T*>(dfv), N, g, k, C, plan.parts, plan.n_items, plan.lay);
+        return cudaGetLastError();
+      };
+      return wide ? go(table_gather_bwd_b16_kernel<T, int64_t>, int64_t{0})
+                  : go(table_gather_bwd_b16_kernel<T, int>, 0);
     };
-    err = wide ? launch(table_gather_bwd_bf16_kernel<int64_t>, int64_t{0})
-               : launch(table_gather_bwd_bf16_kernel<int>, 0);
+    err = grad_type == dpdist::kOutBf16 ? launch(static_cast<__nv_bfloat16*>(nullptr))
+                                        : launch(static_cast<__half*>(nullptr));
     return static_cast<int>(err);
   }
   int max_smem = 0;
@@ -819,7 +848,8 @@ int dpdist_table_gather_bwd(const int* vox, const void* grad, int64_t stride_b, 
   return static_cast<int>(err);
 }
 
-// The bf16 adjoint's launch for B clouds on `device`: out = {consumer
+// The two-byte adjoint's launch (bfloat16 and float16 alike) for B clouds on
+// `device`: out = {consumer
 // threads a block, parts a slab, runs a stage, shared memory bytes, blocks,
 // work items}. Returns 0, or cudaErrorInvalidValue for sizes it does not
 // take (kernels/table_gather.py:bwd_bf16_plan mirrors it).

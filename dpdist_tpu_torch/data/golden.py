@@ -6,7 +6,10 @@ per committed net, the per-pair distance the JAX package computes and its
 frozen loss; its "np256" section holds the same at 256 points, and the
 pairs' chamfer and EMD; its "bf16" section holds the distances served in
 bfloat16 ("full" and "auto") at 64 and 256 points, and its "bf16_grad"
-section the frozen loss in bfloat16 and its gradient at 64 and 256 points.
+section the frozen loss in bfloat16 and its gradient at 64 and 256 points;
+its "fp16" and "fp16_grad" sections hold the same in float16 (the
+distances by JAX's plain composition, "off", and its table kernels,
+"table").
 
 assets/golden_aue.json holds JAX's outputs for the autoencoders, the 3dmfv
 PCRNet and compare_losses (tests/test_torch_aue.py writes it); its batches
@@ -14,8 +17,9 @@ are dataset batches of seeded synthetic surfaces (aue_batch).
 
 assets/golden_variants.json holds JAX's outputs for the DPDist variants at
 full width from seeded weights (tests/test_torch_variants.py writes it):
-forwards of the first pairs of golden_distance.json (variant_clouds), a
-few train steps on a seeded batch (dpdist_train_batch), and a dense
+forwards of the first pairs of golden_distance.json (variant_clouds) in
+float32, bfloat16 and float16, a few train steps on a seeded batch
+(dpdist_train_batch) in float32 and float16, and a dense
 distance field's subsample on a committed net (dense_field_queries). Its
 forwards run on the seeded weights made informative (informative_weights):
 at init the decoder's first layer is so small against the FV entries that
@@ -150,6 +154,40 @@ def output_spread(preds) -> float:
     """max - min over golden prediction samples (nested lists or arrays)."""
     a = np.concatenate([np.asarray(p, np.float64).reshape(-1) for p in preds])
     return float(a.max() - a.min())
+
+
+# float16's edge values, on which a float16 output must round as a cast
+# does: the largest finite (65,504) and what rounds down to it, a tie
+# (65,520) and beyond, to inf; the smallest normal and the subnormals with
+# their ties (2^-25 to 0, 1.5 * 2^-24 to 2^-23); ties between normals
+# (1 + 2^-11 to 1, 1 + 3 * 2^-11 to 1 + 2^-9).
+FP16_EDGES = np.array([65504.0, 65505.0, 65519.99, 65520.0, 65536.0, 1e5, 2.0 ** -24,
+                       2.0 ** -25, 1.5 * 2.0 ** -24, 2.5 * 2.0 ** -24, 2.0 ** -14,
+                       2.0 ** -14 - 2.0 ** -25, 1.0 + 2.0 ** -11, 1.0 + 3 * 2.0 ** -11, 1e-9,
+                       0.1, 1.0 / 3.0, 1024.5, 2049.0, 3.0], np.float32)
+
+
+def half_ulp(exact: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """One ulp of `dtype` (bfloat16 or float16) at each value of `exact`
+    rounded to it, in float64: 2^(e - 8) or 2^(e - 11) for 2^(e - 1) <= |x|
+    < 2^e, and float16's subnormal step 2^-24 below its smallest normal."""
+    rounded = exact.double().to(dtype).double()
+    bits = 8 if dtype == torch.bfloat16 else 11
+    ulp = torch.ldexp(torch.ones_like(rounded), torch.frexp(rounded)[1] - bits)
+    return ulp if dtype == torch.bfloat16 else ulp.clamp_min(2.0 ** -24)
+
+
+def beyond_one_ulp(got: torch.Tensor, exact: torch.Tensor, f32: torch.Tensor = None) -> int:
+    """Entries of a bf16 or fp16 sum `got` more than one ulp of its dtype
+    from the float64 sums `exact`; with `f32` (the same sums in float32,
+    which a two-byte sum rounds once), beyond that and the float32 sums'
+    own distance from `exact`: where a sum cancels to near 0, float32's
+    rounding of it can pass float16's finest steps."""
+    exact = exact.double()
+    allowed = half_ulp(exact, got.dtype)
+    if f32 is not None:
+        allowed = allowed + (f32.double() - exact).abs()
+    return int(((got.double() - exact).abs() > allowed).sum())
 
 
 def dense_field_queries(spec: dict):

@@ -21,13 +21,15 @@ masked out is built as zeros without reading the volume.
         vox) * mask (gather_pallas.py:94-116), called only where fv needs a
         gradient. Where no gradient is recorded (grad mode off, or fv
         needs none) the autograd Function is skipped.
-    patches = gather_patches_fused(fv, vox, mask, grid_size, k, torch.bfloat16)
-        the same on the volume rounded to bfloat16, as the reference's bf16
-        "on" path hands its kernel fv.astype(bfloat16) (its output stays
-        float32, dpdist_tpu/models/dpdist.py:421-437). The backward is the
-        VJP of that cast too: the masked gradient rounded to bfloat16 (the
-        reference's VJP runs its oracle on the bf16 volume), the bf16
-        adjoint, and dfv back in float32.
+    patches = gather_patches_fused(fv, vox, mask, grid_size, k, dtype)
+        with dtype torch.bfloat16 or torch.float16: the same on the volume
+        rounded to dtype, as the reference's bf16 or fp16 "on" path hands
+        its kernel fv.astype(dtype) (its output stays float32,
+        dpdist_tpu/models/dpdist.py:421-437). The kernel itself reads and
+        writes float32: the wrapper rounds the volume first. The backward
+        is the VJP of that cast too: the masked gradient rounded to dtype
+        (the reference's VJP runs its oracle on the rounded volume), row
+        3's two-byte adjoint, and dfv back in float32.
 
 On CPU tensors it runs `gather_patches_fused_plain`, which is also the
 kernel's oracle on the card. On CUDA tensors it launches the kernel or

@@ -6,7 +6,7 @@ dpdist_tpu_torch/csrc/mfv_gather.cu; its header says what bounds it on an
 H100 (the write of x) and how the design meets that: one persistent block
 per SM with warps specialised for the encode and for the rows. The encode
 warps pool the next cloud while the row warps write the rows of the one
-before, in 16-byte-aligned groups of 4 float32 or 8 bfloat16 rows that
+before, in 16-byte-aligned groups of 4 float32 or 8 two-byte rows that
 leave by bulk stores (csrc/row_groups.cuh), so the encode hides behind the
 stores.
 
@@ -16,13 +16,14 @@ function in plain PyTorch (threedmfv -> extract_patches -> voxel_assign
 a CUDA tensor it launches the kernel or raises; it never falls back.
 `mfv_x.launches` counts kernel launches, and nothing else.
 
-With dtype=torch.bfloat16 x is written in bfloat16, each value the float32
-one rounded once, as the reference's `dtype=` (the bf16 paths).
+With dtype=torch.bfloat16 or torch.float16 x is written in that dtype, each
+value the float32 one rounded once to nearest even, as the reference's
+`dtype=` (the bf16 and fp16 paths).
 
 Gradients follow the reference's VJP (mfv_gather_pallas.py:_mfv_x_bwd):
 dq = grad[..., :3] in float32; for the points, dfv =
 table_gather_bwd(vox, grad[..., 3:]) (the row-3 kernel on the card, in
-bfloat16 for a bf16 x, its values returned to float32 exactly) and then
+x's dtype, its two-byte values returned to float32 exactly) and then
 autograd through the plain threedmfv of the points, whose forward is
 replayed there, since the kernel keeps the FV volume on chip and saves
 none. Where no gradient is recorded (grad mode off, or neither input needs
@@ -36,7 +37,13 @@ import math
 
 import torch
 
-from dpdist_tpu_torch.kernels.table_gather import check_dtype, dfv_of, needs_grad, window_fits
+from dpdist_tpu_torch.kernels.table_gather import (
+    OUT_TYPES,
+    check_dtype,
+    dfv_of,
+    needs_grad,
+    window_fits,
+)
 from dpdist_tpu_torch.ops.threedmfv import threedmfv_centers, threedmfv_plain
 from dpdist_tpu_torch.ops.voxel import (
     extract_patches,
@@ -126,7 +133,7 @@ def _mfv_x_impl(points, queries, n_gaussians, sigma, grid_size, k, dtype):
         points.data_ptr(), queries.data_ptr(), mu.data_ptr(), centers.data_ptr(),
         x.data_ptr(), vox.data_ptr(), B, M, N, grid_size, k, float(sigma),
         w, math.sqrt(w) * M, math.sqrt(w), math.sqrt(2.0 * w), 1.0 / M,
-        int(dtype == torch.bfloat16), dev.index,
+        OUT_TYPES[dtype], dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch(err, "mfv_gather_x")
     mfv_x.launches += 1
@@ -162,8 +169,8 @@ def mfv_x(points, queries, n_gaussians: int, sigma: float, grid_size: int,
           k: int, dtype: torch.dtype = torch.float32):
     """(B, M, 3) encoded clouds + (B, N, 3) queries -> (x, vox).
 
-    x = [delta, patch] (B, N, 3 + k^3*20) in `dtype` (float32 or
-    bfloat16), the decoder input, and vox (B, N) int32, each query's flat
+    x = [delta, patch] (B, N, 3 + k^3*20) in `dtype` (float32, bfloat16
+    or float16), the decoder input, and vox (B, N) int32, each query's flat
     cell (0 outside the grid). Differentiable in points and queries (see
     the module docstring).
     """

@@ -7,7 +7,7 @@ exported distance is registered here as an op of the `dpdist` namespace:
     dpdist::mfv_x                 row 1   kernels/mfv_gather.mfv_x
     dpdist::table_gather_x        row 2   kernels/table_gather.table_gather_x
     dpdist::table_gather_bwd      row 3   kernels/table_gather.table_gather_bwd
-                                          (float32 and bfloat16 grads)
+                                          (float32, bfloat16 and float16 grads)
     dpdist::table_gather          row 6   kernels/table_gather.table_gather
     dpdist::threedmfv             row 7   kernels/threedmfv.threedmfv_kernel
     dpdist::fused_forward         row 9   kernels/fused_forward.fused_forward

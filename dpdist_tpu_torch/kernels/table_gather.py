@@ -11,23 +11,24 @@ what bounds each on an H100 and how its design meets that:
 - table_gather_x: persistent blocks, one per SM, walk runs of a cloud's
   rows; each run's volume arrives in shared memory by one bulk copy while
   the previous run is written, and rows leave in 16-byte-aligned groups
-  (4 float32 or 8 bfloat16 rows) by bulk stores from a double buffer.
+  (4 float32 or 8 two-byte rows) by bulk stores from a double buffer.
 - table_gather: the same persistent design on the patch rows of given
   voxels (no delta): rows in groups of up to 40 KB (4 float32 or 8
-  bfloat16 rows of k^3*C = 2,500), a bfloat16 chunk of 4 elements by one
+  two-byte rows of k^3*C = 2,500), a two-byte chunk of 4 elements by one
   8-byte store.
 - table_gather_bwd: owner-computes. On a float32 grad, one block per
   (cloud, slab of g^2 cells); each thread owns a few dfv slots in
   registers and pulls the grad entries of the queries whose window meets
   its slab, in query order: no atomics, no barrier per query. On a
-  bfloat16 grad, its own kernel: persistent blocks walk (cloud, slab)
-  items, a producer warp listing each item's queries and bringing their
-  grad runs into a ring by bulk copies while the consumer warps sum; a
-  thread owns 10 channels of one cell, tests the window once a query and
-  reads the bf16 pairs as 32-bit words, summing in float32 and rounding
-  each dfv value once. Each value is summed from 0 in query order, so both
-  kernels equal `table_gather_bwd_ordered` (one index_add_ per query, in
-  query order) bit for bit and are the same from run to run.
+  two-byte grad (bfloat16 or float16), its own kernel, instantiated for
+  each: persistent blocks walk (cloud, slab) items, a producer warp
+  listing each item's queries and bringing their grad runs into a ring by
+  bulk copies while the consumer warps sum; a thread owns 10 channels of
+  one cell, tests the window once a query and reads the pairs as 32-bit
+  words, summing in float32 and rounding each dfv value once. Each value
+  is summed from 0 in query order, so both kernels equal
+  `table_gather_bwd_ordered` (one index_add_ per query, in query order)
+  bit for bit and are the same from run to run.
   `table_gather_bwd_fits` holds their shared-memory limits, which
   `models.dpdist.route` reads.
 
@@ -45,25 +46,32 @@ what bounds each on an H100 and how its design meets that:
         grad), called only where fv needs a gradient.
     dfv = table_gather_bwd(vox, grad, grid_size, k)
         (B, N) voxel ids + (B, N, k^3*C) grad -> (B, V, C), the adjoint of
-        the patch gather in fv, in the grad's dtype: float32, or bfloat16
-        summed in float32 and rounded once, as the reference's
-        table_gather_bwd(dtype=bfloat16) (table_gather_pallas.py:159-256).
+        the patch gather in fv, in the grad's dtype: float32, or bfloat16 or
+        float16 summed in float32 and rounded once, as the reference's
+        table_gather_bwd(dtype=) (table_gather_pallas.py:159-256).
 
-`table_gather_x` and `table_gather` take dtype=torch.bfloat16 for the
-bf16 paths: x or the patch rows are then written in bfloat16, each value
-the float32 one rounded once, as the reference gathers from its volume
-cast to bfloat16 (dpdist_tpu/models/dpdist.py:421-437). Their backward
-then gets a bf16 gradient: dq = grad[..., :3] in float32, and dfv from the
-bf16 adjoint, whose values return to float32 exactly, as the VJP of the
-reference's cast of the float32 volume to bfloat16 does.
+`table_gather_x` and `table_gather` take dtype=torch.bfloat16 or
+torch.float16 for the two-byte paths: x or the patch rows are then written
+in that dtype, each value the float32 one rounded once to nearest even
+(overflow to inf, subnormals kept), as the reference gathers from its
+volume cast to cfg.dtype (dpdist_tpu/models/dpdist.py:421-437). Their
+backward then gets a gradient of that dtype: dq = grad[..., :3] in
+float32, and dfv from the two-byte adjoint, whose values return to float32
+exactly, as the VJP of the reference's cast of the float32 volume does.
+One deviation, past float16's range only: where the volume holds a value
+that rounds to inf, the reference's one-hot gathers read NaN (0 * inf) in
+that channel of every row of the cloud, and these gathers read inf in the
+rows whose window holds the cell and the finite values elsewhere (a 3DmFV
+volume, normalised to unit length, never gets there).
 
 On CPU tensors all three run their plain versions (`table_gather_x_plain`,
 `table_gather_plain`, `table_gather_bwd_plain`), which are also the
 kernels' oracles on the card, with `table_gather_bwd_ordered` for the
 adjoint's order of sums. On CUDA tensors they launch the kernel or
 raise; they never fall back. `table_gather_x.launches`,
-`table_gather.launches`, `table_gather_bwd.launches` (its float32 kernel)
-and `table_gather_bwd.launches_bf16` (its bfloat16 kernel) count kernel
+`table_gather.launches`, `table_gather_bwd.launches` (its float32 kernel),
+`table_gather_bwd.launches_bf16` and `table_gather_bwd.launches_fp16` (its
+two-byte kernel on a bfloat16 and on a float16 grad) count kernel
 launches, and nothing else.
 """
 
@@ -85,6 +93,10 @@ from dpdist_tpu_torch.ops.voxel import (
 # The persistent gathers' run of rows and a row's description
 # (csrc/row_groups.cuh: kMaxRows, sizeof(XRow)).
 MAX_ROWS, XROW_BYTES = 128, 20
+# The output and grad dtypes the kernels take, and the code of each in
+# their C entries (csrc/patch_rows.cuh: OutType).
+OUT_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+HALF_TYPES = (torch.bfloat16, torch.float16)
 
 
 def window_fits(grid_size: int, k: int) -> bool:
@@ -118,9 +130,10 @@ def table_gather_fits(grid_size: int, k: int, C: int) -> bool:
 # The adjoint kernels' shared memory (csrc/table_gather.cu), mirrored from
 # shapes so that route sees their limits before any launch.
 BWD_F32_STAGES, BWD_F32_SLOTS, BWD_F32_MAX_THREADS = 4, 5, 256
-# The bf16 adjoint: an owner sums BWD_BF16_GROUP channels of one cell; a
-# ring of BWD_BF16_STAGES stages of runs; vox chunks of 128 queries, 4 in
-# flight. Its C entry plans the rest of its launch
+# The two-byte adjoint (bfloat16 and float16 grads; named for its first
+# type): an owner sums BWD_BF16_GROUP channels of one cell; a ring of
+# BWD_BF16_STAGES stages of runs; vox chunks of 128 queries, 4 in flight.
+# Its C entry plans the rest of its launch
 # (dpdist_table_gather_bwd_bf16_plan).
 BWD_BF16_GROUP, BWD_BF16_STAGES = 10, 4
 BWD_BF16_VOX_BYTES = 4 * 128 * 4
@@ -137,7 +150,7 @@ def bwd_f32_smem(grid_size: int, k: int, C: int) -> int:
 
 
 def bwd_bf16_smem(k: int, C: int, runs: int) -> int:
-    """Shared memory bytes of the bf16 adjoint with `runs` runs a stage
+    """Shared memory bytes of the two-byte adjoint with `runs` runs a stage
     (csrc/table_gather.cu:b16_layout): the ring of runs' slots (a run's
     16-byte-aligned span and BWD_BF16_GROUP + 2 elements past it), the full
     and empty barriers, each run's (vy, vz, lead) pair, the stages' headers
@@ -148,13 +161,14 @@ def bwd_bf16_smem(k: int, C: int, runs: int) -> int:
 
 
 def table_gather_bwd_fits(grid_size: int, k: int, C: int, dtype=torch.float32) -> bool:
-    """Whether the adjoint kernel of `dtype` (float32 or bfloat16) takes
-    this window and channel count: g <= 255 and one run a stage of its ring
-    in shared memory. In bf16 that also keeps a run below 2^24 elements and
-    a slab's owners below 2^31, the C entry's other limits."""
+    """Whether the adjoint kernel of `dtype` (float32, or the two-byte
+    kernel of bfloat16 and float16) takes this window and channel count:
+    g <= 255 and one run a stage of its ring in shared memory. In two bytes
+    that also keeps a run below 2^24 elements and a slab's owners below
+    2^31, the C entry's other limits."""
     if not window_fits(grid_size, k) or not 1 <= grid_size <= 255 or C < 1:
         return False
-    if dtype == torch.bfloat16:
+    if dtype in HALF_TYPES:
         return bwd_bf16_smem(k, C, 1) <= MAX_SMEM
     return bwd_f32_smem(grid_size, k, C) <= MAX_SMEM
 
@@ -175,10 +189,10 @@ def table_gather_plain(fv, vox, grid_size: int, k: int):
 def table_gather_bwd_plain(vox, grad, grid_size: int, k: int):
     """Plain PyTorch version: the gradient in fv of
     gather_patches(extract_patches(fv)), by autograd (the port's copy of
-    the reference's table_gather_bwd_xla_oracle). A bfloat16 grad is
-    summed in float32 and the result rounded once to bfloat16."""
-    if grad.dtype == torch.bfloat16:
-        return table_gather_bwd_plain(vox, grad.float(), grid_size, k).to(torch.bfloat16)
+    the reference's table_gather_bwd_xla_oracle). A bfloat16 or float16
+    grad is summed in float32 and the result rounded once to its dtype."""
+    if grad.dtype in HALF_TYPES:
+        return table_gather_bwd_plain(vox, grad.float(), grid_size, k).to(grad.dtype)
     B, N, E = grad.shape
     with torch.enable_grad():
         fv = torch.zeros((B, grid_size ** 3, E // k ** 3), dtype=grad.dtype,
@@ -192,9 +206,10 @@ def table_gather_bwd_ordered(vox, grad, grid_size: int, k: int):
     query, in query order. Within one query every dfv slot takes at most
     one term, so the sums run in table_gather_bwd's kernel's order and the
     two agree bit for bit. A vox outside [0, grid_size^3) adds nothing. A
-    bfloat16 grad is summed in float32 and the result rounded once."""
-    if grad.dtype == torch.bfloat16:
-        return table_gather_bwd_ordered(vox, grad.float(), grid_size, k).to(torch.bfloat16)
+    bfloat16 or float16 grad is summed in float32 and the result rounded
+    once."""
+    if grad.dtype in HALF_TYPES:
+        return table_gather_bwd_ordered(vox, grad.float(), grid_size, k).to(grad.dtype)
     B, N, E = grad.shape
     V, K3 = grid_size ** 3, k ** 3
     C = E // K3
@@ -210,8 +225,8 @@ def table_gather_bwd_ordered(vox, grad, grid_size: int, k: int):
 
 
 def check_dtype(dtype):
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"the output dtype must be float32 or bfloat16, got {dtype}")
+    if dtype not in OUT_TYPES:
+        raise TypeError(f"the output dtype must be float32, bfloat16 or float16, got {dtype}")
 
 
 def needs_grad(*inputs) -> bool:
@@ -222,7 +237,8 @@ def needs_grad(*inputs) -> bool:
 
 def dfv_of(vox, grad, grid_size: int, k: int):
     """The volume's gradient from a gather output's gradient: the adjoint
-    in grad's dtype, returned in float32 (exact for a bfloat16 dfv)."""
+    in grad's dtype, returned in float32 (exact for a bfloat16 or float16
+    dfv)."""
     return table_gather_bwd(vox, grad, grid_size, k).float()
 
 
@@ -278,7 +294,7 @@ def _table_gather_x_impl(fv, queries, grid_size, k, dtype=torch.float32):
     vox = torch.empty((B, N), dtype=torch.int32, device=dev)
     err = build.library().dpdist_table_gather_x(
         fv.data_ptr(), queries.data_ptr(), _centers(V, dev).data_ptr(), x.data_ptr(),
-        vox.data_ptr(), B, N, grid_size, k, C, int(dtype == torch.bfloat16), dev.index,
+        vox.data_ptr(), B, N, grid_size, k, C, OUT_TYPES[dtype], dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch(err, "table_gather_x")
     table_gather_x.launches += 1
@@ -335,7 +351,7 @@ def _table_gather_impl(fv, vox, grid_size, k, dtype=torch.float32):
     out = torch.empty((B, N, k ** 3 * C), dtype=dtype, device=dev)
     err = build.library().dpdist_table_gather(
         fv.data_ptr(), vox.data_ptr(), out.data_ptr(), B, N, grid_size, k, C,
-        int(dtype == torch.bfloat16), dev.index, torch.cuda.current_stream(dev).cuda_stream)
+        OUT_TYPES[dtype], dev.index, torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch(err, "table_gather")
     table_gather.launches += 1
     return out
@@ -381,17 +397,18 @@ table_gather.launches = 0
 
 def table_gather_bwd(vox, grad, grid_size: int, k: int):
     """(B, N) int32 voxel ids + (B, N, k^3*C) grad -> (B, V, C) dfv in
-    grad's dtype (float32 or bfloat16).
+    grad's dtype (float32, bfloat16 or float16).
 
     `grad` may be a strided view (the patch part of x's gradient); on the
     card a view whose last axis is not contiguous is copied first. vox
     should lie in [0, grid_size^3): on the card a vox outside adds
     nothing; the plain version raises. `launches` counts the float32
-    kernel's launches and `launches_bf16` the bfloat16 one's.
+    kernel's launches, and `launches_bf16` and `launches_fp16` the
+    two-byte kernel's on a bfloat16 and on a float16 grad.
     """
     _check_vox(vox)
-    if not isinstance(grad, torch.Tensor) or grad.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError("grad must be a float32 or bfloat16 tensor")
+    if not isinstance(grad, torch.Tensor) or grad.dtype not in OUT_TYPES:
+        raise TypeError("grad must be a float32, bfloat16 or float16 tensor")
     if grad.dim() != 3 or grad.shape[:2] != vox.shape or grad.shape[2] % k ** 3:
         raise ValueError(f"grad must be (B, N, k^3*C) for vox {tuple(vox.shape)}, "
                          f"got {tuple(grad.shape)}")
@@ -416,14 +433,16 @@ def table_gather_bwd(vox, grad, grid_size: int, k: int):
         grad = grad.contiguous()
     vox = vox.contiguous()
     B, N = vox.shape
-    bf16 = grad.dtype == torch.bfloat16
     dfv = torch.empty((B, grid_size ** 3, C), dtype=grad.dtype, device=dev)
     err = build.library().dpdist_table_gather_bwd(
         vox.data_ptr(), grad.data_ptr(), grad.stride(0), grad.stride(1), dfv.data_ptr(),
-        B, N, grid_size, k, C, int(bf16), dev.index, torch.cuda.current_stream(dev).cuda_stream)
+        B, N, grid_size, k, C, OUT_TYPES[grad.dtype], dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch(err, "table_gather_bwd")
-    if bf16:
+    if grad.dtype == torch.bfloat16:
         table_gather_bwd.launches_bf16 += 1
+    elif grad.dtype == torch.float16:
+        table_gather_bwd.launches_fp16 += 1
     else:
         table_gather_bwd.launches += 1
     return dfv
@@ -431,3 +450,4 @@ def table_gather_bwd(vox, grad, grid_size: int, k: int):
 
 table_gather_bwd.launches = 0
 table_gather_bwd.launches_bf16 = 0
+table_gather_bwd.launches_fp16 = 0

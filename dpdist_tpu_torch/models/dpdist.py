@@ -3,7 +3,7 @@ init_dpdist, dpdist_embed, apply_dpdist, resolve_for_grad,
 _output_activation and dpdist_distance from dpdist_tpu/models/dpdist.py).
 
 Forward semantics (the canonical config: 3DmFV encoder, k > 0,
-conv_version 1, BN off, float32 or bfloat16):
+conv_version 1, BN off, float32, bfloat16 or float16):
   1. Encode each cloud into a (B, V, 20) Fisher-vector volume.
   2. For each query point of the other cloud: its voxel, the k^3 patch
      around that voxel and its offset to the cell centre, giving the
@@ -22,6 +22,15 @@ exactly; the bf16 decoder's gradients return through the casts to the
 float32 parameters (cuBLAS bf16 products, summed in float32).
 fused_gather="full" has no gradient outside training: under autograd it
 raises, as the reference's jax.grad through its fused kernel does.
+dtype="float16" takes the same rounding points as bfloat16 on every path
+but "full" (the fused serving kernel is bf16 only, so "full" in float16
+is "table", as the reference resolves it): the volume in float16 before
+the gather, a float16 decoder input and decoder with float32 accumulation
+(cuBLAS fp16 products), and the two-byte adjoint in float16. A value past
+65,504 rounds to inf in both packages, and a frozen loss's upstream
+gradient of 1/(2 B N) a prediction (3.05e-5 at B = 256, N = 64) lies below
+float16's smallest normal, so the decoder's backward runs in subnormals,
+as JAX's does (neither package scales the loss).
 
 The rest of the model family, as the reference builds it:
   full_fv=False   the 7-channel encode (means only; 5 channels in 2-D).
@@ -77,13 +86,13 @@ dpdist_tpu/ops/threedmfv.py:103-113):
           per-query gather with the mask (kernels/gather_fused.py) + a
           concat of delta; its backward is the adjoint kernel on the masked
           gradient;
-  "full"  in bfloat16, outside training, for the conv_version=1 decoder
-          without BN: per cloud the encode as "table", then the fused
+  "full"  in bfloat16 (not float16), outside training, for the
+          conv_version=1 decoder without BN: per cloud the encode as "table", then the fused
           gather + whole-decoder kernel (kernels/fused_forward.py) once
           over the 2B stack (volumes [A; B], queries [B; A]), for clouds
           of one size, forward only (under autograd it raises); in
-          training, in float32 and for the other decoders "table", as the
-          reference resolves it;
+          training, in float32 and float16 and for the other decoders
+          "table", as the reference resolves it;
   "auto"  "mfv" (full_fv) or "table" on CUDA tensors, "off" on the CPU.
           Computations that are differentiated resolve "auto" with
           `resolve_for_grad` instead.
@@ -94,8 +103,8 @@ does not take the config (at embedding_size=1000, say, or a hidden width
 that is not a multiple of 16), and an encode or a gather kernel that does
 not take it gives way to the plain op for that step. The reference has no
 such limits, and the fallbacks compute the same function.
-Configs with a dtype other than float32 or bfloat16 raise
-NotImplementedError.
+Configs with a dtype other than float32, bfloat16 or float16 raise
+NotImplementedError: the reference's API computes no other.
 """
 
 from __future__ import annotations
@@ -147,7 +156,7 @@ from dpdist_tpu_torch.ops.voxel import (
 # size the table_gather_x kernel: one TPU query tile
 # (dpdist_tpu/models/dpdist.py:400, :258).
 MAX_TILE_POINTS = 128
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 MODES = ("auto", "mfv", "table", "on", "full", "off")
 POINTNET_WIDTHS = (128, 128, 512)   # then cfg.pointnet_embedding
 CONV3_CHANNELS = 64                 # the conv_version=3 decoder's trunk
@@ -159,14 +168,14 @@ FULL_GRAD = ('fused_gather="full" in bfloat16 has no bf16 gradient outside train
 
 
 def check_ported(cfg: DPDistConfig) -> None:
-    """Raise NotImplementedError for a dtype other than float32 and
-    bfloat16, the one part of a DPDistConfig this port does not cover, and
-    ValueError for an unknown fused_gather."""
+    """Raise NotImplementedError for a dtype other than float32, bfloat16
+    and float16, the dtypes the reference computes, and ValueError for an
+    unknown fused_gather."""
     if cfg.fused_gather not in MODES:
         raise ValueError(f"unknown fused_gather={cfg.fused_gather!r}")
     if cfg.dtype not in DTYPES:
-        raise NotImplementedError(f"not ported yet: dtype={cfg.dtype!r} (float32 and "
-                                  "bfloat16 are)")
+        raise NotImplementedError(f"dtype={cfg.dtype!r} is not computed: the port, as the "
+                                  "reference, takes float32, bfloat16 and float16")
 
 
 def gathers(cfg: DPDistConfig) -> bool:
@@ -194,7 +203,7 @@ def resolve_mode(cfg: DPDistConfig, device_type: str, train: bool = False) -> st
     """The path a forward of `cfg` takes before the cloud sizes count:
     "off" for a config that gathers no patches from a 3-D volume; "auto" is
     "mfv" (full_fv) or "table" on CUDA and "off" on the CPU; "full" is
-    "table" in float32, in training (train=True), for a decoder other than
+    "table" in float32 and float16, in training (train=True), for a decoder other than
     conv_version=1 without BN, and for a decoder or grid the fused kernel
     does not take; "mfv" is "table" for full_fv=False and for a grid or
     window the fused kernel does not take. The others stay."""
@@ -263,9 +272,8 @@ def route(cfg: DPDistConfig, device_type: str, n_a: int, n_b: int, grad: bool = 
         return Route("off", encode, ("plain",) * 2)
     # A gradient runs row 3's adjoint in the forward's dtype behind every
     # gather kernel.
-    adjoint_fits = not grad or table_gather_bwd_fits(
-        cfg.grid_size, cfg.k, cfg.fv_channels,
-        torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32)
+    adjoint_fits = not grad or table_gather_bwd_fits(cfg.grid_size, cfg.k, cfg.fv_channels,
+                                                     DTYPES[cfg.dtype])
     if mode == "mfv" and max(n_a, n_b) <= MAX_TILE_POINTS and adjoint_fits:
         return Route("mfv", ("mfv_gather_x",) * 2, ("mfv_gather_x",) * 2)
     encode = tuple(_encode_route(cfg, n) for n in (n_a, n_b))
@@ -290,7 +298,7 @@ def route(cfg: DPDistConfig, device_type: str, n_a: int, n_b: int, grad: bool = 
 def resolve_for_grad(cfg: DPDistConfig, device) -> DPDistConfig:
     """Resolve fused_gather="auto" for a computation that will be
     differentiated (training, the frozen loss): "table" on CUDA, as the
-    reference resolves it on its accelerator, in float32 and in bfloat16;
+    reference resolves it on its accelerator, in every dtype;
     unchanged on the CPU, where "auto" already takes the plain composition.
     Explicit settings stay.
 
@@ -451,8 +459,8 @@ def _cast_tree(tree, dtype):
 
 def _decode(params, state, cfg: DPDistConfig, x, *, train: bool = False, bn_momentum=0.9):
     """(the decoder's float32 pre-activation output, its new state). In
-    bfloat16 the whole decoder tree and x are cast to bfloat16 (the BN
-    state stays float32), as the reference's _decode."""
+    bfloat16 or float16 the whole decoder tree and x are cast to that dtype
+    (the BN state stays float32), as the reference's _decode."""
     dtype = DTYPES[cfg.dtype]
     conv = cfg.conv_version == 3 and cfg.k > 0
     if not (conv or cfg.use_bn):
@@ -540,11 +548,11 @@ def _decoder_input(cfg: DPDistConfig, encode: str, gather: str, points_enc, quer
                    delta):
     """x = [delta, patch] of `queries` against the surface of `points_enc`,
     by the kernels `route` names (vox, mask and delta: voxel_assign(queries)).
-    For a bf16 config every gather takes the volume in bfloat16, as the
-    reference casts fv before its gather: the table-gather kernels and the
-    plain composition write x in bfloat16, the per-query gather writes the
-    rounded values in float32 (as the reference's kernel does) and leaves
-    x's rounding to the decoder."""
+    For a bf16 or fp16 config every gather takes the volume in that dtype,
+    as the reference casts fv before its gather: the table-gather kernels
+    and the plain composition write x in it, the per-query gather writes
+    the rounded values in float32 (as the reference's kernel does) and
+    leaves x's rounding to the decoder."""
     dtype = DTYPES[cfg.dtype]
     args = (cfg.embedding_size, cfg.sigma, cfg.grid_size, cfg.k)
     if gather == "mfv_gather_x":

@@ -130,7 +130,14 @@ def _conv(params, x, stride, padding, conv):
     x_cf = torch.movedim(x, -1, 1)
     w_oi = w.permute(nd + 1, nd, *range(nd))            # (..., I, O) -> (O, I, ...)
     x_cf = _pad_spatial(x_cf, _pads(x_cf, w.shape[:nd], stride, padding))
-    y = conv(x_cf, w_oi, stride=tuple(stride))
+    if x_cf.dtype == torch.float16 and x_cf.device.type == "cpu":
+        # PyTorch's float16 conv on the CPU is a reference loop (its
+        # backward takes minutes at the conv decoder's width): the float32
+        # conv of the float16 values, rounded once, is a float16 conv that
+        # accumulates in float32, as cuDNN's on the card.
+        y = conv(x_cf.float(), w_oi.float(), stride=tuple(stride)).to(torch.float16)
+    else:
+        y = conv(x_cf, w_oi, stride=tuple(stride))
     return torch.movedim(y, 1, -1) + params["b"]
 
 
@@ -334,8 +341,8 @@ def mlp_bn_state(params) -> dict:
 
 def mlp_apply(params, x: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """ReLU after every layer but the last, which is linear. With dtype
-    bfloat16, params and x are cast to it and the result is bfloat16 (the
-    caller casts it back to float32). An MLP with BN runs through
+    bfloat16 or float16, params and x are cast to it and the result is in
+    it (the caller casts it back to float32). An MLP with BN runs through
     mlp_apply_bn, which carries its state."""
     if "bn" in params:
         raise ValueError("an MLP with BatchNorm carries a state: use mlp_apply_bn")
@@ -355,8 +362,8 @@ def mlp_apply_bn(params, state, x: torch.Tensor, *, train: bool = False, bn_mome
     """The BN MLP: dense, BN, then ReLU on every layer but the last, which
     gets BN and final_activation (None = linear), as tf_util.conv2d orders
     them. Returns (y, new_state). The layers compute in their params' and
-    x's dtypes as JAX promotes them: a bf16 decoder (params and x cast by
-    the caller) stays bf16 in training; in eval the float32 running
+    x's dtypes as JAX promotes them: a bf16 or fp16 decoder (params and x
+    cast by the caller) stays in its dtype in training; in eval the float32 running
     statistics lift the activations to float32 after the first BN."""
     layers = params["layers"]
     new_bn = []

@@ -21,10 +21,11 @@ batch statistics cover the 2B rows [xAB; xBA], and keeps the new state
 the pointnet encoder's from its second run, pcB's). It resolves
 fused_gather for a gradient context (the table-gather kernel on the card);
 the 3DmFV encoder has no parameters, so the step never needs the adjoint
-kernel. With dtype="bfloat16" the master parameters stay float32 and the
-decoder runs in bfloat16 (the reference's bf16 train step,
-bench.py:173-190): the gather writes a bf16 decoder input, forward only,
-and the gradients return to float32 through the decoder's casts.
+kernel. With dtype="bfloat16" or "float16" the master parameters stay
+float32 and the decoder runs in that dtype (the reference's bf16 train
+step, bench.py:173-190, and its fp16 one alike): the gather writes a bf16
+or fp16 decoder input, forward only, and the gradients return to float32
+through the decoder's casts. Neither package scales an fp16 loss.
 Evaluation keeps the configured dispatch, forward only, in eval mode.
 
 Encoder occlusion (train_cfg.encoder_occlusion and _prob) corrupts the

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Where row 3's bf16 adjoint (csrc/table_gather.cu:table_gather_bwd_bf16_kernel)
-spends its time: builds copies of the checkout's dpdist_tpu_torch, each
+"""Where row 3's bf16 adjoint (csrc/table_gather.cu:table_gather_bwd_b16_kernel,
+the two-byte kernel on a bf16 grad) spends its time: builds copies of the checkout's dpdist_tpu_torch, each
 with one part of the kernel taken out or changed by a text substitution
 (the outputs of most are wrong: only their time is read), and times each
 with scripts/torch_kernel_turns.py in turns (the list, then the list

@@ -107,10 +107,12 @@ def main() -> int:
         moved = 4 * (n_reached * C + B * N) + out_bytes * B * N * K ** 3 * C
         return moved / HBM_BYTES_PER_S * 1e3
 
-    # Kernel names: the bf16 adjoint's since it has its own design, and
-    # before (row 3's kernel instantiated on bf16); row 6's on the
-    # persistent gather, and before (one warp a row).
-    bf16_names = ("table_gather_bwd_bf16_kernel", "table_gather_bwd_kernel<__nv_bfloat16")
+    # Kernel names: the bf16 adjoint's since it is the two-byte kernel's
+    # bf16 instantiation, while it had its own design, and before (row 3's
+    # kernel instantiated on bf16); row 6's on the persistent gather, and
+    # before (one warp a row).
+    bf16_names = ("table_gather_bwd_b16_kernel<__nv_bfloat16", "table_gather_bwd_bf16_kernel",
+                  "table_gather_bwd_kernel<__nv_bfloat16")
     bf = torch.bfloat16
     rows = {"table_gather": (lambda: table_gather(fv, vox, GRID, K),
                              ("table_gather_rows_kernel<float", "table_gather_kernel<float")),

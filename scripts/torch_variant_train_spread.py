@@ -3,11 +3,13 @@
 how far they part on their own and how far a known fault moves them.
 
     python scripts/torch_variant_train_spread.py [--device cuda] [--seeds 8] [--noise 1e-6]
+        [--dtype float32|float16]
 
 For each variant that dpdist_tpu_torch/assets/golden_variants.json trains
 (the BN decoder, conv_version=3 and the pointnet encoder; full width, B =
-16, Adam at lr 1e-4, 3 steps from the seeded weights on the golden batch),
-on one device:
+16, Adam at lr 1e-4, 3 steps from the seeded weights on the golden batch;
+in float32, or with --dtype float16 a float16 decoder on float32 master
+weights against the golden file's float16 steps), on one device:
   - the port's steps against JAX's golden ones ("jax"), and the same run
     again against the first ("rerun": whether the device repeats itself);
   - the same steps with gaussian noise of --noise added to the batch's
@@ -105,6 +107,7 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seeds", type=int, default=8)
     ap.add_argument("--noise", type=float, default=1e-6)
+    ap.add_argument("--dtype", default="float32", choices=("float32", "float16"))
     a = ap.parse_args(argv)
     golden = json.loads(VARIANTS_GOLDEN_PATH.read_text())
     device = torch.device(a.device)
@@ -112,8 +115,8 @@ def main(argv=None) -> int:
     for name, want_all in golden["variants"].items():
         if "train" not in want_all:
             continue
-        want = want_all["train"]
-        cfg = DPDistConfig.from_json(want_all["config"])
+        want = want_all["train" if a.dtype == "float32" else "train_fp16"]
+        cfg = DPDistConfig.from_json(want_all["config"]).replace(dtype=a.dtype)
         n_state = len(next(iter(want["state"].values()), []))
         data, labels = dpdist_train_batch({"seed": want["batch_seed"],
                                            "batch_size": golden["train"]["batch_size"],
@@ -136,7 +139,7 @@ def main(argv=None) -> int:
         for reading, g in rows.items():
             print(f"{name} {reading}: " + ", ".join(f"{k} {v:.3e}" for k, v in g.items()),
                   flush=True)
-    print(json.dumps({"device": str(device), "noise": a.noise, "seeds": a.seeds,
+    print(json.dumps({"device": str(device), "dtype": a.dtype, "noise": a.noise, "seeds": a.seeds,
                       "variants": out}), flush=True)
     return 0
 

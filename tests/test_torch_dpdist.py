@@ -72,6 +72,18 @@ TOL_FULL_VS_COMPOSED, TOL_BF16_VS_F32 = 2e-3, 0.03
 # point, and a cosine of at least 0.999.
 BF16_GRAD = "bf16_grad"
 TOL_BF16_LOSS, REL_BF16, OUTLIERS_BF16, REL_BF16_FEW, MIN_COS_BF16 = 2e-3, 1e-2, 0.05, 5e-2, 0.999
+# The golden file's fp16 section: per-pair distances of both nets served in
+# float16 at both sizes, by JAX's plain composition ("off") and its table
+# kernels in interpret mode ("table"); its fp16_grad section: per size the
+# frozen loss of both nets in float16 and its gradient in pcA for
+# GRAD_PAIRS. The port's CPU path meets the distances and the loss within
+# TOL_FP16, 8x tighter than bf16's 2e-3 for float16's three more mantissa
+# bits (measured up to 3.2e-6 and 5.5e-7), the JAX values lie within
+# TOL_FP16_VS_F32 of float32 (8x tighter than bf16's 0.03; measured up to
+# 2.7e-5), and d/dpcA meets the bf16 criterion above (measured up to 9.8e-3
+# of the largest entry, a cosine of at least 0.9999985).
+FP16, FP16_MODES, FP16_GRAD = "fp16", ("off", "table"), "fp16_grad"
+TOL_FP16, TOL_FP16_VS_F32 = 2.5e-4, 4e-3
 
 GOLDEN_PAIRS = [
     {"a": ["chair", 0], "b": ["chair", 1], "scale": 0.8},
@@ -177,12 +189,13 @@ def _golden_section(pcA, pcB):
     return section
 
 
-def compute_golden():
+def compute_golden(fp16=True):
     """The golden file's content, computed with the JAX package: the
     section of _golden_section at 64 points, under LARGE the same at
     NP_LARGE points plus each pair's chamfer and EMD, under BF16 the bf16
-    distances of both nets at both sizes, and under BF16_GRAD their bf16
-    frozen loss and its gradient at both sizes."""
+    distances of both nets at both sizes, under BF16_GRAD their bf16
+    frozen loss and its gradient at both sizes, and, with fp16, under FP16
+    and FP16_GRAD the same in float16."""
     golden = {"num_point": 64, "pairs": GOLDEN_PAIRS}
     golden.update(_golden_section(*golden_clouds(golden)))
     pcA, pcB = golden_clouds(golden, NP_LARGE)
@@ -214,12 +227,36 @@ def compute_golden():
                 "grad_pcA": [[[float("%.8g" % c) for c in p] for p in np.asarray(grad)[i]]
                              for i in GRAD_PAIRS]}
         golden[BF16_GRAD][f"np{n}"] = section
+    if not fp16:
+        return golden
+    golden[FP16] = {mode: {f"np{n}": {} for n in BF16_SIZES} for mode in FP16_MODES}
+    golden[FP16_GRAD] = {}
+    for n in BF16_SIZES:
+        pcA, pcB = (jnp.asarray(a) for a in golden_clouds(golden, n))
+        section = {"out_of_grid_penalty": 1.0, "grad_pairs": list(GRAD_PAIRS)}
+        for path in NETS:
+            cfg, params, state = jax_load(path)
+            cfg16 = cfg.replace(dtype="float16")
+            for mode in FP16_MODES:
+                d = jax_distance(params, state, cfg16.replace(fused_gather=mode), pcA, pcB,
+                                 per_example=True)
+                golden[FP16][mode][f"np{n}"][path] = [float(v) for v in np.asarray(d)]
+            value, grad = jax_frozen_value_and_grad(
+                params, state, cfg16.replace(fused_gather="off"), pcA, pcB, 1.0)
+            section[path] = {
+                "value": float(value),
+                "grad_pcA": [[[float("%.8g" % c) for c in p] for p in np.asarray(grad)[i]]
+                             for i in GRAD_PAIRS]}
+        golden[FP16_GRAD][f"np{n}"] = section
     return golden
 
 
 @pytest.fixture(scope="module")
 def fresh_golden():
-    return compute_golden()
+    """What dpdist_tpu computes now, but for the float16 sections: those
+    are held as stored (tests/test_torch_fp16.py holds JAX's float16
+    kernels against the port's live)."""
+    return compute_golden(fp16=False)
 
 
 def test_golden_file_holds(fresh_golden):
@@ -298,6 +335,56 @@ def test_golden_bf16_grad_holds(fresh_golden):
             value = loss_fn(a, pcB)
             (grad,) = torch.autograd.grad(value, a)
             assert abs(float(value.detach()) - want["value"]) <= TOL_BF16_LOSS
+            got, ref = grad.numpy()[list(GRAD_PAIRS)], np.asarray(want["grad_pcA"])
+            err = np.abs(got - ref).max(axis=-1) / np.abs(ref).max()
+            cos = float((got * ref).sum() / (np.linalg.norm(got) * np.linalg.norm(ref)))
+            assert err.max() <= REL_BF16_FEW and np.mean(err > REL_BF16) <= OUTLIERS_BF16
+            assert cos >= MIN_COS_BF16
+
+
+def test_golden_fp16_holds():
+    """The stored fp16 distances (JAX's plain composition and its table
+    kernels): the port's CPU path in float16 (the wrappers' plain versions
+    under "table") reproduces them within TOL_FP16; JAX's two paths agree
+    within it, and both track the float32 golden values within
+    TOL_FP16_VS_F32."""
+    stored = load_golden()
+    for n in BF16_SIZES:
+        pcA, pcB = (torch.as_tensor(a) for a in golden_clouds(stored, n))
+        f32 = stored["distance"] if n == stored["num_point"] else stored[LARGE]["distance"]
+        for path in NETS:
+            vals = {}
+            for mode in FP16_MODES:
+                want = stored[FP16][mode][f"np{n}"][path]
+                model = load_frozen_distance(path, device="cpu", dtype="float16",
+                                             fused_gather=mode)
+                with torch.no_grad():
+                    got = model(pcA, pcB).numpy()
+                np.testing.assert_allclose(got, want, atol=TOL_FP16, rtol=0)
+                np.testing.assert_allclose(want, f32[path], atol=TOL_FP16_VS_F32, rtol=0)
+                vals[mode] = want
+            np.testing.assert_allclose(vals["off"], vals["table"], atol=TOL_FP16, rtol=0)
+
+
+def test_golden_fp16_grad_holds():
+    """The stored fp16 frozen-loss values and pcA gradients at 64 and 256
+    points: the port's CPU path meets them, the loss within TOL_FP16,
+    d/dpcA by the bf16 criterion."""
+    golden = load_golden()
+    for n in BF16_SIZES:
+        stored = golden[FP16_GRAD][f"np{n}"]
+        assert stored["grad_pairs"] == list(GRAD_PAIRS)
+        pcA, pcB = (torch.as_tensor(a) for a in golden_clouds(golden, n))
+        for path in NETS:
+            want = stored[path]
+            cfg, params, _ = load_dpdist_checkpoint(path)
+            loss_fn = make_frozen_dpdist_loss(params_from_jax(params, "cpu"),
+                                              cfg.replace(dtype="float16"),
+                                              out_of_grid_penalty=stored["out_of_grid_penalty"])
+            a = pcA.clone().requires_grad_(True)
+            value = loss_fn(a, pcB)
+            (grad,) = torch.autograd.grad(value, a)
+            assert abs(float(value.detach()) - want["value"]) <= TOL_FP16
             got, ref = grad.numpy()[list(GRAD_PAIRS)], np.asarray(want["grad_pcA"])
             err = np.abs(got - ref).max(axis=-1) / np.abs(ref).max()
             cos = float((got * ref).sum() / (np.linalg.norm(got) * np.linalg.norm(ref)))
@@ -421,22 +508,20 @@ def test_entry_points_default_to_cuda():
     {"dims": 2, "embedding_size": 64},
     {"k": 0},
     {"full_fv": False},
-    {"dtype": "float16"},
 ])
 def test_unported_configs_raise(change):
-    """Under autograd (pcA needs a gradient) a float16 config raises
-    NotImplementedError, the one dtype the port does not cover, and so does
-    bf16 fused_gather="full", whose gradient the reference refuses. Every
-    other config computes the gradient: the bf16 configs that the reference
-    differentiates ("auto" and "on"; their parity with JAX:
-    tests/test_torch_bf16_grad.py) and the DPDist variants (their parity
-    with JAX: tests/test_torch_variants.py)."""
+    """Under autograd (pcA needs a gradient) bf16 fused_gather="full"
+    raises NotImplementedError, as the reference refuses its gradient.
+    Every other config computes the gradient: the bf16 configs that the
+    reference differentiates ("auto" and "on"; their parity with JAX:
+    tests/test_torch_bf16_grad.py), the DPDist variants (their parity with
+    JAX: tests/test_torch_variants.py) and float16 (tests/test_torch_fp16.py
+    and the golden fp16 sections)."""
     cfg = DPDistConfig(mlp=(16, 16, 16), pointnet_embedding=16).replace(**change)
     pcA, pcB = (torch.as_tensor(a[..., :cfg.dims].copy()) for a in _inputs(B=1, N=8))
-    if change.get("dtype") == "float16" or change.get("fused_gather") == "full":
-        match = "refuses" if change.get("fused_gather") == "full" else "not ported"
+    if change.get("fused_gather") == "full":
         params = {"decoder": {"layers": []}}
-        with pytest.raises(NotImplementedError, match=match):
+        with pytest.raises(NotImplementedError, match="refuses"):
             apply_dpdist(params, cfg, pcA.requires_grad_(True), pcB)
         return
     params, state = init_dpdist(cfg, generator=torch.Generator().manual_seed(0), device="cpu")

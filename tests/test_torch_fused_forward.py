@@ -425,6 +425,6 @@ def test_gather_wrappers_bf16_outputs_on_cpu():
     np.testing.assert_allclose(dp.numpy(), dp_ref.numpy(), rtol=0,
                                atol=1e-2 * float(dp_ref.abs().max()))
     assert (mfv_x.launches, table_gather_x.launches, table_gather.launches) == counts
-    with pytest.raises(TypeError):
-        table_gather(fv, vox, 4, 3, dtype=torch.float16)
+    with pytest.raises(TypeError):   # float32, bfloat16 and float16 only
+        table_gather(fv, vox, 4, 3, dtype=torch.float64)
 

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from dpdist_tpu_torch.data.golden import FP16_EDGES, beyond_one_ulp
 from dpdist_tpu_torch.kernels.chamfer import nn_min_sqdist, nn_min_sqdist_plain
 from dpdist_tpu_torch.kernels.fused_forward import fused_forward, fused_forward_plain, pack_decoder
 from dpdist_tpu_torch.kernels.gather_fused import gather_patches_fused, gather_patches_fused_plain
@@ -72,7 +73,7 @@ def _edge_inputs(B, M, N, g, seed=0):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("B,M,N,G,g,k,sigma", [
     (512, 64, 64, 512, 8, 5, 0.125),   # the main path: 2B = 512 clouds
     (2, 12, 16, 64, 4, 3, 0.25),       # the JAX kernel test's config
@@ -87,7 +88,8 @@ def _edge_inputs(B, M, N, g, seed=0):
 ])
 def test_mfv_x_kernel_matches_plain(cuda, B, M, N, G, g, k, sigma, dtype):
     """x within TOL_X of the plain version, vox exact, with queries off the
-    grid and on cell edges; a bf16 x is the float32 kernel's x rounded once.
+    grid and on cell edges; a bf16 or fp16 x is the float32 kernel's x
+    rounded once.
     With no input needing a gradient the call records no graph and counts
     one launch."""
     pts, q = (torch.as_tensor(a, device=cuda) for a in _edge_inputs(B, M, N, g))
@@ -108,7 +110,7 @@ def test_mfv_x_kernel_matches_plain(cuda, B, M, N, G, g, k, sigma, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("B,N,g,k,C", [
     (256, 64, 8, 5, 20),   # the main path
     (2, 16, 4, 3, 20),     # the JAX kernel test's small config
@@ -123,7 +125,7 @@ def test_mfv_x_kernel_matches_plain(cuda, B, M, N, G, g, k, sigma, dtype):
     (2, 13, 10, 5, 20),    # an 80 KB volume: one volume buffer, staged after each item
 ])
 def test_table_gather_x_kernel_matches_plain(cuda, B, N, g, k, C, dtype):
-    """x and vox exact; a bf16 x is the float32 one rounded once."""
+    """x and vox exact; a bf16 or fp16 x is the float32 one rounded once."""
     r = np.random.default_rng(1)
     fv = torch.as_tensor(r.normal(size=(B, g ** 3, C)).astype(np.float32), device=cuda)
     q = torch.as_tensor(_edge_inputs(B, 1, N, g, seed=2)[1], device=cuda)
@@ -236,13 +238,16 @@ def test_table_gather_bwd_kernel_past_the_gathers_volume(cuda, B, N, g, k, C):
     assert float((dfv.double() - ref).abs().max()) <= REL_BWD * float(ref.abs().max())
 
 
-def _beyond_one_ulp(dfv, exact):
-    """Entries of a bf16 dfv more than one bf16 ulp (of the exact sum
-    rounded) from the exact sums (float64, or float32 where they are
-    exact)."""
-    exact = exact.double()
-    ulp = torch.ldexp(torch.ones_like(exact), torch.frexp(exact.to(torch.bfloat16).double())[1] - 8)
-    return int(((dfv.double() - exact).abs() > ulp).sum())
+def _bwd_launches():
+    """Row 3's launch counts: (float32, bfloat16, float16 grads)."""
+    return (table_gather_bwd.launches, table_gather_bwd.launches_bf16,
+            table_gather_bwd.launches_fp16)
+
+
+def _one_more(counts, dtype, n=1):
+    """counts with n more launches of `dtype`'s kernel."""
+    i = (torch.float32, torch.bfloat16, torch.float16).index(dtype)
+    return tuple(c + n * (j == i) for j, c in enumerate(counts))
 
 
 @pytest.mark.gpu
@@ -264,21 +269,48 @@ def test_table_gather_bwd_bf16_kernel_matches_ordered_sum(cuda, B, N, g, k, C, s
     or a contiguous one): a bf16 dfv equal bit for bit to the ordered plain
     sum of the float32 upcast rounded once, the same from run to run, and
     counted as a bf16 launch."""
+    _check_half_adjoint(cuda, torch.bfloat16, B, N, g, k, C, strided)
+
+
+def _check_half_adjoint(cuda, dtype, B, N, g, k, C, strided):
+    """Row 3's two-byte kernel on a `dtype` grad against the ordered plain
+    sum (test_table_gather_bwd_bf16_kernel_matches_ordered_sum)."""
     q = torch.as_tensor(_edge_inputs(B, 1, N, g, seed=30)[1], device=cuda)
     _, vox = table_gather_x_plain(torch.zeros(B, g ** 3, C, device=cuda), q, g, k)
     gx = torch.as_tensor(np.random.default_rng(31).normal(
-        size=(B, N, 3 + k ** 3 * C)).astype(np.float32), device=cuda).to(torch.bfloat16)
+        size=(B, N, 3 + k ** 3 * C)).astype(np.float32), device=cuda).to(dtype)
     grad = gx[..., 3:] if strided else gx[..., 3:].contiguous()
-    before = (table_gather_bwd.launches, table_gather_bwd.launches_bf16)
+    before = _bwd_launches()
     dfv = table_gather_bwd(vox, grad, g, k)
     dfv2 = table_gather_bwd(vox, grad, g, k)
     torch.cuda.synchronize()
-    assert (table_gather_bwd.launches, table_gather_bwd.launches_bf16) == (before[0],
-                                                                           before[1] + 2)
-    assert dfv.dtype == torch.bfloat16 and torch.equal(dfv, dfv2)
+    assert _bwd_launches() == _one_more(before, dtype, 2)
+    assert dfv.dtype == dtype and torch.equal(dfv, dfv2)
     assert torch.equal(dfv, table_gather_bwd_ordered(vox, grad, g, k))
-    assert torch.equal(dfv, table_gather_bwd_ordered(vox, grad.float(), g, k).to(torch.bfloat16))
-    assert _beyond_one_ulp(dfv, table_gather_bwd_plain(vox, grad.double(), g, k)) == 0
+    f32 = table_gather_bwd_ordered(vox, grad.float(), g, k)
+    assert torch.equal(dfv, f32.to(dtype))
+    assert beyond_one_ulp(dfv, table_gather_bwd_plain(vox, grad.double(), g, k),
+                          f32 if dtype == torch.float16 else None) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("strided", [True, False])
+@pytest.mark.parametrize("B,N,g,k,C", [
+    (256, 64, 8, 5, 20),    # the fp16 frozen loss at np = 64
+    (256, 256, 8, 5, 20),   # and at np = 256
+    (3, 13, 8, 5, 20),
+    (1, 1, 8, 5, 20),
+    (3, 40, 8, 5, 7),       # C = 7: owners of 10 channels, 3 of them past the cell's
+    (2, 50, 16, 7, 20),     # g = 16, k = 7: two parts a slab
+    (1, 1000, 2, 5, 7),     # every query's window meets every slab: many stages an item
+])
+def test_table_gather_bwd_fp16_kernel_matches_ordered_sum(cuda, B, N, g, k, C, strided):
+    """Row 3's two-byte kernel on a float16 grad, as on a bf16 one: an fp16
+    dfv equal bit for bit to the ordered plain sum of the float32 upcast
+    rounded once, the same from run to run, within one fp16 ulp of float64
+    sums beyond the float32 sums' own error, and counted as an fp16
+    launch."""
+    _check_half_adjoint(cuda, torch.float16, B, N, g, k, C, strided)
 
 
 def _leads(grad, vox, g, k):
@@ -303,21 +335,73 @@ def test_table_gather_bwd_bf16_kernel_every_lead(cuda, base, C):
     3 + k^3 * C elements, an odd stride at C = 20, runs of 175 elements at
     C = 7), off-grid rows included: bit for bit the ordered sum, the same
     from run to run."""
+    _check_every_lead(cuda, torch.bfloat16, base, C)
+
+
+def _check_every_lead(cuda, dtype, base, C):
     B, N, g, k = 2, 41, 8, 5
     W = 3 + k ** 3 * C
     q = torch.as_tensor(_edge_inputs(B, 1, N, g, seed=40 + base)[1], device=cuda)
     _, vox = table_gather_x_plain(torch.zeros(B, g ** 3, C, device=cuda), q, g, k)
     flat = torch.as_tensor(np.random.default_rng(41).normal(size=base + B * N * W).astype(
-        np.float32), device=cuda).to(torch.bfloat16)
+        np.float32), device=cuda).to(dtype)
     grad = flat[base:].view(B, N, W)[..., 3:]
     assert _leads(grad, vox, g, k) == set(range(8))
-    before = table_gather_bwd.launches_bf16
+    before = _bwd_launches()
     dfv = table_gather_bwd(vox, grad, g, k)
     again = table_gather_bwd(vox, grad, g, k)
     torch.cuda.synchronize()
-    assert table_gather_bwd.launches_bf16 == before + 2
+    assert _bwd_launches() == _one_more(before, dtype, 2)
     assert torch.equal(dfv, again) and torch.equal(dfv, table_gather_bwd_ordered(vox, grad, g, k))
-    assert _beyond_one_ulp(dfv, table_gather_bwd_plain(vox, grad.double(), g, k)) == 0
+    f32 = table_gather_bwd_ordered(vox, grad.float(), g, k) if dtype == torch.float16 else None
+    assert beyond_one_ulp(dfv, table_gather_bwd_plain(vox, grad.double(), g, k), f32) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [20, 7])
+@pytest.mark.parametrize("base", range(8))
+def test_table_gather_bwd_fp16_kernel_every_lead(cuda, base, C):
+    """The fp16 unpack at every 2-byte offset within 16 bytes (the funnel
+    shift of an odd lead hands __half22float2 a pair that straddles two
+    words), as test_table_gather_bwd_bf16_kernel_every_lead."""
+    _check_every_lead(cuda, torch.float16, base, C)
+
+
+@pytest.mark.gpu
+def test_fp16_rounds_as_a_cast_at_its_edges(cuda):
+    """Rows 2 and 6 in float16 on a volume of float16's edge values, and
+    row 3 on grads whose sums leave its range: each value rounded once to
+    nearest even as torch's .to(float16) and numpy's astype(float16) round
+    (the reference's cast): 65,504 and what rounds down to it, 65,520 (a
+    tie) and beyond to inf, the subnormals and their ties (2^-25 to 0,
+    1.5 * 2^-24 to 2^-23), ties at 1 + 2^-11 and 1 + 3 * 2^-11, the
+    smallest normal, signs both ways."""
+    g, k, C, N = 4, 3, 20, 37
+    f16 = torch.float16
+    r = np.random.default_rng(60)
+    vol = r.choice(np.concatenate([FP16_EDGES, -FP16_EDGES]), (2, g ** 3, C)).astype(np.float32)
+    fv = torch.as_tensor(vol, device=cuda)
+    q = torch.as_tensor(_edge_inputs(2, 1, N, g, seed=61)[1], device=cuda)
+    with torch.no_grad():
+        x, vox = table_gather_x(fv, q, g, k, dtype=f16)
+        rows = table_gather(fv, vox, g, k, dtype=f16)
+    torch.cuda.synchronize()
+    for got, f32 in ((x, table_gather_x_plain(fv, q, g, k)[0]), (rows, table_gather_plain(
+            fv, vox, g, k))):
+        want = f32.cpu().numpy().astype(np.float16)
+        assert np.array_equal(got.cpu().numpy().view(np.uint16), want.view(np.uint16))
+        assert torch.equal(got, f32.to(f16))
+    assert bool(torch.isinf(rows).any())
+    assert bool(((rows != 0) & (rows.abs() < 2.0 ** -14)).any())   # subnormals kept
+    # Row 3: sums that overflow (two of 60,000) and that land in the subnormals.
+    grad = torch.as_tensor(r.choice(np.float32([6e4, -6e4, 2.0 ** -24, 3 * 2.0 ** -24, 0.5]),
+                                    (2, N, k ** 3 * C)), device=cuda).to(f16)
+    dfv = table_gather_bwd(vox, grad, g, k)
+    torch.cuda.synchronize()
+    want = table_gather_bwd_ordered(vox, grad.float(), g, k)
+    assert torch.equal(dfv, want.to(f16)) and bool(torch.isinf(dfv).any())
+    assert np.array_equal(dfv.cpu().numpy().view(np.uint16),
+                          want.cpu().numpy().astype(np.float16).view(np.uint16))
 
 
 @pytest.mark.gpu
@@ -389,7 +473,18 @@ def test_bf16_functions_match_the_plain_composition(cuda):
     dq equal, dfv and d points within 1e-2 of their largest entry (the
     adjoint's float32 sums run in another order before the one rounding);
     each backward launches the bf16 adjoint once."""
-    bf = torch.bfloat16
+    _check_half_functions(cuda, torch.bfloat16)
+
+
+@pytest.mark.gpu
+def test_fp16_functions_match_the_plain_composition(cuda):
+    """The same for float16: the Functions of rows 1, 2, 6 and 10 with the
+    volume taken in float16, each backward launching row 3's two-byte
+    kernel once on its fp16 grad."""
+    _check_half_functions(cuda, torch.float16)
+
+
+def _check_half_functions(cuda, bf):
     B, M, N, g, k = 64, 64, 64, 8, 5
     pts, q = (torch.as_tensor(a, device=cuda) for a in _edge_inputs(B, M, N, g, seed=32))
     fv = torch.as_tensor(np.random.default_rng(33).normal(size=(B, g ** 3, 20)).astype(np.float32),
@@ -408,14 +503,15 @@ def test_bf16_functions_match_the_plain_composition(cuda):
          lambda f: gather_patches_fused_plain(f.to(bf).float(), vox, mask, g, k), (fv,)),
     )
     for name, fn, plain, inputs in cases:
-        before = table_gather_bwd.launches_bf16
+        before = _bwd_launches()
         y, got = _bf16_grads(fn, inputs, co)
         torch.cuda.synchronize()
-        assert table_gather_bwd.launches_bf16 == before + 1, name
+        assert _bwd_launches() == _one_more(before, bf), name
         y_ref, want = _bf16_grads(plain, inputs, co)
         assert y.dtype == y_ref.dtype, name
         if name == "row 1":   # the encode sums in another order (TOL_X): a rounding may flip
-            assert torch.allclose(y.float(), y_ref.float(), atol=TOL_X, rtol=2 ** -7), name
+            rtol = 2 ** -7 if bf == torch.bfloat16 else 2 ** -10
+            assert torch.allclose(y.float(), y_ref.float(), atol=TOL_X, rtol=rtol), name
         else:
             assert torch.equal(y, y_ref), name
         for g_, w_ in zip(got, want):
@@ -531,7 +627,7 @@ def test_threedmfv_kernel_backward_replays_the_plain_encode(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("B,N,g,k,C", [
     (256, 256, 8, 5, 20),   # the main path's shape
     (2, 16, 4, 3, 7),       # chunks of 1 element (C = 7)
@@ -542,8 +638,8 @@ def test_threedmfv_kernel_backward_replays_the_plain_encode(cuda):
     (2, 100, 2, 1, 1),      # rows of one element
 ])
 def test_table_gather_kernel_matches_plain(cuda, B, N, g, k, C, dtype):
-    """Exact, off-grid queries (vox 0) included: float32, and bfloat16 equal
-    to the float32 values rounded once; one launch a call."""
+    """Exact, off-grid queries (vox 0) included: float32, and bfloat16 or
+    float16 equal to the float32 values rounded once; one launch a call."""
     r = np.random.default_rng(11)
     fv = torch.as_tensor(r.normal(size=(B, g ** 3, C)).astype(np.float32), device=cuda)
     q = torch.as_tensor(_edge_inputs(B, 1, N, g, seed=12)[1], device=cuda)
@@ -556,7 +652,7 @@ def test_table_gather_kernel_matches_plain(cuda, B, N, g, k, C, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 def test_table_gather_kernel_vox_outside_the_grid(cuda, dtype):
     """A vox outside [0, V) (never made by voxel_assign) gives a zero row;
     the other rows are the plain version's."""
@@ -598,7 +694,7 @@ def test_table_gather_c_entry_refuses_past_the_shared_memory_limit(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 def test_table_gather_kernel_past_65535_query_tiles(cuda, dtype):
     """Fault 5: 2,097,152 queries a cloud (a 128^3 field) was 65,536 tiles
     of 32 under the old one-block-a-tile grid, one past the grid's y limit;
@@ -618,30 +714,28 @@ def test_table_gather_kernel_past_65535_query_tiles(cuda, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 def test_table_gather_bwd_kernel_past_32_bit_cloud_offsets(cuda, dtype):
     """Fault 5: row 3 addressed a cloud's grad rows with 32-bit offsets, so
     it refused (N - 1) * 2,500 + 2,500 > 2^31 - 1 at k = 5, C = 20; such a
-    cloud now takes its 64-bit-offset instantiation, in float32 and in
-    bfloat16. N = 860,000 (8.6 GB of float32 grad) against autograd of the
-    plain gather, exactly: the grad holds small integers, whose sums (below
-    2^24) are exact in any order, and a bf16 dfv is that sum rounded once,
-    so within one bf16 ulp of it."""
+    cloud now takes its 64-bit-offset instantiation, in float32, bfloat16
+    and float16. N = 860,000 (8.6 GB of float32 grad) against autograd of
+    the plain gather, exactly: the grad holds small integers, whose sums
+    (below 2^24) are exact in any order, and a two-byte dfv is that sum
+    rounded once, so within one ulp of it."""
     B, N, g, k, C = 1, 860_000, 8, 5, 20
     assert (N - 1) * k ** 3 * C + k ** 3 * C > 2 ** 31 - 1
     r = np.random.default_rng(14)
     vox = torch.as_tensor(r.integers(0, g ** 3, (B, N)).astype(np.int32), device=cuda)
     grad = torch.randint(-4, 5, (B, N, k ** 3 * C), dtype=torch.int8, device=cuda,
                          generator=torch.Generator(cuda).manual_seed(14)).to(dtype)
-    before = (table_gather_bwd.launches, table_gather_bwd.launches_bf16)
+    before = _bwd_launches()
     dfv = table_gather_bwd(vox, grad, g, k)
     torch.cuda.synchronize()
-    bf16 = dtype == torch.bfloat16
-    assert (table_gather_bwd.launches, table_gather_bwd.launches_bf16) == (
-        before[0] + (not bf16), before[1] + bf16)
+    assert _bwd_launches() == _one_more(before, dtype)
     exact = table_gather_bwd_plain(vox, grad.float(), g, k)
     assert dfv.dtype == dtype and torch.equal(dfv, exact.to(dtype))
-    assert not bf16 or _beyond_one_ulp(dfv, exact) == 0
+    assert dtype == torch.float32 or beyond_one_ulp(dfv, exact) == 0
 
 
 def _cuda_kernels(fn, calls):
@@ -909,6 +1003,43 @@ def test_served_bf16_launch_counts(cuda, mode, np_, want):
     (grad,) = torch.autograd.grad(model(a, pcB).sum(), a)
     torch.cuda.synchronize()
     assert table_gather_bwd.launches_bf16 == before + 1 and bool(torch.isfinite(grad).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,np_,want", [
+    ("auto", 64, {"mfv_x": 1}),
+    ("auto", 256, {"threedmfv": 2, "table_gather": 2}),
+    ("full", 64, {"table_gather_x": 2}),      # the fused kernel is bf16 only: "table"
+    ("on", 64, {"gather_patches_fused": 2}),
+])
+def test_served_fp16_launch_counts(cuda, mode, np_, want):
+    """fp16 serving from a committed net: the kernels each path launches
+    per request ("full" gives way to "table", as the reference resolves
+    it), finite distances in [0, 2], and an input gradient on every path
+    through row 3's two-byte kernel on an fp16 grad."""
+    from dpdist_tpu_torch.serving import load_frozen_distance
+
+    wrappers = {"fused_forward": fused_forward, "threedmfv": threedmfv_kernel, "mfv_x": mfv_x,
+                "table_gather": table_gather, "table_gather_x": table_gather_x,
+                "gather_patches_fused": gather_patches_fused}
+    model = load_frozen_distance("results/ckpt_best", device=cuda, dtype="float16",
+                                 fused_gather=mode)
+    r = np.random.default_rng(21)
+    pcA, pcB = (torch.as_tensor(r.uniform(-0.9, 0.9, (8, np_, 3)).astype(np.float32),
+                                device=cuda) for _ in range(2))
+    before = {k: w.launches for k, w in wrappers.items()}
+    with torch.no_grad():
+        d = model(pcA, pcB)
+    torch.cuda.synchronize()
+    got = {k: w.launches - before[k] for k, w in wrappers.items()}
+    assert got == {k: want.get(k, 0) for k in wrappers}
+    assert d.shape == (8,) and bool(torch.isfinite(d).all())
+    assert float(d.min()) >= 0.0 and float(d.max()) <= 2.0
+    a = pcA.clone().requires_grad_()
+    before = _bwd_launches()
+    (grad,) = torch.autograd.grad(model(a, pcB).sum(), a)
+    torch.cuda.synchronize()
+    assert _bwd_launches() == _one_more(before, torch.float16) and bool(torch.isfinite(grad).all())
 
 
 # ---------------------------------------------------------------------------

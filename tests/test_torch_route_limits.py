@@ -61,6 +61,8 @@ def test_the_committed_config_fits_every_kernel():
     ("mfv", "float32", False),
     ("mfv", "float32", True),
     ("mfv", "bfloat16", False),
+    ("auto", "float16", False),
+    ("mfv", "float16", True),
 ])
 def test_route_at_1000_gaussians_is_not_mfv(fused_gather, dtype, grad):
     """G = 1,000 exceeds the fused mfv kernel's 992: the table path, with
@@ -86,6 +88,21 @@ def test_route_full_gives_way_to_table(over):
         assert r.mode == "table" and "fused_forward" not in r.gather
     # Clouds of two sizes are no error off the "full" path.
     assert route(cfg, "cuda", 64, 100).mode == "table"
+
+
+@pytest.mark.parametrize("train", [False, True])
+@pytest.mark.parametrize("grad", [False, True])
+def test_route_full_in_fp16_is_table(grad, train):
+    """"full" in float16 is "table", as the reference's _fused_gather_mode
+    resolves it (its fused kernel is bf16 only): per direction row 2 at 64
+    points, rows 7 and 6 at 256, on the card and the CPU alike; a gradient
+    is no refusal there (bf16 "full" refuses one outside training)."""
+    cfg = DPDistConfig(fused_gather="full", dtype="float16")
+    assert resolve_mode(cfg, "cuda", train) == "table"
+    assert route(cfg, "cuda", 64, 64, grad=grad, train=train) == Route("table", P2, X2)
+    assert route(cfg, "cpu", 64, 64, grad=grad, train=train) == Route("table", P2, X2)
+    assert route(cfg, "cuda", 256, 256, grad=grad, train=train) == Route(
+        "table", ("threedmfv",) * 2, ("table_gather",) * 2)
 
 
 def test_decoder_unfit_names_the_limit():
@@ -215,11 +232,12 @@ def test_bwd_bf16_fits_while_one_run_a_stage_fits():
         assert not table_gather_bwd_fits(g, 33, C, torch.bfloat16)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 def test_table_gather_bwd_fits(dtype):
     """The committed config fits; so do g = 1 and 255; g = 256 (digits of
     a byte), an even k, k past 2g + 1 and a run of the ring past shared
-    memory do not. The float32 kernel's run is twice the bytes."""
+    memory do not. The float32 kernel's run is twice the bytes; float16
+    takes the bf16 kernel's limits, a two-byte run being a two-byte run."""
     cfg = DPDistConfig()
     assert table_gather_bwd_fits(cfg.grid_size, cfg.k, cfg.fv_channels, dtype)
     assert table_gather_bwd_fits(1, 3, 20, dtype) and table_gather_bwd_fits(255, 5, 20, dtype)
@@ -227,12 +245,13 @@ def test_table_gather_bwd_fits(dtype):
         assert not table_gather_bwd_fits(g, k, C, dtype)
     # k^2 C = 16,200: past the float32 ring's 4 runs of 64 KB, within bf16's.
     assert table_gather_bwd_fits(16, 9, 200, torch.bfloat16)
+    assert table_gather_bwd_fits(16, 9, 200, torch.float16)
     assert not table_gather_bwd_fits(16, 9, 200, torch.float32)
     assert bwd_f32_smem(16, 9, 200) > MAX_SMEM >= bwd_bf16_smem(9, 200, 1)
 
 
 @pytest.mark.parametrize("fused_gather", ["auto", "table", "mfv", "on"])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_route_gives_way_where_the_adjoint_does_not_fit(monkeypatch, fused_gather, dtype):
     """Under grad=True every gather kernel runs row 3 in the config's dtype
     behind it: where that adjoint does not take the config, the gathers
@@ -241,7 +260,7 @@ def test_route_gives_way_where_the_adjoint_does_not_fit(monkeypatch, fused_gathe
     channel counts (20, 7) meets this before the gathers' own limits, so
     the adjoint's is patched to fail for the config's dtype only."""
     cfg = DPDistConfig(fused_gather=fused_gather, dtype=dtype)
-    unfit = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    unfit = model_dpdist.DTYPES[dtype]
     monkeypatch.setattr(model_dpdist, "table_gather_bwd_fits",
                         lambda g, k, C, dt: dt != unfit)
     grad = route(cfg, "cuda", 64, 64, grad=True)

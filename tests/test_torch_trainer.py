@@ -226,7 +226,9 @@ def test_trainer_defaults_to_cuda_and_rejects_what_is_not_ported(tmp_path):
         DPDistTrainer(DPDistConfig(**SMALL), TrainConfig(), run_dir=str(tmp_path))
     # Encoder occlusion is ported (tests/test_torch_data.py holds it
     # against JAX), and so is every DPDist variant
-    # (tests/test_torch_variants.py); a float16 decoder is not.
-    with pytest.raises(NotImplementedError, match="float16"):
-        DPDistTrainer(DPDistConfig(**SMALL, dtype="float16"), TrainConfig(),
+    # (tests/test_torch_variants.py) and a float16 decoder
+    # (tests/test_torch_fp16.py); float64, which the reference never
+    # computes (without jax_enable_x64 it runs in float32), is not.
+    with pytest.raises(NotImplementedError, match="float64"):
+        DPDistTrainer(DPDistConfig(**SMALL, dtype="float64"), TrainConfig(),
                       run_dir=str(tmp_path), device="cpu")

@@ -113,8 +113,9 @@ REL_GRAD, REL_GRAD_FEW, OUTLIERS = 1e-3, 5e-2, 0.05
 # composition: the same gathers, so the same values.
 TOL_ROUTE = 1e-6
 # The golden file: JAX (CPU) against the port at full width: float32
-# within 1e-4, bfloat16 within 2e-3 (tests/test_torch_dpdist.py's bounds).
-TOL_GOLDEN, TOL_GOLDEN_BF16 = 1e-4, 2e-3
+# within 1e-4, bfloat16 within 2e-3 and float16 within 2.5e-4
+# (tests/test_torch_dpdist.py's bounds).
+TOL_GOLDEN, TOL_GOLDEN_BF16, TOL_GOLDEN_FP16 = 1e-4, 2e-3, 2.5e-4
 GOLDEN_SEED = 0
 GOLDEN_PAIRS = 4                 # golden_distance.json's first pairs, at 64 points
 GOLDEN_STRIDE = 4                # channel 0 of every 4th query is stored
@@ -149,6 +150,21 @@ GOLDEN_MIN_SPREAD = 50
 # 0.62 and 0.89 after three. The later gradient norms are printed only
 # (the pointnet encoder's third moved by 30 % on the CPU).
 TOL_STEPS = (1e-4, 5e-3, 1e-3, 4e-6, 5e-3)
+# The same steps in float16 (a float16 decoder on float32 master weights)
+# against JAX's float16 ones, in TOL_STEPS's order: the first loss within
+# 1e-3, the later ones within 2e-2, the first gradient norm within 1e-2,
+# the BN state within 5e-4 after the first step and 0.1 after the last.
+# scripts/torch_variant_train_spread.py --dtype float16 measured the port
+# against JAX up to 2.7e-4, 6.5e-3, 2.0e-3, 1.2e-4 and 1.6e-2 on the H100
+# (the CPU: 3.2e-4, 5.9e-3, 1.9e-3, 1.2e-4, 1.9e-2; conv_version=3's
+# gradient norm reads 1.9e-3 on both, ten times its own spread), and the
+# port's own spread under 1e-6 of input noise up to 2.5e-4, 7.4e-3,
+# 2.5e-3, 6.1e-5 and 3.2e-2 (the CPU: 4.2e-4, 1.1e-2, 4.1e-3, 6.1e-5,
+# 3.4e-2): float16's roundings move with the inputs. BN momentum 0.99 for
+# 0.9 moves the state after the first step by 9.0e-2 and 0.48; the
+# unbiased batch variance the pointnet encoder's first loss by 1.9e-3 to
+# 2.0e-3 (the BN decoder's 3.0e-4 to 5.6e-4 hides in the spread).
+TOL_STEPS_FP16 = (1e-3, 2e-2, 1e-2, 5e-4, 1e-1)
 FULL_WIDTH = {
     "bn": dict(use_bn=True),
     "conv3": dict(conv_version=3),
@@ -511,12 +527,13 @@ def test_route_matches_the_reference_conditions(fused_gather, monkeypatch):
 
 
 def test_check_ported_takes_every_variant():
-    """check_ported refuses only a dtype the port does not cover."""
+    """check_ported refuses only a dtype the port does not cover (none that
+    the reference computes)."""
     for name in NAMES:
-        for dtype in ("float32", "bfloat16"):
+        for dtype in ("float32", "bfloat16", "float16"):
             check_ported(configs(name, dtype=dtype)[1])
-    with pytest.raises(NotImplementedError, match="float16"):
-        check_ported(DPDistConfig(dtype="float16"))
+    with pytest.raises(NotImplementedError, match="float64"):
+        check_ported(DPDistConfig(dtype="float64"))
     with pytest.raises(ValueError, match="fused_gather"):
         check_ported(DPDistConfig(fused_gather="sometimes"))
 
@@ -645,8 +662,8 @@ def port_forward(name, params, state, dtype="float32", fused_gather="auto"):
     return sample_preds(pAB), sample_preds(pBA)
 
 
-def golden_trainer(name, tmp):
-    cfg = golden_config(name)
+def golden_trainer(name, tmp, dtype="float32"):
+    cfg = golden_config(name, dtype=dtype)
     return DPDistTrainer(cfg, TrainConfig(batch_size=GOLDEN_TRAIN_B, augment=False,
                                           seed=GOLDEN_SEED),
                          run_dir=tmp, device="cpu", logger=RunLogger(tmp, echo=False))
@@ -668,10 +685,12 @@ def test_golden_variants_hold(name, tmp_path):
     """The golden file's full-width variants from the seeded weights made
     informative (their outputs spread over at least GOLDEN_MIN_SPREAD times
     the bf16 bound): the weights' per-leaf sums, the float32 forward within
-    1e-4 and the bf16 one within 2e-3 of JAX's, and for the trained
-    variants the three steps from the seeded weights and the BN state
-    after the first and the third by TOL_STEPS (the card holds the same,
-    chip_smoke.py's variants phase)."""
+    1e-4, the bf16 one within 2e-3 and the float16 one within 2.5e-4 of
+    JAX's, and for the trained variants the three steps from the seeded
+    weights in float32 and in float16 (a float16 decoder on float32 master
+    weights) and the BN state after the first and the third by TOL_STEPS
+    (TOL_STEPS_FP16 in float16; the card holds the same, chip_smoke.py's
+    variants phase)."""
     want = load_variants_golden()["variants"][name]
     cfg = golden_config(name)
     assert cfg.to_json() == want["config"] and want["perturb"] == perturb_spec(name)
@@ -684,12 +703,17 @@ def test_golden_variants_hold(name, tmp_path):
         np.testing.assert_allclose(fp[p], [s, ss], rtol=1e-9, atol=1e-9, err_msg=p)
     for got, key in zip(port_forward(name, params, state), ("pred_AB", "pred_BA")):
         np.testing.assert_allclose(got, want[key], atol=TOL_GOLDEN, rtol=0)
-    for mode, w in want["bf16"].items():
-        got = port_forward(name, params, state, "bfloat16", mode)
-        for g, key in zip(got, ("pred_AB", "pred_BA")):
-            np.testing.assert_allclose(g, w[key], atol=TOL_GOLDEN_BF16, rtol=0)
+    for dtype, key16, tol in (("bfloat16", "bf16", TOL_GOLDEN_BF16),
+                              ("float16", "fp16", TOL_GOLDEN_FP16)):
+        for mode, w in want[key16].items():
+            got = port_forward(name, params, state, dtype, mode)
+            for g, key in zip(got, ("pred_AB", "pred_BA")):
+                np.testing.assert_allclose(g, w[key], atol=tol, rtol=0,
+                                           err_msg=f"{dtype} {mode}")
     if name in TRAINED:
-        check_golden_train(port_golden_train(name, str(tmp_path)), want["train"])
+        check_golden_train(port_golden_train(name, str(tmp_path / "f32")), want["train"])
+        check_golden_train(port_golden_train(name, str(tmp_path / "fp16"), "float16"),
+                           want["train_fp16"], TOL_STEPS_FP16)
 
 
 @pytest.mark.parametrize("name", GATHERING)
@@ -711,9 +735,10 @@ def test_golden_variants_fail_a_misplaced_patch(name, monkeypatch):
     assert moved >= 10 * TOL_GOLDEN_BF16, moved
 
 
-def check_golden_train(got, want):
-    """The golden steps' criterion (see TOL_STEPS): raises AssertionError."""
-    first, later, gnorm, state_first, state = TOL_STEPS
+def check_golden_train(got, want, tols=TOL_STEPS):
+    """The golden steps' criterion (TOL_STEPS, or TOL_STEPS_FP16 for the
+    float16 steps): raises AssertionError."""
+    first, later, gnorm, state_first, state = tols
     assert abs(got["loss"][0] - want["loss"][0]) <= first * want["loss"][0]
     for g, w in zip(got["loss"][1:], want["loss"][1:]):
         assert abs(g - w) <= later * w, (got["loss"], want["loss"])
@@ -724,12 +749,12 @@ def check_golden_train(got, want):
                                        rtol=0, err_msg=f"{key} {p}")
 
 
-def port_golden_train(name, tmp):
-    """GOLDEN_STEPS DPDistTrainer steps from the seeded weights on the
-    golden batch: per step the loss and gradient norm, and the BN state
-    after the first step and after the last as the golden file samples
-    it."""
-    trainer = golden_trainer(name, tmp)
+def port_golden_train(name, tmp, dtype="float32"):
+    """GOLDEN_STEPS DPDistTrainer steps in `dtype` from the seeded weights
+    on the golden batch: per step the loss and gradient norm, and the BN
+    state after the first step and after the last as the golden file
+    samples it."""
+    trainer = golden_trainer(name, tmp, dtype)
     data, labels = golden_train_batch(name)
     ms, first = [], None
     for _ in range(GOLDEN_STEPS):
@@ -759,13 +784,44 @@ def test_golden_dense_holds():
     np.testing.assert_allclose(outs["on"], outs["off"], atol=1e-5, rtol=0)
 
 
+def jax_golden_train(name, jcfg, seeded_tree):
+    """GOLDEN_STEPS value_and_grad + optax steps of jcfg from the seeded
+    weights at B = GOLDEN_TRAIN_B: per step the loss and gradient norm, and
+    the BN state after the first step and after the last."""
+    data, labels = golden_train_batch(name)
+    a, b, lab = (jnp.asarray(x) for x in jax_assemble(data, labels))
+    opt = jax_make_optimizer(JaxTrainConfig(batch_size=GOLDEN_TRAIN_B))
+
+    def loss_fn(p, s):
+        pred_AB, _, ns = jax_apply(p, s, jcfg, a, b, train=True)
+        return jax_l1(pred_AB, lab), ns
+
+    @jax.jit
+    def step(p, s, o):
+        (loss, ns), g = jax.value_and_grad(loss_fn, has_aux=True)(p, s)
+        upd, o = opt.update(g, o, p)
+        gn = jnp.sqrt(sum(jnp.sum(v * v) for v in jax.tree_util.tree_leaves(g)))
+        return optax.apply_updates(p, upd), ns, o, loss, gn
+
+    jp, js = (params_to_numpy(t) for t in seeded_tree)
+    o = opt.init(jp)
+    losses, gnorms, first = [], [], None
+    for _ in range(GOLDEN_STEPS):
+        jp, js, o, loss, gn = step(jp, js, o)
+        losses.append(float(loss))
+        gnorms.append(float(gn))
+        first = first or golden_state(jax.device_get(js))
+    return {"batch_seed": 70 + NAMES.index(name), "loss": losses, "grad_norm": gnorms,
+            "state_first": first, "state": golden_state(jax.device_get(js))}
+
+
 def jax_variant_golden(name):
     """JAX's values for the port's seeded full-width weights: the eval
-    forward of the golden clouds in float32 and in bfloat16 ("auto", the
-    XLA composition on the CPU; and "full", the fused kernel in interpret
-    mode, where the reference serves the config with it), and for the
-    trained variants GOLDEN_STEPS value_and_grad + optax steps at
-    B = GOLDEN_TRAIN_B."""
+    forward of the golden clouds in float32, in bfloat16 ("auto", the XLA
+    composition on the CPU; and "full", the fused kernel in interpret mode,
+    where the reference serves the config with it) and in float16 ("auto"),
+    and for the trained variants GOLDEN_STEPS value_and_grad + optax steps
+    at B = GOLDEN_TRAIN_B in float32 and in float16."""
     cfg = golden_config(name)
     perturb = perturb_spec(name)
     params, state = informative(cfg, perturb)
@@ -785,32 +841,11 @@ def jax_variant_golden(name):
         pAB, pBA = jax_apply(jp, js, c16, pcA, pcB)[:2]
         out["bf16"][mode] = {"pred_AB": sample_preds(pAB), "pred_BA": sample_preds(pBA)}
     if name in TRAINED:
-        data, labels = golden_train_batch(name)
-        a, b, lab = (jnp.asarray(x) for x in jax_assemble(data, labels))
-        opt = jax_make_optimizer(JaxTrainConfig(batch_size=GOLDEN_TRAIN_B))
-
-        def loss_fn(p, s):
-            pred_AB, _, ns = jax_apply(p, s, jcfg, a, b, train=True)
-            return jax_l1(pred_AB, lab), ns
-
-        @jax.jit
-        def step(p, s, o):
-            (loss, ns), g = jax.value_and_grad(loss_fn, has_aux=True)(p, s)
-            upd, o = opt.update(g, o, p)
-            gn = jnp.sqrt(sum(jnp.sum(v * v) for v in jax.tree_util.tree_leaves(g)))
-            return optax.apply_updates(p, upd), ns, o, loss, gn
-
-        jp, js = (params_to_numpy(t) for t in seeded(cfg))
-        o = opt.init(jp)
-        losses, gnorms, first = [], [], None
-        for _ in range(GOLDEN_STEPS):
-            jp, js, o, loss, gn = step(jp, js, o)
-            losses.append(float(loss))
-            gnorms.append(float(gn))
-            first = first or golden_state(jax.device_get(js))
-        out["train"] = {"batch_seed": 70 + NAMES.index(name), "loss": losses,
-                        "grad_norm": gnorms, "state_first": first,
-                        "state": golden_state(jax.device_get(js))}
+        out["train"] = jax_golden_train(name, jcfg, seeded(cfg))
+    pAB, pBA = jax_apply(jp, js, jcfg.replace(dtype="float16"), pcA, pcB)[:2]
+    out["fp16"] = {"auto": {"pred_AB": sample_preds(pAB), "pred_BA": sample_preds(pBA)}}
+    if name in TRAINED:
+        out["train_fp16"] = jax_golden_train(name, jcfg.replace(dtype="float16"), seeded(cfg))
     return out
 
 
