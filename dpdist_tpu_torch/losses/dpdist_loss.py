@@ -17,6 +17,7 @@ import torch
 from dpdist_tpu_torch.configs import DPDistConfig
 from dpdist_tpu_torch.kernels.ops import route_device
 from dpdist_tpu_torch.models.dpdist import dpdist_distance, resolve_for_grad
+from dpdist_tpu_torch.train.profiling import span
 
 
 def _detached(tree):
@@ -41,17 +42,21 @@ def make_frozen_dpdist_loss(params, cfg: DPDistConfig, *, state=None,
     penalty * (mean(relu(|pcA| - 1)) + mean(relu(|pcB| - 1))) keeps an
     optimisation inside the grid without touching in-grid gradients. Set
     0 for the raw reference semantics.
+
+    Under a profiler session each call opens the span "loss"
+    (train.profiling.span) around the distance and the barrier.
     """
 
     def loss_fn(pcA, pcB):
-        gcfg = resolve_for_grad(cfg, route_device(pcA))
-        d = dpdist_distance(_detached(params), gcfg, pcA, pcB,
-                            state=None if state is None else _detached(state))
-        if out_of_grid_penalty > 0:
-            def barrier(pc):
-                return torch.mean(torch.relu(torch.abs(pc) - 1.0))
+        with span("loss"):
+            gcfg = resolve_for_grad(cfg, route_device(pcA))
+            d = dpdist_distance(_detached(params), gcfg, pcA, pcB,
+                                state=None if state is None else _detached(state))
+            if out_of_grid_penalty > 0:
+                def barrier(pc):
+                    return torch.mean(torch.relu(torch.abs(pc) - 1.0))
 
-            d = d + out_of_grid_penalty * (barrier(pcA) + barrier(pcB))
-        return d
+                d = d + out_of_grid_penalty * (barrier(pcA) + barrier(pcB))
+            return d
 
     return loss_fn

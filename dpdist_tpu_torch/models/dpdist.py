@@ -105,6 +105,15 @@ not take it gives way to the plain op for that step. The reference has no
 such limits, and the fallbacks compute the same function.
 Configs with a dtype other than float32, bfloat16 or float16 raise
 NotImplementedError: the reference's API computes no other.
+
+Under a profiler session each step of a forward opens its span
+(train.profiling.span), with what the route chose as its detail:
+"dpdist.encode" around each cloud's encode that runs apart (detail
+"plain", "threedmfv" or "pointnet"), "dpdist.gather" around a direction's
+voxel assignment and gather, or the one mfv_x call over both directions
+(the gather's counter name, or "plain"), and "dpdist.decode" around the
+decoder and its activation (the route's mode), or the "full" route's
+fused gather and decoder ("fused_forward").
 """
 
 from __future__ import annotations
@@ -151,6 +160,7 @@ from dpdist_tpu_torch.ops.voxel import (
     gather_patches,
     voxel_assign,
 )
+from dpdist_tpu_torch.train.profiling import span
 
 # Clouds up to this size take the fused mfv kernel, and queries up to this
 # size the table_gather_x kernel: one TPU query tile
@@ -483,12 +493,18 @@ def _fused_head(params, cfg: DPDistConfig, fv, queries):
     return _activate(y, cfg, mask)
 
 
-def _encode(cfg: DPDistConfig, encode: str, points):
+def _fv(cfg: DPDistConfig, encode: str, points):
     """The 3DmFV of `points` by `encode` ("threedmfv": the kernel, "plain",
     or "auto": threedmfv's dispatch), flattened for k=0."""
     impl = {"threedmfv": "kernel", "plain": "plain"}.get(encode, encode)
     return threedmfv(points, cfg.embedding_size, cfg.sigma, impl=impl, flatten=cfg.k == 0,
                      full_fv=cfg.full_fv)
+
+
+def _encode(cfg: DPDistConfig, encode: str, points):
+    """_fv inside the cloud's "dpdist.encode" span (detail: `encode`)."""
+    with span("dpdist.encode", encode):
+        return _fv(cfg, encode, points)
 
 
 def _pointnet_encode(params, state, points, *, train: bool, bn_momentum):
@@ -518,14 +534,16 @@ def dpdist_embed(params, state, cfg: DPDistConfig, points, *, train: bool = Fals
     "threedmfv": the kernel, "plain")."""
     state = _state(cfg, state)
     if cfg.encoder == "pointnet":
-        emb, ns = _pointnet_encode(params["pointnet"], state.get("pointnet", {}), points,
-                                   train=train, bn_momentum=bn_momentum)
+        with span("dpdist.encode", "pointnet"):
+            emb, ns = _pointnet_encode(params["pointnet"], state.get("pointnet", {}), points,
+                                       train=train, bn_momentum=bn_momentum)
         return emb, {"pointnet": ns}
-    fv = _encode(cfg, encode, points).to(DTYPES[cfg.dtype])
-    if cfg.k == 0:
-        return fv, {}
-    patches = extract_patches_2d if cfg.dims == 2 else extract_patches
-    return patches(fv, cfg.grid_size, cfg.k), {}
+    with span("dpdist.encode", encode):
+        fv = _fv(cfg, encode, points).to(DTYPES[cfg.dtype])
+        if cfg.k == 0:
+            return fv, {}
+        patches = extract_patches_2d if cfg.dims == 2 else extract_patches
+        return patches(fv, cfg.grid_size, cfg.k), {}
 
 
 def _decoder_inputs(cfg: DPDistConfig, queries, table):
@@ -544,10 +562,10 @@ def _decoder_inputs(cfg: DPDistConfig, queries, table):
     return torch.cat([queries.to(table.dtype), emb], dim=-1), None
 
 
-def _decoder_input(cfg: DPDistConfig, encode: str, gather: str, points_enc, queries, vox, mask,
-                   delta):
-    """x = [delta, patch] of `queries` against the surface of `points_enc`,
-    by the kernels `route` names (vox, mask and delta: voxel_assign(queries)).
+def _decoder_input(cfg: DPDistConfig, gather: str, fv, points_enc, queries, vox, mask, delta):
+    """x = [delta, patch] of `queries` against the surface of `points_enc`
+    (its volume `fv`, None for "mfv_gather_x", which encodes), by the gather
+    `route` names (vox, mask and delta: voxel_assign(queries)).
     For a bf16 or fp16 config every gather takes the volume in that dtype,
     as the reference casts fv before its gather: the table-gather kernels
     and the plain composition write x in it, the per-query gather writes
@@ -557,7 +575,6 @@ def _decoder_input(cfg: DPDistConfig, encode: str, gather: str, points_enc, quer
     args = (cfg.embedding_size, cfg.sigma, cfg.grid_size, cfg.k)
     if gather == "mfv_gather_x":
         return dispatch(mfv_x)(points_enc, queries, *args, dtype=dtype)[0]
-    fv = _encode(cfg, encode, points_enc)
     if gather == "table_gather_x":
         return dispatch(table_gather_x)(fv, queries, cfg.grid_size, cfg.k, dtype=dtype)[0]
     if gather == "table_gather":
@@ -593,13 +610,24 @@ def _batch(points):
 def _direction_input(params, state, cfg, encode, gather, points_enc, queries, train,
                      bn_momentum):
     """(x, mask, encoder state) of one direction by the kernels `route`
-    names; configs without a gather kernel take dpdist_embed's table."""
+    names, in its "dpdist.encode" and "dpdist.gather" spans; configs without
+    a gather kernel take dpdist_embed's table."""
     if not gathers(cfg):
         table, enc_state = dpdist_embed(params, state, cfg, points_enc, train=train,
                                         bn_momentum=bn_momentum, encode=encode)
-        return (*_decoder_inputs(cfg, queries, table), enc_state)
-    vox, mask, delta = voxel_assign(queries, cfg.grid_size)
-    return _decoder_input(cfg, encode, gather, points_enc, queries, vox, mask, delta), mask, {}
+        with span("dpdist.gather", "plain"):
+            return (*_decoder_inputs(cfg, queries, table), enc_state)
+    fv = None if gather == "mfv_gather_x" else _encode(cfg, encode, points_enc)
+    with span("dpdist.gather", gather):
+        vox, mask, delta = voxel_assign(queries, cfg.grid_size)
+        return _decoder_input(cfg, gather, fv, points_enc, queries, vox, mask, delta), mask, {}
+
+
+def _predict(params, state, cfg: DPDistConfig, mode: str, x, mask, **kw):
+    """The activated, masked prediction of one direction's decoder input x,
+    in its "dpdist.decode" span (detail: the route's mode)."""
+    with span("dpdist.decode", mode):
+        return _activate(_decode(params, state, cfg, x, **kw)[0], cfg, mask)
 
 
 def apply_direction(params, cfg: DPDistConfig, points_enc, queries, *, state=None,
@@ -621,11 +649,12 @@ def apply_direction(params, cfg: DPDistConfig, points_enc, queries, *, state=Non
     r = route(cfg, route_device(queries), points_enc.shape[1], queries.shape[1], train=train,
               batch=_batch(queries))
     if r.gather[0] == "fused_forward":
-        return _fused_head(params, cfg, _encode(cfg, r.encode[0], points_enc), queries)
+        fv = _encode(cfg, r.encode[0], points_enc)
+        with span("dpdist.decode", "fused_forward"):
+            return _fused_head(params, cfg, fv, queries)
     x, mask, _ = _direction_input(params, state, cfg, r.encode[0], r.gather[0], points_enc,
                                   queries, train, bn_momentum)
-    return _activate(_decode(params, state, cfg, x, train=train, bn_momentum=bn_momentum)[0],
-                     cfg, mask)
+    return _predict(params, state, cfg, r.mode, x, mask, train=train, bn_momentum=bn_momentum)
 
 
 def forward_dpdist(params, state, cfg: DPDistConfig, pcA, pcB, *, noise=None,
@@ -652,18 +681,21 @@ def forward_dpdist(params, state, cfg: DPDistConfig, pcA, pcB, *, noise=None,
     if r.mode == "full":
         # Both directions in one kernel call: volumes [A; B], queries [B; A].
         fv2 = torch.cat([_encode(cfg, r.encode[0], pcA_enc), _encode(cfg, r.encode[1], pcB)])
-        pred = _fused_head(params, cfg, fv2, torch.cat([pcB, pcA]))
+        with span("dpdist.decode", "fused_forward"):
+            pred = _fused_head(params, cfg, fv2, torch.cat([pcB, pcA]))
         return (*_halves(pred), {"decoder": {}})
     if r.mode == "mfv" and pcA.shape == pcB.shape:
         # Both directions in one kernel call: encode [A; B], query [B; A];
         # its 2B output is also the BN decoder's batch.
         args = (cfg.embedding_size, cfg.sigma, cfg.grid_size, cfg.k)
-        x2 = dispatch(mfv_x)(torch.cat([pcA_enc, pcB]), torch.cat([pcB, pcA]), *args,
-                             dtype=DTYPES[cfg.dtype])[0]
-        _, maskAB, _ = voxel_assign(pcB, cfg.grid_size)
-        _, maskBA, _ = voxel_assign(pcA, cfg.grid_size)
-        y, dec_state = _decode(params, state, cfg, x2, **kw)
-        pred = _activate(y, cfg, torch.cat([maskAB, maskBA]))
+        with span("dpdist.gather", "mfv_gather_x"):
+            x2 = dispatch(mfv_x)(torch.cat([pcA_enc, pcB]), torch.cat([pcB, pcA]), *args,
+                                 dtype=DTYPES[cfg.dtype])[0]
+            _, maskAB, _ = voxel_assign(pcB, cfg.grid_size)
+            _, maskBA, _ = voxel_assign(pcA, cfg.grid_size)
+        with span("dpdist.decode", "mfv"):
+            y, dec_state = _decode(params, state, cfg, x2, **kw)
+            pred = _activate(y, cfg, torch.cat([maskAB, maskBA]))
         return (*_halves(pred), {"decoder": dec_state})
     xAB, maskAB, _ = _direction_input(params, state, cfg, r.encode[0], r.gather[0], pcA_enc,
                                       pcB, **kw)                  # B's points vs surface(A)
@@ -672,16 +704,19 @@ def forward_dpdist(params, state, cfg: DPDistConfig, pcA, pcB, *, noise=None,
     if cfg.use_bn:
         # One 2B batch through the decoder: the reference's
         # tf.concat([net, netB], 0) batch statistics.
-        y, dec_state = _decode(params, state, cfg, torch.cat([xAB, xBA]), **kw)
-        yAB, yBA = _halves(y)
+        with span("dpdist.decode", r.mode):
+            y, dec_state = _decode(params, state, cfg, torch.cat([xAB, xBA]), **kw)
+            yAB, yBA = _halves(y)
+            predAB, predBA = _activate(yAB, cfg, maskAB), _activate(yBA, cfg, maskBA)
     else:
         # BN off: each decoder row is independent, so the directions
         # decode separately.
-        yAB, dec_state = _decode(params, state, cfg, xAB, **kw)
-        yBA, _ = _decode(params, state, cfg, xBA, **kw)
+        predAB = _predict(params, state, cfg, r.mode, xAB, maskAB, **kw)
+        predBA = _predict(params, state, cfg, r.mode, xBA, maskBA, **kw)
+        dec_state = {}
     new_state = dict(enc_state) if cfg.encoder == "pointnet" else {}
     new_state["decoder"] = dec_state
-    return _activate(yAB, cfg, maskAB), _activate(yBA, cfg, maskBA), new_state
+    return predAB, predBA, new_state
 
 
 def apply_dpdist(params, cfg: DPDistConfig, pcA, pcB, *, state=None, noise=None,

@@ -28,6 +28,7 @@ import torch.distributed as dist
 
 from dpdist_tpu_torch.parallel.mesh import Mesh
 from dpdist_tpu_torch.train.checkpoint import tree_flatten_with_paths, tree_unflatten_like
+from dpdist_tpu_torch.train.profiling import span
 
 
 def _leaves(tree):
@@ -118,19 +119,28 @@ def build_sharded_train_step(loss_fn: Callable, optimizer, mesh: Mesh):
           {"loss", "grad_norm"}): the local loss and gradients, their mean
           and the new state's over the data axis, the update (params change
           in place), and the averaged gradient's global norm.
+
+    Under a profiler session step_fn opens the span "train.step" and,
+    inside it, "train.forward" (loss_fn), "train.backward"
+    (torch.autograd.grad) and "train.optimizer" (optimizer.step; detail:
+    "adam" or "momentum"), as train.profiling.span records them.
     """
 
     def init_fn(params):
         return optimizer.init(params)
 
     def step_fn(params, state, opt_state, batch):
-        leaves = _leaves(params)
-        with torch.enable_grad():
-            loss, new_state = loss_fn(params, state, batch)
-            grads = torch.autograd.grad(loss, leaves)
-        loss, grads, new_state = mean_over_data(mesh, loss, grads, new_state)
-        opt_state = optimizer.step(params, grads, opt_state)
-        gnorm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-        return params, new_state, opt_state, {"loss": loss, "grad_norm": gnorm}
+        with span("train.step"):
+            leaves = _leaves(params)
+            with torch.enable_grad():
+                with span("train.forward"):
+                    loss, new_state = loss_fn(params, state, batch)
+                with span("train.backward"):
+                    grads = torch.autograd.grad(loss, leaves)
+            loss, grads, new_state = mean_over_data(mesh, loss, grads, new_state)
+            with span("train.optimizer", optimizer.cfg.optimizer):
+                opt_state = optimizer.step(params, grads, opt_state)
+            gnorm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+            return params, new_state, opt_state, {"loss": loss, "grad_norm": gnorm}
 
     return init_fn, step_fn

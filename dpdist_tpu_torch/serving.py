@@ -84,6 +84,7 @@ from dpdist_tpu_torch.train.checkpoint import (
     tree_flatten_with_paths,
     tree_unflatten_like,
 )
+from dpdist_tpu_torch.train.profiling import span
 
 
 class FrozenDistance(nn.Module):
@@ -96,7 +97,8 @@ class FrozenDistance(nn.Module):
     the conv_version=1 decoder without BN, and a decoder and grid the fused
     kernel takes: models.dpdist.resolve_mode) also holds the decoder packed
     once for the fused kernel (kernels.fused_forward.pack_decoder), on the
-    parameters' device.
+    parameters' device. Under a profiler session forward opens the span
+    "serve" (train.profiling.span) around the whole call.
     """
 
     def __init__(self, cfg: DPDistConfig, params: dict, state: dict = None):
@@ -122,11 +124,12 @@ class FrozenDistance(nn.Module):
         return None if self._trees[1] is None else tree_unflatten_like(self._trees[1], list(self.s))
 
     def forward(self, pcA: torch.Tensor, pcB: torch.Tensor) -> torch.Tensor:
-        cfg = self.cfg
-        if torch.is_grad_enabled() and (pcA.requires_grad or pcB.requires_grad):
-            cfg = resolve_for_grad(cfg, ops.route_device(pcA))
-        return dpdist_distance(self.params(), cfg, pcA, pcB, state=self.state(),
-                               per_example=True)
+        with span("serve"):
+            cfg = self.cfg
+            if torch.is_grad_enabled() and (pcA.requires_grad or pcB.requires_grad):
+                cfg = resolve_for_grad(cfg, ops.route_device(pcA))
+            return dpdist_distance(self.params(), cfg, pcA, pcB, state=self.state(),
+                                   per_example=True)
 
 
 def load_frozen_distance(ckpt_path: str, device="cuda", **cfg_overrides) -> FrozenDistance:

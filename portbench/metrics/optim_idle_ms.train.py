@@ -1,0 +1,9 @@
+"""optim_idle_ms.train: device idle ms a training step inside the program's
+"train.optimizer" span (train.optim.Optimizer.step), read from the
+program's spans in a traced window."""
+
+from portbench.core import program_spans
+
+
+def read(run):
+    return program_spans.idle_ms_within(run, {"train.optimizer"})
