@@ -98,8 +98,8 @@ fp16 native program.
  12. train         DPDistTrainer at the canonical config, B = 16: 30 steps
                    on one synthetic batch whose labels are distances to a
                    10k-point surface (counters reset before, read after:
-                   one table-gather launch per step, no adjoint); the loss
-                   falls; one step on the kernel path against the plain
+                   one table-gather launch per step, no adjoint, one Adam
+                   launch per step); the loss falls; one step on the kernel path against the plain
                    path; save -> restore gives equal params.
  13. eval_pair_large cli.eval_pair.main in-process on two 10,000-point
                    synthetic surfaces written as csv (counters: 2 encode,
@@ -247,7 +247,8 @@ fp16 native program.
                    3 Adam steps per opt_type against JAX's (see
                    TOL_LATER_STEPS), each "ours" step launching exactly 2
                    table-gather and 1 adjoint (counters reset before and read
-                   after each step; a chamfer step none); the step's loss and
+                   after each step; a chamfer step none) and every step
+                   exactly 1 fused Adam launch; the step's loss and
                    d/d reconstruction on the kernel path against the plain
                    path; the step's ms and peak memory.
  20i. train_aue_cli gen_data on the card, train_aue for the 3dmfv AUE
@@ -294,6 +295,12 @@ fp16 native program.
                    source-gradient step at np = 256; the bf16 forwards
                    ("full", "auto") and the "on" forward at np = 64 and
                    256; eval_pair at 10,000 points, end to end and per key;
+                   the fused Adam kernel on the production AUE's 24 leaves
+                   (407.8 M weights) against the list path
+                   (train/optim.adam_leaf_plain) on the same inputs, p, mu
+                   and nu bit for bit in one launch, then timed with its
+                   byte bound (28 B a weight), the list path and its
+                   device time;
                    the adjoint's bf16 variant (bound, index_add_ in bf16)
                    at N = 64 and 256; the fp16 outputs of rows 1, 2 and 6
                    (index_select on the fp16 volume) and row 3 on an fp16
@@ -1216,6 +1223,7 @@ def main() -> int:
         from dpdist_tpu_torch.kernels import build
         from dpdist_tpu_torch.kernels import chamfer as chamfer_kernels
         from dpdist_tpu_torch.kernels.chamfer import nn_min_sqdist, nn_min_sqdist_plain
+        from dpdist_tpu_torch.kernels.fused_adam import fused_adam
         from dpdist_tpu_torch.kernels.fused_forward import (
             fused_forward,
             fused_forward_plain,
@@ -1261,6 +1269,7 @@ def main() -> int:
         from dpdist_tpu_torch.train.aue_trainer import AUETrainer, split_same_surface
         from dpdist_tpu_torch.train.checkpoint import tree_flatten_with_paths
         from dpdist_tpu_torch.train.logging import RunLogger
+        from dpdist_tpu_torch.train.optim import B1, B2, EPS, adam_leaf_plain
         from dpdist_tpu_torch.train.pcrnet_trainer import PCRNetTrainer
         from dpdist_tpu_torch.train.trainer import DPDistTrainer
 
@@ -1534,16 +1543,20 @@ def main() -> int:
     counters["table_gather_bwd_bf16"] = (table_gather_bwd, "launches_bf16")
     counters["table_gather_bwd_fp16"] = (table_gather_bwd, "launches_fp16")
     launches = dict.fromkeys(counters, 0)
+    # Adam's kernel: one launch a training step, read where a phase trains
+    # (train, aue) and added to the totals there.
+    launches["fused_adam"] = 0
 
     def start_count():
         reset_counters(counters.values())
         threedmfv_kernel.replays = 0
+        fused_adam.launches = 0
 
     def read_count():
         """The launches since start_count, added to the run's main-path totals."""
         torch.cuda.synchronize()
         launched = {k: getattr(w, attr) for k, (w, attr) in counters.items()}
-        for k in launches:
+        for k in launched:
             launches[k] += launched[k]
         return launched
 
@@ -1676,11 +1689,13 @@ def main() -> int:
         start_count()
         losses = [trainer.train_step(data, labels)["loss"] for _ in range(TRAIN_STEPS)]
         launched = read_count()
+        launches["fused_adam"] += fused_adam.launches
         losses = torch.stack(losses).cpu().numpy()
-        print(f"train: {TRAIN_STEPS} steps at B={B_TRAIN}, kernel launches {launched}; loss "
-              f"{losses[0]:.5f} -> {losses[-1]:.5f} (first 5 mean {losses[:5].mean():.5f}, last "
-              f"5 mean {losses[-5:].mean():.5f})", flush=True)
+        print(f"train: {TRAIN_STEPS} steps at B={B_TRAIN}, kernel launches {launched}, Adam "
+              f"{fused_adam.launches}; loss {losses[0]:.5f} -> {losses[-1]:.5f} (first 5 mean "
+              f"{losses[:5].mean():.5f}, last 5 mean {losses[-5:].mean():.5f})", flush=True)
         check(launched == expected(table_gather_x=TRAIN_STEPS), "train: unexpected launches")
+        check(fused_adam.launches == TRAIN_STEPS, "train: not one Adam launch a step")
         check(bool(np.isfinite(losses).all()), "train: non-finite loss")
         check(losses[-5:].mean() < losses[:5].mean(), "train: the loss did not fall")
 
@@ -2761,8 +2776,10 @@ def main() -> int:
                     start_count()
                     m = tr.train_step(aue_data)
                     launched = read_count()
-                    check(launched == aue_per_step[opt_type],
-                          f"aue {encoder} {opt_type}: step launches {launched}")
+                    launches["fused_adam"] += fused_adam.launches
+                    check(launched == aue_per_step[opt_type] and fused_adam.launches == 1,
+                          f"aue {encoder} {opt_type}: step launches {launched}, Adam "
+                          f"{fused_adam.launches}")
                     losses.append(float(m["loss"]))
                     gnorms.append(float(m["grad_norm"]))
                 gw = want["train_steps"][opt_type]
@@ -2774,7 +2791,7 @@ def main() -> int:
                       f"{[f'{v:.1e}' for v in err_l]}), grad norms "
                       f"{[f'{v:.4f}' for v in gnorms]} (JAX {[f'{v:.4f}' for v in gw['grad_norm']]}); "
                       f"launches a step: row 2 {launched['table_gather_x']}, row 3 "
-                      f"{launched['table_gather_bwd']}", flush=True)
+                      f"{launched['table_gather_bwd']}, Adam {fused_adam.launches}", flush=True)
                 check(err_l[0] <= TOL_AUE and max(err_l[1:]) <= TOL_LATER_STEPS
                       and err_g <= TOL_AUE_GNORM[opt_type],
                       f"aue {encoder} {opt_type}: the steps are off the golden ones")
@@ -2814,6 +2831,7 @@ def main() -> int:
                           f"max_memory_allocated {peak / 2 ** 30:.2f} GiB ({base / 2 ** 30:.2f} GiB "
                           f"held before the step); on {card}", flush=True)
                     aue_prof = tr
+                    aue_shapes = [tuple(t.shape) for _, t in tree_flatten_with_paths(tr.params)]
                 else:
                     del tr
                 torch.cuda.empty_cache()
@@ -3475,6 +3493,52 @@ def main() -> int:
                             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                             "library_ms": lib_ms, "device_ms": dev_ms})
             del fv_pad10, rows10, reached10, nid
+
+            # Adam over the production AUE's 24 leaves (407.8 M weights) at
+            # step 3: the kernel against the list path on the same inputs,
+            # p, mu and nu bit for bit, in one launch.
+            gen_a = torch.Generator(device=dev).manual_seed(25)
+            n_w = sum(int(np.prod(s_)) for s_ in aue_shapes)
+            ps_a = [torch.randn(s_, generator=gen_a, device=dev) for s_ in aue_shapes]
+            gs_a = [torch.randn(s_, generator=gen_a, device=dev)
+                    * torch.exp(4 * torch.randn(s_, generator=gen_a, device=dev))
+                    for s_ in aue_shapes]
+            ms_a = [0.1 * torch.randn(s_, generator=gen_a, device=dev) for s_ in aue_shapes]
+            vs_a = [torch.rand(s_, generator=gen_a, device=dev) for s_ in aue_shapes]
+            lr_a, c1_a, c2_a = 1e-3, *(float(np.float32(1) - np.float32(b_) ** np.float32(3))
+                                       for b_ in (B1, B2))
+            ps_r = [t.clone() for t in ps_a]
+            want_a = [adam_leaf_plain(*q, lr_a, c1_a, c2_a) for q in zip(ps_r, gs_a, ms_a, vs_a)]
+            fused_adam.launches = 0
+            fused_adam(ps_a, gs_a, ms_a, vs_a, lr_a, c1_a, c2_a, B1, B2, EPS)
+            torch.cuda.synchronize()
+            adam_launched = fused_adam.launches
+            err_adam = max(float((x_ - y_).abs().max()) for x_, y_ in zip(
+                [*ps_a, *ms_a, *vs_a], [*ps_r, *(w_[0] for w_ in want_a), *(w_[1] for w_ in want_a)]))
+            same_adam = all(torch.equal(x_, y_) for x_, y_ in zip(
+                [*ps_a, *ms_a, *vs_a], [*ps_r, *(w_[0] for w_ in want_a), *(w_[1] for w_ in want_a)]))
+            print(f"fused_adam on the AUE's {len(aue_shapes)} leaves ({n_w} weights): "
+                  f"{adam_launched} launch; p, mu and nu against the list path: max |d| "
+                  f"{err_adam:.3e}, equal {same_adam} (tol 0)", flush=True)
+            check(same_adam and adam_launched == 1,
+                  f"fused_adam: not the list path bit for bit (max |d| {err_adam}) or "
+                  f"{adam_launched} launches")
+            del want_a
+            adam_call = lambda: fused_adam(ps_a, gs_a, ms_a, vs_a, lr_a, c1_a, c2_a, B1, B2, EPS)
+            ms = cuda_median_ms(adam_call)
+            plain_ms = cuda_median_ms(lambda: [adam_leaf_plain(*q, lr_a, c1_a, c2_a) for q
+                                               in zip(ps_r, gs_a, ms_a, vs_a)])
+            # p, g, m and v in, p, m and v out; 14 operations a weight.
+            b_ms, b_by = bound(28 * n_w, 14 * n_w)
+            dev_ms = device_ms(adam_call, "fused_adam_kernel")
+            records.append({"name": "fused_adam", "route": "cuda",
+                            "source": "dpdist_tpu_torch/csrc/fused_adam.cu",
+                            "replaces": "optax.adam (dpdist_tpu/train/optim.py:25)",
+                            "launches": launches["fused_adam"], "max_abs_err": err_adam,
+                            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                            "library_ms": None, "device_ms": dev_ms})
+            del ps_a, gs_a, ms_a, vs_a, ps_r
+            torch.cuda.empty_cache()
 
             for r in records:
                 on_device = (f", {r['device_ms']:.4f} ms on the device = "

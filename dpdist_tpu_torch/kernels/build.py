@@ -161,6 +161,11 @@ def library() -> ctypes.CDLL:
         lib.dpdist_nn_min_blocks_per_sm.restype = ci
         lib.dpdist_nn_min_sqdist.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, vp]
         lib.dpdist_nn_min_sqdist.restype = ci
+        lib.dpdist_fused_adam_max_leaves.argtypes = []
+        lib.dpdist_fused_adam_max_leaves.restype = ci
+        lib.dpdist_fused_adam.argtypes = [pp, pp, pp, pp, ctypes.POINTER(i64), ci,
+                                          *[cf] * 8, ci, vp]
+        lib.dpdist_fused_adam.restype = ci
         lib.dpdist_error_string.argtypes = [ci]
         lib.dpdist_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -43,8 +43,11 @@ import torch.nn.functional as F
 
 def params_to_device(params, device, requires_grad: bool = False):
     """The tree with every leaf (numpy array or tensor) as a float32 tensor
-    on `device`, a fresh copy (a leaf of autograd with requires_grad); None
-    stays None."""
+    on `device`, a fresh contiguous copy (a leaf of autograd with
+    requires_grad); None stays None. Contiguous, whatever the source's
+    order (a checkpoint may hold a leaf in Fortran order), because the
+    optimizer's fused Adam kernel updates the leaves in place as dense
+    vectors."""
     if params is None:
         return None
     if isinstance(params, dict):
@@ -52,9 +55,9 @@ def params_to_device(params, device, requires_grad: bool = False):
     if isinstance(params, (list, tuple)):
         return [params_to_device(v, device, requires_grad) for v in params]
     if isinstance(params, torch.Tensor):
-        t = params.detach().to(device, torch.float32).clone()
+        t = params.detach().to(device, torch.float32).clone(memory_format=torch.contiguous_format)
     else:
-        t = torch.from_numpy(np.array(params, np.float32)).to(device)
+        t = torch.from_numpy(np.array(params, np.float32, order="C")).to(device)
     return t.requires_grad_(requires_grad)
 
 
