@@ -19,7 +19,9 @@ pools must split their gradient evenly over ties (points far outside the
 grid underflow Q to 0 and tie at the floor), which autograd's amax/amin
 do. So the backward replays the plain encode under autograd and takes its
 VJP (dpdist_tpu/kernels/threedmfv_pallas.py:147-157), only where the
-points need a gradient; `threedmfv_kernel.replays` counts those replays.
+points need a gradient; `threedmfv_kernel.replays` counts those replays,
+and under a profiler session each opens the span "threedmfv.replay"
+(train.profiling.span) on the thread that runs the backward.
 """
 
 from __future__ import annotations
@@ -145,9 +147,13 @@ class _ThreeDmFV(torch.autograd.Function):
     def backward(ctx, grad_fv):
         if not ctx.needs_input_grad[0]:
             return None, None, None
+        # Imported here: train.profiling imports kernels.ops, which imports
+        # this module.
+        from dpdist_tpu_torch.train.profiling import span
+
         (points,) = ctx.saved_tensors
         threedmfv_kernel.replays += 1
-        with torch.enable_grad():
+        with span("threedmfv.replay"), torch.enable_grad():
             p = points.detach().requires_grad_(True)
             fv = threedmfv_plain(p, *ctx.args)
             (dpoints,) = torch.autograd.grad(fv, p, grad_fv)

@@ -34,6 +34,13 @@ Parameters and state keep the JAX package's trees ({"encoder" |
 "mfv_blocks", "head", "out"}; dense `w` as (in, out), conv `w` DHWIO), so
 checkpoints load into either package.
 
+Under a profiler session (train.profiling.span) pcrnet_refine opens the
+span "pcrnet.refine" around its loop, and apply_pcrnet (and
+encode_template) "pcrnet.encode" around the encoding and "pcrnet.head"
+around the head and the pose's parameterisation; the detail of
+"pcrnet.refine" and "pcrnet.encode" is the encoder, "threedmfv" or
+"pointnet".
+
 The max over points splits its gradient evenly among tied maxima
 (torch.amax), as jnp.max does. Ties are real here: occlusion refills and
 random resampling duplicate points, and duplicated points give identical
@@ -62,6 +69,7 @@ from dpdist_tpu_torch.nn.layers import (
     params_to_device,
 )
 from dpdist_tpu_torch.ops.threedmfv import threedmfv
+from dpdist_tpu_torch.train.profiling import span
 
 ENCODER_WIDTHS = (64, 64, 64, 128)   # then cfg.out_features
 ENCODERS = ("pointnet", "pointnet_avg", "3dmfv")
@@ -78,6 +86,11 @@ BN_EPS = 1e-3
 def check_encoder(cfg: PCRNetConfig) -> None:
     if cfg.encoder not in ENCODERS:
         raise ValueError(f"unknown PCRNet encoder {cfg.encoder!r}")
+
+
+def _detail(cfg: PCRNetConfig) -> str:
+    """The encoder, as the spans name it."""
+    return "threedmfv" if cfg.encoder == "3dmfv" else "pointnet"
 
 
 def mfv_filters(cfg: PCRNetConfig):
@@ -177,9 +190,10 @@ def encode_template(params, cfg: PCRNetConfig, template, *, state=None):
     where template_feats_invariant(cfg, state, train) holds (the same rows
     as the two-cloud batch gives: running-statistics BN is per sample)."""
     check_encoder(cfg)
-    if cfg.encoder == "3dmfv":
-        return _encode_3dmfv(params, cfg, template, state=state, train=False)[0]
-    return _encode(params, cfg, template)
+    with span("pcrnet.encode", _detail(cfg)):
+        if cfg.encoder == "3dmfv":
+            return _encode_3dmfv(params, cfg, template, state=state, train=False)[0]
+        return _encode(params, cfg, template)
 
 
 def _encode_3dmfv(params, cfg: PCRNetConfig, points, *, state=None, train: bool = False):
@@ -236,31 +250,33 @@ def apply_pcrnet(params, cfg: PCRNetConfig, source, template, *, template_feats=
     """
     check_encoder(cfg)
     new_state = state
-    if template_feats is not None:
-        if not template_feats_invariant(cfg, state, train):
-            raise ValueError("template_feats passed but the template encoding is not "
-                             "batch-independent here (3dmfv train mode, or eval without "
-                             "running BN statistics)")
-        if cfg.encoder == "3dmfv":
-            sf = _encode_3dmfv(params, cfg, source, state=state, train=False)[0]
+    if template_feats is not None and not template_feats_invariant(cfg, state, train):
+        raise ValueError("template_feats passed but the template encoding is not "
+                         "batch-independent here (3dmfv train mode, or eval without "
+                         "running BN statistics)")
+    with span("pcrnet.encode", _detail(cfg)):
+        if template_feats is not None:
+            if cfg.encoder == "3dmfv":
+                sf = _encode_3dmfv(params, cfg, source, state=state, train=False)[0]
+            else:
+                sf = _encode(params, cfg, source)
+            tf_ = template_feats
+        elif cfg.encoder == "3dmfv":
+            feats, new_state = _encode_3dmfv(params, cfg, torch.cat([source, template]),
+                                             state=state, train=train)
+            # Slices, not torch.chunk: chunk's size puts an unprovable guard on
+            # a symbolic batch.
+            B = source.shape[0]
+            sf, tf_ = feats[:B], feats[B:]
         else:
-            sf = _encode(params, cfg, source)
-        tf_ = template_feats
-    elif cfg.encoder == "3dmfv":
-        feats, new_state = _encode_3dmfv(params, cfg, torch.cat([source, template]),
-                                         state=state, train=train)
-        # Slices, not torch.chunk: chunk's size puts an unprovable guard on
-        # a symbolic batch.
-        B = source.shape[0]
-        sf, tf_ = feats[:B], feats[B:]
-    else:
-        sf, tf_ = _encode(params, cfg, source), _encode(params, cfg, template)
-    x = torch.cat([sf, tf_], dim=-1)
-    for lp in params["head"]:
-        x = torch.relu(dense_apply(lp, x))
-    pose = dense_apply(params["out"], x)
-    if cfg.lim_rot > 0:
-        pose = _quat_limit(pose, cfg.lim_rot)
+            sf, tf_ = _encode(params, cfg, source), _encode(params, cfg, template)
+    with span("pcrnet.head"):
+        x = torch.cat([sf, tf_], dim=-1)
+        for lp in params["head"]:
+            x = torch.relu(dense_apply(lp, x))
+        pose = dense_apply(params["out"], x)
+        if cfg.lim_rot > 0:
+            pose = _quat_limit(pose, cfg.lim_rot)
     return (pose, new_state) if return_state else pose
 
 
@@ -296,21 +312,23 @@ def pcrnet_refine(params, cfg: PCRNetConfig, source, template, *, iterations: in
     B = source.shape[0]
     T = torch.eye(4, dtype=source.dtype, device=source.device).expand(B, 4, 4)
     carry_state = state is not None and train and cfg.encoder == "3dmfv"
-    tfeats = (encode_template(params, cfg, template, state=state)
-              if template_feats_invariant(cfg, state, train) else None)
     src, st, poses, traj = source, state, [], []
-    for i in range(iterations):
-        pose, new_src, new_st = pcrnet_iteration(params, cfg, src, template,
-                                                 template_feats=tfeats, state=st, train=train)
-        T_new = compose_transforms(pose7_to_matrix(pose), T)
-        if stop_gradient_iters and i < iterations - 1:
-            new_src, T_new = new_src.detach(), T_new.detach()
-        if carry_state:
-            st = new_st
-        poses.append(pose)
-        if return_trajectory:
-            traj.append(new_src)
-        src, T = new_src, T_new
+    with span("pcrnet.refine", _detail(cfg)):
+        tfeats = (encode_template(params, cfg, template, state=state)
+                  if template_feats_invariant(cfg, state, train) else None)
+        for i in range(iterations):
+            pose, new_src, new_st = pcrnet_iteration(params, cfg, src, template,
+                                                     template_feats=tfeats, state=st,
+                                                     train=train)
+            T_new = compose_transforms(pose7_to_matrix(pose), T)
+            if stop_gradient_iters and i < iterations - 1:
+                new_src, T_new = new_src.detach(), T_new.detach()
+            if carry_state:
+                st = new_st
+            poses.append(pose)
+            if return_trajectory:
+                traj.append(new_src)
+            src, T = new_src, T_new
     ret = (src, T, torch.stack(poses))
     if return_trajectory:
         ret += (torch.stack(traj),)

@@ -27,7 +27,9 @@ the detail in brackets), so that trace.json shows the span and what the
 route chose; other sessions get the record alone (a session that records
 CUDA activity alone would otherwise be handed the span as an annotation of
 the device's timeline). Spans record nothing while an export traces
-(kernels.ops.exporting).
+(kernels.ops.exporting): `span` then returns a fresh
+contextlib.nullcontext, which the tracer of an exported while_loop's body
+can enter.
 
 The buffer holds one session's spans. The first span of a session that
 follows a span asked for with no session on empties it, and so does
@@ -120,10 +122,14 @@ def span(name: str, detail: str = ""):
     """A context manager around one layer's host time: a record while a
     profiler session is active, else a shared no-op."""
     global _stale
+    if ops._mode is not None:
+        # An export is tracing: a fresh no-op context, which torch.export's
+        # tracer of a while_loop body can enter (the shared one it cannot).
+        return contextlib.nullcontext()
     if not _session._is_profiler_enabled:
         _stale = True
         return _OFF
-    if ops._mode is not None or len(_records) >= MAX_SPANS:
+    if len(_records) >= MAX_SPANS:
         return _OFF
     return _Span(name, detail)
 
